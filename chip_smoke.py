@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Drives the port (``src/repro_torch``) only, through the entry points a user
+calls, and fails (exit code not 0, no result line) on any miss:
+
+  1. gpu      the card's name and power limit, as nvidia-smi gives them;
+  2. build    every CUDA kernel from ``csrc/``, one nvcc each, in parallel;
+  3. kernels  each kernel at the serving shapes against its plain PyTorch
+              twin on the same inputs, with its stated tolerance, and its
+              time beside the twin's, a library call's and its bound;
+  4. serve    ``repro_torch.launch.serve.main`` on recurrentgemma-9b at full
+              width (38 layers, bf16, random seeded weights): 4 requests with
+              prompts of 2304-2560 tokens, longer than the 2048 window, 16
+              new tokens; the launch counts must show 12 flash and 26 RG-LRU
+              launches for its one prefill;
+  5. check    recurrentgemma-9b at full width, depth cut to one pattern
+              group, in fp32: prefill and decode logits on the card
+              (kernels) against the same weights on the CPU (plain path,
+              which the CPU tests hold against the JAX reference);
+  6. gemma2   gemma2-9b at full width, depth cut to 4 layers (2 local with
+              softcap, 2 global), served through ServeEngine.
+
+The line before the last is the ``{"kernels": [...]}`` record; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import KERNELS, cuda_build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
+from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.weights import init_params  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
+# operations/s by input type (bf16 on the tensor cores, fp32 on the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+SEED = 0
+SERVE_ARGV = ["--arch", "recurrentgemma-9b", "--batch", "4", "--prompt-len", "2560",
+              "--min-prompt-len", "2304", "--max-len", "4096", "--max-new", "16",
+              "--seed", str(SEED)]
+
+
+def need(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, iters, warmup=1):
+    """Mean device milliseconds of fn() over iters back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes, n_ops, dtype):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: each kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def visible_pairs(S, causal, window):
+    rows = np.arange(S)
+    hi = rows + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(S, int)
+    return int(np.sum(hi - lo))
+
+
+def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed):
+    """tol bounds |kernel - plain| by tol * (1 + |plain|): in bf16 one ulp of
+    the output (both sides round the same fp32 math), in fp32 the summation
+    order."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(S + Hkv)
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    out = fa_ops.attention(q, k, v, **kw)
+    want = fa_ref.attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    need(torch.isfinite(out.float()).all(), f"flash {name}: non-finite output")
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= tol * (1 + want.float().abs())).all())
+    rec = {"case": name, "shape": [B, S, Hq, Hkv, D], "dtype": str(dtype)[6:],
+           "window": window, "softcap": softcap, "max_abs_err": err,
+           "tol": f"{tol} * (1 + |plain|)"}
+    print("kernel_check flash_attention", json.dumps(rec), flush=True)
+    need(ok, f"flash {name}: error above {tol} * (1 + |plain|), max abs {err}")
+    if not timed:
+        return rec
+    want_f32 = want.float()
+    del want, diff
+    rec["ms"] = cuda_ms(lambda: fa_ops.attention(q, k, v, **kw), iters=10)
+    rec["plain_ms"] = cuda_ms(lambda: fa_ref.attention_plain(q, k, v, **kw), iters=3)
+    if softcap is None:  # one library call computes the same function
+        mask = fa_ref.attention_mask(S, S, True, window, 0, dev)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        # a yardstick only: it must compute the same function (a wrong mask
+        # would be off by O(1)), in its own rounding
+        rec["library_max_abs_err"] = float(
+            (lib.transpose(1, 2).float() - want_f32).abs().max())
+        need(rec["library_max_abs_err"] < 0.1, f"flash {name}: library call disagrees")
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), iters=5)
+    else:
+        rec["library_ms"] = None
+    ops = 4 * D * visible_pairs(S, True, window) * B * Hq
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, out), ops, dtype)
+    print("kernel_time flash_attention", json.dumps(rec), flush=True)
+    return rec
+
+
+def rglru_case(name, B, T, C, with_h0, dtype, timed):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(T + C)
+    a = (0.7 + 0.299 * torch.rand(B, T, C, generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn(B, T, C, generator=g, device=dev)).to(dtype)
+    h0 = (0.1 * torch.randn(B, C, generator=g, device=dev)).to(dtype) if with_h0 else None
+    h, h_final = lru_ops.linear_scan(a, b, h0)
+    want, want_final = lru_ref.linear_scan_reference(a, b, h0)
+    torch.cuda.synchronize()
+    # same roundings as the plain loop (separate multiply and add): exact
+    err = max(float((h.float() - want.float()).abs().max()),
+              float((h_final.float() - want_final.to(dtype).float()).abs().max()))
+    rec = {"case": name, "shape": [B, T, C], "dtype": str(dtype)[6:], "h0": with_h0,
+           "max_abs_err": err, "tol": 0.0}
+    print("kernel_check rglru_scan", json.dumps(rec), flush=True)
+    need(err == 0.0, f"rglru {name}: max abs err {err} != 0")
+    if not timed:
+        return rec
+    rec["ms"] = cuda_ms(lambda: lru_ops.linear_scan(a, b, h0), iters=20)
+    rec["plain_ms"] = cuda_ms(lambda: lru_ref.linear_scan_reference(a, b, h0), iters=2)
+    rec["library_ms"] = None  # no single PyTorch call computes a linear recurrence
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(a, b, h0, h, h_final), 2 * B * T * C,
+                                             torch.float32)
+    print("kernel_time rglru_scan", json.dumps(rec), flush=True)
+    return rec
+
+
+def kernel_phase():
+    flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
+                       torch.bfloat16, 2e-2, timed=True)
+    flash_checks = [
+        flash_case("gemma2-9b global, softcap", 2, 2560, 16, 8, 256, None, 50.0,
+                   torch.bfloat16, 2e-2, timed=True),
+        flash_case("gemma2-9b local, softcap, ragged", 1, 2500, 16, 8, 256, 2048, 50.0,
+                   torch.bfloat16, 2e-2, timed=False),
+        flash_case("recurrentgemma-9b heads, fp32", 1, 2560, 16, 1, 256, 2048, None,
+                   torch.float32, 1e-5, timed=False),
+    ]
+    lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
+                     timed=True)
+    lru_checks = [
+        rglru_case("fp32 with h0, ragged", 3, 1001, 4000, True, torch.float32, timed=False),
+        rglru_case("bf16 with h0", 2, 517, 4096, True, torch.bfloat16, timed=False),
+    ]
+    return flash, flash_checks, lru, lru_checks
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-6: the model path
+# ---------------------------------------------------------------------------
+
+def reset_counts():
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def counts():
+    return {kern.name: kern.launches for kern in KERNELS}
+
+
+def check_outputs(outs, n_req, n_new, vocab):
+    need(len(outs) == n_req, f"expected {n_req} outputs, got {len(outs)}")
+    for o in outs:
+        need(len(o) == n_new and all(0 <= t < vocab for t in o),
+             f"bad continuation {o}")
+
+
+def serve_phase():
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    launches = counts()
+    cfg, timing = res["cfg"], res["timing"]
+    check_outputs(res["outputs"], 4, 16, cfg.vocab_size)
+    need(all(2304 <= len(p) <= 2560 for p in res["prompts"]), "prompt lengths")
+    need(timing["prefill_len"] > cfg.window, "prefill must exceed the window")
+    kinds = [cfg.mixer_pattern[i % len(cfg.mixer_pattern)] for i in range(cfg.n_layers)]
+    want = {"flash_attention": kinds.count("attn_local"), "rglru_scan": kinds.count("rglru")}
+    need(want == {"flash_attention": 12, "rglru_scan": 26}, f"layer kinds {want}")
+    need(launches == want, f"launches {launches}, expected {want} for one prefill")
+    dec = timing["decode_s"]
+    rec = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": res["n_params"], "dtype": res["dtype"], "batch": 4,
+        "prompt_lens": [len(p) for p in res["prompts"]],
+        "prefill_len": timing["prefill_len"], "prefill_ms": timing["prefill_s"] * 1e3,
+        "prefill_tok_per_s": 4 * timing["prefill_len"] / timing["prefill_s"],
+        "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+        "decode_ms_per_step_median": 1e3 * float(np.median(dec)),
+        "decode_steps": len(dec), "new_tokens": res["tokens"],
+        "tok_per_s": res["tokens"] / res["seconds"], "seconds": res["seconds"],
+        "launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print("serve", json.dumps(rec), flush=True)
+    return rec, launches
+
+
+def model_check_phase():
+    """Full width, one group (rglru, rglru, attn_local), fp32: card vs CPU."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+    lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    model = build_model(cfg)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, 2100))
+    steps = [toks[:, :2090]] + [toks[:, t:t + 1] for t in range(2090, 2093)]
+
+    def run(model, lm, dev):
+        cache = model.init_cache(1, 4096, torch.float32)
+        with torch.inference_mode():
+            out, cache = model.prefill(lm, {"tokens": torch.from_numpy(steps[0]).to(dev)},
+                                       cache)
+            outs = [out.float().cpu()]
+            for tok in steps[1:]:
+                out, cache = model.decode_step(lm, cache, torch.from_numpy(tok).to(dev))
+                outs.append(out.float().cpu())
+        return torch.cat(outs, dim=1)
+
+    reset_counts()
+    on_card = run(model, lm, torch.device("cuda"))
+    launches = counts()
+    need(launches == {"flash_attention": 1, "rglru_scan": 2}, f"check launches {launches}")
+    cpu_lm = LM(cfg, torch.device("cpu"), torch.float32)
+    cpu_lm.load_state_dict(lm.state_dict())
+    del lm
+    torch.cuda.empty_cache()
+    on_cpu = run(build_model(cfg, device="cpu"), cpu_lm, torch.device("cpu"))
+    err = float((on_card - on_cpu).abs().max())
+    tol = 2e-3  # fp32 over 3 full-width layers and a 256000-way head; logits O(1)
+    rec = {"arch": cfg.name, "layers": 3, "dtype": "float32", "prefill_len": 2090,
+           "decode_steps": 3, "max_abs_logit": float(on_cpu.abs().max()),
+           "max_abs_err": err, "tol": tol,
+           "argmax_equal": bool(torch.equal(on_card.argmax(-1), on_cpu.argmax(-1)))}
+    print("model_check", json.dumps(rec), flush=True)
+    need(torch.isfinite(on_card).all(), "non-finite logits on the card")
+    need(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
+    return rec
+
+
+def gemma2_phase():
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=4)
+    model = build_model(cfg)
+    params = model.init(SEED, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(2304, 2561)).tolist()
+               for _ in range(4)]
+    eng = ServeEngine(model, params, ServeConfig(max_len=4096, max_new_tokens=16,
+                                                 cache_dtype=torch.bfloat16))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, rng_seed=SEED)
+    dt = time.perf_counter() - t0
+    launches = counts()
+    check_outputs(outs, 4, 16, cfg.vocab_size)
+    need(launches == {"flash_attention": 4, "rglru_scan": 0}, f"gemma2 launches {launches}")
+    dec = eng.last_timing["decode_s"]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in params.parameters()), "dtype": "bfloat16",
+           "prefill_len": eng.last_timing["prefill_len"],
+           "prefill_ms": eng.last_timing["prefill_s"] * 1e3,
+           "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+           "tok_per_s": sum(len(o) for o in outs) / dt, "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("gemma2", json.dumps(rec), flush=True)
+    return rec
+
+
+def kernel_record(name, route, source, replaces, launches, main, checks):
+    return {"name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "checks": [main] + checks}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+
+    secs = cuda_build.build(KERNELS)
+    print(f"build: {secs:.1f} s for {len(KERNELS)} kernels", flush=True)
+    for kern in KERNELS:
+        for line in kern.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {kern.name}: {line.strip()}", flush=True)
+
+    flash, flash_checks, lru, lru_checks = kernel_phase()
+    serve, launches = serve_phase()
+    check = model_check_phase()
+    gemma2 = gemma2_phase()
+
+    kernels = [
+        kernel_record("flash_attention", "cuda",
+                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/flash_attention.py:103",
+                      launches["flash_attention"], flash, flash_checks),
+        kernel_record("rglru_scan", "cuda",
+                      "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+                      "src/repro/kernels/rglru/rglru.py:69",
+                      launches["rglru_scan"], lru, lru_checks),
+    ]
+    summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
+               "gemma2": gemma2}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(
+        json.dumps({"kernels": kernels, **summary}, indent=1) + "\n")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""Plain PyTorch attention: the twin of the flash kernel and the decode path.
+
+Counterpart of ``repro/kernels/flash_attention/ref.py``. On the CPU the
+``ops.attention`` wrapper runs these; on the card they serve as the
+reference the CUDA kernel is held against, and decode (``kv_len``) uses
+them as the reference model does.
+
+One difference from the kernel: a query row with no visible key gets the
+mean of ``v`` here (softmax over equal ``NEG_INF`` scores), as in the JAX
+reference, and 0 from the kernel, as from the Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+# Above this many score elements per (batch, head) the plain path walks the
+# queries in chunks so the S_q x S_k matrix is never materialized whole.
+CHUNK_THRESHOLD = 4096 * 4096
+CHUNK_Q = 1024
+
+
+def attention_mask(s_q: int, s_k: int, causal: bool, window: Optional[int],
+                   q_offset: int = 0, device=None) -> torch.Tensor:
+    """[s_q, s_k] boolean mask; True = attend."""
+    iq = torch.arange(s_q, device=device)[:, None] + q_offset
+    jk = torch.arange(s_k, device=device)[None, :]
+    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
+    if causal:
+        mask &= jk <= iq
+    if window is not None:
+        mask &= jk > iq - window
+    return mask
+
+
+def mha_reference(
+    q: torch.Tensor,  # [B, S_q, H_q, D]
+    k: torch.Tensor,  # [B, S_k, H_kv, D]
+    v: torch.Tensor,  # [B, S_k, H_kv, D]
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[torch.Tensor] = None,  # [B] or [1] valid KV lengths
+) -> torch.Tensor:
+    """Grouped-query attention in fp32, O(S^2). Returns [B, S_q, H_q, D]."""
+    B, S_q, H_q, D = q.shape
+    _, S_k, H_kv, _ = k.shape
+    if H_q % H_kv:
+        raise ValueError(f"H_q={H_q} not a multiple of H_kv={H_kv}")
+    group = H_q // H_kv
+    scale = 1.0 / math.sqrt(D)
+    # GQA as a grouped einsum: K/V are never broadcast to the q-head width.
+    qf = (q.float() * scale).reshape(B, S_q, H_kv, group, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = attention_mask(S_q, S_k, causal, window, q_offset, q.device)
+    mask = mask[None, None, None]
+    if kv_len is not None:
+        valid = torch.arange(S_k, device=q.device)[None, :] < kv_len[:, None]
+        mask = mask & valid[:, None, None, None, :]
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, S_q, H_q, D).to(q.dtype)
+
+
+def mha_chunked(q, k, v, causal: bool = True, window: Optional[int] = None,
+                softcap: Optional[float] = None, q_offset: int = 0,
+                chunk_q: int = CHUNK_Q) -> torch.Tensor:
+    """Exact attention over query chunks (O(chunk * S_k) memory)."""
+    S_q = q.shape[1]
+    cq = chunk_q
+    while S_q % cq:
+        cq -= 1
+    outs = [
+        mha_reference(q[:, i:i + cq], k, v, causal=causal, window=window,
+                      softcap=softcap, q_offset=q_offset + i)
+        for i in range(0, S_q, cq)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def attention_plain(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_offset: int = 0,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference backend's choice: chunked above the threshold."""
+    if kv_len is None and q.shape[1] * k.shape[1] > CHUNK_THRESHOLD:
+        return mha_chunked(q, k, v, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset)
+    return mha_reference(q, k, v, causal=causal, window=window,
+                         softcap=softcap, q_offset=q_offset, kv_len=kv_len)

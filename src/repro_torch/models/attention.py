@@ -1,0 +1,113 @@
+"""Self-attention layer: GQA/MQA with RoPE, sliding window, softcap.
+
+Counterpart of ``repro/models/attention.py`` (self-attention only; the
+encoder-decoder cross-attention comes with the enc-dec family).
+
+  * prefill: full-sequence causal attention through the flash kernel, and
+    the KV cache filled from the same k, v;
+  * decode: one query against the cache. Local layers keep a ring of
+    ``window`` slots (position p at slot p % window); softmax is
+    permutation-invariant, so a validity mask is all decode needs. Decode
+    attention stays on the plain path, as in the reference.
+
+The cache is updated in place (the reference returns a new one); the
+engine allocates it once per batch, which saves a copy per layer and step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import common
+
+Cache = Dict[str, torch.Tensor]
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+                  local: bool = False) -> Cache:
+    length = min(cfg.window, max_len) if (local and cfg.window) else max_len
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, dtype, local: bool):
+        super().__init__()
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.cfg = cfg
+        self.window = cfg.window if local else None
+        self.wq = common.param((d, hq, hd), device, dtype)
+        self.wk = common.param((d, hkv, hd), device, dtype)
+        self.wv = common.param((d, hkv, hd), device, dtype)
+        self.wo = common.param((hq, hd, d), device, dtype)
+        if cfg.qkv_bias:
+            self.bq = common.param((hq, hd), device, dtype)
+            self.bk = common.param((hkv, hd), device, dtype)
+            self.bv = common.param((hkv, hd), device, dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name in ("wq", "wk", "wv", "wo"):
+            common.dense_init_(getattr(self, name), gen, in_axis=0)
+        if self.cfg.qkv_bias:
+            for name in ("bq", "bk", "bv"):
+                getattr(self, name).zero_()
+
+    def _project(self, x: torch.Tensor, w: torch.Tensor,
+                 bias_name: str) -> torch.Tensor:
+        """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+        B, S, _ = x.shape
+        d, h, hd = w.shape
+        out = (x @ w.reshape(d, h * hd)).view(B, S, h, hd)
+        if self.cfg.qkv_bias:
+            out = out + getattr(self, bias_name)
+        return out
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        q = self._project(x, self.wq, "bq")
+        k = self._project(x, self.wk, "bk")
+        v = self._project(x, self.wv, "bv")
+        sin, cos = common.rope_angles(positions, self.cfg.head_dim,
+                                      self.cfg.rope_theta)
+        return common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos), v
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        """einsum("bshk,hkd->bsd")."""
+        B, S, h, hd = o.shape
+        return o.reshape(B, S, h * hd) @ self.wo.reshape(h * hd, -1)
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Cache) -> torch.Tensor:
+        """Causal attention over the prompt; fills ``cache`` in place."""
+        S = x.shape[1]
+        q, k, v = self._qkv(x, positions)
+        out = fa_ops.attention(q, k, v, causal=True, window=self.window,
+                               softcap=self.cfg.attn_softcap)
+        L = cache["k"].shape[1]
+        for name, t in (("k", k), ("v", v)):
+            if L >= S:
+                cache[name][:, :S].copy_(t)
+                cache[name][:, S:].zero_()
+            else:
+                # ring shorter than the prompt: keep the last L positions,
+                # position p at slot p % L, so decode overwrites the oldest.
+                cache[name].copy_(torch.roll(t[:, S - L:], S % L, dims=1))
+        return self._out(out)
+
+    def decode(self, x: torch.Tensor, pos: int, cache: Cache) -> torch.Tensor:
+        """One token at position ``pos`` against the cache (updated in place)."""
+        positions = torch.arange(pos, pos + 1, device=x.device)  # no host copy
+        q, k_new, v_new = self._qkv(x, positions)
+        length = cache["k"].shape[1]
+        slot = pos % length
+        cache["k"][:, slot] = k_new[:, 0]
+        cache["v"][:, slot] = v_new[:, 0]
+        kv_len = torch.full((x.shape[0],), min(pos + 1, length), device=x.device)
+        out = fa_ops.attention(q, cache["k"], cache["v"], causal=False,
+                               kv_len=kv_len, softcap=self.cfg.attn_softcap)
+        return self._out(out)

@@ -1,0 +1,69 @@
+"""Shared model pieces: parameters, initializers, RMSNorm, RoPE.
+
+Counterpart of ``repro/models/common.py``. Parameters are ``nn.Parameter``s
+without gradients (this slice serves only), shaped exactly as the
+reference's pytree leaves so weights carry across by name and shape.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+
+def param(shape: Sequence[int], device, dtype) -> nn.Parameter:
+    """An uninitialized parameter; ``init_params`` or a loader fills it."""
+    return nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Initializers: the reference's statistics, drawn from a torch.Generator
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def dense_init_(p: torch.Tensor, gen: torch.Generator, in_axis: int = -2) -> None:
+    """Standard normal truncated to [-2, 2], times 1/sqrt(fan_in)."""
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    p.copy_(tmp.mul_(1.0 / math.sqrt(p.shape[in_axis])))
+
+
+@torch.no_grad()
+def embed_init_(p: torch.Tensor, gen: torch.Generator) -> None:
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    tmp.normal_(0.0, 1.0, generator=gen)
+    p.copy_(tmp.mul_(0.02))
+
+
+# ---------------------------------------------------------------------------
+# Norm and rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm with a (1 + scale) weight, computed in fp32."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [*, S] -> (sin, cos) [*, S, head_dim/2]."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=positions.device) / head_dim
+    freq = 1.0 / (theta ** exponent)
+    ang = positions.float()[..., None] * freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D]; sin/cos [S, D/2]. Rotates the two halves of D."""
+    sin = sin[None, :, None, :]
+    cos = cos[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

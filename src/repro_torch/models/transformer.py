@@ -1,0 +1,164 @@
+"""Decoder-only LM: embedding, mixed-mixer blocks, tied or separate head.
+
+Counterpart of ``repro/models/transformer.py`` for serving (prefill and
+decode). The reference stacks each pattern position's parameters along a
+group axis and runs ``lax.scan``; here every layer is its own module, in
+model order: layer ``g * len(pattern) + i`` is group ``g``'s pattern
+position ``i``, and the tail follows the last group.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, rglru
+from repro_torch.models.attention import Attention
+from repro_torch.models.mlp import MLP
+from repro_torch.models.rglru import RGLRU
+
+Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for the families this slice does not serve."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet "
+            "(ROADMAP.md queue A, models/encdec)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE models are not ported yet (ROADMAP.md queue A, models/moe)")
+    if "rwkv" in cfg.mixer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: RWKV-6 is the next slice (ROADMAP.md queue A, rwkv6-7b "
+            "serving with the wkv6 kernel)")
+    if cfg.norm_type != "rmsnorm" or cfg.qk_norm or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.name}: layernorm, QK-norm and learned positions come with the "
+            "families that use them (ROADMAP.md queue A)")
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device) -> Cache:
+    """Zeroed caches for every layer, in model order, and position 0."""
+    pattern = cfg.mixer_pattern
+    layers: List[Dict[str, torch.Tensor]] = []
+    for i in range(cfg.n_layers):
+        mixer = pattern[i % len(pattern)]
+        if mixer == "rglru":
+            layers.append(rglru.init_rglru_state(cfg, batch, dtype, device))
+        else:
+            layers.append(attention.init_kv_cache(
+                cfg, batch, max_len, dtype, device, local=(mixer == "attn_local")))
+    return {"layers": layers, "pos": 0}
+
+
+class Block(nn.Module):
+    """Pre-norm residual block: mixer (attention or RG-LRU), then MLP."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.mixer = mixer
+        self.norm1 = common.param((d,), device, dtype)
+        if mixer in ("attn", "attn_local"):
+            self.attn = Attention(cfg, device, dtype, local=(mixer == "attn_local"))
+        elif mixer == "rglru":
+            self.rglru = RGLRU(cfg, device, dtype)
+        else:
+            raise ValueError(f"unsupported mixer {mixer!r}")
+        self.norm2 = common.param((d,), device, dtype)
+        self.mlp = MLP(cfg, device, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.zero_()  # (1 + scale) RMSNorm: zero is the identity
+        (self.rglru if self.mixer == "rglru" else self.attn).reset_parameters(gen)
+        self.norm2.zero_()
+        self.mlp.reset_parameters(gen)
+
+    def prefill(self, x, positions, cache) -> torch.Tensor:
+        h = common.rms_norm(self.norm1, x)
+        if self.mixer == "rglru":
+            h = self.rglru.prefill(h, cache)
+        else:
+            h = self.attn.prefill(h, positions, cache)
+        x = x + h
+        return x + self.mlp(common.rms_norm(self.norm2, x))
+
+    def decode(self, x, pos: int, cache) -> torch.Tensor:
+        h = common.rms_norm(self.norm1, x)
+        if self.mixer == "rglru":
+            h = self.rglru.decode(h, cache)
+        else:
+            h = self.attn.decode(h, pos, cache)
+        x = x + h
+        return x + self.mlp(common.rms_norm(self.norm2, x))
+
+
+class LM(nn.Module):
+    """The whole decoder-only model; its parameters are the served weights."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = common.param((cfg.vocab_size, cfg.d_model), device, dtype)
+        self.final_norm = common.param((cfg.d_model,), device, dtype)
+        if not cfg.tie_embeddings:
+            self.unembed = common.param((cfg.d_model, cfg.vocab_size), device, dtype)
+        pattern = cfg.mixer_pattern
+        self.layers = nn.ModuleList(
+            Block(cfg, pattern[i % len(pattern)], device, dtype)
+            for i in range(cfg.n_layers)
+        )
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        common.embed_init_(self.embed, gen)
+        self.final_norm.zero_()
+        if not self.cfg.tie_embeddings:
+            common.dense_init_(self.unembed, gen)
+        for layer in self.layers:
+            layer.reset_parameters(gen)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = common.rms_norm(self.final_norm, x)
+        if self.cfg.tie_embeddings:
+            logits = x @ self.embed.T
+        else:
+            logits = x @ self.unembed
+        c = self.cfg.final_softcap
+        if c is not None:
+            logits = c * torch.tanh(logits / c)
+        return logits
+
+    def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
+        """Process the prompt [B, S], fill ``cache``; last-token logits [B,1,V]."""
+        x = self._embed(tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        for layer, c in zip(self.layers, cache["layers"]):
+            x = layer.prefill(x, positions, c)
+        cache["pos"] = S
+        return self._logits(x[:, -1:])
+
+    def decode_step(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
+        """One token per row (tokens [B, 1]); logits [B, 1, V]."""
+        pos = cache["pos"]
+        x = self._embed(tokens)
+        for layer, c in zip(self.layers, cache["layers"]):
+            x = layer.decode(x, pos, c)
+        cache["pos"] = pos + 1
+        return self._logits(x)

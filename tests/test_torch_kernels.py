@@ -1,0 +1,177 @@
+"""Port kernels vs the JAX reference kernels, and the CUDA kernels vs their twins.
+
+On the CPU the port's wrappers run their plain PyTorch versions; these are
+held against the reference's Pallas kernels in interpret mode and against
+its jnp oracles (``backend="reference"``), on the same numpy inputs.
+
+The CUDA kernels themselves are held against these twins on the card in
+``test_torch_cuda.py``.
+
+Tolerances: 1e-5 in fp32 (both sides compute in fp32; only the summation
+order differs); 2e-2 in bf16 (one bf16 ulp at |x| < 4, where the two sides
+round the same fp32 value on either side of a boundary).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
+from repro.kernels.rglru import ops as jlru_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.kernels.rglru import ops as lru_ops
+
+TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
+TORCH_DT = {np.float32: torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {np.float32: jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Six test workers share eight cores: cap torch's pool, then restore it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _pair(arr, dt):
+    """The same values as a torch CPU tensor and a jax array of dtype dt."""
+    t = torch.from_numpy(np.array(arr, np.float32)).to(TORCH_DT[dt])
+    return t, jnp.asarray(arr, JAX_DT[dt])
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset
+    (2, 64, 64, 4, 2, 16, True, None, None, 0),     # GQA causal
+    (1, 48, 48, 8, 1, 64, True, None, None, 0),     # MQA (recurrentgemma heads)
+    (2, 32, 64, 4, 4, 16, False, None, None, 0),    # bidirectional
+    (1, 64, 64, 2, 2, 256, True, 24, 50.0, 0),      # window+softcap, head_dim 256
+    (1, 16, 64, 4, 2, 16, True, None, None, 48),    # decode tile at q_offset
+    (1, 37, 37, 4, 2, 16, True, 8, None, 0),        # prime length
+]
+
+
+FLASH_PARAMS = [(c, np.float32) for c in FLASH_CASES] + [
+    (FLASH_CASES[3], "bfloat16")
+]
+
+
+def _jit_attention(backend, **kw):
+    """The reference op, jitted: one compile per case instead of one per op."""
+    return jax.jit(functools.partial(jfa_ops.attention, backend=backend, **kw))
+
+
+@pytest.mark.parametrize("case,dt", FLASH_PARAMS)
+@pytest.mark.parametrize("backend", ["interpret", "reference"])
+def test_flash_plain_matches_reference(case, dt, backend):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset = case
+    rng = np.random.default_rng(Sq * 7 + D)
+    q, jq = _pair(rng.standard_normal((B, Sq, Hq, D)), dt)
+    k, jk = _pair(rng.standard_normal((B, Sk, Hkv, D)), dt)
+    v, jv = _pair(rng.standard_normal((B, Sk, Hkv, D)), dt)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out = fa_ops.attention(q, k, v, **kw)
+    want = _jit_attention(backend, **kw)(jq, jk, jv)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    np.testing.assert_allclose(out.float().numpy(), _np(want),
+                               atol=TOL[dt], rtol=TOL[dt])
+
+
+def test_flash_fully_masked_rows():
+    """Rows that see no key: the plain path averages v (as the jnp oracle
+    does, softmax over equal NEG_INF scores); the Pallas kernel gives 0."""
+    rng = np.random.default_rng(1)
+    B, S, H, D = 1, 32, 2, 16
+    q, jq = _pair(rng.standard_normal((B, S, H, D)), np.float32)
+    k, jk = _pair(rng.standard_normal((B, S, H, D)), np.float32)
+    v, jv = _pair(rng.standard_normal((B, S, H, D)), np.float32)
+    # rows at positions 30..61 against keys 0..31: row p sees (p-8, 31]
+    kw = dict(causal=False, window=8, q_offset=30)
+    out = fa_ops.attention(q, k, v, **kw).numpy()
+    ref = _np(_jit_attention("reference", **kw)(jq, jk, jv))
+    pallas = _np(_jit_attention("interpret", **kw)(jq, jk, jv))
+    dead = np.arange(S) + 30 - 8 >= S - 1
+    assert dead.any() and not dead.all()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(out[:, ~dead], pallas[:, ~dead], atol=1e-5, rtol=1e-5)
+    assert np.all(pallas[:, dead] == 0.0)
+    np.testing.assert_allclose(out[:, dead],
+                               np.broadcast_to(v.numpy().mean(1, keepdims=True),
+                                               out[:, dead].shape), atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["interpret", "reference"])
+def test_flash_kv_len_decode(backend):
+    """One query per row against a cache with per-row valid lengths."""
+    rng = np.random.default_rng(2)
+    B, L, Hq, Hkv, D = 3, 40, 4, 1, 16
+    q, jq = _pair(rng.standard_normal((B, 1, Hq, D)), np.float32)
+    k, jk = _pair(rng.standard_normal((B, L, Hkv, D)), np.float32)
+    v, jv = _pair(rng.standard_normal((B, L, Hkv, D)), np.float32)
+    kv_len = np.array([1, 17, 40])
+    out = fa_ops.attention(q, k, v, causal=False, softcap=50.0,
+                           kv_len=torch.from_numpy(kv_len))
+    want = _jit_attention(backend, causal=False, softcap=50.0)(
+        jq, jk, jv, kv_len=jnp.asarray(kv_len))
+    np.testing.assert_allclose(out.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_chunked_and_mask_match_reference():
+    rng = np.random.default_rng(3)
+    q, jq = _pair(rng.standard_normal((1, 48, 2, 16)), np.float32)
+    k, jk = _pair(rng.standard_normal((1, 48, 1, 16)), np.float32)
+    v, jv = _pair(rng.standard_normal((1, 48, 1, 16)), np.float32)
+    kw = dict(causal=True, window=20, softcap=30.0, q_offset=0, chunk_q=20)
+    out = fa_ref.mha_chunked(q, k, v, **kw)
+    want = jax.jit(functools.partial(jfa_ref.mha_chunked, **kw))(jq, jk, jv)
+    np.testing.assert_allclose(out.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+    for args in [(5, 9, True, None, 2), (9, 5, False, 3, 0), (8, 8, True, 4, 0)]:
+        np.testing.assert_array_equal(fa_ref.attention_mask(*args).numpy(),
+                                      np.asarray(jfa_ref.attention_mask(*args)))
+
+
+def test_cpu_tensors_never_reach_the_kernels():
+    """On the CPU both wrappers take the plain path without building anything."""
+    before = (fa_ops.KERNEL.launches, lru_ops.KERNEL.launches)
+    x = torch.zeros(1, 8, 2, 16)
+    fa_ops.attention(x, x, x)
+    a = torch.full((1, 8, 4), 0.5)
+    lru_ops.linear_scan(a, a)
+    assert (fa_ops.KERNEL.launches, lru_ops.KERNEL.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,C,with_h0,dt", [
+    (2, 64, 128, False, np.float32),
+    (2, 64, 128, True, np.float32),
+    (1, 37, 64, True, np.float32),     # prime length
+    (2, 64, 128, True, "bfloat16"),
+])
+@pytest.mark.parametrize("backend", ["interpret", "reference"])
+def test_rglru_plain_matches_reference(B, T, C, with_h0, dt, backend):
+    rng = np.random.default_rng(T + C)
+    a, ja = _pair(rng.uniform(0.7, 0.999, (B, T, C)), dt)
+    b, jb = _pair(rng.standard_normal((B, T, C)) * 0.1, dt)
+    h0, jh0 = _pair(rng.standard_normal((B, C)) * 0.1, dt) if with_h0 else (None, None)
+    h, h_final = lru_ops.linear_scan(a, b, h0)
+    scan = jax.jit(functools.partial(jlru_ops.linear_scan, backend=backend))
+    jh, jh_final = scan(ja, jb, jh0)
+    assert h.dtype == a.dtype and h_final.dtype == torch.float32
+    np.testing.assert_allclose(h.float().numpy(), _np(jh), atol=TOL[dt], rtol=TOL[dt])
+    np.testing.assert_allclose(h_final.numpy(), _np(jh_final), atol=TOL[dt], rtol=TOL[dt])
