@@ -21,7 +21,13 @@ calls, and fails (exit code not 0, no result line) on any miss:
               (kernels) against the same weights on the CPU (plain path,
               which the CPU tests hold against the JAX reference);
   6. gemma2   gemma2-9b at full width, depth cut to 4 layers (2 local with
-              softcap, 2 global), served through ServeEngine.
+              softcap, 2 global), served through ServeEngine;
+  7. rwkv6    ``launch.serve.main`` on rwkv6-7b at full width (32 layers,
+              bf16), prompts of the same lengths as phase 4; the WKV kernel
+              must run 32 times in the prefill and 32 times in each of the
+              16 decode steps (544);
+  8. check    rwkv6-7b at full width, depth cut to 2 layers, in fp32, card
+              against CPU as in phase 5.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -45,6 +51,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import KERNELS, cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
@@ -57,9 +64,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SEED = 0
-SERVE_ARGV = ["--arch", "recurrentgemma-9b", "--batch", "4", "--prompt-len", "2560",
-              "--min-prompt-len", "2304", "--max-len", "4096", "--max-new", "16",
-              "--seed", str(SEED)]
+SERVE_FLAGS = ["--batch", "4", "--prompt-len", "2560", "--min-prompt-len", "2304",
+               "--max-len", "4096", "--max-new", "16", "--seed", str(SEED)]
 
 
 def need(cond, msg):
@@ -176,6 +182,49 @@ def rglru_case(name, B, T, C, with_h0, dtype, timed):
     return rec
 
 
+def wkv6_case(name, B, T, H, with_s0, dtype, timed):
+    """s_final has tolerance 0: the state update rounds as the plain loop does
+    (separate fp32 multiply and add). y bounds |kernel - plain| by
+    tol * (1 + |plain|): in fp32 (1e-5) the K-sum's order, in bf16 (2e-2) one
+    ulp of the output (both sides round nearly the same fp32 value)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(T + H)
+    r, k, v = (0.5 * torch.randn(B, T, H, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    # the time mix's decays: exp(-exp(x)) for x in the decay_base range
+    w = torch.exp(-torch.exp(-6.0 + 5.5 * torch.rand(B, T, H, 64, generator=g,
+                                                     device=dev))).to(dtype)
+    u = (0.5 * torch.randn(H, 64, generator=g, device=dev)).to(dtype)
+    s0 = torch.randn(B, H, 64, 64, generator=g, device=dev) if with_s0 else None
+    y, s_final = wkv_ops.wkv(r, k, v, w, u, s0)
+    want, want_final = wkv_ref.wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    need(torch.isfinite(y.float()).all(), f"wkv6 {name}: non-finite output")
+    diff = (y.float() - want.float()).abs()
+    err = float(diff.max())
+    state_err = float((s_final - want_final).abs().max())
+    rec = {"case": name, "shape": [B, T, H, 64, 64], "dtype": str(dtype)[6:],
+           "s0": with_s0, "max_abs_err": err, "tol": f"{tol} * (1 + |plain|)",
+           "state_max_abs_err": state_err, "state_tol": 0.0}
+    print("kernel_check wkv6", json.dumps(rec), flush=True)
+    need(bool((diff <= tol * (1 + want.float().abs())).all()),
+         f"wkv6 {name}: y error above {tol} * (1 + |plain|), max abs {err}")
+    need(state_err == 0.0, f"wkv6 {name}: s_final max abs err {state_err} != 0")
+    if not timed:
+        return rec
+    rec["ms"] = cuda_ms(lambda: wkv_ops.wkv(r, k, v, w, u, s0), iters=20)
+    rec["plain_ms"] = cuda_ms(lambda: wkv_ref.wkv6_reference(r, k, v, w, u, s0), iters=2)
+    rec["library_ms"] = None  # no single PyTorch call computes this recurrence
+    # 5 fp32 operations per state element per step on the CUDA cores: r*S into
+    # y (a multiply-add, 2) and w*S + k*v (3); the bonus term is v * sum_k(r u k),
+    # O(K + V) per step, nothing per state element
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(r, k, v, w, u, s0, y, s_final),
+                                             5 * B * T * H * 64 * 64, torch.float32)
+    print("kernel_time wkv6", json.dumps(rec), flush=True)
+    return rec
+
+
 def kernel_phase():
     flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
                        torch.bfloat16, 2e-2, timed=True)
@@ -193,7 +242,12 @@ def kernel_phase():
         rglru_case("fp32 with h0, ragged", 3, 1001, 4000, True, torch.float32, timed=False),
         rglru_case("bf16 with h0", 2, 517, 4096, True, torch.bfloat16, timed=False),
     ]
-    return flash, flash_checks, lru, lru_checks
+    wkv = wkv6_case("rwkv6-7b prefill", 4, 2560, 64, False, torch.bfloat16, timed=True)
+    wkv_checks = [
+        wkv6_case("fp32 with s0, ragged", 3, 1001, 8, True, torch.float32, timed=False),
+        wkv6_case("rwkv6-7b decode step", 4, 1, 64, True, torch.bfloat16, timed=True),
+    ]
+    return (flash, flash_checks), (lru, lru_checks), (wkv, wkv_checks)
 
 
 # ---------------------------------------------------------------------------
@@ -216,21 +270,30 @@ def check_outputs(outs, n_req, n_new, vocab):
              f"bad continuation {o}")
 
 
-def serve_phase():
+def want_launches(cfg, decode_steps):
+    """Launches of one prefill and ``decode_steps`` decode steps, by layer
+    kind: flash and the RG-LRU scan run in prefill only, WKV in both."""
+    kinds = [cfg.mixer_pattern[i % len(cfg.mixer_pattern)] for i in range(cfg.n_layers)]
+    return {"flash_attention": kinds.count("attn") + kinds.count("attn_local"),
+            "rglru_scan": kinds.count("rglru"),
+            "wkv6": kinds.count("rwkv") * (1 + decode_steps)}
+
+
+def serve_phase(arch, expect):
+    """launch.serve.main at full width; ``expect`` is the launch count the
+    run must show, written out (not derived) for the full config."""
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    res = launch_serve.main(SERVE_ARGV)
+    res = launch_serve.main(["--arch", arch] + SERVE_FLAGS)
     torch.cuda.synchronize()
     launches = counts()
     cfg, timing = res["cfg"], res["timing"]
     check_outputs(res["outputs"], 4, 16, cfg.vocab_size)
     need(all(2304 <= len(p) <= 2560 for p in res["prompts"]), "prompt lengths")
-    need(timing["prefill_len"] > cfg.window, "prefill must exceed the window")
-    kinds = [cfg.mixer_pattern[i % len(cfg.mixer_pattern)] for i in range(cfg.n_layers)]
-    want = {"flash_attention": kinds.count("attn_local"), "rglru_scan": kinds.count("rglru")}
-    need(want == {"flash_attention": 12, "rglru_scan": 26}, f"layer kinds {want}")
-    need(launches == want, f"launches {launches}, expected {want} for one prefill")
     dec = timing["decode_s"]
+    want = want_launches(cfg, len(dec))
+    need(want == expect, f"{arch}: layer kinds give {want}, expected {expect}")
+    need(launches == want, f"{arch}: launches {launches}, expected {want}")
     rec = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": res["n_params"], "dtype": res["dtype"], "batch": 4,
@@ -244,13 +307,30 @@ def serve_phase():
         "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    return rec, cfg, timing
+
+
+def recurrentgemma_serve_phase():
+    rec, cfg, timing = serve_phase(
+        "recurrentgemma-9b", {"flash_attention": 12, "rglru_scan": 26, "wkv6": 0})
+    need(timing["prefill_len"] > cfg.window, "prefill must exceed the window")
     print("serve", json.dumps(rec), flush=True)
-    return rec, launches
+    return rec
 
 
-def model_check_phase():
-    """Full width, one group (rglru, rglru, attn_local), fp32: card vs CPU."""
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+def rwkv6_serve_phase():
+    rec, cfg, _ = serve_phase(
+        "rwkv6-7b", {"flash_attention": 0, "rglru_scan": 0, "wkv6": 32 + 16 * 32})
+    need((cfg.n_layers, cfg.d_model, cfg.n_heads) == (32, 4096, 64), "rwkv6-7b width")
+    print("rwkv6", json.dumps(rec), flush=True)
+    return rec
+
+
+def model_check_phase(arch, n_layers, expect, tol):
+    """Full width, depth cut to ``n_layers``, fp32: prefill over 2090
+    positions and 3 decode steps, logits on the card (kernels) against the
+    same weights on the CPU (plain twins)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
     model = build_model(cfg)
     toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, 2100))
@@ -270,21 +350,21 @@ def model_check_phase():
     reset_counts()
     on_card = run(model, lm, torch.device("cuda"))
     launches = counts()
-    need(launches == {"flash_attention": 1, "rglru_scan": 2}, f"check launches {launches}")
+    need(launches == expect, f"{arch} check launches {launches}, expected {expect}")
     cpu_lm = LM(cfg, torch.device("cpu"), torch.float32)
     cpu_lm.load_state_dict(lm.state_dict())
     del lm
     torch.cuda.empty_cache()
     on_cpu = run(build_model(cfg, device="cpu"), cpu_lm, torch.device("cpu"))
     err = float((on_card - on_cpu).abs().max())
-    tol = 2e-3  # fp32 over 3 full-width layers and a 256000-way head; logits O(1)
-    rec = {"arch": cfg.name, "layers": 3, "dtype": "float32", "prefill_len": 2090,
+    rec = {"arch": cfg.name, "layers": n_layers, "dtype": "float32", "prefill_len": 2090,
            "decode_steps": 3, "max_abs_logit": float(on_cpu.abs().max()),
-           "max_abs_err": err, "tol": tol,
+           "max_abs_err": err, "tol": tol, "launches": launches,
            "argmax_equal": bool(torch.equal(on_card.argmax(-1), on_cpu.argmax(-1)))}
     print("model_check", json.dumps(rec), flush=True)
     need(torch.isfinite(on_card).all(), "non-finite logits on the card")
     need(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
+    need(rec["argmax_equal"], "card and CPU pick different tokens")
     return rec
 
 
@@ -304,7 +384,8 @@ def gemma2_phase():
     dt = time.perf_counter() - t0
     launches = counts()
     check_outputs(outs, 4, 16, cfg.vocab_size)
-    need(launches == {"flash_attention": 4, "rglru_scan": 0}, f"gemma2 launches {launches}")
+    need(launches == {"flash_attention": 4, "rglru_scan": 0, "wkv6": 0},
+         f"gemma2 launches {launches}")
     dec = eng.last_timing["decode_s"]
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": sum(p.numel() for p in params.parameters()), "dtype": "bfloat16",
@@ -345,23 +426,31 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {kern.name}: {line.strip()}", flush=True)
 
-    flash, flash_checks, lru, lru_checks = kernel_phase()
-    serve, launches = serve_phase()
-    check = model_check_phase()
+    (flash, flash_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
+    serve = recurrentgemma_serve_phase()
+    # fp32 over the cut depth and a 256000-way head (rwkv6: 65536); logits O(1)
+    check = model_check_phase("recurrentgemma-9b", 3,
+                              {"flash_attention": 1, "rglru_scan": 2, "wkv6": 0}, 2e-3)
     gemma2 = gemma2_phase()
+    rwkv6 = rwkv6_serve_phase()
+    rwkv6_check = model_check_phase("rwkv6-7b", 2,
+                                    {"flash_attention": 0, "rglru_scan": 0, "wkv6": 8}, 2e-3)
 
     kernels = [
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
-                      launches["flash_attention"], flash, flash_checks),
+                      serve["launches"]["flash_attention"], flash, flash_checks),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
-                      launches["rglru_scan"], lru, lru_checks),
+                      serve["launches"]["rglru_scan"], lru, lru_checks),
+        kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+                      "src/repro/kernels/rwkv6/rwkv6.py:67",
+                      rwkv6["launches"]["wkv6"], wkv, wkv_checks),
     ]
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
-               "gemma2": gemma2}
+               "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

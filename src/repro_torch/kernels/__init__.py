@@ -11,7 +11,8 @@ reading their launch counts.
 
 from repro_torch.kernels.flash_attention import ops as _fa_ops
 from repro_torch.kernels.rglru import ops as _lru_ops
+from repro_torch.kernels.rwkv6 import ops as _wkv_ops
 
-KERNELS = (_fa_ops.KERNEL, _lru_ops.KERNEL)
+KERNELS = (_fa_ops.KERNEL, _lru_ops.KERNEL, _wkv_ops.KERNEL)
 
 __all__ = ["KERNELS"]

@@ -1,4 +1,4 @@
-"""Shared model pieces: parameters, initializers, RMSNorm, RoPE.
+"""Shared model pieces: parameters, initializers, norms, RoPE.
 
 Counterpart of ``repro/models/common.py``. Parameters are ``nn.Parameter``s
 without gradients (this slice serves only), shaped exactly as the
@@ -40,7 +40,7 @@ def embed_init_(p: torch.Tensor, gen: torch.Generator) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Norm and rotary embeddings
+# Norms and rotary embeddings
 # ---------------------------------------------------------------------------
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -48,6 +48,44 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(g: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with gain g and bias b, population variance, in fp32."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * g.float() + b.float()).to(x.dtype)
+
+
+def norm_init(norm_type: str, d: int, device, dtype):
+    """An RMSNorm's (1 + scale) vector, or the reference's layernorm leaves
+    ``{"g", "b"}`` as a ParameterDict (state-dict keys ``<name>.g``, ``.b``).
+    The norm type is read here only: the functions below go by the
+    parameter's type."""
+    if norm_type == "rmsnorm":
+        return param((d,), device, dtype)
+    return nn.ParameterDict({"g": param((d,), device, dtype),
+                             "b": param((d,), device, dtype)})
+
+
+@torch.no_grad()
+def reset_norm_(p) -> None:
+    """The identity: scale 0 for RMSNorm; g 1 and b 0 for LayerNorm."""
+    if isinstance(p, nn.ParameterDict):
+        p["g"].fill_(1.0)
+        p["b"].zero_()
+    else:
+        p.zero_()
+
+
+def apply_norm(p, x: torch.Tensor) -> torch.Tensor:
+    """The norm that ``norm_init`` made ``p`` for."""
+    if isinstance(p, nn.ParameterDict):
+        return layer_norm(p["g"], p["b"], x)
+    return rms_norm(p, x)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,

@@ -6,8 +6,9 @@
   prefill(params, batch, cache)          -> (last-token logits, cache)
   decode_step(params, cache, tokens)     -> (logits, cache)
 
-Training (``loss``) comes with the training slice. MoE, RWKV-6 and
-encoder-decoder families raise ``NotImplementedError``.
+Training (``loss``) comes with the training slice. MoE and encoder-decoder
+families, and a batch carrying ``prefix_embeds`` (the vision and audio
+frontends' prefix), raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ class Model:
 
     def prefill(self, params: LM, batch: Dict[str, Any],
                 cache: transformer.Cache) -> Tuple[torch.Tensor, transformer.Cache]:
+        if batch.get("prefix_embeds") is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: prefix_embeds (the frontends' prefix) are not "
+                "ported yet (ROADMAP.md queue A3)")
         return params.prefill(batch["tokens"], cache), cache
 
     def decode_step(self, params: LM, cache: transformer.Cache,

@@ -16,16 +16,17 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, rglru
+from repro_torch.models import attention, common, rglru, rwkv6
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
 from repro_torch.models.rglru import RGLRU
+from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
 Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the families this slice does not serve."""
+    """Raise NotImplementedError for the families the port does not serve yet."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
@@ -33,14 +34,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE models are not ported yet (ROADMAP.md queue A, models/moe)")
-    if "rwkv" in cfg.mixer_pattern:
+    if cfg.qk_norm or not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: RWKV-6 is the next slice (ROADMAP.md queue A, rwkv6-7b "
-            "serving with the wkv6 kernel)")
-    if cfg.norm_type != "rmsnorm" or cfg.qk_norm or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: layernorm, QK-norm and learned positions come with the "
-            "families that use them (ROADMAP.md queue A)")
+            f"{cfg.name}: QK-norm and learned positions come with the families "
+            "that use them (ROADMAP.md queue A)")
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -52,6 +49,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         mixer = pattern[i % len(pattern)]
         if mixer == "rglru":
             layers.append(rglru.init_rglru_state(cfg, batch, dtype, device))
+        elif mixer == "rwkv":
+            layers.append(rwkv6.init_rwkv_state(cfg, batch, dtype, device))
         else:
             layers.append(attention.init_kv_cache(
                 cfg, batch, max_len, dtype, device, local=(mixer == "attn_local")))
@@ -59,46 +58,78 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: mixer (attention or RG-LRU), then MLP."""
+    """Pre-norm residual block: mixer (attention, RG-LRU or RWKV time mix),
+    then MLP (the RWKV channel mix for ``rwkv``)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, device, dtype):
         super().__init__()
         d = cfg.d_model
         self.mixer = mixer
-        self.norm1 = common.param((d,), device, dtype)
+        self.norm1 = common.norm_init(cfg.norm_type, d, device, dtype)
         if mixer in ("attn", "attn_local"):
             self.attn = Attention(cfg, device, dtype, local=(mixer == "attn_local"))
         elif mixer == "rglru":
             self.rglru = RGLRU(cfg, device, dtype)
+        elif mixer == "rwkv":
+            self.tm = TimeMix(cfg, device, dtype)
         else:
             raise ValueError(f"unsupported mixer {mixer!r}")
-        self.norm2 = common.param((d,), device, dtype)
-        self.mlp = MLP(cfg, device, dtype)
+        self.norm2 = common.norm_init(cfg.norm_type, d, device, dtype)
+        if mixer == "rwkv":
+            self.cm = ChannelMix(cfg, device, dtype)
+        else:
+            self.mlp = MLP(cfg, device, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        self.norm1.zero_()  # (1 + scale) RMSNorm: zero is the identity
-        (self.rglru if self.mixer == "rglru" else self.attn).reset_parameters(gen)
-        self.norm2.zero_()
-        self.mlp.reset_parameters(gen)
+        common.reset_norm_(self.norm1)
+        if self.mixer == "rglru":
+            self.rglru.reset_parameters(gen)
+        elif self.mixer == "rwkv":
+            self.tm.reset_parameters(gen)
+        else:
+            self.attn.reset_parameters(gen)
+        common.reset_norm_(self.norm2)
+        (self.cm if self.mixer == "rwkv" else self.mlp).reset_parameters(gen)
+
+    def _time_mix(self, h, cache, carried: bool) -> torch.Tensor:
+        """The rwkv mixer. Prefill starts from zero states, as the reference
+        does whatever the cache holds; decode carries them. The WKV kernel
+        writes the new state straight into the cache."""
+        h, tm_shift, _ = self.tm(h, cache["tm_shift"] if carried else None,
+                                 cache["wkv"] if carried else None, wkv_out=cache["wkv"])
+        cache["tm_shift"].copy_(tm_shift)
+        return h
+
+    def _ffn(self, h, cache, carried: bool) -> torch.Tensor:
+        if self.mixer != "rwkv":
+            return self.mlp(h)
+        h, cm_shift = self.cm(h, cache["cm_shift"] if carried else None)
+        cache["cm_shift"].copy_(cm_shift)
+        return h
 
     def prefill(self, x, positions, cache) -> torch.Tensor:
-        h = common.rms_norm(self.norm1, x)
+        """Full sequence; fills ``cache``."""
+        h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru.prefill(h, cache)
+        elif self.mixer == "rwkv":
+            h = self._time_mix(h, cache, carried=False)
         else:
             h = self.attn.prefill(h, positions, cache)
         x = x + h
-        return x + self.mlp(common.rms_norm(self.norm2, x))
+        return x + self._ffn(common.apply_norm(self.norm2, x), cache, carried=False)
 
     def decode(self, x, pos: int, cache) -> torch.Tensor:
-        h = common.rms_norm(self.norm1, x)
+        h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru.decode(h, cache)
+        elif self.mixer == "rwkv":
+            h = self._time_mix(h, cache, carried=True)
         else:
             h = self.attn.decode(h, pos, cache)
         x = x + h
-        return x + self.mlp(common.rms_norm(self.norm2, x))
+        return x + self._ffn(common.apply_norm(self.norm2, x), cache, carried=True)
 
 
 class LM(nn.Module):
@@ -109,7 +140,7 @@ class LM(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.embed = common.param((cfg.vocab_size, cfg.d_model), device, dtype)
-        self.final_norm = common.param((cfg.d_model,), device, dtype)
+        self.final_norm = common.norm_init(cfg.norm_type, cfg.d_model, device, dtype)
         if not cfg.tie_embeddings:
             self.unembed = common.param((cfg.d_model, cfg.vocab_size), device, dtype)
         pattern = cfg.mixer_pattern
@@ -121,7 +152,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         common.embed_init_(self.embed, gen)
-        self.final_norm.zero_()
+        common.reset_norm_(self.final_norm)
         if not self.cfg.tie_embeddings:
             common.dense_init_(self.unembed, gen)
         for layer in self.layers:
@@ -134,7 +165,7 @@ class LM(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(self.final_norm, x)
+        x = common.apply_norm(self.final_norm, x)
         if self.cfg.tie_embeddings:
             logits = x @ self.embed.T
         else:

@@ -7,8 +7,9 @@ Every test here needs a CUDA card and skips without one. On the card:
 This file imports neither JAX nor the reference (the card's machine has
 neither); the twins are held against the reference on the CPU in
 ``test_torch_kernels.py``. Tolerances: 1e-5 in fp32 (summation order);
-2e-2 in bf16 (one bf16 ulp at |x| < 4); the RG-LRU scan is exact, as it
-rounds like its twin (separate fp32 multiply and add).
+2e-2 in bf16 (one bf16 ulp at |x| < 4); the RG-LRU scan and the WKV6
+state are exact, as they round like their twins (separate fp32 multiply and
+add).
 """
 
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
 
 
 @pytest.fixture
@@ -84,6 +86,64 @@ def test_rglru_kernel_matches_plain_on_card(cuda, B, T, C, with_h0, dt):
     torch.testing.assert_close(h_final, want_final.to(dt), atol=0, rtol=0)
 
 
+def _wkv_inputs(device, B, T, H, dt, with_s0, seed):
+    """Decays in (0.5, 1) and O(1) inputs, as the time mix feeds the kernel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(B, T, H, 64, generator=g, device=device) for _ in range(3))
+    w = 0.5 + 0.4999 * torch.rand(B, T, H, 64, generator=g, device=device)
+    u = 0.5 * torch.randn(H, 64, generator=g, device=device)
+    s0 = torch.randn(B, H, 64, 64, generator=g, device=device) if with_s0 else None
+    return [t.to(dt) for t in (r, k, v, w, u)] + [s0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("B,T,H", [
+    (4, 1, 64),     # a decode step at full width
+    (3, 37, 8),     # ragged: T is not a multiple of the staged chunk
+    (2, 16, 2),     # exactly one chunk
+    (4, 300, 64),   # B * H = 256 blocks, about two per SM
+])
+def test_wkv6_kernel_matches_plain_on_card(cuda, B, T, H, with_s0, dt):
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, B, T, H, dt, with_s0, seed=T + H)
+    y, s_final = wkv_ops.wkv(r, k, v, w, u, s0)
+    want, want_final = wkv_ref.wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert y.dtype == dt and s_final.dtype == torch.float32
+    # the state update rounds as the plain loop does; y's K-sum runs in
+    # another order (fp32), then both round to dt
+    torch.testing.assert_close(s_final, want_final, atol=0, rtol=0)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    scale = 1.0 + want.float().abs()
+    assert bool(((y.float() - want.float()).abs() <= tol * scale).all())
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_chains_state_on_card(cuda):
+    """Two halves with the state carried give the whole, bit for bit."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, 50, 4, torch.float32, True, seed=5)
+    y, s = wkv_ops.wkv(r, k, v, w, u, s0)
+    y1, s1 = wkv_ops.wkv(*(t[:, :23].contiguous() for t in (r, k, v, w)), u, s0)
+    y2, s2 = wkv_ops.wkv(*(t[:, 23:].contiguous() for t in (r, k, v, w)), u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=0, rtol=0)
+    torch.testing.assert_close(s2, s, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 37])
+def test_wkv6_kernel_writes_its_state_in_place_on_card(cuda, T):
+    """s_final may be s0 itself (the decode cache): same bits as a fresh one."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 4, T, 64, torch.bfloat16, True, seed=T)
+    y, s = wkv_ops.wkv(r, k, v, w, u, s0)
+    state = s0.clone()
+    y_in, s_in = wkv_ops.wkv(r, k, v, w, u, state, out=state)
+    torch.cuda.synchronize()
+    assert s_in is state
+    torch.testing.assert_close(y_in, y, atol=0, rtol=0)
+    torch.testing.assert_close(state, s, atol=0, rtol=0)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 8, 2, 48, device=cuda)
@@ -95,3 +155,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     a = torch.zeros(1, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         lru_ops.linear_scan(a, a)
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 1, 4, 2, torch.float32, True, seed=0)
+    small = torch.zeros(1, 4, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(small, small, small, small, torch.zeros(2, 16, device=cuda))  # K 16
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r.half(), k.half(), v.half(), w.half(), u.half())          # fp16
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k, v, w, u, s0.bfloat16())                             # bf16 state
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k.bfloat16(), v, w, u)                                 # mixed types
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k, v.transpose(1, 2).contiguous().transpose(1, 2), w, u)
+    both = torch.zeros(2, *s0.shape, device=cuda).flatten()
+    with pytest.raises(ValueError):                                           # out overlaps s0
+        wkv_ops.wkv(r, k, v, w, u, both[:s0.numel()].view_as(s0),
+                    out=both[64:64 + s0.numel()].view_as(s0))

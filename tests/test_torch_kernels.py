@@ -22,8 +22,10 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.rglru import ops as jlru_ops
+from repro.kernels.rwkv6 import ops as jwkv_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.rglru import ops as lru_ops
+from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
 
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
 TORCH_DT = {np.float32: torch.float32, "bfloat16": torch.bfloat16}
@@ -144,13 +146,16 @@ def test_flash_chunked_and_mask_match_reference():
 
 
 def test_cpu_tensors_never_reach_the_kernels():
-    """On the CPU both wrappers take the plain path without building anything."""
-    before = (fa_ops.KERNEL.launches, lru_ops.KERNEL.launches)
+    """On the CPU every wrapper takes the plain path without building anything."""
+    kernels = (fa_ops.KERNEL, lru_ops.KERNEL, wkv_ops.KERNEL)
+    before = [k.launches for k in kernels]
     x = torch.zeros(1, 8, 2, 16)
     fa_ops.attention(x, x, x)
     a = torch.full((1, 8, 4), 0.5)
     lru_ops.linear_scan(a, a)
-    assert (fa_ops.KERNEL.launches, lru_ops.KERNEL.launches) == before
+    y, s_final = wkv_ops.wkv(x, x, x, x + 0.5, torch.zeros(2, 16))
+    assert y.shape == (1, 8, 2, 16) and s_final.shape == (1, 2, 16, 16)
+    assert [k.launches for k in kernels] == before
 
 
 # ---------------------------------------------------------------------------
@@ -175,3 +180,75 @@ def test_rglru_plain_matches_reference(B, T, C, with_h0, dt, backend):
     assert h.dtype == a.dtype and h_final.dtype == torch.float32
     np.testing.assert_allclose(h.float().numpy(), _np(jh), atol=TOL[dt], rtol=TOL[dt])
     np.testing.assert_allclose(h_final.numpy(), _np(jh_final), atol=TOL[dt], rtol=TOL[dt])
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(rng, B, T, H, K, dt, with_s0):
+    """Same values for both sides; decays in (0.5, 1) as the time mix gives."""
+    r, jr = _pair(rng.standard_normal((B, T, H, K)) * 0.5, dt)
+    k, jk = _pair(rng.standard_normal((B, T, H, K)) * 0.5, dt)
+    v, jv = _pair(rng.standard_normal((B, T, H, K)) * 0.5, dt)
+    w, jw = _pair(rng.uniform(0.5, 0.999, (B, T, H, K)), dt)
+    u, ju = _pair(rng.standard_normal((H, K)) * 0.5, dt)
+    if with_s0:
+        s0, js0 = _pair(rng.standard_normal((B, H, K, K)), np.float32)
+    else:
+        s0, js0 = None, None
+    return (r, k, v, w, u, s0), (jr, jk, jv, jw, ju, js0)
+
+
+@pytest.mark.parametrize("B,T,H,K,with_s0,dt", [
+    (2, 32, 2, 16, False, np.float32),
+    (2, 32, 2, 16, True, np.float32),
+    (1, 13, 2, 16, True, np.float32),     # prime length: one Pallas grid step per t
+    (1, 16, 2, 64, True, np.float32),     # the full-width head size
+    (2, 32, 2, 16, True, "bfloat16"),
+])
+@pytest.mark.parametrize("backend", ["interpret", "reference"])
+def test_wkv6_plain_matches_reference(B, T, H, K, with_s0, dt, backend):
+    """y in r's dtype, s_final in fp32; in bf16 y rounds the same fp32 sums
+    (one ulp) and the state sees the same bf16 inputs (1e-5)."""
+    ins, jins = _wkv_inputs(np.random.default_rng(T + K), B, T, H, K, dt, with_s0)
+    y, s_final = wkv_ops.wkv(*ins)
+    wkv = jax.jit(functools.partial(jwkv_ops.wkv, backend=backend))
+    jy, js = wkv(*jins)
+    assert y.dtype == ins[0].dtype and s_final.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(), _np(jy), atol=TOL[dt], rtol=TOL[dt])
+    np.testing.assert_allclose(s_final.numpy(), _np(js), atol=1e-5, rtol=1e-5)
+
+
+def test_wkv6_state_chaining():
+    """Two halves with the state carried give the whole, bit for bit, and the
+    reference's chained halves agree with both."""
+    ins, jins = _wkv_inputs(np.random.default_rng(9), 2, 30, 2, 16, np.float32, True)
+    r, k, v, w, u, s0 = ins
+    y, s = wkv_ref.wkv6_reference(*ins)
+    y1, s1 = wkv_ref.wkv6_reference(r[:, :11], k[:, :11], v[:, :11], w[:, :11], u, s0)
+    y2, s2 = wkv_ref.wkv6_reference(r[:, 11:], k[:, 11:], v[:, 11:], w[:, 11:], u, s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s)
+    jr, jk, jv, jw, ju, js0 = jins
+    wkv = jax.jit(functools.partial(jwkv_ops.wkv, backend="reference"))
+    _, js1 = wkv(jr[:, :11], jk[:, :11], jv[:, :11], jw[:, :11], ju, js0)
+    jy2, js2 = wkv(jr[:, 11:], jk[:, 11:], jv[:, 11:], jw[:, 11:], ju, js1)
+    np.testing.assert_allclose(y2.numpy(), _np(jy2), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s2.numpy(), _np(js2), atol=1e-5, rtol=1e-5)
+
+
+def test_wkv6_writes_its_state_in_place():
+    """``out`` may be s0 itself, as decode passes its cached state."""
+    ins, _ = _wkv_inputs(np.random.default_rng(11), 2, 5, 2, 16, np.float32, True)
+    y, s = wkv_ops.wkv(*ins)
+    state = ins[5].clone()
+    y_in, s_in = wkv_ops.wkv(*ins[:5], state, out=state)
+    assert s_in is state
+    assert torch.equal(y_in, y) and torch.equal(state, s)
+
+
+def test_wkv6_zero_state_is_no_state():
+    ins, _ = _wkv_inputs(np.random.default_rng(10), 1, 9, 2, 16, np.float32, False)
+    y, s = wkv_ops.wkv(*ins[:5])
+    y0, s0 = wkv_ops.wkv(*ins[:5], torch.zeros(1, 2, 16, 16))
+    assert torch.equal(y, y0) and torch.equal(s, s0)

@@ -23,6 +23,7 @@ from repro.models import attention as jattention
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro.models import rglru as jrglru
+from repro.models import rwkv6 as jrwkv6
 from repro.models import transformer as jtransformer
 from repro.models.model_zoo import build_model as jbuild_model
 from repro_torch.configs import ARCHS
@@ -31,12 +32,13 @@ from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.mlp import MLP
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.rglru import RGLRU, init_rglru_state
+from repro_torch.models.rwkv6 import ChannelMix, TimeMix, _group_norm, init_rwkv_state
 from repro_torch.models.transformer import LM
 from repro_torch.weights import from_jax_params, init_params
 
 OP_TOL = 1e-5
 LOGIT_TOL = 2e-4
-PORTED = ["recurrentgemma-9b", "gemma2-9b"]
+PORTED = ["recurrentgemma-9b", "gemma2-9b", "rwkv6-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,7 +108,8 @@ def test_from_jax_params_round_trip(name):
             return {k: restack(prefixes, v, f"{path}.{k}") for k, v in tree.items()}
         return np.stack([sd[f"{pre}{path}"] for pre in prefixes])
 
-    back = {k: sd[k] for k in ("embed", "final_norm", "unembed") if k in sd}
+    back = {k: jax.tree_util.tree_map(lambda a: a[0], restack([""], np_params[k], k))
+            for k in ("embed", "final_norm", "unembed") if k in np_params}
     back["blocks"] = [restack([f"layers.{g * p + i}" for g in range(n_groups)], blk)
                       for i, blk in enumerate(np_params["blocks"])]
     back["tail"] = [jax.tree_util.tree_map(lambda a: a[0], restack(
@@ -128,7 +131,10 @@ def test_full_width_shapes_on_meta_device(name):
     n_groups, _ = cfg.n_groups_and_tail()
     p = len(cfg.mixer_pattern)
     got = {k: tuple(v.shape) for k, v in lm.named_parameters()}
-    want = {k: tuple(shapes[k].shape) for k in ("embed", "final_norm")}
+    want = {}
+    for k in ("embed", "final_norm", "unembed"):
+        for path, leaf in jax.tree_util.tree_leaves_with_path(shapes.get(k, {})):
+            want[".".join([k] + [str(e.key) for e in path])] = tuple(leaf.shape)
     for i, blk in enumerate(shapes["blocks"]):
         for path, leaf in jax.tree_util.tree_leaves_with_path(blk):
             key = ".".join(str(e.key) for e in path)
@@ -142,11 +148,15 @@ def test_full_width_shapes_on_meta_device(name):
     n = sum(int(np.prod(s)) for s in got.values())
     assert n == sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shapes))
     # the analytic count leaves out the RG-LRU gate matrices (2 * w * w / n_heads)
+    # and the RWKV-6 decay LoRA, bonus and per-channel vectors
     assert abs(n - cfg.param_count()) / n < 0.01
     if name == "recurrentgemma-9b":
         kinds = [layer.mixer for layer in lm.layers]
         assert (len(kinds), kinds.count("rglru"), kinds.count("attn_local")) == (38, 26, 12)
         assert 8.5e9 < n < 8.8e9
+    if name == "rwkv6-7b":
+        assert [layer.mixer for layer in lm.layers] == ["rwkv"] * 32
+        assert 7.5e9 < n < 7.6e9  # 15.1 GB in bf16: one card holds it whole
 
 
 def test_init_params_statistics():
@@ -167,10 +177,22 @@ def test_init_params_statistics():
     assert not rg.conv_b.any() and not lm.final_norm.any() and not lm.layers[0].norm1.any()
 
 
-@pytest.mark.parametrize("name", ["rwkv6-7b", "qwen3-moe-235b-a22b", "whisper-medium"])
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                                  "whisper-medium"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ARCHS[name].reduced(), device="cpu")
+
+
+def test_prefix_embeds_raise_instead_of_being_dropped():
+    """The reference prepends a frontend's prefix_embeds; the port refuses them."""
+    cfg = ARCHS["internvl2-76b"].reduced()
+    model = build_model(cfg, device="cpu")
+    lm = LM(cfg, torch.device("meta"), torch.float32)
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
+             "prefix_embeds": torch.zeros(1, cfg.frontend_seq_len, cfg.d_model)}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A3"):
+        model.prefill(lm, batch, model.init_cache(1, 32, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +204,19 @@ def test_common_ops_match_reference():
     x = rng.standard_normal((2, 7, 4, 16)).astype(np.float32)
     scale = rng.standard_normal(16).astype(np.float32) * 0.1
     _close(common.rms_norm(_t(scale), _t(x)), jcommon.rms_norm(scale, x), OP_TOL)
+    g, b = 1 + scale, rng.standard_normal(16).astype(np.float32) * 0.1
+    x_off = 3.0 + 2.0 * x  # a mean and a spread for the layernorm to remove
+    _close(common.layer_norm(_t(g), _t(b), _t(x_off)),
+           jcommon.layer_norm({"g": g, "b": b}, x_off), OP_TOL)
+    for norm_type in ("rmsnorm", "layernorm"):
+        p = common.norm_init(norm_type, 16, "cpu", torch.float32)
+        common.reset_norm_(p)
+        _close(common.apply_norm(p, _t(x_off)),
+               jcommon.apply_norm(norm_type, jcommon.norm_init(norm_type, 16, jnp.float32),
+                                  x_off), OP_TOL)
+    y = x.reshape(2, 7, 64) * 4.0 + 1.0
+    scale64 = rng.standard_normal(64).astype(np.float32) * 0.1
+    _close(_group_norm(_t(scale64), _t(y), 4), jrwkv6._group_norm(scale64, y, 4), OP_TOL)
     pos = np.arange(7)
     sin, cos = common.rope_angles(torch.from_numpy(pos), 16, 10000.0)
     jsin, jcos = jcommon.rope_angles(jnp.asarray(pos), 16, 10000.0)
@@ -245,6 +280,75 @@ def test_rglru_block_prefill_and_decode_match_reference():
     jout, jstate = jstep(jnp.asarray(xt), jstate)
     _close(mod.decode(_t(xt), state), jout, OP_TOL)
     _close(state["h"], jstate["h"], OP_TOL)
+
+
+def test_rwkv_time_and_channel_mix_match_reference():
+    """Prefill from zero state, then token-by-token decode with the carried
+    shift and WKV states, against the reference's time_mix and channel_mix,
+    with modules loaded from the reference's init pytree."""
+    cfg = ARCHS["rwkv6-7b"].reduced()
+    kg = jcommon.KeyGen(jax.random.PRNGKey(5))
+    jtm = jrwkv6.init_rwkv_time_mix(kg, cfg, jnp.float32)
+    jcm = jrwkv6.init_rwkv_channel_mix(kg, cfg, jnp.float32)
+    tm, cm = TimeMix(cfg, "cpu", torch.float32), ChannelMix(cfg, "cpu", torch.float32)
+    tm.load_state_dict({k: _t(v) for k, v in jtm.items()})
+    cm.load_state_dict({k: _t(v) for k, v in jcm.items()})
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 19, cfg.d_model)).astype(np.float32)
+    with torch.inference_mode():
+        out, tm_shift, wkv = tm(_t(x))
+        cout, cm_shift = cm(_t(x))
+    jout, jtm_shift, jwkv = jax.jit(lambda v: jrwkv6.time_mix(jtm, cfg, v))(x)
+    jcout, jcm_shift = jax.jit(lambda v: jrwkv6.channel_mix(jcm, cfg, v))(x)
+    for got, want in [(out, jout), (tm_shift, jtm_shift), (wkv, jwkv), (cout, jcout),
+                      (cm_shift, jcm_shift)]:
+        _close(got, want, OP_TOL)
+
+    state = init_rwkv_state(cfg, 2, torch.float32, "cpu")
+    jstate = jrwkv6.init_rwkv_state(cfg, 2, jnp.float32)
+    for name in state:
+        assert tuple(state[name].shape) == jstate[name].shape
+    jtm_step = jax.jit(lambda v, s, w: jrwkv6.time_mix(jtm, cfg, v, s, w))
+    jcm_step = jax.jit(lambda v, s: jrwkv6.channel_mix(jcm, cfg, v, s))
+    tm_s, wkv_s, cm_s = (state[k] for k in ("tm_shift", "wkv", "cm_shift"))
+    jtm_s, jwkv_s, jcm_s = (jstate[k] for k in ("tm_shift", "wkv", "cm_shift"))
+    with torch.inference_mode():
+        for t in range(19):  # decoding token by token reproduces the prefill
+            xt = x[:, t:t + 1]
+            o, tm_s, wkv_s = tm(_t(xt), tm_s, wkv_s)
+            co, cm_s = cm(_t(xt), cm_s)
+            jo, jtm_s, jwkv_s = jtm_step(xt, jtm_s, jwkv_s)
+            jco, jcm_s = jcm_step(xt, jcm_s)
+            _close(o, jo, OP_TOL)
+            _close(o[:, 0], out[:, t], OP_TOL)
+            _close(co, jco, OP_TOL)
+        _close(wkv_s, wkv, OP_TOL)
+        _close(tm_s, tm_shift, 0.0)
+        _close(cm_s, cm_shift, 0.0)
+        # a carried shift state in a multi-token call replaces the zero pad
+        o2, _, _ = tm(_t(x[:, 5:9]), _t(x[:, 4]), None)
+        jo2, _, _ = jrwkv6.time_mix(jtm, cfg, x[:, 5:9], x[:, 4], None)
+        _close(o2, jo2, OP_TOL)
+
+
+def test_rwkv_init_statistics():
+    """Seeded init: the reference's fixed values and scales for the new leaves."""
+    cfg = dataclasses.replace(ARCHS["rwkv6-7b"].reduced(), d_model=256, d_ff=512,
+                              rwkv_head_dim=64)
+    lm = init_params(cfg, seed=4, device="cpu")
+    tm, cm = lm.layers[0].tm, lm.layers[0].cm
+    for p in (tm.mu_r, tm.mu_k, tm.mu_v, tm.mu_w, tm.mu_g, cm.mu_k, cm.mu_r):
+        assert torch.all(p == 0.5)
+    np.testing.assert_allclose(tm.decay_base.numpy(), np.linspace(-6, -0.5, 256), atol=1e-6)
+    assert tuple(tm.decay_a.shape) == (256, 64) and tuple(tm.bonus.shape) == (4, 64)
+    assert not tm.out_norm.any()
+    # decay_b is a 1/sqrt(64) fan-in draw times 0.1; bonus has fan-in n_heads
+    assert abs(float(tm.decay_b.std()) * 8 * 10 - 0.8796) < 0.05
+    assert abs(float(tm.bonus.std()) * 2 - 0.8796) < 0.1
+    ln = lm.layers[0].norm1
+    assert torch.all(ln["g"] == 1) and not ln["b"].any()
+    assert torch.all(lm.final_norm["g"] == 1) and not lm.final_norm["b"].any()
+    assert "layers.0.norm1.g" in lm.state_dict() and "final_norm.b" in lm.state_dict()
 
 
 # ---------------------------------------------------------------------------

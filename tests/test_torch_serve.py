@@ -1,7 +1,7 @@
 """Port serving vs the JAX reference engine, and the port's guards.
 
 Greedy tokens must be identical to the reference's for ragged prompts on
-both reduced configs the slice serves (fp32 on the CPU, same weights).
+the reduced configs the port serves (fp32 on the CPU, same weights).
 """
 
 import ast
@@ -53,7 +53,7 @@ def _engines(name, temperature=0.0):
     return jeng, eng
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "gemma2-9b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "gemma2-9b", "rwkv6-7b"])
 def test_greedy_tokens_match_reference(name):
     jeng, eng = _engines(name)
     want = jeng.generate(PROMPTS)
@@ -79,6 +79,17 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert all(36 <= len(p) <= 40 for p in res["prompts"])  # past the window of 32
     assert res["dtype"] == "float32"
     assert res["timing"]["prefill_len"] == max(len(p) for p in res["prompts"])
+    assert "generated 6 tokens" in capsys.readouterr().out
+
+
+def test_launch_serve_runs_rwkv6_on_cpu(capsys):
+    res = launch_serve.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "20", "--min-prompt-len", "9",
+                             "--max-len", "64", "--max-new", "3"])
+    assert [len(o) for o in res["outputs"]] == [3, 3]
+    assert res["cfg"].mixer_pattern == ("rwkv",) and res["dtype"] == "float32"
+    assert res["timing"]["prefill_len"] == max(len(p) for p in res["prompts"])
+    assert len(res["timing"]["decode_s"]) == 3
     assert "generated 6 tokens" in capsys.readouterr().out
 
 
