@@ -7,19 +7,24 @@ Drives the port (``src/repro_torch``) only, through the entry points a user
 calls, and fails (exit code not 0, no result line) on any miss:
 
   1. gpu      the card's name and power limit, as nvidia-smi gives them;
-  2. build    every CUDA kernel from ``csrc/``, one nvcc each, in parallel;
+  2. build    every CUDA kernel from ``csrc/``, one nvcc each, in parallel,
+              with ptxas's registers and spills and the tensor-core flash
+              kernel's shared memory;
   3. kernels  each kernel at the serving shapes against its plain PyTorch
               twin on the same inputs, with its stated tolerance, and its
-              time beside the twin's, a library call's and its bound;
+              time beside the twin's, a library call's and its bound; the
+              tensor-core flash kernel also beside the CUDA-core one on the
+              same bf16 inputs;
   4. serve    ``repro_torch.launch.serve.main`` on recurrentgemma-9b at full
               width (38 layers, bf16, random seeded weights): 4 requests with
               prompts of 2304-2560 tokens, longer than the 2048 window, 16
-              new tokens; the launch counts must show 12 flash and 26 RG-LRU
-              launches for its one prefill;
+              new tokens; the launch counts must show 12 tensor-core flash
+              and 26 RG-LRU launches for its one prefill;
   5. check    recurrentgemma-9b at full width, depth cut to one pattern
               group, in fp32: prefill and decode logits on the card
-              (kernels) against the same weights on the CPU (plain path,
-              which the CPU tests hold against the JAX reference);
+              (kernels; fp32 attention runs the CUDA-core flash kernel)
+              against the same weights on the CPU (plain path, which the CPU
+              tests hold against the JAX reference);
   6. gemma2   gemma2-9b at full width, depth cut to 4 layers (2 local with
               softcap, 2 global), served through ServeEngine;
   7. rwkv6    ``launch.serve.main`` on rwkv6-7b at full width (32 layers,
@@ -33,8 +38,10 @@ The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,49 +115,68 @@ def visible_pairs(S, causal, window):
     return int(np.sum(hi - lo))
 
 
-def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed):
-    """tol bounds |kernel - plain| by tol * (1 + |plain|): in bf16 one ulp of
-    the output (both sides round the same fp32 math), in fp32 the summation
-    order."""
+def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
+               previous=False):
+    """Through ``fa_ops.attention``, which picks the kernel for dtype and
+    head_dim. tol bounds |kernel - plain| by tol * (1 + |plain|): in bf16 one
+    ulp of the output (the tensor-core kernel also rounds P to bf16 before
+    P V, a relative error of at most 2^-9 on each weight of an average), in
+    fp32 the summation order. ``previous``: the CUDA-core kernel on the same
+    inputs too, checked and, if ``timed``, timed in turns with the new one."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(S + Hkv)
     q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
     kw = dict(causal=True, window=window, softcap=softcap)
+    kernel = fa_ops.kernel_for(dtype, D)
     out = fa_ops.attention(q, k, v, **kw)
-    want = fa_ref.attention_plain(q, k, v, **kw)
+    want = fa_ref.attention_plain(q, k, v, **kw).float()
     torch.cuda.synchronize()
-    need(torch.isfinite(out.float()).all(), f"flash {name}: non-finite output")
-    diff = (out.float() - want.float()).abs()
-    err = float(diff.max())
-    ok = bool((diff <= tol * (1 + want.float().abs())).all())
-    rec = {"case": name, "shape": [B, S, Hq, Hkv, D], "dtype": str(dtype)[6:],
-           "window": window, "softcap": softcap, "max_abs_err": err,
-           "tol": f"{tol} * (1 + |plain|)"}
+
+    def check(out, what):
+        need(torch.isfinite(out.float()).all(), f"flash {name} ({what}): non-finite output")
+        diff = (out.float() - want).abs()
+        err = float(diff.max())
+        need(bool((diff <= tol * (1 + want.abs())).all()),
+             f"flash {name} ({what}): error above {tol} * (1 + |plain|), max abs {err}")
+        return err
+
+    rec = {"case": name, "kernel": kernel, "shape": [B, S, Hq, Hkv, D],
+           "dtype": str(dtype)[6:], "window": window, "softcap": softcap,
+           "max_abs_err": check(out, kernel), "tol": f"{tol} * (1 + |plain|)"}
+    del out
+    if previous:
+        rec["previous_max_abs_err"] = check(fa_ops.flash_attention_cuda(q, k, v, **kw),
+                                            "simt")
     print("kernel_check flash_attention", json.dumps(rec), flush=True)
-    need(ok, f"flash {name}: error above {tol} * (1 + |plain|), max abs {err}")
     if not timed:
         return rec
-    want_f32 = want.float()
-    del want, diff
-    rec["ms"] = cuda_ms(lambda: fa_ops.attention(q, k, v, **kw), iters=10)
-    rec["plain_ms"] = cuda_ms(lambda: fa_ref.attention_plain(q, k, v, **kw), iters=3)
+    run = lambda: fa_ops.attention(q, k, v, **kw)  # noqa: E731
+    lib = None
     if softcap is None:  # one library call computes the same function
         mask = fa_ref.attention_mask(S, S, True, window, 0, dev)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
         # a yardstick only: it must compute the same function (a wrong mask
         # would be off by O(1)), in its own rounding
-        rec["library_max_abs_err"] = float(
-            (lib.transpose(1, 2).float() - want_f32).abs().max())
+        rec["library_max_abs_err"] = float((lib().transpose(1, 2).float() - want).abs().max())
         need(rec["library_max_abs_err"] < 0.1, f"flash {name}: library call disagrees")
-        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), iters=5)
-    else:
-        rec["library_ms"] = None
+    del want
+    # in turns on one card: kernel, previous kernel, library, kernel
+    runs = [cuda_ms(run, iters=20)]
+    if previous:
+        rec["previous_ms"] = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
+                                     iters=3)
+    rec["library_ms"] = cuda_ms(lib, iters=5) if lib else None
+    runs.append(cuda_ms(run, iters=20))
+    rec["ms_runs"], rec["ms"] = runs, sum(runs) / len(runs)
+    rec["plain_ms"] = cuda_ms(lambda: fa_ref.attention_plain(q, k, v, **kw), iters=3)
     ops = 4 * D * visible_pairs(S, True, window) * B * Hq
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, out), ops, dtype)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, q), ops, dtype)
+    rec["tflop_per_s"] = ops / (rec["ms"] * 1e-3) / 1e12
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     print("kernel_time flash_attention", json.dumps(rec), flush=True)
     return rec
 
@@ -227,15 +253,21 @@ def wkv6_case(name, B, T, H, with_s0, dtype, timed):
 
 def kernel_phase():
     flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
-                       torch.bfloat16, 2e-2, timed=True)
+                       torch.bfloat16, 2e-2, timed=True, previous=True)
     flash_checks = [
         flash_case("gemma2-9b global, softcap", 2, 2560, 16, 8, 256, None, 50.0,
+                   torch.bfloat16, 2e-2, timed=True, previous=True),
+        flash_case("mistral-nemo-12b heads", 2, 2560, 32, 8, 128, None, None,
                    torch.bfloat16, 2e-2, timed=True),
         flash_case("gemma2-9b local, softcap, ragged", 1, 2500, 16, 8, 256, 2048, 50.0,
                    torch.bfloat16, 2e-2, timed=False),
+    ]
+    simt_checks = [
         flash_case("recurrentgemma-9b heads, fp32", 1, 2560, 16, 1, 256, 2048, None,
                    torch.float32, 1e-5, timed=False),
     ]
+    need([c["kernel"] for c in [flash] + flash_checks] == ["wgmma"] * 4
+         and simt_checks[0]["kernel"] == "simt", "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
                      timed=True)
     lru_checks = [
@@ -247,7 +279,7 @@ def kernel_phase():
         wkv6_case("fp32 with s0, ragged", 3, 1001, 8, True, torch.float32, timed=False),
         wkv6_case("rwkv6-7b decode step", 4, 1, 64, True, torch.bfloat16, timed=True),
     ]
-    return (flash, flash_checks), (lru, lru_checks), (wkv, wkv_checks)
+    return (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks)
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +302,23 @@ def check_outputs(outs, n_req, n_new, vocab):
              f"bad continuation {o}")
 
 
-def want_launches(cfg, decode_steps):
+def want_launches(cfg, decode_steps, dtype):
     """Launches of one prefill and ``decode_steps`` decode steps, by layer
-    kind: flash and the RG-LRU scan run in prefill only, WKV in both."""
+    kind: flash (on the kernel ``kernel_for`` picks) and the RG-LRU scan run
+    in prefill only, WKV in both."""
     kinds = [cfg.mixer_pattern[i % len(cfg.mixer_pattern)] for i in range(cfg.n_layers)]
-    return {"flash_attention": kinds.count("attn") + kinds.count("attn_local"),
-            "rglru_scan": kinds.count("rglru"),
-            "wkv6": kinds.count("rwkv") * (1 + decode_steps)}
+    flash = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}[
+        fa_ops.kernel_for(dtype, cfg.head_dim)]
+    want = {kern.name: 0 for kern in KERNELS}
+    want[flash] = kinds.count("attn") + kinds.count("attn_local")
+    want["rglru_scan"] = kinds.count("rglru")
+    want["wkv6"] = kinds.count("rwkv") * (1 + decode_steps)
+    return want
+
+
+def launch_counts(flash=0, flash_wgmma=0, rglru=0, wkv=0):
+    return {"flash_attention": flash, "flash_attention_wgmma": flash_wgmma,
+            "rglru_scan": rglru, "wkv6": wkv}
 
 
 def serve_phase(arch, expect):
@@ -291,7 +333,7 @@ def serve_phase(arch, expect):
     check_outputs(res["outputs"], 4, 16, cfg.vocab_size)
     need(all(2304 <= len(p) <= 2560 for p in res["prompts"]), "prompt lengths")
     dec = timing["decode_s"]
-    want = want_launches(cfg, len(dec))
+    want = want_launches(cfg, len(dec), torch.bfloat16)
     need(want == expect, f"{arch}: layer kinds give {want}, expected {expect}")
     need(launches == want, f"{arch}: launches {launches}, expected {want}")
     rec = {
@@ -311,16 +353,14 @@ def serve_phase(arch, expect):
 
 
 def recurrentgemma_serve_phase():
-    rec, cfg, timing = serve_phase(
-        "recurrentgemma-9b", {"flash_attention": 12, "rglru_scan": 26, "wkv6": 0})
+    rec, cfg, timing = serve_phase("recurrentgemma-9b", launch_counts(flash_wgmma=12, rglru=26))
     need(timing["prefill_len"] > cfg.window, "prefill must exceed the window")
     print("serve", json.dumps(rec), flush=True)
     return rec
 
 
 def rwkv6_serve_phase():
-    rec, cfg, _ = serve_phase(
-        "rwkv6-7b", {"flash_attention": 0, "rglru_scan": 0, "wkv6": 32 + 16 * 32})
+    rec, cfg, _ = serve_phase("rwkv6-7b", launch_counts(wkv=32 + 16 * 32))
     need((cfg.n_layers, cfg.d_model, cfg.n_heads) == (32, 4096, 64), "rwkv6-7b width")
     print("rwkv6", json.dumps(rec), flush=True)
     return rec
@@ -384,8 +424,7 @@ def gemma2_phase():
     dt = time.perf_counter() - t0
     launches = counts()
     check_outputs(outs, 4, 16, cfg.vocab_size)
-    need(launches == {"flash_attention": 4, "rglru_scan": 0, "wkv6": 0},
-         f"gemma2 launches {launches}")
+    need(launches == launch_counts(flash_wgmma=4), f"gemma2 launches {launches}")
     dec = eng.last_timing["decode_s"]
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": sum(p.numel() for p in params.parameters()), "dtype": "bfloat16",
@@ -398,12 +437,25 @@ def gemma2_phase():
     return rec
 
 
-def kernel_record(name, route, source, replaces, launches, main, checks):
+def kernel_record(name, route, source, replaces, launches, main, checks, **extra):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"], **extra,
             "checks": [main] + checks}
+
+
+def print_ptxas(kern):
+    """Registers, spills and ptxas warnings of each entry function built."""
+    entry = ""
+    for line in kern.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:  # the template arguments of the mangled name: type, head_dim
+            d = re.search(r"Li(\d+)E", m.group(1))
+            dtype = "bf16" if "bfloat16" in m.group(1) else "fp32" if "IfLi" in m.group(1) else ""
+            entry = " ".join(filter(None, [dtype, d and f"head_dim {d.group(1)}"]))
+        elif "registers" in line or "spill" in line or "C75" in line:
+            print(f"ptxas {kern.name} [{entry}]: {line.strip()}", flush=True)
 
 
 def main():
@@ -422,25 +474,36 @@ def main():
     secs = cuda_build.build(KERNELS)
     print(f"build: {secs:.1f} s for {len(KERNELS)} kernels", flush=True)
     for kern in KERNELS:
-        for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {kern.name}: {line.strip()}", flush=True)
+        print_ptxas(kern)
+    smem = ctypes.CDLL(str(fa_ops.WGMMA_KERNEL.library)).flash_attention_sm90_smem_bytes
+    print("flash_attention_wgmma dynamic shared memory per block: " + ", ".join(
+        f"head_dim {d} {smem(d)} bytes" for d in fa_ops.WGMMA_HEAD_DIMS), flush=True)
 
-    (flash, flash_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
+    (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
     serve = recurrentgemma_serve_phase()
     # fp32 over the cut depth and a 256000-way head (rwkv6: 65536); logits O(1)
-    check = model_check_phase("recurrentgemma-9b", 3,
-                              {"flash_attention": 1, "rglru_scan": 2, "wkv6": 0}, 2e-3)
+    check = model_check_phase("recurrentgemma-9b", 3, launch_counts(flash=1, rglru=2), 2e-3)
     gemma2 = gemma2_phase()
     rwkv6 = rwkv6_serve_phase()
-    rwkv6_check = model_check_phase("rwkv6-7b", 2,
-                                    {"flash_attention": 0, "rglru_scan": 0, "wkv6": 8}, 2e-3)
+    rwkv6_check = model_check_phase("rwkv6-7b", 2, launch_counts(wkv=8), 2e-3)
 
+    # the CUDA-core kernel serves fp32 (and the small head dims); its record
+    # holds its bf16 time at the serving shape, measured beside the new one
+    simt_main = {"case": flash["case"] + " (bf16, CUDA-core kernel)",
+                 "max_abs_err": flash["previous_max_abs_err"], "ms": flash["previous_ms"],
+                 "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+                 "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}
     kernels = [
+        kernel_record("flash_attention_wgmma", "cuda",
+                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
+                      "src/repro/kernels/flash_attention/flash_attention.py:103",
+                      serve["launches"]["flash_attention_wgmma"], flash, flash_checks,
+                      previous_ms=flash["previous_ms"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
-                      serve["launches"]["flash_attention"], flash, flash_checks),
+                      check["launches"]["flash_attention"], simt_main, simt_checks,
+                      launches_in="check: recurrentgemma-9b fp32, 3 layers"),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
@@ -449,6 +512,7 @@ def main():
                       "src/repro/kernels/rwkv6/rwkv6.py:67",
                       rwkv6["launches"]["wkv6"], wkv, wkv_checks),
     ]
+    need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
                "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check}
     out_dir = ROOT / "chiprun_out"

@@ -7,9 +7,10 @@ weights, 4 requests of 2304-2560 tokens, as ``chip_smoke.py``), then
 profiles one prefill and 8 decode steps of a second batch with
 ``torch.profiler``. Prints, for each phase, the host wall time, the summed
 device kernel time (one stream, so kernels do not overlap), the device's
-idle share and the kernels that take the most device time; writes the same
-to ``chiprun_out/profile_<arch>.json``. Fails if the profiler sees no
-device time.
+idle share, the kernels that take the most device time, and the port's own
+kernels' device time and launches; writes the same to
+``chiprun_out/profile_<arch>.json``. Fails if the profiler sees no device
+time.
 """
 
 from __future__ import annotations
@@ -41,13 +42,20 @@ def _smi():
         timeout=60).stdout.strip()
 
 
+# the port's kernels, by a piece of their CUDA function's name
+PORT_KERNELS = {"flash_attention_wgmma": "flash_fwd_sm90", "flash_attention": "flash_fwd_kernel",
+                "rglru_scan": "rglru_scan_kernel", "wkv6": "wkv6_kernel"}
+
+
 def _device_kernels(prof):
-    """(total device us, {kernel name: device us}) from the profiler's events."""
-    per = collections.Counter()
+    """(total device us, {kernel name: device us}, {kernel name: launches})
+    from the profiler's events."""
+    per, n = collections.Counter(), collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             per[evt.name] += evt.time_range.elapsed_us()
-    return sum(per.values()), per
+            n[evt.name] += 1
+    return sum(per.values()), per, n
 
 
 def _phase(name, fn):
@@ -57,18 +65,26 @@ def _phase(name, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, per = _device_kernels(prof)
+    busy_us, per, n = _device_kernels(prof)
     if busy_us <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
     top = [{"kernel": k[:120], "ms": us / 1e3, "share_of_busy": us / busy_us}
            for k, us in per.most_common(12)]
     rec = {"phase": name, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "idle_share": 1.0 - busy_us / wall_us, "n_kernel_names": len(per),
-           "top": top}
+           "top": top, "port_kernels": {}}
+    for port, piece in PORT_KERNELS.items():
+        names = [k for k in per if piece in k]
+        us = sum(per[k] for k in names)
+        rec["port_kernels"][port] = {"ms": us / 1e3, "share_of_busy": us / busy_us,
+                                     "launches": sum(n[k] for k in names)}
     print(f"{name}: wall {rec['wall_ms']:.2f} ms, device busy {rec['device_busy_ms']:.2f} ms, "
           f"idle share {rec['idle_share']:.3f}")
     for t in top:
         print(f"  {t['ms']:10.3f} ms  {100 * t['share_of_busy']:5.1f}%  {t['kernel']}")
+    for port, t in rec["port_kernels"].items():
+        print(f"  port kernel {port}: {t['ms']:.3f} ms, {100 * t['share_of_busy']:.1f}%, "
+              f"{t['launches']} launches")
     return rec
 
 

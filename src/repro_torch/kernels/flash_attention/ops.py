@@ -1,12 +1,18 @@
-"""Public attention op: the CUDA flash kernel on the card, plain PyTorch on the CPU.
+"""Public attention op: the CUDA flash kernels on the card, plain PyTorch on the CPU.
 
 Counterpart of ``repro/kernels/flash_attention/ops.py``. ``attention`` takes
-the model's [B, S, H, D] layout, which the kernel reads in place.
+the model's [B, S, H, D] layout, which both kernels read in place.
 
   * a CPU tensor, or a ``kv_len`` (variable-length decode masking), takes the
     plain path in ``ref`` -- as the reference sends ``kv_len`` and non-TPU
     backends to its jnp oracle;
-  * a CUDA tensor without ``kv_len`` launches the kernel, or raises.
+  * a CUDA tensor without ``kv_len`` launches one of two kernels, chosen
+    before the launch by ``kernel_for(dtype, head_dim)``, or raises:
+      - ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 with head_dim
+        128 or 256, on the tensor cores -- every bf16 serving config;
+      - ``"simt"`` (``csrc/flash_attention.cu``): everything else it takes,
+        fp32 inputs and the small head dims, on the CUDA cores.
+    A failed launch raises; nothing retries on the other kernel or the twin.
 
 Forward only: the training backward (a recompute through ``ref``) comes with
 the training slice.
@@ -25,7 +31,9 @@ from repro_torch.kernels.cuda_build import CudaKernel, check_cuda_tensor
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+SOURCE_SM90 = Path(__file__).parent / "csrc" / "flash_attention_sm90.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c = ctypes.c_int
@@ -33,34 +41,69 @@ KERNEL = CudaKernel(
     "flash_attention", SOURCE, "flash_attention_fwd",
     [ctypes.c_void_p] * 4 + [_c] * 10 + [ctypes.c_float] * 2 + [_c, _c],
 )
+WGMMA_KERNEL = CudaKernel(
+    "flash_attention_wgmma", SOURCE_SM90, "flash_attention_sm90_fwd",
+    [ctypes.c_void_p] * 4 + [_c] * 10 + [ctypes.c_float] * 2 + [_c],
+)
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call with these inputs launches: "wgmma" or "simt"."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _launch(kern, dtypes, head_dims, q, k, v, causal, window, softcap, q_offset,
+            *extra):
+    """Check q, k, v against what ``kern`` takes (raise otherwise), launch it
+    with the common arguments then ``extra``; return the output."""
+    B, S_q, H_q, D = q.shape
+    S_k, H_kv = k.shape[1], k.shape[2]
+    if q.dtype not in dtypes:
+        raise ValueError(f"{kern.name} takes {dtypes}, got {q.dtype}")
+    if D not in head_dims:
+        raise ValueError(f"{kern.name} takes head_dim in {head_dims}, got {D}")
+    if H_kv == 0 or H_q % H_kv:
+        raise ValueError(f"H_q={H_q} not a multiple of H_kv={H_kv}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{kern.name} takes CUDA tensors, got {q.device}")
+    dev = q.device
+    check_cuda_tensor("q", q, q.dtype, (B, S_q, H_q, D), dev)
+    check_cuda_tensor("k", k, q.dtype, (B, S_k, H_kv, D), dev)
+    check_cuda_tensor("v", v, q.dtype, (B, S_k, H_kv, D), dev)
+    out = torch.empty_like(q)
+    kern.launch(
+        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S_q, S_k, H_q, H_kv, D, int(causal),
+        int(window is not None), int(window or 0),
+        int(softcap is not None), float(softcap or 0.0),
+        1.0 / math.sqrt(D), int(q_offset), *extra,
+    )
+    return out
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
                          q_offset: int = 0) -> torch.Tensor:
-    """Launch the kernel on [B, S, H, D] CUDA tensors. Returns [B, S_q, H_q, D]."""
-    B, S_q, H_q, D = q.shape
-    S_k, H_kv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    if H_kv == 0 or H_q % H_kv:
-        raise ValueError(f"H_q={H_q} not a multiple of H_kv={H_kv}")
-    dev = q.device
-    check_cuda_tensor("q", q, q.dtype, (B, S_q, H_q, D), dev)
-    check_cuda_tensor("k", k, q.dtype, (B, S_k, H_kv, D), dev)
-    check_cuda_tensor("v", v, q.dtype, (B, S_k, H_kv, D), dev)
-    out = torch.empty_like(q)
-    KERNEL.launch(
-        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S_q, S_k, H_q, H_kv, D, int(causal),
-        int(window is not None), int(window or 0),
-        int(softcap is not None), float(softcap or 0.0),
-        1.0 / math.sqrt(D), int(q_offset), _DTYPE_CODE[q.dtype],
-    )
-    return out
+    """Launch the CUDA-core kernel on [B, S, H, D] CUDA tensors (fp32 or bf16,
+    any head_dim in ``HEAD_DIMS``). Returns [B, S_q, H_q, D]."""
+    return _launch(KERNEL, tuple(_DTYPE_CODE), HEAD_DIMS, q, k, v, causal, window,
+                   softcap, q_offset, _DTYPE_CODE.get(q.dtype))
+
+
+def flash_attention_wgmma_cuda(q, k, v, *, causal: bool = True,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None,
+                               q_offset: int = 0) -> torch.Tensor:
+    """Launch the tensor-core kernel on [B, S, H, D] bf16 CUDA tensors with
+    head_dim in ``WGMMA_HEAD_DIMS``. Returns [B, S_q, H_q, D]."""
+    return _launch(WGMMA_KERNEL, (torch.bfloat16,), WGMMA_HEAD_DIMS, q, k, v, causal,
+                   window, softcap, q_offset)
+
+
+_LAUNCHERS = {"wgmma": flash_attention_wgmma_cuda, "simt": flash_attention_cuda}
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,5 +120,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
-    return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                softcap=softcap, q_offset=q_offset)
+    launch = _LAUNCHERS[kernel_for(q.dtype, q.shape[-1])]
+    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)

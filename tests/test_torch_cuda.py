@@ -7,9 +7,12 @@ Every test here needs a CUDA card and skips without one. On the card:
 This file imports neither JAX nor the reference (the card's machine has
 neither); the twins are held against the reference on the CPU in
 ``test_torch_kernels.py``. Tolerances: 1e-5 in fp32 (summation order);
-2e-2 in bf16 (one bf16 ulp at |x| < 4); the RG-LRU scan and the WKV6
-state are exact, as they round like their twins (separate fp32 multiply and
-add).
+2e-2 * (1 + |plain|) in bf16 (one bf16 ulp of the output; the flash
+attention tensor-core kernel, which serves bf16 at head_dim 128 and 256,
+also rounds P to bf16 before P V, a relative error of at most 2^-9 on
+each weight of an average, well inside that bound); the RG-LRU scan and
+the WKV6 state are exact, as they round like their twins (separate fp32
+multiply and add).
 """
 
 import pytest
@@ -60,12 +63,93 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, dt):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
+WGMMA_FLASH_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset -- all bf16
+    (2, 200, 200, 16, 1, 256, True, 64, None, 0),     # group 16, ragged, B 2
+    (1, 2500, 2500, 16, 8, 256, True, 2048, 50.0, 0), # group 2, softcap, S % 64 != 0
+    (1, 2500, 2500, 8, 8, 128, True, None, None, 0),  # group 1, head_dim 128
+    (1, 100, 300, 4, 2, 128, True, None, None, 200),  # Sq < Sk at q_offset
+    (1, 100, 300, 4, 1, 256, True, 24, None, 200),    # window below one tile
+    (2, 300, 300, 4, 2, 128, True, 4096, 30.0, 0),    # window above S, softcap
+    (1, 130, 130, 2, 2, 256, False, None, None, 0),   # bidirectional
+    (3, 129, 129, 32, 8, 128, True, None, None, 0),   # mistral-nemo heads, one row past a tile
+    (2, 1, 1, 16, 1, 256, True, 2048, None, 0),       # a one-token prompt
+    (1, 37, 37, 4, 2, 128, True, 8, None, 0),         # fewer keys than one tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_FLASH_CASES)
+def test_flash_wgmma_kernel_matches_plain_on_card(cuda, case):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset = case
+    assert fa_ops.kernel_for(torch.bfloat16, D) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(Sq + D)
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16()
+               for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    before = fa_ops.WGMMA_KERNEL.launches
+    out = fa_ops.attention(q, k, v, **kw)
+    want = fa_ref.mha_reference(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert fa_ops.WGMMA_KERNEL.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(((out.float() - want).abs() <= 2e-2 * (1 + want.abs())).all())
+
+
 @pytest.mark.cuda
 def test_flash_kernel_fully_masked_rows_are_zero(cuda):
     q = torch.randn(1, 32, 2, 64, device=cuda)
     out = fa_ops.attention(q, q, q, causal=False, window=8, q_offset=30)
     dead = torch.arange(32, device=cuda) + 22 >= 31
     assert torch.all(out[:, dead] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_kernel_fully_masked_rows_are_zero(cuda):
+    """Rows at positions 30..69 against keys 0..39 with a window of 8: rows
+    past position 46 see no key and get 0, as from the Pallas kernel."""
+    q = torch.randn(1, 40, 2, 256, device=cuda).bfloat16()
+    out = fa_ops.attention(q, q, q, causal=False, window=8, q_offset=30)
+    want = fa_ref.mha_reference(q, q, q, causal=False, window=8, q_offset=30).float()
+    torch.cuda.synchronize()
+    dead = torch.arange(40, device=cuda) + 30 - 8 >= 39
+    assert dead.any() and not dead.all()
+    assert torch.all(out[:, dead] == 0)
+    live = (out[:, ~dead].float() - want[:, ~dead]).abs()
+    assert bool((live <= 2e-2 * (1 + want[:, ~dead].abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,D,kernel", [
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 256, "simt"),
+    (torch.bfloat16, 64, "simt"),
+])
+def test_flash_call_moves_only_its_kernels_count(cuda, dt, D, kernel):
+    counts = {"wgmma": fa_ops.WGMMA_KERNEL, "simt": fa_ops.KERNEL}
+    before = {name: kern.launches for name, kern in counts.items()}
+    x = torch.randn(1, 70, 4, D, device=cuda).to(dt)
+    fa_ops.attention(x, x, x, window=32)
+    torch.cuda.synchronize()
+    after = {name: kern.launches for name, kern in counts.items()}
+    assert after == {name: n + (name == kernel) for name, n in before.items()}
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_kernel_rejects_non_contiguous_or_misaligned_q(cuda):
+    k = torch.zeros(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16)
+    strided = torch.zeros(1, 2, 64, 256, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.attention(strided, k, k)
+    flat = torch.zeros(k.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(k.shape)   # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.attention(shifted, k, k)
+    before = fa_ops.WGMMA_KERNEL.launches
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention_wgmma_cuda(k.float(), k.float(), k.float())
+    assert fa_ops.WGMMA_KERNEL.launches == before
 
 
 @pytest.mark.cuda

@@ -67,7 +67,9 @@ FLASH_CASES = [
 
 
 FLASH_PARAMS = [(c, np.float32) for c in FLASH_CASES] + [
-    (FLASH_CASES[3], "bfloat16")
+    (FLASH_CASES[3], "bfloat16"),
+    # bf16 at head_dim 128, GQA: what the card's tensor-core kernel takes
+    ((1, 64, 64, 4, 2, 128, True, 32, None, 0), "bfloat16"),
 ]
 
 
@@ -147,15 +149,47 @@ def test_flash_chunked_and_mask_match_reference():
 
 def test_cpu_tensors_never_reach_the_kernels():
     """On the CPU every wrapper takes the plain path without building anything."""
-    kernels = (fa_ops.KERNEL, lru_ops.KERNEL, wkv_ops.KERNEL)
+    kernels = (fa_ops.KERNEL, fa_ops.WGMMA_KERNEL, lru_ops.KERNEL, wkv_ops.KERNEL)
     before = [k.launches for k in kernels]
     x = torch.zeros(1, 8, 2, 16)
     fa_ops.attention(x, x, x)
+    xb = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)   # the wgmma kernel's inputs
+    assert fa_ops.attention(xb, xb, xb).dtype == torch.bfloat16
     a = torch.full((1, 8, 4), 0.5)
     lru_ops.linear_scan(a, a)
     y, s_final = wkv_ops.wkv(x, x, x, x + 0.5, torch.zeros(2, 16))
     assert y.shape == (1, 8, 2, 16) and s_final.shape == (1, 2, 16, 16)
     assert [k.launches for k in kernels] == before
+    assert all(k._fn is None for k in kernels)   # nothing loaded, nothing built
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", fa_ops.HEAD_DIMS)
+def test_flash_kernel_for_routes_by_dtype_and_head_dim(dt, head_dim):
+    """bf16 at head_dim 128 or 256 (every bf16 serving config) goes to the
+    tensor-core kernel; fp32 and the small head dims to the CUDA-core one."""
+    want = "wgmma" if dt == torch.bfloat16 and head_dim in (128, 256) else "simt"
+    assert fa_ops.kernel_for(dt, head_dim) == want
+
+
+@pytest.mark.parametrize("launcher,dt,shape_q,shape_kv,match", [
+    ("wgmma", torch.float32, (1, 8, 2, 256), (1, 8, 2, 256), "takes"),
+    ("wgmma", torch.bfloat16, (1, 8, 2, 64), (1, 8, 2, 64), "head_dim"),
+    ("wgmma", torch.bfloat16, (1, 8, 3, 128), (1, 8, 2, 128), "multiple"),
+    ("wgmma", torch.bfloat16, (1, 8, 2, 256), (1, 8, 1, 256), "CUDA tensors"),
+    ("simt", torch.float16, (1, 8, 2, 64), (1, 8, 2, 64), "takes"),
+    ("simt", torch.float32, (1, 8, 2, 48), (1, 8, 2, 48), "head_dim"),
+])
+def test_flash_launchers_refuse_what_their_kernel_does_not_take(
+        launcher, dt, shape_q, shape_kv, match):
+    """Each launcher checks its inputs before any build or launch."""
+    fn = {"wgmma": fa_ops.flash_attention_wgmma_cuda,
+          "simt": fa_ops.flash_attention_cuda}[launcher]
+    q = torch.zeros(shape_q, dtype=dt)
+    kv = torch.zeros(shape_kv, dtype=dt)
+    with pytest.raises(ValueError, match=match):
+        fn(q, kv, kv)
+    assert fa_ops.WGMMA_KERNEL.launches == 0 and fa_ops.KERNEL.launches == 0
 
 
 # ---------------------------------------------------------------------------
