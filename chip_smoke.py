@@ -8,13 +8,17 @@ calls, and fails (exit code not 0, no result line) on any miss:
 
   1. gpu      the card's name and power limit, as nvidia-smi gives them;
   2. build    every CUDA kernel from ``csrc/``, one nvcc each, in parallel,
-              with ptxas's registers and spills and the tensor-core flash
-              kernel's shared memory;
+              with ptxas's registers and spills, the tensor-core flash
+              kernel's shared memory, and the ring depth and shared memory
+              of the WKV6 kernel and the RG-LRU scan's ring path;
   3. kernels  each kernel at the serving shapes against its plain PyTorch
               twin on the same inputs, with its stated tolerance, and its
               time beside the twin's, a library call's and its bound; the
               tensor-core flash kernel also beside the CUDA-core one on the
-              same bf16 inputs;
+              same bf16 inputs; the RG-LRU scan's path (TMA ring or simple)
+              for each case, as the wrapper picks it; the WKV6 decode step
+              also as a CUDA graph of 20 steps (its device time without the
+              wrapper's host time);
   4. serve    ``repro_torch.launch.serve.main`` on recurrentgemma-9b at full
               width (38 layers, bf16, random seeded weights): 4 requests with
               prompts of 2304-2560 tokens, longer than the 2048 window, 16
@@ -92,6 +96,18 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, steps=20, replays=10):
+    """Device ms per call of fn, as the replay of a CUDA graph of ``steps``
+    calls (the host's launch time left out)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(steps):
+            fn()
+    return cuda_ms(graph.replay, iters=replays) / steps
 
 
 def bound(n_bytes, n_ops, dtype):
@@ -194,7 +210,7 @@ def rglru_case(name, B, T, C, with_h0, dtype, timed):
     err = max(float((h.float() - want.float()).abs().max()),
               float((h_final.float() - want_final.to(dtype).float()).abs().max()))
     rec = {"case": name, "shape": [B, T, C], "dtype": str(dtype)[6:], "h0": with_h0,
-           "max_abs_err": err, "tol": 0.0}
+           "route": lru_ops.route_for(dtype, C), "max_abs_err": err, "tol": 0.0}
     print("kernel_check rglru_scan", json.dumps(rec), flush=True)
     need(err == 0.0, f"rglru {name}: max abs err {err} != 0")
     if not timed:
@@ -240,6 +256,9 @@ def wkv6_case(name, B, T, H, with_s0, dtype, timed):
     if not timed:
         return rec
     rec["ms"] = cuda_ms(lambda: wkv_ops.wkv(r, k, v, w, u, s0), iters=20)
+    if with_s0:  # a decode step: also its device time, the cache updated in place
+        state = s0.clone()
+        rec["graph_ms"] = graph_ms(lambda: wkv_ops.wkv(r, k, v, w, u, state, out=state))
     rec["plain_ms"] = cuda_ms(lambda: wkv_ref.wkv6_reference(r, k, v, w, u, s0), iters=2)
     rec["library_ms"] = None  # no single PyTorch call computes this recurrence
     # 5 fp32 operations per state element per step on the CUDA cores: r*S into
@@ -247,7 +266,12 @@ def wkv6_case(name, B, T, H, with_s0, dtype, timed):
     # O(K + V) per step, nothing per state element
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(r, k, v, w, u, s0, y, s_final),
                                              5 * B * T * H * 64 * 64, torch.float32)
-    print("kernel_time wkv6", json.dumps(rec), flush=True)
+    # an exact state update issues 4 fp32 instructions per element per step
+    # (y's multiply-add; w*S, k*v and their sum); the fp32 rate counts a
+    # multiply-add as 2 operations, so lanes issue at half of it. A derived
+    # floor, printed here and kept out of the kernel's record.
+    floor_ms = 4 * B * T * H * 64 * 64 / (PEAK_OPS_PER_S[torch.float32] / 2) * 1e3
+    print("kernel_time wkv6", json.dumps({**rec, "instruction_floor_ms": floor_ms}), flush=True)
     return rec
 
 
@@ -273,11 +297,26 @@ def kernel_phase():
     lru_checks = [
         rglru_case("fp32 with h0, ragged", 3, 1001, 4000, True, torch.float32, timed=False),
         rglru_case("bf16 with h0", 2, 517, 4096, True, torch.bfloat16, timed=False),
+        rglru_case("bf16, one step past a full ring", 3, 193, 4000, True, torch.bfloat16,
+                   timed=False),
+        rglru_case("bf16, T inside one stage", 1, 5, 4096, False, torch.bfloat16,
+                   timed=False),
+        rglru_case("bf16, unaligned C: simple path", 1, 37, 100, True, torch.bfloat16,
+                   timed=False),
     ]
+    need(lru["route"] == "ring" and [c["route"] for c in lru_checks]
+         == ["ring"] * 4 + ["simple"], "rglru cases took the wrong path")
     wkv = wkv6_case("rwkv6-7b prefill", 4, 2560, 64, False, torch.bfloat16, timed=True)
     wkv_checks = [
         wkv6_case("fp32 with s0, ragged", 3, 1001, 8, True, torch.float32, timed=False),
         wkv6_case("rwkv6-7b decode step", 4, 1, 64, True, torch.bfloat16, timed=True),
+        wkv6_case("bf16, T 1, no state", 2, 1, 64, False, torch.bfloat16, timed=False),
+        wkv6_case("bf16 with s0, one step past a chunk", 2, 17, 64, True, torch.bfloat16,
+                  timed=False),
+        wkv6_case("bf16 with s0, one step past the ring", 2, 49, 64, True,
+                  torch.bfloat16, timed=False),
+        wkv6_case("bf16, B*H 2 below the SM count", 1, 300, 2, False, torch.bfloat16,
+                  timed=False),
     ]
     return (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks)
 
@@ -445,17 +484,48 @@ def kernel_record(name, route, source, replaces, launches, main, checks, **extra
             "checks": [main] + checks}
 
 
+def function_name(mangled):
+    """The function's own name in a mangled _ZN<len><namespace><len><name>..."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return ""
+    rest = mangled[m.end() + int(m.group(1)):]
+    n = re.match(r"(\d+)", rest)
+    return rest[n.end():n.end() + int(n.group(1))] if n else ""
+
+
 def print_ptxas(kern):
     """Registers, spills and ptxas warnings of each entry function built."""
     entry = ""
     for line in kern.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:  # the template arguments of the mangled name: type, head_dim
-            d = re.search(r"Li(\d+)E", m.group(1))
-            dtype = "bf16" if "bfloat16" in m.group(1) else "fp32" if "IfLi" in m.group(1) else ""
-            entry = " ".join(filter(None, [dtype, d and f"head_dim {d.group(1)}"]))
+        if m:  # the function's name and template arguments: type, head_dim
+            name = m.group(1)
+            fn = function_name(name)
+            d = re.search(r"Li(\d+)E", name)
+            dtype = "bf16" if "bfloat16" in name else "fp32" if re.search(r"If(Li|E)", name) else ""
+            entry = " ".join(filter(None, [fn, dtype, d and f"head_dim {d.group(1)}"]))
         elif "registers" in line or "spill" in line or "C75" in line:
             print(f"ptxas {kern.name} [{entry}]: {line.strip()}", flush=True)
+
+
+def print_rings():
+    """The ring depth and shared memory per block of the WKV6 kernel and of
+    the RG-LRU scan's ring path, from their libraries."""
+    lib = ctypes.CDLL(str(wkv_ops.KERNEL.library))
+    d = (ctypes.c_int * 6)()
+    lib.wkv6_design(d)
+    print(f"wkv6: {d[4]} chunks of {d[3]} steps in the ring; {d[0]} columns a block, "
+          f"{d[1]} threads sharing each group of {d[2]} columns, {d[5]} threads a block; "
+          f"dynamic shared memory per block "
+          f"bf16 {lib.wkv6_smem_bytes(1)} bytes, fp32 {lib.wkv6_smem_bytes(0)} bytes",
+          flush=True)
+    lib = ctypes.CDLL(str(lru_ops.KERNEL.library))
+    d = (ctypes.c_int * 3)()
+    lib.rglru_scan_design(d)
+    print(f"rglru_scan ring path: {d[2]} stages of {d[1]} steps x {d[0]} channels; "
+          f"dynamic shared memory per block bf16 {lib.rglru_scan_smem_bytes(1)} bytes, "
+          f"fp32 {lib.rglru_scan_smem_bytes(0)} bytes", flush=True)
 
 
 def main():
@@ -478,6 +548,7 @@ def main():
     smem = ctypes.CDLL(str(fa_ops.WGMMA_KERNEL.library)).flash_attention_sm90_smem_bytes
     print("flash_attention_wgmma dynamic shared memory per block: " + ", ".join(
         f"head_dim {d} {smem(d)} bytes" for d in fa_ops.WGMMA_HEAD_DIMS), flush=True)
+    print_rings()
 
     (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
     serve = recurrentgemma_serve_phase()
@@ -507,10 +578,11 @@ def main():
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
-                      serve["launches"]["rglru_scan"], lru, lru_checks),
+                      serve["launches"]["rglru_scan"], lru, lru_checks, path=lru["route"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv6/rwkv6.py:67",
-                      rwkv6["launches"]["wkv6"], wkv, wkv_checks),
+                      rwkv6["launches"]["wkv6"], wkv, wkv_checks,
+                      decode_step_graph_ms=wkv_checks[1]["graph_ms"]),
     ]
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,

@@ -23,8 +23,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
+from chip_smoke import cuda_ms  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels.cuda_build import CudaKernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
@@ -72,18 +74,6 @@ def run_with(kernel, *args, **kw):
         fa_ops.WGMMA_KERNEL = shipped
 
 
-def cuda_ms(fn, iters=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
@@ -113,7 +103,7 @@ def main():
             pair = {}
             for who in ("shipped", name, name, "shipped"):
                 pair.setdefault(who, []).append(
-                    cuda_ms(lambda: run_with(kernels[who], q, k, v, **kw)))
+                    cuda_ms(lambda: run_with(kernels[who], q, k, v, **kw), iters=20))
             rec["ms"][name] = pair
         print(json.dumps(rec), flush=True)
         lines.append(rec)

@@ -5,25 +5,50 @@
 //   h_t = a_t * h_{t-1} + b_t over [B, T, C], an fp32 carry, optional h0 [B, C],
 //   returning h [B, T, C] and h_final [B, C], both in the input dtype.
 //
-// Bound on this card: two multiply-adds' worth of work per element against
-// reading a and b and writing h once, so the bound is the bytes
-// (3 * B*T*C * sizeof(T) over 3.35 TB/s).
+// Bound on this card: two operations per element against reading a and b and
+// writing h once, so the bound is the bytes (3 * B*T*C * sizeof(T) over
+// 3.35 TB/s). Reaching it takes about 3 MB of loads in flight across the card
+// (3.35 TB/s times a memory round trip of about 1 us).
 //
-// What this design does about it: one thread per (b, c) channel walks t with
-// the carry in a register; neighbouring threads hold neighbouring channels, so
-// every load and store of a warp is one contiguous row segment. The time loop
-// is unrolled by 16 with all loads of a chunk issued before its arithmetic,
-// which keeps 32 loads per thread in flight to cover memory latency with only
-// B*C threads. The carry update is a separate multiply and add (no fused
-// multiply-add), rounding exactly as the plain PyTorch version does.
+// What this design does about it (the ring path):
+//   * One thread per (b, c) channel still walks t with the carry in a
+//     register: a separate fp32 multiply and add (no fused multiply-add),
+//     rounding exactly as the plain PyTorch loop does, so h is bit-identical.
+//   * A block holds CT neighbouring channels of one batch row. Its thread 0
+//     issues TMA loads through 3-D tensor maps over (C, T, B) -- the [B, T, C]
+//     tensors read in place, zero-filled past T and C -- of [TS steps x CT
+//     channels] boxes of a and b into a ring of NST stages in shared memory,
+//     one mbarrier a stage, and refills a stage as soon as the block is done
+//     with it. At the serving shape (B 4, C 4096, bf16) that is 256 blocks
+//     with up to NST - 1 = 5 stages of 8 KB each in flight, about 10 MB.
+//   * The channel threads read a_t and b_t from the ring (a warp reads one
+//     contiguous 64-byte row) and write h into one of two shared-memory
+//     stages, which thread 0 drains by TMA stores (clipped at T and C).
+//   * A row stride that is not a multiple of 16 bytes (bf16 with C % 8 != 0)
+//     cannot be mapped by TMA; such a C takes the simple path below, one
+//     thread per channel loading its own chunks of 16 steps into registers.
+//     The caller picks the path (ops.route_for) and passes it to
+//     rglru_scan_fwd.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int UNROLL = 16;
+constexpr int CT = 64;        // channels (threads) a block, ring path
+constexpr int TS = 32;        // steps a ring stage
+constexpr int NST = 6;        // ring stages
+constexpr int THREADS = 64;   // simple path
+constexpr int UNROLL = 16;    // simple path: steps loaded before their arithmetic
+
+static_assert(CT % 32 == 0 && CT <= 256 && TS <= 256 && NST >= 2, "ring shape");
+
+template <typename T> constexpr size_t smem_bytes() {
+  // 128 for aligning the tiles, the a and b ring, two h stages, the barriers
+  return 128 + (size_t)(2 * NST + 2) * TS * CT * sizeof(T) + 8 * NST;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -34,8 +59,121 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wait that has not ended after ~2^34 cycles (seconds) traps, so a broken
+// pipeline ends in a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS) rglru_scan_kernel(
+__global__ void __launch_bounds__(CT) rglru_scan_kernel_ring(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+    const __grid_constant__ CUtensorMap tm_h, const T* __restrict__ h0,
+    T* __restrict__ h_final, int T_len, int C) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int TILE = TS * CT;  // elements of one box
+  constexpr uint32_t TILE_BYTES = TILE * sizeof(T);
+  T* a_s = reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  T* b_s = a_s + NST * TILE;  // [NST][TS][CT] each
+  T* h_s = b_s + NST * TILE;  // [2][TS][CT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + 2 * TILE);
+
+  const int tid = threadIdx.x, c0 = blockIdx.x * CT, bi = blockIdx.y, c = c0 + tid;
+  const int n_chunks = (T_len + TS - 1) / TS;
+  auto load = [&](int chunk, int st) {
+    const uint32_t bar = smem_u32(full + st);
+    mbar_expect_tx(bar, 2 * TILE_BYTES);
+    tma_load_3d(smem_u32(a_s + st * TILE), &tm_a, bar, c0, chunk * TS, bi);
+    tma_load_3d(smem_u32(b_s + st * TILE), &tm_b, bar, c0, chunk * TS, bi);
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < NST; ++st) mbar_init(smem_u32(full + st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < min(NST, n_chunks); ++st) load(st, st);
+  }
+  float carry = h0 != nullptr && c < C ? to_f32(h0[(long)bi * C + c]) : 0.f;
+  __syncthreads();
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int st = ch % NST;
+    mbar_wait(smem_u32(full + st), (ch / NST) & 1);
+    const T* as = a_s + st * TILE + tid;
+    const T* bs = b_s + st * TILE + tid;
+    T* hs = h_s + (ch & 1) * TILE + tid;
+    const int n = min(TS, T_len - ch * TS);
+    if (n == TS) {
+#pragma unroll
+      for (int i = 0; i < TS; ++i) {
+        carry = __fadd_rn(__fmul_rn(to_f32(as[i * CT]), carry), to_f32(bs[i * CT]));
+        hs[i * CT] = from_f32<T>(carry);
+      }
+    } else {
+      for (int i = 0; i < n; ++i) {
+        carry = __fadd_rn(__fmul_rn(to_f32(as[i * CT]), carry), to_f32(bs[i * CT]));
+        hs[i * CT] = from_f32<T>(carry);
+      }
+    }
+    // the store of chunk ch - 1 has read its h stage, which chunk ch + 1 reuses
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // h_s to the TMA unit
+    __syncthreads();  // every thread is done with stage st and has written its h
+    if (tid == 0) {
+      tma_store_3d(&tm_h, smem_u32(h_s + (ch & 1) * TILE), c0, ch * TS, bi);
+      if (ch + NST < n_chunks) load(ch + NST, st);
+    }
+  }
+  if (c < C) h_final[(long)bi * C + c] = from_f32<T>(carry);
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) rglru_scan_kernel_simple(
     const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ h0,
     T* __restrict__ h, T* __restrict__ h_final, int T_len, int C) {
   const int c = blockIdx.x * THREADS + threadIdx.x;
@@ -66,11 +204,70 @@ __global__ void __launch_bounds__(THREADS) rglru_scan_kernel(
   h_final[(long)bi * C + c] = from_f32<T>(carry);
 }
 
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function: fetch it through the runtime,
+// so the library needs no link against libcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A [B, T, C] tensor as a 3-D map over (C, T, B), boxes of CT channels x TS
+// steps of one batch row, no swizzle, zero fill past the edges.
+template <typename T>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T_len, int C) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)T_len * C * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)CT, (cuuint32_t)TS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* b, const void* h0, void* h, void* h_final,
-                   int B, int T_len, int C, cudaStream_t stream) {
+                   int B, int T_len, int C, int ring, cudaStream_t stream) {
+  if (ring) {
+    if ((long)C * sizeof(T) % 16 != 0) return cudaErrorInvalidValue;  // TMA cannot map it
+    CUtensorMap ta, tb, th;
+    if (!make_map<T>(&ta, a, B, T_len, C) || !make_map<T>(&tb, b, B, T_len, C) ||
+        !make_map<T>(&th, h, B, T_len, C))
+      return cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(rglru_scan_kernel_ring<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem_bytes<T>());
+    if (e != cudaSuccess) return e;
+    const dim3 grid((C + CT - 1) / CT, B);
+    rglru_scan_kernel_ring<T><<<grid, CT, smem_bytes<T>(), stream>>>(
+        ta, tb, th, static_cast<const T*>(h0), static_cast<T*>(h_final), T_len, C);
+    return cudaGetLastError();
+  }
   const dim3 grid((C + THREADS - 1) / THREADS, B);
-  rglru_scan_kernel<T><<<grid, THREADS, 0, stream>>>(
+  rglru_scan_kernel_simple<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(h0),
       static_cast<T*>(h), static_cast<T*>(h_final), T_len, C);
   return cudaGetLastError();
@@ -81,14 +278,29 @@ cudaError_t launch(const void* a, const void* b, const void* h0, void* h, void* 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. h0 may be null (zero initial state).
-// Returns the cudaError_t after the launch.
+// ring: 1 the TMA ring path (a row of C elements must be a multiple of 16
+// bytes), 0 the simple path. Returns the cudaError_t after the launch.
 int rglru_scan_fwd(const void* a, const void* b, const void* h0, void* h, void* h_final,
-                   int B, int T_len, int C, int dtype, void* stream) {
-  if (B <= 0 || T_len <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                   int B, int T_len, int C, int dtype, int ring, void* stream) {
+  if (B <= 0 || T_len <= 0 || C <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(a, b, h0, h, h_final, B, T_len, C, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(a, b, h0, h, h_final, B, T_len, C, s);
+  if (dtype == 0) return (int)launch<float>(a, b, h0, h, h_final, B, T_len, C, ring, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(a, b, h0, h, h_final, B, T_len, C, ring, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The ring's constants: [channels a block, steps a stage, stages].
+void rglru_scan_design(int* out) {
+  out[0] = CT;
+  out[1] = TS;
+  out[2] = NST;
+}
+
+// Dynamic shared memory a ring block takes (dtype as above; 0 otherwise).
+int rglru_scan_smem_bytes(int dtype) {
+  return dtype == 0 ? (int)smem_bytes<float>()
+                    : dtype == 1 ? (int)smem_bytes<__nv_bfloat16>() : 0;
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -155,7 +155,14 @@ def test_flash_wgmma_kernel_rejects_non_contiguous_or_misaligned_q(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,T,C", [(2, 64, 128), (1, 37, 100), (4, 300, 4096)])
+@pytest.mark.parametrize("B,T,C", [
+    (2, 64, 128),
+    (1, 37, 100),     # bf16: a row of 200 bytes, the simple path
+    (4, 300, 4096),   # the serving width, T across the ring and past it
+    (3, 193, 4000),   # one step past a full ring of 6 x 32, a part tile of channels
+    (1, 5, 4096),     # T inside one ring stage
+    (2, 33, 4096),    # one step past a stage
+])
 def test_rglru_kernel_matches_plain_on_card(cuda, B, T, C, with_h0, dt):
     g = torch.Generator(device=cuda).manual_seed(T)
     a = (0.7 + 0.299 * torch.rand(B, T, C, generator=g, device=cuda)).to(dt)
@@ -168,6 +175,17 @@ def test_rglru_kernel_matches_plain_on_card(cuda, B, T, C, with_h0, dt):
     torch.testing.assert_close(h, want, atol=0, rtol=0)
     assert h_final.dtype == dt
     torch.testing.assert_close(h_final, want_final.to(dt), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_rglru_ring_path_refuses_a_row_tma_cannot_map(cuda):
+    """bf16 C = 100 is a 200-byte row: asked for the ring path, the kernel
+    refuses the launch instead of misreading it."""
+    a = torch.full((1, 8, 100), 0.5, dtype=torch.bfloat16, device=cuda)
+    h, h_final = torch.empty_like(a), torch.empty((1, 100), dtype=a.dtype, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lru_ops.KERNEL.launch(cuda, a.data_ptr(), a.data_ptr(), None, h.data_ptr(),
+                              h_final.data_ptr(), 1, 8, 100, 1, 1)
 
 
 def _wkv_inputs(device, B, T, H, dt, with_s0, seed):
@@ -187,7 +205,13 @@ def _wkv_inputs(device, B, T, H, dt, with_s0, seed):
     (4, 1, 64),     # a decode step at full width
     (3, 37, 8),     # ragged: T is not a multiple of the staged chunk
     (2, 16, 2),     # exactly one chunk
-    (4, 300, 64),   # B * H = 256 blocks, about two per SM
+    (2, 15, 4),     # one step short of a chunk
+    (2, 17, 4),     # one step past a chunk
+    (1, 48, 2),     # one whole ring of 3 chunks, B * H far below the SM count
+    (1, 49, 1),     # one step past the ring, one head
+    (1, 64, 2),     # four chunks: the ring wraps
+    (1, 65, 1),     # one step past four chunks
+    (4, 300, 64),   # the serving width: 256 blocks, about two per SM
 ])
 def test_wkv6_kernel_matches_plain_on_card(cuda, B, T, H, with_s0, dt):
     r, k, v, w, u, s0 = _wkv_inputs(cuda, B, T, H, dt, with_s0, seed=T + H)

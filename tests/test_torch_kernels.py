@@ -23,6 +23,7 @@ import torch
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.rglru import ops as jlru_ops
 from repro.kernels.rwkv6 import ops as jwkv_ops
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
@@ -170,6 +171,27 @@ def test_flash_kernel_for_routes_by_dtype_and_head_dim(dt, head_dim):
     tensor-core kernel; fp32 and the small head dims to the CUDA-core one."""
     want = "wgmma" if dt == torch.bfloat16 and head_dim in (128, 256) else "simt"
     assert fa_ops.kernel_for(dt, head_dim) == want
+
+
+@pytest.mark.parametrize("dt,C,want", [
+    (torch.bfloat16, 4096, "ring"),     # recurrentgemma-9b's lru_width
+    (torch.float32, 4096, "ring"),
+    (torch.bfloat16, 4000, "ring"),
+    (torch.bfloat16, 100, "simple"),    # a row of 200 bytes: TMA cannot map it
+    (torch.float32, 100, "ring"),
+    (torch.bfloat16, 8, "ring"),
+])
+def test_rglru_route_for_routes_by_row_bytes(dt, C, want):
+    """A row that is a multiple of 16 bytes is fed by the TMA ring; any other
+    C takes the simple path of the same kernel source, never the twin."""
+    assert lru_ops.route_for(dt, C) == want
+
+
+def test_rglru_route_for_serving_width_is_the_ring():
+    cfg = get_config("recurrentgemma-9b")
+    assert lru_ops.route_for(torch.bfloat16, cfg.rnn_width) == "ring"
+    with pytest.raises(ValueError):
+        lru_ops.route_for(torch.float16, 4096)
 
 
 @pytest.mark.parametrize("launcher,dt,shape_q,shape_kv,match", [
