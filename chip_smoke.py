@@ -16,9 +16,11 @@ calls, and fails (exit code not 0, no result line) on any miss:
               time beside the twin's, a library call's and its bound; the
               tensor-core flash kernel also beside the CUDA-core one on the
               same bf16 inputs; the RG-LRU scan's path (TMA ring or simple)
-              for each case, as the wrapper picks it; the WKV6 decode step
-              also as a CUDA graph of 20 steps (its device time without the
-              wrapper's host time);
+              for each case, as the wrapper picks it, and the scan with a
+              bf16 a and an fp32 b (the training backward's call) at the
+              training shape, timed; the WKV6 decode step also as a CUDA
+              graph of 20 steps (its device time without the wrapper's host
+              time);
   4. serve    ``repro_torch.launch.serve.main`` on recurrentgemma-9b at full
               width (38 layers, bf16, random seeded weights): 4 requests with
               prompts of 2304-2560 tokens, longer than the 2048 window, 16
@@ -36,7 +38,21 @@ calls, and fails (exit code not 0, no result line) on any miss:
               must run 32 times in the prefill and 32 times in each of the
               16 decode steps (544);
   8. check    rwkv6-7b at full width, depth cut to 2 layers, in fp32, card
-              against CPU as in phase 5.
+              against CPU as in phase 5;
+  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
+              to one (rglru, rglru, attn_local) group: bf16 compute over fp32
+              masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
+              steps and one more with grad_accum=2; exactly 2 tensor-core
+              flash and 6 RG-LRU launches a step (twice that with
+              grad_accum=2); prints the step time (CUDA events, median after
+              the first), tokens/s, peak memory and model FLOPs against the
+              card's dense bf16 peak;
+ 10. check    the loss and every parameter's gradient in fp32 on the card
+              against the CPU: recurrentgemma-9b (3 layers, B 1 x S 2176,
+              the CUDA-core flash kernel and the scan) and rwkv6-7b (2
+              layers, B 1 x T 256, the chunked WKV twin: no wkv6 launch);
+ 11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
+              finite losses, the last logged below the first.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -59,14 +75,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import KERNELS, cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref  # noqa: E402
-from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import serve as launch_serve, train_lm  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.train_loop import TrainRunConfig, train_loop  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -197,11 +216,14 @@ def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
     return rec
 
 
-def rglru_case(name, B, T, C, with_h0, dtype, timed):
+def rglru_case(name, B, T, C, with_h0, dtype, timed, dtype_b=None):
+    """``dtype_b``: b's dtype when it is not a's (the training backward's
+    bf16 a with fp32 b); h and h0 are in a's dtype."""
     dev = torch.device("cuda")
+    dtype_b = dtype if dtype_b is None else dtype_b
     g = torch.Generator(device=dev).manual_seed(T + C)
     a = (0.7 + 0.299 * torch.rand(B, T, C, generator=g, device=dev)).to(dtype)
-    b = (0.1 * torch.randn(B, T, C, generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn(B, T, C, generator=g, device=dev)).to(dtype_b)
     h0 = (0.1 * torch.randn(B, C, generator=g, device=dev)).to(dtype) if with_h0 else None
     h, h_final = lru_ops.linear_scan(a, b, h0)
     want, want_final = lru_ref.linear_scan_reference(a, b, h0)
@@ -209,8 +231,9 @@ def rglru_case(name, B, T, C, with_h0, dtype, timed):
     # same roundings as the plain loop (separate multiply and add): exact
     err = max(float((h.float() - want.float()).abs().max()),
               float((h_final.float() - want_final.to(dtype).float()).abs().max()))
-    rec = {"case": name, "shape": [B, T, C], "dtype": str(dtype)[6:], "h0": with_h0,
-           "route": lru_ops.route_for(dtype, C), "max_abs_err": err, "tol": 0.0}
+    rec = {"case": name, "shape": [B, T, C], "dtype": str(dtype)[6:],
+           "dtype_b": str(dtype_b)[6:], "h0": with_h0,
+           "route": lru_ops.route_for(dtype, C, dtype_b), "max_abs_err": err, "tol": 0.0}
     print("kernel_check rglru_scan", json.dumps(rec), flush=True)
     need(err == 0.0, f"rglru {name}: max abs err {err} != 0")
     if not timed:
@@ -303,9 +326,14 @@ def kernel_phase():
                    timed=False),
         rglru_case("bf16, unaligned C: simple path", 1, 37, 100, True, torch.bfloat16,
                    timed=False),
+        # the training backward's call: bf16 decay, fp32 upstream gradient
+        rglru_case("bf16 a, fp32 b: recurrentgemma-9b training backward", 2, 2560, 4096,
+                   False, torch.bfloat16, timed=True, dtype_b=torch.float32),
+        rglru_case("bf16 a, fp32 b, with h0, unaligned C: simple path", 1, 37, 100, True,
+                   torch.bfloat16, timed=False, dtype_b=torch.float32),
     ]
     need(lru["route"] == "ring" and [c["route"] for c in lru_checks]
-         == ["ring"] * 4 + ["simple"], "rglru cases took the wrong path")
+         == ["ring"] * 4 + ["simple", "ring", "simple"], "rglru cases took the wrong path")
     wkv = wkv6_case("rwkv6-7b prefill", 4, 2560, 64, False, torch.bfloat16, timed=True)
     wkv_checks = [
         wkv6_case("fp32 with s0, ragged", 3, 1001, 8, True, torch.float32, timed=False),
@@ -476,6 +504,176 @@ def gemma2_phase():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-11: training
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 2560
+
+
+def timed_batches(batches, events):
+    """Yield ``batches``, recording a CUDA event on the stream as each is
+    taken: the events bracket each step the loop runs."""
+    for batch in batches:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        yield batch
+
+
+def train_phase():
+    """recurrentgemma-9b at full width, depth cut to one pattern group of 3
+    layers: 4 steps of ``train_loop`` (bf16 compute over fp32 masters, remat
+    "nothing") and one more with grad_accum=2, B 2 x S 2560."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+    need(cfg.n_groups_and_tail() == (1, 0), "train: one pattern group, no tail")
+    model = build_model(cfg)
+    lm = model.init(SEED, torch.float32)
+    n_params = sum(p.numel() for p in lm.parameters())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED))
+    batches = [data.batch(i) for i in range(5)]  # set-up, not timed
+    before = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1), total_steps=5,
+                         warmup_steps=1, remat_policy="nothing",
+                         compute_dtype=torch.bfloat16)
+    events = []
+    reset_counts()
+    lm, state, hist = train_loop(model, lm, timed_batches(batches[:4], events), run,
+                                 log_every=1)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    launches = counts()
+    # per step: the flash forward, again in the group's recompute (its backward
+    # recomputes plainly); the scan forward, recompute and backward, 2 layers
+    need(launches == launch_counts(flash_wgmma=4 * 2, rglru=4 * 6),
+         f"train launches {launches}")
+    events.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    accum_events = []
+    reset_counts()
+    lm, state, accum_hist = train_loop(
+        model, lm, timed_batches(batches[4:], accum_events),
+        dataclasses.replace(run, grad_accum=2), log_every=1, opt_state=state, start_step=4)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    accum_launches = counts()
+    need(accum_launches == launch_counts(flash_wgmma=2 * 2, rglru=2 * 6),
+         f"train grad_accum=2 launches {accum_launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist + accum_hist]
+    need(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    need(state.step == 5, f"train: optimizer step {state.step}, expected 5")
+    unmoved = [n for n, p in lm.named_parameters() if torch.equal(p.detach().cpu(), before[n])]
+    need(not unmoved, f"train: parameters that did not move: {unmoved}")
+    median_ms = float(np.median(step_ms[1:]))
+    # model FLOPs of a step: 6 N per token for the matrix products (the tied
+    # embedding counted once, as the head's product), and the attention
+    # layer's QK^T and PV, 4 D Hq per visible (query, key) pair forward and
+    # twice that backward; remat's recompute is not model work
+    pairs = visible_pairs(TRAIN_S, True, cfg.window)
+    n_attn = 1
+    dense = 6 * n_params * TRAIN_B * TRAIN_S
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * TRAIN_B * n_attn
+    flops = dense + attn
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "compute_dtype": "bfloat16", "master_dtype": "float32",
+           "remat_policy": run.remat_policy, "batch": TRAIN_B, "seq": TRAIN_S,
+           "losses": losses, "opt_step": state.step, "step_ms": step_ms,
+           "step_ms_median_after_first": median_ms,
+           "grad_accum2_step_ms": accum_events[0].elapsed_time(end),
+           "tok_per_s": TRAIN_B * TRAIN_S / (median_ms * 1e-3),
+           "peak_mem_gib": peak, "launches_per_4_steps": launches,
+           "launches_grad_accum2_step": accum_launches,
+           "model_flops_per_step": flops,
+           "model_flops_count": f"6 * {n_params} params * {TRAIN_B * TRAIN_S} tokens + "
+                                f"12 * D {cfg.head_dim} * Hq {cfg.n_heads} * {pairs} pairs "
+                                f"* B {TRAIN_B} * {n_attn} attention layer",
+           "model_flops_share_of_bf16_peak":
+               flops / (median_ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16]}
+    print("train", json.dumps(rec), flush=True)
+    return rec
+
+
+def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
+    """Full width, depth cut to ``n_layers``, fp32 (TF32 off): the loss and
+    every parameter's gradient on the card (kernels) against the same
+    weights and batch on the CPU (plain twins). No remat: the CPU tests hold
+    every remat policy to the gradients of none."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=SEED)).batch(0)
+
+    def loss_and_grads(lm, dev):
+        lm.requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = lm_loss(lm, tb, remat_policy=None)
+        names, params = zip(*lm.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+    # WKV's training route: the chunked twin, called once a layer (counted by
+    # wrapping it for the card's run)
+    chunked, calls = wkv_ref.wkv6_chunked, []
+    wkv_ref.wkv6_chunked = lambda *a, **kw: calls.append(1) or chunked(*a, **kw)
+    reset_counts()
+    try:
+        loss, grads = loss_and_grads(lm, torch.device("cuda"))
+        torch.cuda.synchronize()
+    finally:
+        wkv_ref.wkv6_chunked = chunked
+    launches = counts()
+    need(launches == expect, f"{arch} train check launches {launches}, expected {expect}")
+    n_rwkv = sum(layer.mixer == "rwkv" for layer in lm.layers)
+    need(len(calls) == n_rwkv, f"{arch}: {len(calls)} chunked WKV calls, expected {n_rwkv}")
+    cpu_lm = LM(cfg, torch.device("cpu"), torch.float32)
+    cpu_lm.load_state_dict(lm.state_dict())
+    del lm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(cpu_lm, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    rel = {n: float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for n, g in cpu_grads.items()}
+    worst = max(rel, key=rel.get)
+    rec = {"arch": cfg.name, "layers": n_layers, "dtype": "float32", "batch": B, "seq": S,
+           "loss": loss, "cpu_loss": cpu_loss, "loss_abs_err": abs(loss - cpu_loss),
+           "loss_tol": loss_tol, "worst_leaf": worst, "worst_leaf_rel_err": rel[worst],
+           "grad_tol": f"{grad_tol} * max|g| per leaf", "leaves": len(rel),
+           "launches": launches, "wkv6_chunked_calls": len(calls), "cpu_s": cpu_s}
+    print("train_check", json.dumps(rec), flush=True)
+    need(np.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+         f"{arch} train check: non-finite loss or gradient")
+    need(abs(loss - cpu_loss) <= loss_tol, f"{arch}: card vs CPU loss {loss} vs {cpu_loss}")
+    need(rel[worst] <= grad_tol, f"{arch}: gradient of {worst} off by {rel[worst]}")
+    return rec
+
+
+def train_lm_phase():
+    """``python -m repro_torch.launch.train_lm --steps 60``: nemo-100m in
+    fp32 (head_dim 64: the CUDA-core flash kernel), 8 layers each its own
+    remat group, so 2 flash launches a layer a step."""
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    reset_counts()
+    res = train_lm.main(["--steps", "60", "--ckpt-dir", str(ckpt)])
+    torch.cuda.synchronize()
+    launches = counts()
+    need(launches == launch_counts(flash=60 * 8 * 2), f"train_lm launches {launches}")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    need(res["cfg"].name == "nemo-100m" and res["opt_step"] == 60, "train_lm: config or steps")
+    need(len(losses) == 6 and all(np.isfinite(losses)), f"train_lm losses {losses}")
+    need(losses[-1] < losses[0], f"train_lm: loss did not fall: {losses}")
+    rec = {"arch": res["cfg"].name, "params": res["n_params"], "steps": res["steps"],
+           "history": hist, "s_per_step": [h["s_per_step"] for h in hist],
+           "seconds": res["seconds"], "checkpoints": res["checkpoints"],
+           "launches": launches}
+    print("train_lm", json.dumps(rec), flush=True)
+    return rec
+
+
 def kernel_record(name, route, source, replaces, launches, main, checks, **extra):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
@@ -524,8 +722,9 @@ def print_rings():
     d = (ctypes.c_int * 3)()
     lib.rglru_scan_design(d)
     print(f"rglru_scan ring path: {d[2]} stages of {d[1]} steps x {d[0]} channels; "
-          f"dynamic shared memory per block bf16 {lib.rglru_scan_smem_bytes(1)} bytes, "
-          f"fp32 {lib.rglru_scan_smem_bytes(0)} bytes", flush=True)
+          f"dynamic shared memory per block bf16 {lib.rglru_scan_smem_bytes(1, 1)} bytes, "
+          f"fp32 {lib.rglru_scan_smem_bytes(0, 0)} bytes, "
+          f"bf16 a with fp32 b {lib.rglru_scan_smem_bytes(1, 0)} bytes", flush=True)
 
 
 def main():
@@ -534,6 +733,7 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -551,12 +751,21 @@ def main():
     print_rings()
 
     (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
+    lru_mixed = next(c for c in lru_checks if c["dtype_b"] != c["dtype"] and "ms" in c)
     serve = recurrentgemma_serve_phase()
     # fp32 over the cut depth and a 256000-way head (rwkv6: 65536); logits O(1)
     check = model_check_phase("recurrentgemma-9b", 3, launch_counts(flash=1, rglru=2), 2e-3)
     gemma2 = gemma2_phase()
     rwkv6 = rwkv6_serve_phase()
     rwkv6_check = model_check_phase("rwkv6-7b", 2, launch_counts(wkv=8), 2e-3)
+    train = train_phase()
+    # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
+    # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
+    # 2e-3 of its leaf's largest, the summation orders of card and CPU apart
+    train_check = train_check_phase("recurrentgemma-9b", 3, 1, 2176,
+                                    launch_counts(flash=1, rglru=2 * 2), 1e-4, 2e-3)
+    rwkv6_train_check = train_check_phase("rwkv6-7b", 2, 1, 256, launch_counts(), 1e-4, 2e-3)
+    train_lm_rec = train_lm_phase()
 
     # the CUDA-core kernel serves fp32 (and the small head dims); its record
     # holds its bf16 time at the serving shape, measured beside the new one
@@ -569,16 +778,23 @@ def main():
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
                       serve["launches"]["flash_attention_wgmma"], flash, flash_checks,
-                      previous_ms=flash["previous_ms"]),
+                      previous_ms=flash["previous_ms"],
+                      launches_train_4_steps=train["launches_per_4_steps"][
+                          "flash_attention_wgmma"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
                       check["launches"]["flash_attention"], simt_main, simt_checks,
-                      launches_in="check: recurrentgemma-9b fp32, 3 layers"),
+                      launches_in="check: recurrentgemma-9b fp32, 3 layers",
+                      launches_train_check=train_check["launches"]["flash_attention"],
+                      launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
-                      serve["launches"]["rglru_scan"], lru, lru_checks, path=lru["route"]),
+                      serve["launches"]["rglru_scan"], lru, lru_checks, path=lru["route"],
+                      launches_train_4_steps=train["launches_per_4_steps"]["rglru_scan"],
+                      bf16_a_fp32_b_ms=lru_mixed["ms"], bf16_a_fp32_b_bound_ms=lru_mixed["bound_ms"],
+                      bf16_a_fp32_b_plain_ms=lru_mixed["plain_ms"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv6/rwkv6.py:67",
                       rwkv6["launches"]["wkv6"], wkv, wkv_checks,
@@ -586,7 +802,9 @@ def main():
     ]
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
-               "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check}
+               "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check,
+               "train": train, "train_check": train_check,
+               "rwkv6_train_check": rwkv6_train_check, "train_lm": train_lm_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -14,8 +14,11 @@ the model's [B, S, H, D] layout, which both kernels read in place.
         fp32 inputs and the small head dims, on the CUDA cores.
     A failed launch raises; nothing retries on the other kernel or the twin.
 
-Forward only: the training backward (a recompute through ``ref``) comes with
-the training slice.
+Differentiable, as the reference's custom VJP: when grad is on and an input
+requires it, the forward above runs inside a ``torch.autograd.Function`` that
+saves q, k, v (never the scores); its backward recomputes through
+``ref.mha_reference`` and returns that VJP. The reference's backward is XLA,
+not Pallas, so no backward kernel stands in for it.
 """
 
 from __future__ import annotations
@@ -106,6 +109,37 @@ def flash_attention_wgmma_cuda(q, k, v, *, causal: bool = True,
 _LAUNCHERS = {"wgmma": flash_attention_wgmma_cuda, "simt": flash_attention_cuda}
 
 
+def _forward(q, k, v, causal, window, softcap, q_offset):
+    if q.device.type == "cpu":
+        return ref.attention_plain(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    launch = _LAUNCHERS[kernel_for(q.dtype, q.shape[-1])]
+    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``repro/kernels/flash_attention/ops.py::_flash_attn``: the flash forward,
+    and a backward that recomputes the plain attention and returns its VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset)
+        return _forward(q, k, v, causal, window, softcap, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.mha_reference(q, k, v, **ctx.opts)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, q_offset: int = 0,
@@ -114,12 +148,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q [B, S_q, H_q, D], k/v [B, S_k, H_kv, D] -> [B, S_q, H_q, D].
     """
-    if kv_len is not None or q.device.type == "cpu":
+    if kv_len is not None:
         return ref.attention_plain(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset,
                                    kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: unsupported device {q.device}")
-    launch = _LAUNCHERS[kernel_for(q.dtype, q.shape[-1])]
-    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                  q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
+    return _forward(q, k, v, causal, window, softcap, q_offset)

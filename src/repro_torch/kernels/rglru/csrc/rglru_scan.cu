@@ -3,11 +3,15 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/rglru/rglru.py::rglru_scan (body _rglru_kernel):
 //   h_t = a_t * h_{t-1} + b_t over [B, T, C], an fp32 carry, optional h0 [B, C],
-//   returning h [B, T, C] and h_final [B, C], both in the input dtype.
+//   returning h [B, T, C] and h_final [B, C], both in a's dtype. Each input is
+//   read in its own dtype, as the Pallas kernel does: the pairs (a, b) taken are
+//   (fp32, fp32), (bf16, bf16) and (bf16, fp32). The last is the training
+//   backward under bf16 compute, the scan run again on the reversed bf16 decay
+//   and the fp32 upstream gradient (src/repro/kernels/rglru/ops.py::_scan_bwd).
 //
 // Bound on this card: two operations per element against reading a and b and
-// writing h once, so the bound is the bytes (3 * B*T*C * sizeof(T) over
-// 3.35 TB/s). Reaching it takes about 3 MB of loads in flight across the card
+// writing h once, so the bound is the bytes ((2 sizeof(a) + sizeof(b)) * B*T*C
+// over 3.35 TB/s). Reaching it takes about 3 MB of loads in flight across the card
 // (3.35 TB/s times a memory round trip of about 1 us).
 //
 // What this design does about it (the ring path):
@@ -24,8 +28,8 @@
 //   * The channel threads read a_t and b_t from the ring (a warp reads one
 //     contiguous 64-byte row) and write h into one of two shared-memory
 //     stages, which thread 0 drains by TMA stores (clipped at T and C).
-//   * A row stride that is not a multiple of 16 bytes (bf16 with C % 8 != 0)
-//     cannot be mapped by TMA; such a C takes the simple path below, one
+//   * A row stride that is not a multiple of 16 bytes (bf16 with C % 8 != 0,
+//     in a or in b) cannot be mapped by TMA; such a C takes the simple path below, one
 //     thread per channel loading its own chunks of 16 steps into registers.
 //     The caller picks the path (ops.route_for) and passes it to
 //     rglru_scan_fwd.
@@ -45,9 +49,11 @@ constexpr int UNROLL = 16;    // simple path: steps loaded before their arithmet
 
 static_assert(CT % 32 == 0 && CT <= 256 && TS <= 256 && NST >= 2, "ring shape");
 
-template <typename T> constexpr size_t smem_bytes() {
-  // 128 for aligning the tiles, the a and b ring, two h stages, the barriers
-  return 128 + (size_t)(2 * NST + 2) * TS * CT * sizeof(T) + 8 * NST;
+template <typename TA, typename TB> constexpr size_t smem_bytes() {
+  // 128 for aligning the tiles, the a and b ring, two h stages (a's dtype), the
+  // barriers. Every tile is a multiple of 128 bytes, so each stays aligned.
+  return 128 + (size_t)NST * TS * CT * (sizeof(TA) + sizeof(TB)) +
+         (size_t)2 * TS * CT * sizeof(TA) + 8 * NST;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -110,24 +116,25 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-template <typename T>
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(CT) rglru_scan_kernel_ring(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-    const __grid_constant__ CUtensorMap tm_h, const T* __restrict__ h0,
-    T* __restrict__ h_final, int T_len, int C) {
+    const __grid_constant__ CUtensorMap tm_h, const TA* __restrict__ h0,
+    TA* __restrict__ h_final, int T_len, int C) {
   extern __shared__ unsigned char smem_raw[];
   constexpr int TILE = TS * CT;  // elements of one box
-  constexpr uint32_t TILE_BYTES = TILE * sizeof(T);
-  T* a_s = reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  T* b_s = a_s + NST * TILE;  // [NST][TS][CT] each
-  T* h_s = b_s + NST * TILE;  // [2][TS][CT]
+  constexpr uint32_t STAGE_BYTES = TILE * (sizeof(TA) + sizeof(TB));  // a and b
+  TA* a_s = reinterpret_cast<TA*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                  ~uintptr_t(127));
+  TB* b_s = reinterpret_cast<TB*>(a_s + NST * TILE);  // [NST][TS][CT] each
+  TA* h_s = reinterpret_cast<TA*>(b_s + NST * TILE);  // [2][TS][CT]
   uint64_t* full = reinterpret_cast<uint64_t*>(h_s + 2 * TILE);
 
   const int tid = threadIdx.x, c0 = blockIdx.x * CT, bi = blockIdx.y, c = c0 + tid;
   const int n_chunks = (T_len + TS - 1) / TS;
   auto load = [&](int chunk, int st) {
     const uint32_t bar = smem_u32(full + st);
-    mbar_expect_tx(bar, 2 * TILE_BYTES);
+    mbar_expect_tx(bar, STAGE_BYTES);
     tma_load_3d(smem_u32(a_s + st * TILE), &tm_a, bar, c0, chunk * TS, bi);
     tma_load_3d(smem_u32(b_s + st * TILE), &tm_b, bar, c0, chunk * TS, bi);
   };
@@ -143,20 +150,20 @@ __global__ void __launch_bounds__(CT) rglru_scan_kernel_ring(
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int st = ch % NST;
     mbar_wait(smem_u32(full + st), (ch / NST) & 1);
-    const T* as = a_s + st * TILE + tid;
-    const T* bs = b_s + st * TILE + tid;
-    T* hs = h_s + (ch & 1) * TILE + tid;
+    const TA* as = a_s + st * TILE + tid;
+    const TB* bs = b_s + st * TILE + tid;
+    TA* hs = h_s + (ch & 1) * TILE + tid;
     const int n = min(TS, T_len - ch * TS);
     if (n == TS) {
 #pragma unroll
       for (int i = 0; i < TS; ++i) {
         carry = __fadd_rn(__fmul_rn(to_f32(as[i * CT]), carry), to_f32(bs[i * CT]));
-        hs[i * CT] = from_f32<T>(carry);
+        hs[i * CT] = from_f32<TA>(carry);
       }
     } else {
       for (int i = 0; i < n; ++i) {
         carry = __fadd_rn(__fmul_rn(to_f32(as[i * CT]), carry), to_f32(bs[i * CT]));
-        hs[i * CT] = from_f32<T>(carry);
+        hs[i * CT] = from_f32<TA>(carry);
       }
     }
     // the store of chunk ch - 1 has read its h stage, which chunk ch + 1 reuses
@@ -168,14 +175,14 @@ __global__ void __launch_bounds__(CT) rglru_scan_kernel_ring(
       if (ch + NST < n_chunks) load(ch + NST, st);
     }
   }
-  if (c < C) h_final[(long)bi * C + c] = from_f32<T>(carry);
+  if (c < C) h_final[(long)bi * C + c] = from_f32<TA>(carry);
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T>
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS) rglru_scan_kernel_simple(
-    const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ h0,
-    T* __restrict__ h, T* __restrict__ h_final, int T_len, int C) {
+    const TA* __restrict__ a, const TB* __restrict__ b, const TA* __restrict__ h0,
+    TA* __restrict__ h, TA* __restrict__ h_final, int T_len, int C) {
   const int c = blockIdx.x * THREADS + threadIdx.x;
   const int bi = blockIdx.y;
   if (c >= C) return;
@@ -193,15 +200,15 @@ __global__ void __launch_bounds__(THREADS) rglru_scan_kernel_simple(
 #pragma unroll
     for (int i = 0; i < UNROLL; ++i) {
       carry = __fadd_rn(__fmul_rn(av[i], carry), bv[i]);
-      h[base + (long)(t + i) * C] = from_f32<T>(carry);
+      h[base + (long)(t + i) * C] = from_f32<TA>(carry);
     }
   }
   for (; t < T_len; ++t) {
     carry = __fadd_rn(__fmul_rn(to_f32(a[base + (long)t * C]), carry),
                       to_f32(b[base + (long)t * C]));
-    h[base + (long)t * C] = from_f32<T>(carry);
+    h[base + (long)t * C] = from_f32<TA>(carry);
   }
-  h_final[(long)bi * C + c] = from_f32<T>(carry);
+  h_final[(long)bi * C + c] = from_f32<TA>(carry);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -248,28 +255,30 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int T_len, int C) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
+template <typename TA, typename TB>
 cudaError_t launch(const void* a, const void* b, const void* h0, void* h, void* h_final,
                    int B, int T_len, int C, int ring, cudaStream_t stream) {
   if (ring) {
-    if ((long)C * sizeof(T) % 16 != 0) return cudaErrorInvalidValue;  // TMA cannot map it
-    CUtensorMap ta, tb, th;
-    if (!make_map<T>(&ta, a, B, T_len, C) || !make_map<T>(&tb, b, B, T_len, C) ||
-        !make_map<T>(&th, h, B, T_len, C))
+    // TMA cannot map a row that is not a multiple of 16 bytes
+    if ((long)C * sizeof(TA) % 16 != 0 || (long)C * sizeof(TB) % 16 != 0)
       return cudaErrorInvalidValue;
-    const cudaError_t e = cudaFuncSetAttribute(rglru_scan_kernel_ring<T>,
+    CUtensorMap ta, tb, th;
+    if (!make_map<TA>(&ta, a, B, T_len, C) || !make_map<TB>(&tb, b, B, T_len, C) ||
+        !make_map<TA>(&th, h, B, T_len, C))
+      return cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(rglru_scan_kernel_ring<TA, TB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem_bytes<T>());
+                                               (int)smem_bytes<TA, TB>());
     if (e != cudaSuccess) return e;
     const dim3 grid((C + CT - 1) / CT, B);
-    rglru_scan_kernel_ring<T><<<grid, CT, smem_bytes<T>(), stream>>>(
-        ta, tb, th, static_cast<const T*>(h0), static_cast<T*>(h_final), T_len, C);
+    rglru_scan_kernel_ring<TA, TB><<<grid, CT, smem_bytes<TA, TB>(), stream>>>(
+        ta, tb, th, static_cast<const TA*>(h0), static_cast<TA*>(h_final), T_len, C);
     return cudaGetLastError();
   }
   const dim3 grid((C + THREADS - 1) / THREADS, B);
-  rglru_scan_kernel_simple<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(h0),
-      static_cast<T*>(h), static_cast<T*>(h_final), T_len, C);
+  rglru_scan_kernel_simple<TA, TB><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TA*>(a), static_cast<const TB*>(b), static_cast<const TA*>(h0),
+      static_cast<TA*>(h), static_cast<TA*>(h_final), T_len, C);
   return cudaGetLastError();
 }
 
@@ -277,16 +286,22 @@ cudaError_t launch(const void* a, const void* b, const void* h0, void* h, void* 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. h0 may be null (zero initial state).
-// ring: 1 the TMA ring path (a row of C elements must be a multiple of 16
-// bytes), 0 the simple path. Returns the cudaError_t after the launch.
+// dtype, dtype_b: a's and b's dtype, 0 = float32, 1 = bfloat16; the pairs
+// (0, 0), (1, 1) and (1, 0). h0, h and h_final are in a's dtype; h0 may be null
+// (zero initial state). ring: 1 the TMA ring path (a row of C elements of a and
+// of b must be a multiple of 16 bytes), 0 the simple path. Returns the
+// cudaError_t after the launch.
 int rglru_scan_fwd(const void* a, const void* b, const void* h0, void* h, void* h_final,
-                   int B, int T_len, int C, int dtype, int ring, void* stream) {
+                   int B, int T_len, int C, int dtype, int dtype_b, int ring, void* stream) {
   if (B <= 0 || T_len <= 0 || C <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(a, b, h0, h, h_final, B, T_len, C, ring, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(a, b, h0, h, h_final, B, T_len, C, ring, s);
+  if (dtype == 0 && dtype_b == 0)
+    return (int)launch<float, float>(a, b, h0, h, h_final, B, T_len, C, ring, s);
+  if (dtype == 1 && dtype_b == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(a, b, h0, h, h_final, B, T_len, C,
+                                                     ring, s);
+  if (dtype == 1 && dtype_b == 0)
+    return (int)launch<__nv_bfloat16, float>(a, b, h0, h, h_final, B, T_len, C, ring, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -297,10 +312,12 @@ void rglru_scan_design(int* out) {
   out[2] = NST;
 }
 
-// Dynamic shared memory a ring block takes (dtype as above; 0 otherwise).
-int rglru_scan_smem_bytes(int dtype) {
-  return dtype == 0 ? (int)smem_bytes<float>()
-                    : dtype == 1 ? (int)smem_bytes<__nv_bfloat16>() : 0;
+// Dynamic shared memory a ring block takes (dtype pair as above; 0 otherwise).
+int rglru_scan_smem_bytes(int dtype, int dtype_b) {
+  if (dtype == 0 && dtype_b == 0) return (int)smem_bytes<float, float>();
+  if (dtype == 1 && dtype_b == 1) return (int)smem_bytes<__nv_bfloat16, __nv_bfloat16>();
+  if (dtype == 1 && dtype_b == 0) return (int)smem_bytes<__nv_bfloat16, float>();
+  return 0;
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,7 +1,10 @@
 """Public WKV6 op: the CUDA kernel on the card, plain PyTorch on the CPU.
 
-Counterpart of ``repro/kernels/rwkv6/ops.py``, forward only (the reference
-trains through its scan oracle; that comes with the training slice).
+Counterpart of ``repro/kernels/rwkv6/ops.py``. The kernel is the forward of
+prefill and decode. Training goes through the oracle, as in the reference
+(its kernel is forward only): when grad is enabled and an input requires it,
+``wkv`` runs the chunked twin ``ref.wkv6_chunked`` on any device. That is the
+reference's design, not a fallback: a failed kernel launch still raises.
 
 Both paths return ``y`` in r's dtype and ``s_final`` in fp32. With ``out``
 the final state is written there, and ``out`` may be ``s0`` itself: decode
@@ -74,6 +77,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 WKV. Returns (y [B,T,H,V], s_final [B,H,K,V]); s_final is
     ``out`` when given."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, w, u, s0)):
+        y, s_final = ref.wkv6_chunked(r, k, v, w, u, s0)
+        return y, (s_final if out is None else out.copy_(s_final))
     if r.device.type == "cpu":
         y, s_final = ref.wkv6_reference(r, k, v, w, u, s0)
         return y, (s_final if out is None else out.copy_(s_final))

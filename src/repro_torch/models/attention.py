@@ -3,8 +3,9 @@
 Counterpart of ``repro/models/attention.py`` (self-attention only; the
 encoder-decoder cross-attention comes with the enc-dec family).
 
-  * prefill: full-sequence causal attention through the flash kernel, and
-    the KV cache filled from the same k, v;
+  * forward: full-sequence causal attention through the flash kernel, no
+    cache (training, ``attention_block``);
+  * prefill: the same, and the KV cache filled from the same k, v;
   * decode: one query against the cache. Local layers keep a ring of
     ``window`` slots (position p at slot p % window); softmax is
     permutation-invariant, so a validity mask is all decode needs. Decode
@@ -80,6 +81,13 @@ class Attention(nn.Module):
         """einsum("bshk,hkd->bsd")."""
         B, S, h, hd = o.shape
         return o.reshape(B, S, h * hd) @ self.wo.reshape(h * hd, -1)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Causal attention over the full sequence, no cache."""
+        q, k, v = self._qkv(x, positions)
+        out = fa_ops.attention(q, k, v, causal=True, window=self.window,
+                               softcap=self.cfg.attn_softcap)
+        return self._out(out)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Cache) -> torch.Tensor:

@@ -1,14 +1,15 @@
 """Shared model pieces: parameters, initializers, norms, RoPE.
 
-Counterpart of ``repro/models/common.py``. Parameters are ``nn.Parameter``s
-without gradients (this slice serves only), shaped exactly as the
-reference's pytree leaves so weights carry across by name and shape.
+Counterpart of ``repro/models/common.py``. Parameters are ``nn.Parameter``s,
+shaped exactly as the reference's pytree leaves so weights carry across by
+name and shape. They are made without gradients, which serving never needs;
+the trainer turns them on (``repro_torch.train.train_loop``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -105,3 +106,24 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor,  # [B, S, V]
+                 labels: torch.Tensor,  # [B, S] integer
+                 mask: Optional[torch.Tensor] = None,  # [B, S]
+                 ) -> torch.Tensor:
+    """Mean cross-entropy in fp32; with ``mask``, the masked mean over
+    max(sum(mask), 1). The gold logit is a gather: the reference's one-hot
+    contraction is a sharding device and computes the same value."""
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = logits32.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

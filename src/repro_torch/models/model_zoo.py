@@ -2,13 +2,13 @@
 
 ``build_model(cfg, device)`` returns a :class:`Model` with
   init(seed, dtype)                      -> params (an ``LM`` module)
+  loss(params, batch, **kw)              -> (loss, metrics)  [train step]
   init_cache(batch, max_len, dtype)      -> cache
   prefill(params, batch, cache)          -> (last-token logits, cache)
   decode_step(params, cache, tokens)     -> (logits, cache)
 
-Training (``loss``) comes with the training slice. MoE and encoder-decoder
-families, and a batch carrying ``prefix_embeds`` (the vision and audio
-frontends' prefix), raise ``NotImplementedError``.
+MoE and encoder-decoder families, and a batch carrying ``prefix_embeds``
+(the vision and audio frontends' prefix), raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ class Model:
     def init(self, seed: int = 0, dtype: torch.dtype = torch.float32) -> LM:
         return weights.init_params(self.cfg, seed, self.device, dtype)
 
+    def loss(self, params: LM, batch: Dict[str, Any], **kw
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``transformer.lm_loss``: kw are ``remat_policy``, ``compute_dtype``."""
+        return transformer.lm_loss(params, batch, **kw)
+
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> transformer.Cache:
         return transformer.init_decode_cache(self.cfg, batch, max_len, dtype,
@@ -43,7 +48,7 @@ class Model:
         if batch.get("prefix_embeds") is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: prefix_embeds (the frontends' prefix) are not "
-                "ported yet (ROADMAP.md queue A3)")
+                "ported yet (ROADMAP.md queue A2)")
         return params.prefill(batch["tokens"], cache), cache
 
     def decode_step(self, params: LM, cache: transformer.Cache,

@@ -6,8 +6,9 @@ Counterpart of ``repro/models/rglru.py``:
       -> [linear -> causal conv1d(W) -> RG-LRU]   (recurrent branch)
     merge: recurrent * gate -> linear -> out
 
-The gates are block-diagonal linears (n_blocks = n_heads). On prefill the
-diagonal recurrence runs through the CUDA scan; decode is one plain step.
+The gates are block-diagonal linears (n_blocks = n_heads). In the
+cache-free forward (training) and in prefill the diagonal recurrence runs
+through the CUDA scan; decode is one plain step.
 """
 
 from __future__ import annotations
@@ -97,6 +98,14 @@ class RGLRU(nn.Module):
         for i in range(1, W):
             out = out + u_pad[:, i:i + S] * self.conv_w[W - 1 - i]
         return out + self.conv_b, u_pad[:, -(W - 1):]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Full-sequence block from zero state, no cache (``rglru_block``)."""
+        gate = F.gelu(x @ self.w_in_gate, approximate="tanh")
+        u, _ = self._conv(x @ self.w_in_rec)
+        a, b = self._gates(u)
+        hs, _ = lru_ops.linear_scan(a, b)
+        return (hs * gate) @ self.w_out
 
     def prefill(self, x: torch.Tensor, state: State) -> torch.Tensor:
         """Full-sequence block; leaves the final recurrent and conv state."""

@@ -4,8 +4,11 @@ Counterpart of ``repro/models/rwkv6.py`` (arXiv:2404.05892): static
 token-shift interpolation weights for r/k/v/g, and the data-dependent decay
 w from a low-rank projection. The WKV recurrence runs through the CUDA
 kernel on the card, in prefill and in every decode step (T = 1 with the
-carried state). Decode state per layer: two shift vectors in the cache
-dtype and the per-head K x V state in fp32.
+carried state). Called with no states, ``TimeMix`` and ``ChannelMix`` are
+the reference's cache-free ``time_mix`` and ``channel_mix`` (training);
+there the WKV op differentiates its chunked twin, as the reference does.
+Decode state per layer: two shift vectors in the cache dtype and the
+per-head K x V state in fp32.
 
 The casts are the reference's, including its one to watch: the decay is
 computed in fp32 and cast to the activation dtype before the recurrence.

@@ -1,19 +1,29 @@
 """Decoder-only LM: embedding, mixed-mixer blocks, tied or separate head.
 
-Counterpart of ``repro/models/transformer.py`` for serving (prefill and
-decode). The reference stacks each pattern position's parameters along a
-group axis and runs ``lax.scan``; here every layer is its own module, in
-model order: layer ``g * len(pattern) + i`` is group ``g``'s pattern
-position ``i``, and the tail follows the last group.
+Counterpart of ``repro/models/transformer.py``. Three entry points share the
+block code, as in the reference:
+  * ``lm_loss`` / ``LM.forward`` -- training forward (cache-free, each
+    pattern group of layers optionally rematerialized) and softmax xent;
+  * ``LM.prefill`` -- forward that also fills the decode caches;
+  * ``LM.decode_step`` -- one token against the caches.
+
+The reference stacks each pattern position's parameters along a group axis
+and runs ``lax.scan``; here every layer is its own module, in model order:
+layer ``g * len(pattern) + i`` is group ``g``'s pattern position ``i``, and
+the tail follows the last group.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, rglru, rwkv6
@@ -108,6 +118,21 @@ class Block(nn.Module):
         cache["cm_shift"].copy_(cm_shift)
         return h
 
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Full sequence, no cache (``apply_block``; the MoE aux term is 0
+        until MoE is ported)."""
+        h = common.apply_norm(self.norm1, x)
+        if self.mixer == "rglru":
+            h = self.rglru(h)
+        elif self.mixer == "rwkv":
+            h, _, _ = self.tm(h)
+        else:
+            h = self.attn(h, positions)
+        x = x + h
+        h = common.apply_norm(self.norm2, x)
+        h = self.cm(h)[0] if self.mixer == "rwkv" else self.mlp(h)
+        return x + h
+
     def prefill(self, x, positions, cache) -> torch.Tensor:
         """Full sequence; fills ``cache``."""
         h = common.apply_norm(self.norm1, x)
@@ -175,6 +200,29 @@ class LM(nn.Module):
             logits = c * torch.tanh(logits / c)
         return logits
 
+    def forward(self, tokens: torch.Tensor,
+                remat_policy: Optional[str] = "nothing") -> torch.Tensor:
+        """Training / scoring forward (``lm_forward``): logits [B, S, V].
+
+        With grad on, each pattern group of layers runs under ``remat_policy``
+        (see ``_remat_context``); the tail layers never do, as in the
+        reference."""
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        p = len(self.cfg.mixer_pattern)
+        n_groups, _ = self.cfg.n_groups_and_tail()
+        remat = remat_policy not in (None, "none") and torch.is_grad_enabled()
+        for g in range(n_groups):
+            group = list(self.layers[g * p:(g + 1) * p])
+            if remat:
+                x = _remat_group(group, x, positions, remat_policy)
+            else:
+                for layer in group:
+                    x = layer(x, positions)
+        for layer in self.layers[n_groups * p:]:
+            x = layer(x, positions)
+        return self._logits(x)
+
     def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
         """Process the prompt [B, S], fill ``cache``; last-token logits [B,1,V]."""
         x = self._embed(tokens)
@@ -193,3 +241,79 @@ class LM(nn.Module):
             x = layer.decode(x, pos, c)
         cache["pos"] = pos + 1
         return self._logits(x)
+
+
+# ---------------------------------------------------------------------------
+# Training: rematerialized groups and the loss
+# ---------------------------------------------------------------------------
+
+# ``_maybe_remat``'s policies: which results a rematerialized group keeps for
+# the backward. "nothing" keeps none; the "dots" policies keep the matrix
+# products -- all of them (mm, bmm), or those without batch dimensions (mm:
+# every x @ W; the attention scores and block-diagonal gates are bmm).
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "dots_with_no_batch_dims": (torch.ops.aten.mm.default,),
+}
+
+
+def _save_ops_policy(ops, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for ``policy``."""
+    if policy == "nothing":
+        return noop_context_fn
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_ops_policy, _SAVED_OPS[policy]))
+
+
+def _remat_group(group: Sequence[Block], x: torch.Tensor, positions: torch.Tensor,
+                 policy: str) -> torch.Tensor:
+    """The layers of ``group`` over x under ``torch.utils.checkpoint``.
+
+    The layers' parameters go in as explicit inputs: the backward's recompute
+    then sees the same tensors as the forward, also when ``lm_loss`` swapped
+    in cast copies that are gone by then."""
+    names = [[n for n, _ in layer.named_parameters()] for layer in group]
+    flat = [t for layer in group for _, t in layer.named_parameters()]
+
+    def run(x, *tensors):
+        i = 0
+        for layer, ns in zip(group, names):
+            x = functional_call(layer, dict(zip(ns, tensors[i:i + len(ns)])), (x, positions))
+            i += len(ns)
+        return x
+
+    return checkpoint(run, x, *flat, use_reentrant=False, context_fn=_remat_context(policy))
+
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "nothing",
+            compute_dtype: Optional[torch.dtype] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens [B,S], labels [B,S], optional mask -> (loss, metrics).
+
+    ``compute_dtype`` casts the fp32/bf16 parameters inside the differentiated
+    function (``functional_call`` on cast copies), so the gradients reach the
+    master parameters through the cast."""
+    if batch.get("prefix_embeds") is not None:
+        raise NotImplementedError(
+            f"{lm.cfg.name}: prefix_embeds (the frontends' prefix) are not "
+            "ported yet (ROADMAP.md queue A2)")
+    tokens = batch["tokens"]
+    if compute_dtype is None:
+        logits = lm(tokens, remat_policy=remat_policy)
+    else:
+        params = {n: p.to(compute_dtype) if p.dtype in (torch.float32, torch.bfloat16)
+                  else p for n, p in lm.named_parameters()}
+        logits = functional_call(lm, params, (tokens,), {"remat_policy": remat_policy})
+    xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no MoE yet
+    loss = xent + MOE_AUX_WEIGHT * aux
+    return loss, {"xent": xent, "moe_aux": aux}

@@ -7,6 +7,11 @@ it) and loads it into an :class:`~repro_torch.models.transformer.LM`:
 its entry ``g`` is layer ``g * len(pattern) + i``; ``params["tail"][j]`` is
 layer ``n_groups * len(pattern) + j``. Leaf names are module attribute names.
 
+``jax_params_to_state_dict`` maps any pytree of that layout, not only
+parameters: a reference gradient pytree (``jax.grad`` of ``model.loss``)
+through it gives fp32 tensors keyed by the state-dict names, which is how
+the port's gradients are held against the reference's.
+
 ``init_params`` draws full-width weights on the device from a seeded
 ``torch.Generator``, with the reference's statistics (not its bits).
 """

@@ -185,7 +185,136 @@ def test_rglru_ring_path_refuses_a_row_tma_cannot_map(cuda):
     h, h_final = torch.empty_like(a), torch.empty((1, 100), dtype=a.dtype, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         lru_ops.KERNEL.launch(cuda, a.data_ptr(), a.data_ptr(), None, h.data_ptr(),
-                              h_final.data_ptr(), 1, 8, 100, 1, 1)
+                              h_final.data_ptr(), 1, 8, 100, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,C", [
+    (2, 2560, 4096),  # the training shape's width, T past many rings
+    (3, 193, 4000),   # one step past a full ring, a part tile of channels
+    (1, 5, 4096),     # T inside one ring stage
+    (1, 37, 100),     # a bf16 row of 200 bytes: the simple path
+])
+def test_rglru_kernel_bf16_a_fp32_b_matches_plain_on_card(cuda, B, T, C, with_h0):
+    """The training backward's pair: a bf16 decay, an fp32 b read as fp32;
+    h (and h0) in a's dtype. Exact, as for the matching pairs."""
+    g = torch.Generator(device=cuda).manual_seed(T + C)
+    a = (0.7 + 0.299 * torch.rand(B, T, C, generator=g, device=cuda)).bfloat16()
+    b = 0.1 * torch.randn(B, T, C, generator=g, device=cuda)
+    h0 = (0.1 * torch.randn(B, C, generator=g, device=cuda)).bfloat16() if with_h0 else None
+    assert lru_ops.route_for(a.dtype, C, b.dtype) == ("simple" if C == 100 else "ring")
+    h, h_final = lru_ops.linear_scan(a, b, h0)
+    want, want_final = lru_ref.linear_scan_reference(a, b, h0)
+    torch.cuda.synchronize()
+    assert h.dtype == h_final.dtype == torch.bfloat16
+    torch.testing.assert_close(h, want, atol=0, rtol=0)
+    torch.testing.assert_close(h_final, want_final.bfloat16(), atol=0, rtol=0)
+
+
+def _grads(fn, inputs, cot):
+    """fn(*inputs) -> outputs; their VJP with cotangents ``cot``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return out, torch.autograd.grad(out, leaves, cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,D", [(torch.float32, 64), (torch.bfloat16, 256)])
+def test_flash_function_grads_on_card_match_autograd_through_plain(cuda, dt, D):
+    """The attention Function (the kernel forward, a recompute backward)
+    against autograd through ``mha_reference`` on the same card."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn(2, 300, 8, D, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(2, 300, 2, D, generator=g, device=cuda).to(dt) for _ in range(2))
+    cot = torch.randn(2, 300, 8, D, generator=g, device=cuda).to(dt)
+    kw = dict(causal=True, window=100, softcap=30.0)
+    kern = fa_ops.WGMMA_KERNEL if fa_ops.kernel_for(dt, D) == "wgmma" else fa_ops.KERNEL
+    before = kern.launches
+    (out,), grads = _grads(lambda *x: fa_ops.attention(*x, **kw), (q, k, v), cot)
+    (want,), want_grads = _grads(lambda *x: fa_ref.mha_reference(*x, **kw), (q, k, v), cot)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1  # the forward only; the backward recomputes plainly
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for got, w in zip(grads, want_grads):
+        torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_scan_function_grads_on_card_match_autograd_through_plain(cuda, dt):
+    """da, db, dh0 of ``linear_scan`` (the kernel forward and the kernel again
+    on reversed inputs) against autograd through the plain loop. In bf16 the
+    VJP rounds g and reads h in bf16, as the reference's does, where autograd
+    through the loop keeps both in fp32: one bf16 ulp of the largest."""
+    B, T, C = 2, 96, 4096
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = (0.7 + 0.299 * torch.rand(B, T, C, generator=g, device=cuda)).to(dt)
+    b = (0.1 * torch.randn(B, T, C, generator=g, device=cuda)).to(dt)
+    h0 = (0.1 * torch.randn(B, C, generator=g, device=cuda)).to(dt)
+    dh = torch.randn(B, T, C, generator=g, device=cuda).to(dt)
+    dh_final = torch.randn(B, C, generator=g, device=cuda).to(dt)
+    before = lru_ops.KERNEL.launches
+    (h, hn), grads = _grads(lru_ops.linear_scan, (a, b, h0), (dh, dh_final))
+    # the plain loop's h_final is fp32: the same cotangent, widened
+    (want, _), want_grads = _grads(lru_ref.linear_scan_reference, (a, b, h0),
+                                   (dh, dh_final.float()))
+    torch.cuda.synchronize()
+    assert lru_ops.KERNEL.launches == before + 2
+    torch.testing.assert_close(h, want, atol=0, rtol=0)
+    for got, w in zip(grads, want_grads):
+        tol = 1e-5 * float(w.abs().max()) if dt == torch.float32 else (
+            2e-2 * float(w.abs().max()))
+        assert got.dtype == w.dtype == dt
+        torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One fp32 train step of reduced recurrentgemma-9b (remat "nothing"),
+    card against CPU from the same weights and batch: the loss, the clipped
+    gradients' norm, and the moments the step leaves (mu = 0.1 g and
+    nu = 0.001 g^2 after one step: the gradients, leaf by leaf, within 1e-4
+    of each leaf's largest). The parameters themselves are not compared: a
+    first Adam step moves each by lr * g / (|g| + eps), which turns a
+    rounding difference in a near-zero gradient into one of up to lr. The
+    launches are the path's: 2 attention layers in groups (forward and
+    recompute) on the CUDA-core flash kernel; 4 RG-LRU layers in groups
+    (forward, recompute, backward) and 2 in the tail (forward, backward) on
+    the scan."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainRunConfig, make_train_step
+    from repro_torch.weights import init_params
+
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 48, 2, seed=1)).batch(0)
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.1), total_steps=10,
+                         warmup_steps=0, compute_dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        lm = init_params(cfg, seed=0, device="cpu").to(dev)
+        step, opt_init = make_train_step(build_model(cfg, device=dev), run)
+        counts = [fa_ops.KERNEL.launches, lru_ops.KERNEL.launches]
+        lm, state, metrics = step(lm, opt_init(lm), batch)
+        out[str(dev)] = (float(metrics["loss"]), float(metrics["grad_norm"]), state,
+                         [fa_ops.KERNEL.launches - counts[0],
+                          lru_ops.KERNEL.launches - counts[1]])
+    (loss_c, norm_c, st_c, n_c), (loss_g, norm_g, st_g, n_g) = out["cpu"], out["cuda"]
+    assert n_c == [0, 0] and n_g == [4, 16]
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    assert abs(norm_g - norm_c) <= 1e-4 * norm_c
+    assert st_g.step == st_c.step == 1
+    for moments_g, moments_c in ((st_g.mu, st_c.mu), (st_g.nu, st_c.nu)):
+        for n, m in moments_c.items():
+            err = float((moments_g[n].cpu() - m).abs().max())
+            assert err <= 1e-4 * float(m.abs().max()), (n, err)
 
 
 def _wkv_inputs(device, B, T, H, dt, with_s0, seed):

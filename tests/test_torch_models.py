@@ -191,7 +191,7 @@ def test_prefix_embeds_raise_instead_of_being_dropped():
     lm = LM(cfg, torch.device("meta"), torch.float32)
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
              "prefix_embeds": torch.zeros(1, cfg.frontend_seq_len, cfg.d_model)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A2"):
         model.prefill(lm, batch, model.init_cache(1, 32, torch.float32))
 
 

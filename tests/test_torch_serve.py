@@ -121,6 +121,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    port = ROOT / "src" / "repro_torch"
+    for module in ("train/optimizer.py", "train/train_loop.py", "data/pipeline.py",
+                   "checkpoint/ckpt.py", "launch/train_lm.py"):
+        assert port / module in files, module
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
