@@ -53,11 +53,25 @@ calls, and fails (exit code not 0, no result line) on any miss:
               layers, B 1 x T 256, the chunked WKV twin: no wkv6 launch);
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
+ 12. dispatch the BandPilot dispatcher (``repro_torch.core``) on the paper's
+              32-GPU H100 and Het-4Mix clusters: the surrogate trained on the
+              card (the quickstart's 250 samples, 2000 steps; its first 50
+              steps' losses against the CPU's from the same init and
+              batches), scored on the card against the CPU on 4096 random
+              subsets a cluster (isolated and contended applies), the
+              Fig. 1 scenario and the quickstart's dispatcher comparison,
+              the fused descent (each a CUDA graph replay: capture seconds a
+              bucket, per-descent time, every round audited against the
+              host loop), and traces through ``AdmissionScheduler`` (the
+              pinned 14-job fifo golden and a 200-job Poisson trace,
+              analytic mode on both clusters, learned mode on H100) whose
+              subsets must equal the CPU's; no port kernel runs on it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import ctypes
 import dataclasses
 import json
@@ -74,7 +88,9 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import core  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import surrogate as surr  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import KERNELS, cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
@@ -674,6 +690,300 @@ def train_lm_phase():
     return rec
 
 
+# -- phase 12: the dispatcher ---------------------------------------------------
+
+# training steps: the quickstart's 2000 on H100; Het-4Mix is cut to 500 to
+# keep the phase near two minutes (``dispatch_train`` prints the R² reached)
+DISPATCH_CLUSTERS = {"H100": 2000, "Het-4Mix": 500}
+CURVE_STEPS = 50
+# card against CPU, both fp32 with TF32 off, sums in other orders: a loss
+# curve 2e-3 relative a step (Adam magnifies early rounding, as in the CPU
+# tests against the reference); a decoded score 1e-4 relative (expm1(5 y)
+# of a normalized output within 2e-5); a descent round's scores 1e-5
+# relative to the same predictor's host loop on the card
+CURVE_RTOL = 2e-3
+SCORE_RTOL = 1e-4
+SCAN_RTOL = 1e-5
+
+
+def on_cpu(params):
+    return copy.deepcopy(params).to("cpu")  # Module.to moves in place
+
+
+def multi_host_subsets(cl, rng, n, exclude=()):
+    pool = [g for g in range(cl.n_gpus) if g not in set(exclude)]
+    out = []
+    while len(out) < n:
+        s = sorted(rng.choice(pool, size=int(rng.integers(2, 25)), replace=False).tolist())
+        if len(cl.partition_by_host(s)) > 1:
+            out.append(s)
+    return out
+
+
+def max_rel(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+
+def dispatch_train(name, steps):
+    """The quickstart's training on the card; the first CURVE_STEPS steps'
+    losses again on the CPU from the same init and batches."""
+    cl = core.PAPER_CLUSTERS[name]()
+    sim = core.BandwidthSimulator(cl)
+    tables = core.IntraHostTables(cl, sim)
+    train, test = core.make_train_test_split(sim, 250, seed=0)
+    init = surr.init_hierarchical_params(torch.Generator().manual_seed(0), device="cpu")
+    params, info = core.train_surrogate(cl, tables, train, core.TrainConfig(steps=steps),
+                                        init_params=init)
+    need(params.device.type == "cuda", "the surrogate did not train on the card")
+    acc = core.evaluate_surrogate(core.SurrogatePredictor(cl, tables, params), test)
+    short = core.TrainConfig(steps=CURVE_STEPS)
+    _, card = core.train_surrogate(cl, tables, train, short, init_params=init)
+    _, cpu = core.train_surrogate(cl, tables, train, short, init_params=init, device="cpu")
+    curve_err = max_rel(card["loss_curve"], cpu["loss_curve"])
+    need(curve_err <= CURVE_RTOL, f"{name}: card and CPU loss curves differ by {curve_err}")
+    rec = {"cluster": name, "steps": steps, "train_s": info["train_seconds"],
+           "ms_per_step": info["train_seconds"] / steps * 1e3,
+           "final_loss": info["final_loss"], "r2": acc["r2"], "mape": acc["mape"],
+           "curve_steps": CURVE_STEPS, "curve_max_rel_err": curve_err,
+           "curve_tol": CURVE_RTOL, "param_bytes": info["param_bytes"]}
+    print("dispatch_train", json.dumps(rec), flush=True)
+    need(np.isfinite(info["final_loss"]) and acc["r2"] > 0.5, f"{name}: surrogate did not learn")
+    return (cl, sim, tables), params, rec
+
+
+def tenanted_ledger(cl):
+    led = core.JobLedger(cl)
+    led.admit("a", [0, 1, cl.hosts[1].gpu_ids[0]])
+    led.admit("b", [cl.hosts[1].gpu_ids[1], cl.hosts[-1].gpu_ids[0]])
+    led.admit("c", list(cl.hosts[2].gpu_ids[:2]) + [cl.hosts[3].gpu_ids[1]])
+    return led
+
+
+def timed_apply(fn, params, x, m):
+    """(decoded scores, device ms of the apply under CUDA events, or None on
+    the CPU)."""
+    if params.device.type != "cuda":
+        return surr._apply_np(fn, params, x, m), None
+    xt, mt = torch.from_numpy(x).cuda(), torch.from_numpy(m).cuda()
+    ms = cuda_ms(lambda: fn(params, xt, mt), iters=20)
+    return fn(params, xt, mt).cpu().numpy(), ms
+
+
+def score_check(stack, params):
+    """4096 random multi-host subsets, card against CPU, isolated and (with
+    a random context embedding, against a tenanted ledger) contended."""
+    cl, _, tables = stack
+    rng = np.random.default_rng(1)
+    subsets = multi_host_subsets(cl, rng, 4096)
+    x, m = core.features.featurize_batch(cl, tables, subsets)
+    card, card_ms = timed_apply(surr._apply_hierarchical_bw, params, x, m)
+    cpu, _ = timed_apply(surr._apply_hierarchical_bw, on_cpu(params), x, m)
+    cparams = surr.init_contended_params(params)
+    with torch.no_grad():
+        cparams.ctx_embed.w.copy_(torch.randn(cparams.ctx_embed.w.shape,
+                                              generator=torch.Generator().manual_seed(5)) * 0.3)
+    led = tenanted_ledger(cl)
+    free = multi_host_subsets(cl, rng, 4096, exclude=led.busy())
+    cx, cm = core.features.featurize_contended_batch(cl, tables, [(s, led) for s in free])
+    ccard, ccard_ms = timed_apply(surr._apply_contended_bw, cparams, cx, cm)
+    ccpu, _ = timed_apply(surr._apply_contended_bw, on_cpu(cparams), cx, cm)
+    rec = {"cluster": cl.name, "n": len(subsets), "tokens": int(x.shape[1]),
+           "hierarchical_max_rel_err": max_rel(card, cpu), "hierarchical_ms": card_ms,
+           "contended_max_rel_err": max_rel(ccard, ccpu), "contended_ms": ccard_ms,
+           "tol": SCORE_RTOL}
+    print("dispatch_scores", json.dumps(rec), flush=True)
+    need(rec["hierarchical_max_rel_err"] <= SCORE_RTOL
+         and rec["contended_max_rel_err"] <= SCORE_RTOL, f"{cl.name}: card scores disagree")
+    return rec
+
+
+def fig1_phase(stack, params):
+    cl, sim, tables = stack
+    pred = core.SurrogatePredictor(cl, tables, params)
+    avail = list(range(0, 6)) + list(range(8, 14))
+    bp = core.BandPilotDispatcher(cl, tables, pred)
+    topo = core.BaselineDispatcher(cl, "topo")
+    s_bp, s_topo = bp.dispatch(avail, 8), topo.dispatch(avail, 8)
+    split = sorted(len(v) for v in cl.partition_by_host(s_bp).values())
+    bw_bp, bw_topo = sim.true_bandwidth(s_bp), sim.true_bandwidth(s_topo)
+    need(split == [4, 4], f"Fig. 1: BandPilot chose {s_bp}, not a 4+4 split")
+    need(bw_bp > bw_topo, f"Fig. 1: BandPilot {bw_bp} GB/s does not beat Topo {bw_topo}")
+    ds = [bp, topo, core.BaselineDispatcher(cl, "default"), core.BaselineDispatcher(cl, "random")]
+    t0 = time.perf_counter()
+    recs = core.evaluate_dispatchers(cl, sim, tables, ds, request_sizes=[4, 8, 12, 16, 20],
+                                     n_scenarios=10, seed=1)
+    gbe = {name: s["mean_gbe"] for name, s in core.summarize(recs).items()}
+    rec = {"cluster": cl.name, "bandpilot": s_bp, "bandpilot_gbps": bw_bp, "topo": s_topo,
+           "topo_gbps": bw_topo, "mean_gbe": gbe, "protocol_s": time.perf_counter() - t0,
+           "descents": pred.n_descents, "graph_replays": pred.n_graph_replays}
+    print("dispatch_fig1", json.dumps(rec), flush=True)
+    need(gbe["BandPilot"] > max(gbe["Topo"], gbe["Default"], gbe["Random"]),
+         "BandPilot does not lead the dispatcher comparison")
+    return rec
+
+
+def audit_descent(pred, res, parent, k):
+    """Every round of a descent against the predictor's own host loop: the
+    scores within SCAN_RTOL, the same elimination."""
+    s = sorted(parent)
+    worst = 0.0
+    for r in range(res.n_rounds):
+        live = np.nonzero(res.sels[r])[0]
+        need([sorted(parent)[i] for i in live] == s, "descent audit: live slots differ")
+        host = np.float32(pred.predict([s[:i] + s[i + 1:] for i in range(len(s))]))
+        worst = max(worst, max_rel(res.scores[r][live], host))
+        j = int(np.argmax(host))
+        need(res.elims[r] == live[j], f"descent audit: round {r} eliminated another slot")
+        s.pop(j)
+    need(res.subset == s and len(s) == k and worst <= SCAN_RTOL,
+         f"descent audit failed (worst round score error {worst})")
+    return worst
+
+
+def host_descent(pred, parent, k):
+    """pts_search's host loop (the use_scan=False path)."""
+    s = sorted(parent)
+    while len(s) > k:
+        j = int(np.argmax(pred.predict_children(s)))
+        s = s[:j] + s[j + 1:]
+    return s
+
+
+def descent_phase(stack, params, reps=20):
+    cl, _, tables = stack
+    pred = core.SurrogatePredictor(cl, tables, params)
+    warm_s = pred.warm_scan()  # 0 where a same-shaped cluster captured the buckets
+    off = core.SurrogatePredictor(cl, tables, params, use_scan=False)
+    cpu = core.SurrogatePredictor(cl, tables, on_cpu(params))
+    parent = list(range(cl.n_gpus))
+    rows = []
+    for k in (4, 8, 16):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        wall, dev = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            res = pred.eliminate_to(parent, k)
+            ev1.record()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            dev.append(ev0.elapsed_time(ev1))
+        worst = audit_descent(pred, res, parent, k)
+        need(host_descent(off, parent, k) == res.subset, "descent: use_scan=False chose otherwise")
+        need(cpu.eliminate_to(parent, k).subset == res.subset, "descent: the CPU chose otherwise")
+        rows.append({"k": k, "rounds": res.n_rounds, "ms_median": float(np.median(wall)),
+                     "events_ms_median": float(np.median(dev)), "ms_first": wall[0],
+                     "audit_worst_rel_err": worst, "subset": res.subset})
+    need(pred.n_graph_replays == pred.n_descents, "a descent on the card was not a graph replay")
+    rec = {"cluster": cl.name, "warm_scan_s": warm_s, "graphs": surr.scan_graphs(),
+           "descents": pred.n_descents, "graph_replays": pred.n_graph_replays, "parent": 32,
+           "per_k": rows}
+    print("dispatch_descent", json.dumps(rec), flush=True)
+    return rec
+
+
+def trace_run(stack, params, trace, cparams=None):
+    """One AdmissionScheduler replay (fifo): the dispatch log, wall seconds,
+    the predictor chain's stats and the base predictor's descent counts."""
+    cl, sim, tables = stack
+    pred = core.SurrogatePredictor(cl, tables, params)
+    kw = {}
+    if cparams is not None:
+        kw = {"contention_mode": "learned",
+              "contended_predictor": core.ContendedSurrogatePredictor(cl, tables, cparams)}
+    disp = core.BandPilotDispatcher(cl, tables, pred, **kw)
+    log = []
+    orig = disp.dispatch
+
+    def logged(avail, k, rng=None):
+        s = orig(avail, k, rng=rng)
+        log.append((list(s), disp.last_result.predicted_bw))
+        return s
+
+    disp.dispatch = logged
+    t0 = time.perf_counter()
+    recs = core.AdmissionScheduler(cl, sim, tables, disp).run(trace)
+    return log, recs, time.perf_counter() - t0, disp.predictor_stats(), pred
+
+
+def first_divergence(log, cpu_log):
+    """The index of the first dispatch whose subset differs between the card
+    and the CPU, or None. Where one differs, the two choices' predicted
+    bandwidths must be a near-tie (within SCORE_RTOL): the card's float32
+    sums and the CPU's ordered two equally good candidates differently, and
+    from there on the two ledgers, and so the runs, part ways."""
+    for i, ((s, bw), (cs, cbw)) in enumerate(zip(log, cpu_log)):
+        if s != cs:
+            need(abs(bw - cbw) <= SCORE_RTOL * abs(cbw),
+                 f"dispatch {i}: card {s} ({bw} GB/s) against CPU {cs} ({cbw} GB/s)")
+            return i
+    need(len(log) == len(cpu_log), "the card and the CPU dispatched different counts")
+    return None
+
+
+def trace_phase(stack, params, name, trace, cparams=None):
+    log, recs, secs, stats, pred = trace_run(stack, params, trace, cparams)
+    cpu_log, cpu_recs, cpu_secs, _, _ = trace_run(
+        stack, on_cpu(params), trace, None if cparams is None else on_cpu(cparams))
+    split = first_divergence(log, cpu_log)
+    same = len(log) if split is None else split
+    need([(r.job_id, r.t_admit, r.bw) for r in recs[:same]]
+         == [(r.job_id, r.t_admit, r.bw) for r in cpu_recs[:same]],
+         f"{name}: the card's admissions differ from the CPU's")
+    n = len(log)
+    us = lambda s: s / max(n, 1) * 1e6  # noqa: E731
+    other = secs - stats.featurize_seconds - stats.infer_seconds - stats.scan_seconds
+    rec = {"trace": name, "cluster": stack[0].name, "jobs": len(trace), "admissions": n,
+           "mode": "analytic" if cparams is None else "learned",
+           "identical_dispatches": same,
+           "near_tie": None if split is None else {
+               "dispatch": split, "card": log[split], "cpu": cpu_log[split]},
+           "us_per_admission": us(secs), "cpu_us_per_admission": us(cpu_secs),
+           "featurize_us": us(stats.featurize_seconds), "infer_us": us(stats.infer_seconds),
+           "scan_us": us(stats.scan_seconds), "other_us": us(other),
+           "model_calls": stats.n_model_calls, "descents": pred.n_descents,
+           "graph_replays": pred.n_graph_replays, "scan_rounds": stats.n_scan_steps,
+           "mean_gbe": float(np.mean([r.gbe for r in recs]))}
+    print("dispatch_trace", json.dumps(rec), flush=True)
+    need(pred.n_graph_replays == pred.n_descents, f"{name}: a descent was not a graph replay")
+    need(cparams is not None or pred.n_descents > 0, f"{name}: no descent ran")
+    return rec
+
+
+def dispatch_phase():
+    reset_counts()
+    t0 = time.perf_counter()
+    trained = {name: dispatch_train(name, steps) for name, steps in DISPATCH_CLUSTERS.items()}
+    rec = {"train": [t[2] for t in trained.values()]}
+    rec["scores"] = [score_check(stack, params) for stack, params, _ in trained.values()]
+    rec["descent"] = [descent_phase(stack, params) for stack, params, _ in trained.values()]
+    rec["fig1"] = fig1_phase(*trained["H100"][:2])
+    rec["traces"] = []
+    for name, (stack, params, _) in trained.items():
+        cl = stack[0]
+        k_choices = range(4, cl.n_gpus // 2 + 1)
+        golden = core.poisson_trace(cl, 14, np.random.default_rng(7), mean_interarrival=1.0,
+                                    mean_duration=6.0, k_choices=k_choices)
+        poisson = core.poisson_trace(cl, 200, np.random.default_rng(11), mean_interarrival=1.0,
+                                     mean_duration=8.0, k_choices=k_choices)
+        rec["traces"].append(trace_phase(stack, params, "golden-14-fifo", golden))
+        rec["traces"].append(trace_phase(stack, params, "poisson-200", poisson))
+        if name == "H100":
+            samples = core.build_contended_dataset(stack[1], 256, np.random.default_rng(2))
+            cparams, cinfo = core.train_contended_surrogate(
+                cl, stack[2], core.to_triples(cl, samples), core.TrainConfig(steps=300),
+                base_params=params)
+            rec["contended_train_s"] = cinfo["train_seconds"]
+            rec["traces"].append(trace_phase(stack, params, "golden-14-fifo", golden, cparams))
+            rec["traces"].append(trace_phase(stack, params, "poisson-200", poisson, cparams))
+    rec["launches"] = counts()
+    need(all(v == 0 for v in rec["launches"].values()), "a port kernel ran on the dispatch path")
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"dispatch: {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def kernel_record(name, route, source, replaces, launches, main, checks, **extra):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
@@ -766,6 +1076,7 @@ def main():
                                     launch_counts(flash=1, rglru=2 * 2), 1e-4, 2e-3)
     rwkv6_train_check = train_check_phase("rwkv6-7b", 2, 1, 256, launch_counts(), 1e-4, 2e-3)
     train_lm_rec = train_lm_phase()
+    dispatch = dispatch_phase()
 
     # the CUDA-core kernel serves fp32 (and the small head dims); its record
     # holds its bf16 time at the serving shape, measured beside the new one
@@ -804,7 +1115,8 @@ def main():
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
                "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check,
                "train": train, "train_check": train_check,
-               "rwkv6_train_check": rwkv6_train_check, "train_lm": train_lm_rec}
+               "rwkv6_train_check": rwkv6_train_check, "train_lm": train_lm_rec,
+               "dispatch": dispatch}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

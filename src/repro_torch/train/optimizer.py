@@ -11,18 +11,27 @@ places, and the port keeps the reference's:
     every parameter, norms and biases included;
   * the clip divides by ``norm + 1e-12``;
   * the step counter is raised to 1 before the schedule is read.
+
+Leaves of at most ``SMALL_LEAF`` elements are updated together by
+multi-tensor (``torch._foreach_*``) kernels: a model of many small leaves,
+as the dispatcher's surrogate, is otherwise bound by kernel launches.
+Larger leaves take one plain kernel per operation, which streams a large
+tensor faster than the multi-tensor kernels do. Both make the same
+operations on each element.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
+
+SMALL_LEAF = 1 << 16  # elements: one multi-tensor kernel block's chunk
 
 
 class AdamWState(NamedTuple):
@@ -57,8 +66,14 @@ def clip_by_global_norm(tensors: Tensors, max_norm: float
     """Scale every tensor by min(1, max_norm / (norm + 1e-12)), in place."""
     norm = global_norm(tensors)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    small: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors.values():
-        t.mul_(scale.to(t.dtype))
+        if t.numel() <= SMALL_LEAF:
+            small.setdefault(t.dtype, []).append(t)
+        else:
+            t.mul_(scale.to(t.dtype))
+    for dtype, group in small.items():
+        torch._foreach_mul_(group, scale.to(dtype))
     return tensors, norm
 
 
@@ -85,7 +100,32 @@ def adamw(config: AdamWConfig, schedule: Optional[Schedule] = None):
         b1, b2 = config.b1, config.b2
         bc1 = 1.0 - b1 ** step
         bc2 = 1.0 - b2 ** step
+        sd = config.state_dtype
+        small = [n for n, p in params.items() if p.numel() <= SMALL_LEAF]
+        if small:
+            g = [grads[n].to(sd) for n in small]
+            m = [state.mu[n] for n in small]
+            v = [state.nu[n] for n in small]
+            p32 = [params[n].to(sd) for n in small]  # the parameter itself when in sd
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, g, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, g, g, value=1 - b2)
+            delta = torch._foreach_div(m, bc1)
+            den = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, config.eps)
+            torch._foreach_div_(delta, den)
+            if config.weight_decay:
+                torch._foreach_add_(delta, p32, alpha=config.weight_decay)
+            torch._foreach_mul_(delta, lr)
+            torch._foreach_sub_(p32, delta)
+            for n, q in zip(small, p32):
+                if q is not params[n]:
+                    params[n].copy_(q)
         for name, p in params.items():
+            if p.numel() <= SMALL_LEAF:
+                continue
             g = grads[name].to(config.state_dtype)
             m, v = state.mu[name], state.nu[name]
             m.mul_(b1).add_(g, alpha=1 - b1)

@@ -14,6 +14,12 @@ the port's gradients are held against the reference's.
 
 ``init_params`` draws full-width weights on the device from a seeded
 ``torch.Generator``, with the reference's statistics (not its bits).
+
+``surrogate_from_jax_params`` loads the dispatcher's surrogate pytree (any
+of the three variants of ``repro.core.surrogate``: dicts and lists of
+arrays) into a :class:`~repro_torch.core.surrogate.Surrogate`, whose
+state-dict names are the pytree's paths; ``surrogate_to_jax_params`` gives
+the numpy pytree back, so the reference can score a model the port trained.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.surrogate import Surrogate
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import LM
 
@@ -76,3 +83,50 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda",
     gen.manual_seed(seed)
     lm.reset_parameters(gen)
     return lm
+
+
+def _tree_to_state_dict(prefix: str, tree: Any, out: Dict[str, torch.Tensor]) -> None:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        out[prefix] = torch.from_numpy(np.array(tree, dtype=np.float32))
+        return
+    for key, sub in items:
+        _tree_to_state_dict(f"{prefix}.{key}" if prefix else str(key), sub, out)
+
+
+def surrogate_from_jax_params(params: Dict[str, Any],
+                              device: DeviceLike = "cuda") -> Surrogate:
+    """Load a reference surrogate pytree; the variant follows its keys."""
+    dev = resolve_device(device)
+    if "id_embed" in params:
+        model = Surrogate("naive", n_gpus=int(np.shape(params["id_embed"])[0]))
+    else:
+        model = Surrogate("contended" if "ctx_embed" in params else "hierarchical")
+    sd: Dict[str, torch.Tensor] = {}
+    _tree_to_state_dict("", params, sd)
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev)
+
+
+def surrogate_to_jax_params(model: Surrogate) -> Dict[str, Any]:
+    """The model as the reference's pytree of float32 numpy arrays (lists
+    where the reference has lists: ``trunk.layers``, ``trunk.head``)."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in model.state_dict().items():
+        node = tree
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = tensor.detach().cpu().numpy().copy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(key.isdigit() for key in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {key: lists(sub) for key, sub in node.items()}
+
+    return lists(tree)

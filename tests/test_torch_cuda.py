@@ -15,6 +15,10 @@ the WKV6 state are exact, as they round like their twins (separate fp32
 multiply and add).
 """
 
+import copy
+import threading
+
+import numpy as np
 import pytest
 import torch
 
@@ -408,3 +412,141 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):                                           # out overlaps s0
         wkv_ops.wkv(r, k, v, w, u, both[:s0.numel()].view_as(s0),
                     out=both[64:64 + s0.numel()].view_as(s0))
+
+
+# ---------------------------------------------------------------------------
+# The dispatcher's fused descent: one CUDA graph replay a descent
+# ---------------------------------------------------------------------------
+
+def _dispatch_stack(name="H100"):
+    from repro_torch import core
+
+    cl = core.PAPER_CLUSTERS[name]()
+    sim = core.BandwidthSimulator(cl)
+    return core, cl, core.IntraHostTables(cl, sim)
+
+
+def _surrogate(seed, device, bias=1.2):
+    """Random weights with the head's output bias raised, so predictions sit
+    near real bandwidths (about 400 GB/s) and the contention caps bind."""
+    from repro_torch.core import surrogate as surr
+
+    params = surr.init_hierarchical_params(torch.Generator().manual_seed(seed), device="cpu")
+    with torch.no_grad():
+        params.trunk.head[2].b += bias
+    return params.to(device)
+
+
+def _tenanted(core, cl):
+    led = core.JobLedger(cl)
+    led.admit("a", [0, 1, cl.hosts[1].gpu_ids[0]])
+    led.admit("b", [cl.hosts[1].gpu_ids[1], cl.hosts[-1].gpu_ids[0]])
+    return led
+
+
+def _on_cpu(params):
+    return copy.deepcopy(params).to("cpu")  # Module.to moves in place
+
+
+def _same_result(a, b):
+    assert a.subset == b.subset and a.n_rounds == b.n_rounds and a.n_capped == b.n_capped
+    np.testing.assert_array_equal(a.sels, b.sels)
+    np.testing.assert_array_equal(a.elims, b.elims)
+    np.testing.assert_allclose(a.scores, b.scores, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_descent_graph_replay_matches_eager(cuda):
+    """The captured graph gives the eager descent's ScanResult (scores to
+    1e-5: the same float32 program; eliminations identical), isolated and
+    through the contention caps, and each descent is one replay."""
+    from repro_torch.core import surrogate as surr
+
+    core, cl, tables = _dispatch_stack()
+    params = _surrogate(0, cuda)
+    pred = core.SurrogatePredictor(cl, tables, params)
+    assert pred.warm_scan() >= 0.0
+    rng = np.random.default_rng(0)
+    led = _tenanted(core, cl)
+    wrapped = core.ContentionAwarePredictor(cl, pred, led)
+    free = sorted(set(range(cl.n_gpus)) - led.busy())
+    for n0, k in ((32, 8), (20, 4), (12, 6), (9, 2)):
+        parent = sorted(rng.choice(cl.n_gpus, size=n0, replace=False).tolist())
+        res = pred.eliminate_to(parent, k)
+        key, f32, i32 = pred.scan_inputs(parent, k)
+        eager = surr._scan_from_buffers(params, key, torch.from_numpy(f32).to(cuda),
+                                        torch.from_numpy(i32).to(cuda)).cpu().numpy()
+        np.testing.assert_allclose(pred._run_scan(key, f32, i32), eager, rtol=1e-5)
+        cpu = core.SurrogatePredictor(cl, tables, _on_cpu(params))
+        _same_result(res, cpu.eliminate_to(parent, k))
+        capped = sorted(rng.choice(free, size=min(n0, len(free)), replace=False).tolist())
+        res = wrapped.eliminate_to(capped, k)
+        cpu_wrapped = core.ContentionAwarePredictor(cl, cpu, led)
+        _same_result(res, cpu_wrapped.eliminate_to(capped, k))
+    assert pred.n_graph_replays == pred.n_descents > 0
+
+
+@pytest.mark.cuda
+def test_descent_graph_gives_each_predictor_its_own_weights(cuda):
+    """Two predictors with different weights share one bucket's graph; each
+    gets the scores of its own parameters, in either order."""
+    core, cl, tables = _dispatch_stack()
+    a = core.SurrogatePredictor(cl, tables, _surrogate(1, cuda))
+    b = core.SurrogatePredictor(cl, tables, _surrogate(2, cuda, bias=0.8))
+    parent = list(range(4)) + list(range(8, 14)) + list(range(16, 20))
+    want = {}
+    for name, pred in (("a", a), ("b", b)):
+        cpu = core.SurrogatePredictor(cl, tables, _on_cpu(pred.params))
+        want[name] = cpu.eliminate_to(parent, 5)
+    for name, pred in (("a", a), ("b", b), ("a", a), ("b", b)):
+        _same_result(pred.eliminate_to(parent, 5), want[name])
+    assert not np.allclose(want["a"].scores, want["b"].scores)
+    assert a.n_graph_replays == b.n_graph_replays == 2
+
+
+@pytest.mark.cuda
+def test_concurrent_descents_match_serial(cuda):
+    """Four threads descend at once through the same bucket graphs (replays
+    serialize on each graph's lock); every result equals the serial one."""
+    core, cl, tables = _dispatch_stack("Het-4Mix")
+    pred = core.SurrogatePredictor(cl, tables, _surrogate(3, cuda))
+    rng = np.random.default_rng(4)
+    jobs = [(sorted(rng.choice(cl.n_gpus, size=int(n0), replace=False).tolist()), int(k))
+            for n0, k in zip(rng.integers(9, 33, size=24), rng.integers(2, 9, size=24))]
+    jobs = [(p, k) for p, k in jobs if len(cl.partition_by_host(p)) > 1]
+    serial = [pred.eliminate_to(p, k) for p, k in jobs]
+    out = [None] * len(jobs)
+
+    def work(w):
+        for i in range(w, len(jobs), 4):
+            out[i] = pred.eliminate_to(*jobs[i])
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for got, want in zip(out, serial):
+        _same_result(got, want)
+    assert pred.n_graph_replays == pred.n_descents == 2 * len(jobs)
+
+
+@pytest.mark.cuda
+def test_surrogate_trains_and_scores_on_card(cuda):
+    """train_surrogate(device="cuda") keeps the model on the card, matches
+    the CPU's loss curve from the same init and batches (2e-3 relative, as
+    on the CPU against the reference), and its predictor scores there."""
+    core, cl, tables = _dispatch_stack()
+    sim = core.BandwidthSimulator(cl)
+    train, test = core.make_train_test_split(sim, 64, seed=0)
+    cfg = core.TrainConfig(steps=30, batch_size=32)
+    init = _surrogate(5, "cpu", bias=0.0)
+    params, info = core.train_surrogate(cl, tables, train, cfg, init_params=init)
+    assert params.device.type == "cuda"
+    _, cpu_info = core.train_surrogate(cl, tables, train, cfg, init_params=init, device="cpu")
+    np.testing.assert_allclose(info["loss_curve"], cpu_info["loss_curve"], rtol=2e-3)
+    pred = core.SurrogatePredictor(cl, tables, params)
+    cpu = core.SurrogatePredictor(cl, tables, _on_cpu(params))
+    subsets = [s for s, _ in test]
+    np.testing.assert_allclose(pred.predict(subsets), cpu.predict(subsets), rtol=1e-4)

@@ -123,7 +123,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for module in ("train/optimizer.py", "train/train_loop.py", "data/pipeline.py",
-                   "checkpoint/ckpt.py", "launch/train_lm.py"):
+                   "checkpoint/ckpt.py", "launch/train_lm.py", "core/surrogate.py",
+                   "core/training.py", "core/predict_cache.py", "launch/dispatch.py"):
         assert port / module in files, module
     for path in files:
         for name in _imports(path):

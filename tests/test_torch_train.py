@@ -147,9 +147,11 @@ def _assert_grads_close(got, want, tol):
 
 def test_adamw_matches_reference():
     """Five updates with the clip active and weight decay on every leaf
-    (matrix, norm vector, bias) against ``repro.train.optimizer.adamw``."""
+    (matrix, norm vector, bias, and a leaf above ``SMALL_LEAF``, which takes
+    the one-tensor-at-a-time path) against ``repro.train.optimizer.adamw``."""
     rng = np.random.default_rng(0)
-    shapes = {"w": (6, 5), "norm": (5,), "bias": (3,)}
+    shapes = {"w": (6, 5), "norm": (5,), "bias": (3,), "big": (300, 256)}
+    assert 300 * 256 > optimizer.SMALL_LEAF
     params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
     grads = [{k: (3.0 * rng.standard_normal(s)).astype(np.float32)
               for k, s in shapes.items()} for _ in range(5)]
@@ -187,7 +189,8 @@ def test_cosine_schedule_matches_reference(total, warmup, final_frac):
 def test_clip_by_global_norm_matches_reference():
     rng = np.random.default_rng(4)
     tree = {"a": rng.standard_normal((4, 3)).astype(np.float32),
-            "b": rng.standard_normal(7).astype(np.float32)}
+            "b": rng.standard_normal(7).astype(np.float32),
+            "big": rng.standard_normal((300, 256)).astype(np.float32)}
     jclipped, jnorm = joptim.clip_by_global_norm(tree, 0.5)
     clipped, norm = optimizer.clip_by_global_norm({k: _t(v) for k, v in tree.items()}, 0.5)
     _close(norm, jnorm, OP_TOL)
