@@ -65,7 +65,23 @@ calls, and fails (exit code not 0, no result line) on any miss:
               host loop), and traces through ``AdmissionScheduler`` (the
               pinned 14-job fifo golden and a 200-job Poisson trace,
               analytic mode on both clusters, learned mode on H100) whose
-              subsets must equal the CPU's; no port kernel runs on it.
+              subsets must equal the CPU's; no port kernel runs on it;
+ 13. elastic  BandPilot-placed training (``launch/elastic.py``,
+              ``parallel/fsdp.py``) on recurrentgemma-9b at full width, depth
+              cut to one (rglru, rglru, attn_local) group, bf16 over fp32
+              masters, B 1 x S 2048, 6 steps: (a) ``train_loop`` uninterrupted;
+              (b) the sharded step on a 1-rank NCCL mesh over the card, 16 of
+              the simulated 32-GPU H100 cluster dispatched, a checkpoint (about
+              19.7 GB: parameters and both moments in fp32, free space checked
+              first) and host 1's failure at step 3, re-dispatch, a new mesh,
+              restore, resume; (c) the same coordinator on the CPU. (b)'s
+              losses within 1e-5 of (a)'s (bit-equality printed), its event log
+              (allocations, predicted GB/s) equal to (c)'s, no GPU of the dead
+              host re-used, 2 tensor-core flash and 6 RG-LRU launches a step;
+              step ms under CUDA events, checkpoint bytes, save and restore s,
+              and the time to recover split into re-dispatch, mesh build,
+              restore and the first resumed step. Then
+              ``repro_torch.launch.train`` on the same config for 2 steps.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -76,8 +92,10 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,7 +114,12 @@ from repro_torch.kernels import KERNELS, cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref  # noqa: E402
+from repro_torch.ft.elastic import ElasticCoordinator, FailureEvent  # noqa: E402
+from repro_torch.ft.elastic import run_elastic_training  # noqa: E402
+from repro_torch.launch import elastic as launch_elastic  # noqa: E402
 from repro_torch.launch import serve as launch_serve, train_lm  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
@@ -984,6 +1007,126 @@ def dispatch_phase():
     return rec
 
 
+# -- phase 13: BandPilot-placed training, a failure and the recovery -------------
+
+# (b) against (a): the same fp32 masters, bf16 compute and batches, the step
+# on a 1-rank mesh gathers and reduces nothing; restored state is exact
+ELASTIC_RTOL = 1e-5
+
+
+def coordinator_log(flow):
+    """(c): ``run_elastic_training``'s events with no training, on the CPU."""
+    cl = core.h100_cluster()
+    sim = core.BandwidthSimulator(cl)
+    disp = core.BandPilotDispatcher(cl, core.IntraHostTables(cl, sim),
+                                    core.GroundTruthPredictor(sim))
+    failures = [FailureEvent(step=flow.fail_at, failed_gpus=list(flow.failed_gpus))]
+
+    def no_training(alloc, start):
+        return min((f.step for f in failures if f.step > start), default=flow.steps), 0.0
+
+    log = run_elastic_training(ElasticCoordinator(cl, disp, request_size=flow.request),
+                               no_training, failures, flow.steps)
+    return [e for e in log if e["event"] != "train"]
+
+
+def elastic_phase():
+    flow = launch_elastic.card_flow()
+    cfg = flow.cfg
+    need(cfg.n_groups_and_tail() == (1, 0) and cfg.d_model == 4096, "elastic: config")
+    per_step = launch_counts(flash_wgmma=2, rglru=6)
+    scaled = lambda n: {k: v * n for k, v in per_step.items()}  # noqa: E731
+
+    # (a) uninterrupted
+    model = build_model(cfg)
+    lm = model.init(SEED, torch.float32)
+    n_params = sum(p.numel() for p in lm.parameters())
+    data = flow.data()
+    batches = [data.batch(i) for i in range(flow.steps)]
+    events = []
+    reset_counts()
+    lm, state, hist = train_loop(model, lm, timed_batches(batches, events), flow.run_config(),
+                                 log_every=1)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    events.append(end)
+    launches_a = counts()
+    need(launches_a == scaled(flow.steps), f"elastic (a) launches {launches_a}")
+    losses_a = [h["loss"] for h in hist]
+    step_ms_a = [x.elapsed_time(y) for x, y in zip(events, events[1:])]
+    del lm, state
+    torch.cuda.empty_cache()
+
+    # (b) through a failure; the checkpoint goes under the temporary directory
+    ckpt_dir = tempfile.mkdtemp(prefix="elastic_", dir=tempfile.gettempdir())
+    need_bytes = (flow.keep + 1) * launch_elastic.checkpoint_bytes(cfg)
+    free = shutil.disk_usage(ckpt_dir).free
+    print(f"elastic: {free} bytes free under {tempfile.gettempdir()}, "
+          f"{need_bytes} needed", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with process_group("cuda"):
+            out = launch_elastic.run(flow, torch.device("cuda"), ckpt_dir, seed=SEED)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches_b = counts()
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    need(launches_b == scaled(flow.steps), f"elastic (b) launches {launches_b}")
+    losses_b = [h["loss"] for h in out["history"]]
+    need([h["step"] for h in out["history"]] == list(range(1, flow.steps + 1)),
+         "elastic (b): a step was not logged")
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses_b, losses_a)]
+    need(all(np.isfinite(losses_b)) and max(rel) <= ELASTIC_RTOL,
+         f"elastic: resumed losses {losses_b} against {losses_a}")
+    redispatch = out["log"][2]
+    need(not set(redispatch["alloc"]) & set(flow.failed_gpus),
+         f"elastic: {redispatch['alloc']} re-uses a GPU of the dead host")
+
+    # (c) the coordinator on the CPU
+    log_b = [e for e in out["log"] if e["event"] != "train"]
+    log_c = coordinator_log(flow)
+    need(json.dumps(log_b, default=float) == json.dumps(log_c, default=float),
+         f"elastic: event log {log_b} on the card, {log_c} on the CPU")
+
+    # the launcher: 2 steps of the sharded step on a 1-rank mesh
+    reset_counts()
+    res = launch_train.main(["--arch", "recurrentgemma-9b", "--steps", "2",
+                             "--global-batch", "1", "--seq-len", "2048", "--log-every", "1",
+                             "--seed", str(SEED)], cfg=cfg)
+    launches_train = counts()
+    need(res["opt_step"] == 2 and all(np.isfinite([h["loss"] for h in res["history"]])),
+         f"launch.train: {res['history']}")
+    need(launches_train == scaled(2), f"launch.train launches {launches_train}")
+
+    saves = {s["step"]: s for s in out["saves"]}
+    warm = [2, 5]  # (b)'s steps with no save in them, not the first after a (re)start
+    step_ms_b = [out["step_ms"][i] for i in range(1, flow.steps + 1)]
+    warm_a = float(np.median(step_ms_a[1:]))  # (a) saves nothing; its first step is cold
+    warm_b = float(np.median([step_ms_b[i - 1] for i in warm]))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "compute_dtype": "bfloat16", "master_dtype": "float32",
+           "batch": flow.batch, "seq": flow.seq, "steps": flow.steps,
+           "fail_at": flow.fail_at, "failed_gpus": list(flow.failed_gpus),
+           "losses_a": losses_a, "losses_b": losses_b, "max_rel_err": max(rel),
+           "tol": ELASTIC_RTOL, "bit_equal": losses_a == losses_b,
+           "step_ms_a": step_ms_a, "step_ms_b": step_ms_b,
+           "step_ms_b_includes_save": sorted(saves),
+           "warm_steps_b": warm, "step_ms_a_median_warm": warm_a,
+           "step_ms_b_median_warm": warm_b, "sharded_overhead_ms": warm_b - warm_a,
+           "log": out["log"], "log_cpu": log_c, "allocations": out["allocations"],
+           "checkpoint_bytes": out["checkpoint_bytes"], "free_bytes": free,
+           "needed_bytes": need_bytes, "saves": out["saves"],
+           "recover": out["recover"], "peak_mem_gib_b": peak_b,
+           "launches_a": launches_a, "launches_b": launches_b,
+           "launch_train": {"history": res["history"], "launches": launches_train,
+                            "mesh": res["mesh"], "chosen": res["chosen"]}}
+    rec = json.loads(json.dumps(rec, default=float))  # numpy scalars of the dispatcher
+    print("elastic", json.dumps(rec), flush=True)
+    return rec
+
+
 def kernel_record(name, route, source, replaces, launches, main, checks, **extra):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
@@ -1077,6 +1220,9 @@ def main():
     rwkv6_train_check = train_check_phase("rwkv6-7b", 2, 1, 256, launch_counts(), 1e-4, 2e-3)
     train_lm_rec = train_lm_phase()
     dispatch = dispatch_phase()
+    elastic = elastic_phase()
+    elastic_launches = lambda name: {  # noqa: E731
+        run: elastic[key][name] for run, key in (("a", "launches_a"), ("b", "launches_b"))}
 
     # the CUDA-core kernel serves fp32 (and the small head dims); its record
     # holds its bf16 time at the serving shape, measured beside the new one
@@ -1091,7 +1237,8 @@ def main():
                       serve["launches"]["flash_attention_wgmma"], flash, flash_checks,
                       previous_ms=flash["previous_ms"],
                       launches_train_4_steps=train["launches_per_4_steps"][
-                          "flash_attention_wgmma"]),
+                          "flash_attention_wgmma"],
+                      launches_elastic=elastic_launches("flash_attention_wgmma")),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -1104,6 +1251,7 @@ def main():
                       "src/repro/kernels/rglru/rglru.py:69",
                       serve["launches"]["rglru_scan"], lru, lru_checks, path=lru["route"],
                       launches_train_4_steps=train["launches_per_4_steps"]["rglru_scan"],
+                      launches_elastic=elastic_launches("rglru_scan"),
                       bf16_a_fp32_b_ms=lru_mixed["ms"], bf16_a_fp32_b_bound_ms=lru_mixed["bound_ms"],
                       bf16_a_fp32_b_plain_ms=lru_mixed["plain_ms"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -1116,7 +1264,7 @@ def main():
                "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check,
                "train": train, "train_check": train_check,
                "rwkv6_train_check": rwkv6_train_check, "train_lm": train_lm_rec,
-               "dispatch": dispatch}
+               "dispatch": dispatch, "elastic": elastic}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

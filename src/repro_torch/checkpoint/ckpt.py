@@ -12,6 +12,14 @@ tensors, numpy arrays or ints; an ``nn.Module`` stands for its state dict and
 an ``AdamWState`` for ``{"step", "mu", "nu"}``. So ``{"params": lm, "opt":
 state}`` saves ``params/<name>``, ``opt/step``, ``opt/mu/<name>`` and
 ``opt/nu/<name>``.
+
+A tree of DTensors (the sharded trainer's parameters and moments) is saved
+whole: each is gathered (a collective: every rank of its mesh calls
+``save``), the mesh's first rank writes, and the others wait for it, so any
+rank can restore right after. Such a save is synchronous whatever
+``async_save`` says. A DTensor template restores into its own placements,
+each rank reading its block of the whole array: a checkpoint from one mesh
+(or from one process) restores into another.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.train.optimizer import AdamWState
 
@@ -45,20 +55,30 @@ def _children(tree: Tree) -> Optional[Dict[str, Any]]:
     return None
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _leaves(tree: Tree, prefix: str = "") -> Dict[str, Any]:
     kids = _children(tree)
     if kids is None:
-        if isinstance(tree, torch.Tensor):
-            # a copy: training goes on updating the tensor in place while an
-            # async save writes. bf16 goes as fp32 (numpy has no bf16).
-            t = tree.detach().cpu()
-            t = t.float() if t.dtype == torch.bfloat16 else t
-            return {prefix: t.numpy().copy()}
-        return {prefix: np.asarray(tree)}
+        return {prefix: tree}
     flat = {}
     for name, sub in kids.items():
-        flat.update(_flatten(sub, f"{prefix}{_SEP}{name}" if prefix else str(name)))
+        flat.update(_leaves(sub, f"{prefix}{_SEP}{name}" if prefix else str(name)))
     return flat
+
+
+def _host_copy(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        # one copy: training goes on updating the tensor in place while an
+        # async save writes. bf16 goes as fp32 (numpy has no bf16).
+        t = leaf.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` has reached this point: a barrier along each
+    mesh dim in turn."""
+    for dim in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(dim))
 
 
 def _restore(template: Tree, data, prefix: str = "") -> Tree:
@@ -73,8 +93,15 @@ def _restore(template: Tree, data, prefix: str = "") -> Tree:
             raise ValueError(f"shape mismatch at {prefix}: ckpt {arr.shape} vs "
                              f"template {shape}")
         if isinstance(template, torch.Tensor):
+            # np.load gives a fresh array; a read-only one is copied
+            whole = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
+            dst = template
+            if isinstance(template, DTensor):  # this rank's block, no communication
+                whole = distribute_tensor(whole, template.device_mesh, template.placements,
+                                          src_data_rank=None).to_local()
+                dst = template.to_local()
             with torch.no_grad():
-                template.copy_(torch.from_numpy(np.array(arr)))
+                dst.copy_(whole)
             return template
         return type(template)(arr)  # a scalar such as the optimizer's step
     out = {name: _restore(sub, data, f"{prefix}{_SEP}{name}" if prefix else str(name))
@@ -96,7 +123,20 @@ class Checkpointer:
 
     def save(self, step: int, tree: Tree, metadata: Optional[dict] = None):
         # copy to host memory *before* handing to the writer thread
-        flat = _flatten(tree)
+        leaves = _leaves(tree)
+        mesh = next((v.device_mesh for v in leaves.values() if isinstance(v, DTensor)), None)
+        if mesh is not None:
+            writer = int(mesh.mesh.flatten()[0]) == dist.get_rank()
+            flat = {}
+            for name, leaf in leaves.items():
+                whole = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+                if writer:
+                    flat[name] = _host_copy(whole)
+            if writer:
+                self._write(step, flat, metadata or {})
+            _mesh_barrier(mesh)
+            return
+        flat = {k: _host_copy(v) for k, v in leaves.items()}
         if self.async_save:
             self.wait()  # one in-flight save at a time
             self._thread = threading.Thread(

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +33,7 @@ from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
 Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
+Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, tensor)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -200,27 +201,30 @@ class LM(nn.Module):
             logits = c * torch.tanh(logits / c)
         return logits
 
-    def forward(self, tokens: torch.Tensor,
-                remat_policy: Optional[str] = "nothing") -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, remat_policy: Optional[str] = "nothing",
+                materialize: Optional[Materialize] = None) -> torch.Tensor:
         """Training / scoring forward (``lm_forward``): logits [B, S, V].
 
         With grad on, each pattern group of layers runs under ``remat_policy``
         (see ``_remat_context``); the tail layers never do, as in the
-        reference."""
+        reference. ``materialize(name, tensor)``, where given, replaces each
+        layer parameter just before its layer runs (inside a rematerialized
+        group, so again in the recompute); the sharded trainer gathers the
+        group's weights there."""
         x = self._embed(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         p = len(self.cfg.mixer_pattern)
         n_groups, _ = self.cfg.n_groups_and_tail()
         remat = remat_policy not in (None, "none") and torch.is_grad_enabled()
         for g in range(n_groups):
-            group = list(self.layers[g * p:(g + 1) * p])
+            group = range(g * p, (g + 1) * p)
             if remat:
-                x = _remat_group(group, x, positions, remat_policy)
+                x = _remat_group(self.layers, group, x, positions, remat_policy, materialize)
             else:
-                for layer in group:
-                    x = layer(x, positions)
-        for layer in self.layers[n_groups * p:]:
-            x = layer(x, positions)
+                for i in group:
+                    x = _run_layer(self.layers, i, x, positions, materialize)
+        for i in range(n_groups * p, len(self.layers)):
+            x = _run_layer(self.layers, i, x, positions, materialize)
         return self._logits(x)
 
     def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
@@ -271,21 +275,40 @@ def _remat_context(policy: str):
                              functools.partial(_save_ops_policy, _SAVED_OPS[policy]))
 
 
-def _remat_group(group: Sequence[Block], x: torch.Tensor, positions: torch.Tensor,
-                 policy: str) -> torch.Tensor:
-    """The layers of ``group`` over x under ``torch.utils.checkpoint``.
+def _call_layer(layer: Block, index: int, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                positions: torch.Tensor, materialize: Optional[Materialize]) -> torch.Tensor:
+    if materialize is not None:
+        params = {n: materialize(f"layers.{index}.{n}", t) for n, t in params.items()}
+    return functional_call(layer, params, (x, positions))
+
+
+def _run_layer(layers: nn.ModuleList, index: int, x: torch.Tensor, positions: torch.Tensor,
+               materialize: Optional[Materialize]) -> torch.Tensor:
+    layer = layers[index]
+    if materialize is None:
+        return layer(x, positions)
+    return _call_layer(layer, index, dict(layer.named_parameters()), x, positions, materialize)
+
+
+def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
+                 positions: torch.Tensor, policy: str,
+                 materialize: Optional[Materialize] = None) -> torch.Tensor:
+    """The layers ``group`` (indices into ``layers``) over x under
+    ``torch.utils.checkpoint``.
 
     The layers' parameters go in as explicit inputs: the backward's recompute
     then sees the same tensors as the forward, also when ``lm_loss`` swapped
-    in cast copies that are gone by then."""
-    names = [[n for n, _ in layer.named_parameters()] for layer in group]
-    flat = [t for layer in group for _, t in layer.named_parameters()]
+    in cast copies that are gone by then. ``materialize`` runs inside, so the
+    recompute materializes the weights again."""
+    names = [[n for n, _ in layers[i].named_parameters()] for i in group]
+    flat = [t for i in group for _, t in layers[i].named_parameters()]
 
     def run(x, *tensors):
-        i = 0
-        for layer, ns in zip(group, names):
-            x = functional_call(layer, dict(zip(ns, tensors[i:i + len(ns)])), (x, positions))
-            i += len(ns)
+        k = 0
+        for i, ns in zip(group, names):
+            params = dict(zip(ns, tensors[k:k + len(ns)]))
+            x = _call_layer(layers[i], i, params, x, positions, materialize)
+            k += len(ns)
         return x
 
     return checkpoint(run, x, *flat, use_reentrant=False, context_fn=_remat_context(policy))
@@ -295,23 +318,38 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "nothing",
-            compute_dtype: Optional[torch.dtype] = None
+            compute_dtype: Optional[torch.dtype] = None,
+            materialize: Optional[Materialize] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens [B,S], labels [B,S], optional mask -> (loss, metrics).
 
     ``compute_dtype`` casts the fp32/bf16 parameters inside the differentiated
     function (``functional_call`` on cast copies), so the gradients reach the
-    master parameters through the cast."""
+    master parameters through the cast. ``materialize(name, tensor)``
+    replaces each parameter before that cast: the embedding, final norm and
+    head at the start, a layer's just before it runs (``LM.forward``)."""
     if batch.get("prefix_embeds") is not None:
         raise NotImplementedError(
             f"{lm.cfg.name}: prefix_embeds (the frontends' prefix) are not "
             "ported yet (ROADMAP.md queue A2)")
     tokens = batch["tokens"]
-    if compute_dtype is None:
+
+    def prepare(name: str, p: torch.Tensor) -> torch.Tensor:
+        if materialize is not None:
+            p = materialize(name, p)
+        if compute_dtype is not None and p.dtype in (torch.float32, torch.bfloat16):
+            p = p.to(compute_dtype)
+        return p
+
+    if materialize is not None:
+        outer = {n: prepare(n, p) for n, p in lm.named_parameters()
+                 if not n.startswith("layers.")}
+        logits = functional_call(lm, outer, (tokens,),
+                                 {"remat_policy": remat_policy, "materialize": prepare})
+    elif compute_dtype is None:
         logits = lm(tokens, remat_policy=remat_policy)
     else:
-        params = {n: p.to(compute_dtype) if p.dtype in (torch.float32, torch.bfloat16)
-                  else p for n, p in lm.named_parameters()}
+        params = {n: prepare(n, p) for n, p in lm.named_parameters()}
         logits = functional_call(lm, params, (tokens,), {"remat_policy": remat_policy})
     xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no MoE yet

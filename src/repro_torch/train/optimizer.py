@@ -85,8 +85,8 @@ def adamw(config: AdamWConfig, schedule: Optional[Schedule] = None):
     place (the clip)."""
 
     def init_fn(params: Tensors) -> AdamWState:
-        def zeros():
-            return {n: torch.zeros(p.shape, dtype=config.state_dtype, device=p.device)
+        def zeros():  # a DTensor parameter's moments are DTensors of its placement
+            return {n: torch.zeros_like(p, dtype=config.state_dtype, requires_grad=False)
                     for n, p in params.items()}
         return AdamWState(step=0, mu=zeros(), nu=zeros())
 

@@ -9,21 +9,33 @@ here (``requires_grad_``); serving never needs their gradients.
 
 ``TrainRunConfig`` has the reference's fields except ``kernel_backend`` and
 ``scan_unroll``, which are XLA knobs: the port picks its kernels by device
-(``ops.py`` of each kernel) and runs eagerly. The reference's cross-shard
-knobs (``REPRO_GRAD_SYNC_BF16``, ``REPRO_CAST_BARRIER``, ``REPRO_SP_GATHER``)
-belong to the port of ``parallel/`` (ROADMAP.md queue A).
+(``ops.py`` of each kernel) and runs eagerly.
+
+With a :class:`~repro_torch.parallel.fsdp.ShardedModel` for ``model`` the
+same step trains an LM whose parameters are DTensors on a mesh
+(``parallel/fsdp.py``): the model's loss splits the batch, gathers the
+weights and averages the loss over the global batch, and the gradients come
+back from autograd already reduced to each parameter's placement.
+
+``REPRO_GRAD_SYNC_BF16=1`` round-trips the gradients through bf16 before
+the optimizer, as the reference does (on a mesh, the reduced gradients).
+The reference's other cross-shard knobs
+(``REPRO_CAST_BARRIER``, ``REPRO_SP_GATHER``) come with tensor-parallel
+compute (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import LM
+from repro_torch.parallel.fsdp import ShardedModel
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, adamw, cosine_schedule
 
 Batch = Dict[str, Any]
@@ -43,10 +55,11 @@ def _on_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_train_step(model: Model, run: TrainRunConfig
+def make_train_step(model: Union[Model, ShardedModel], run: TrainRunConfig
                     ) -> Tuple[Callable, Callable[[LM], AdamWState]]:
     """Returns (train_step, opt_init)."""
     init, update = adamw(run.optimizer, cosine_schedule(run.total_steps, run.warmup_steps))
+    grad_sync_bf16 = os.environ.get("REPRO_GRAD_SYNC_BF16", "0") == "1"
 
     def opt_init(lm: LM) -> AdamWState:
         return init(dict(lm.named_parameters()))
@@ -84,6 +97,9 @@ def make_train_step(model: Model, run: TrainRunConfig
             metrics = {"xent": loss}
         else:
             loss, metrics, grads = loss_and_grads(lm, params, batch)
+        if grad_sync_bf16:
+            for g in grads.values():
+                g.copy_(g.to(torch.bfloat16))
         _, opt_state, om = update(grads, opt_state, params)
         return lm, opt_state, {"loss": loss, **metrics, **om}
 

@@ -550,3 +550,67 @@ def test_surrogate_trains_and_scores_on_card(cuda):
     cpu = core.SurrogatePredictor(cl, tables, _on_cpu(params))
     subsets = [s for s, _ in test]
     np.testing.assert_allclose(pred.predict(subsets), cpu.predict(subsets), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The sharded training step on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _sharded_setup():
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainRunConfig
+
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-3, weight_decay=0.01), total_steps=4,
+                         warmup_steps=1, compute_dtype=torch.bfloat16)
+    return cfg, data, run
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_card_is_train_loop(cuda, tmp_path):
+    """On a 1-rank mesh the gathers and reductions move nothing: 2 steps,
+    a checkpoint of the DTensor state restored into a fresh mesh's
+    placements, 2 more, give train_loop's losses and parameters (bf16
+    compute, the card's kernels; same operations, so 1e-5 relative is
+    generous). The flash and scan kernels run on the gathered weights."""
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_mesh_from_devices, process_group
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import LM
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.fsdp import ShardedModel, full_state
+    from repro_torch.train.train_loop import make_train_step, train_loop
+
+    cfg, data, run = _sharded_setup()
+    model = build_model(cfg)
+    lm, _, hist = train_loop(model, model.init(0), data.batches(4), run, log_every=1)
+    want = [h["loss"] for h in hist]
+    rules = shd.STRATEGIES["fsdp_tp"]()
+    ck = Checkpointer(str(tmp_path), keep=1)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        sharded = ShardedModel(model, mesh, rules)
+        for kern in KERNELS:
+            kern.launches = 0
+        slm, state, h1 = train_loop(sharded, sharded.init(0), data.batches(2), run,
+                                    log_every=1, checkpointer=ck, checkpoint_every=2)
+        launches = {kern.name: kern.launches for kern in KERNELS}
+        del slm, state
+        again = ShardedModel(model, make_mesh_from_devices([0], (1, 1), ("data", "model"),
+                                                           "cuda"), rules)
+        fresh = again.shard(LM(cfg, cuda, torch.float32))
+        step, restored = ck.restore({"params": fresh,
+                                     "opt": make_train_step(again, run)[1](fresh)})
+        slm, state, h2 = train_loop(again, restored["params"], data.batches(2, start=2), run,
+                                    log_every=1, start_step=step, opt_state=restored["opt"])
+        got = full_state(slm)
+    assert step == 2 and state.step == 4
+    assert launches["flash_attention_wgmma"] + launches["flash_attention"] > 0
+    assert launches["rglru_scan"] > 0
+    np.testing.assert_allclose([h["loss"] for h in h1 + h2], want, rtol=1e-5)
+    for n, p in lm.named_parameters():
+        torch.testing.assert_close(got[n], p.detach(), rtol=1e-5, atol=1e-6)
