@@ -39,6 +39,15 @@ calls, and fails (exit code not 0, no result line) on any miss:
               16 decode steps (544);
   8. check    rwkv6-7b at full width, depth cut to 2 layers, in fp32, card
               against CPU as in phase 5;
+  8a. moe     qwen3-moe-235b-a22b at full width (128 experts top-8, QK-norm),
+              depth cut to 8 layers (94 do not fit 80 GB), bf16, served
+              through ServeEngine as phase 6: 4 requests of 2304-2560
+              tokens, 16 new tokens, twice (cold, then warm); 8 tensor-core
+              flash launches a prefill and none in decode; a third prefill
+              split into the MoE stages (route, dispatch, expert products,
+              combine) and flash under CUDA events;
+  8b. check   qwen3-moe-235b-a22b at full width, depth cut to 1 layer, fp32,
+              card (the CUDA-core flash kernel) against CPU as in phase 5;
   9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -50,7 +59,10 @@ calls, and fails (exit code not 0, no result line) on any miss:
  10. check    the loss and every parameter's gradient in fp32 on the card
               against the CPU: recurrentgemma-9b (3 layers, B 1 x S 2176,
               the CUDA-core flash kernel and the scan) and rwkv6-7b (2
-              layers, B 1 x T 256, the chunked WKV twin: no wkv6 launch);
+              layers, B 1 x T 256, the chunked WKV twin: no wkv6 launch) and
+              phi3.5-moe-42b-a6.6b (1 layer, 16 experts top-2, layernorm, B 1
+              x S 1024, remat "nothing": flash in the forward and again in the
+              recompute; the routers' gradients and the aux loss compared);
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
  12. dispatch the BandPilot dispatcher (``repro_torch.core``) on the paper's
@@ -69,7 +81,7 @@ calls, and fails (exit code not 0, no result line) on any miss:
  13. elastic  BandPilot-placed training (``launch/elastic.py``,
               ``parallel/fsdp.py``) on recurrentgemma-9b at full width, depth
               cut to one (rglru, rglru, attn_local) group, bf16 over fp32
-              masters, B 1 x S 2048, 6 steps: (a) ``train_loop`` uninterrupted;
+              masters, B 1 x S 2048, 5 steps: (a) ``train_loop`` uninterrupted;
               (b) the sharded step on a 1-rank NCCL mesh over the card, 16 of
               the simulated 32-GPU H100 cluster dispatched, a checkpoint (about
               19.7 GB: parameters and both moments in fp32, free space checked
@@ -121,6 +133,7 @@ from repro_torch.launch import serve as launch_serve, train_lm  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
@@ -345,6 +358,8 @@ def kernel_phase():
                    torch.bfloat16, 2e-2, timed=True, previous=True),
         flash_case("mistral-nemo-12b heads", 2, 2560, 32, 8, 128, None, None,
                    torch.bfloat16, 2e-2, timed=True),
+        flash_case("qwen3-moe-235b-a22b prefill", 4, 2560, 64, 4, 128, None, None,
+                   torch.bfloat16, 2e-2, timed=True),
         flash_case("gemma2-9b local, softcap, ragged", 1, 2500, 16, 8, 256, 2048, 50.0,
                    torch.bfloat16, 2e-2, timed=False),
     ]
@@ -352,7 +367,7 @@ def kernel_phase():
         flash_case("recurrentgemma-9b heads, fp32", 1, 2560, 16, 1, 256, 2048, None,
                    torch.float32, 1e-5, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks] == ["wgmma"] * 4
+    need([c["kernel"] for c in [flash] + flash_checks] == ["wgmma"] * 5
          and simt_checks[0]["kernel"] == "simt", "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
                      timed=True)
@@ -543,6 +558,120 @@ def gemma2_phase():
     return rec
 
 
+MOE_STAGES = ("_route", "_dispatch", "_experts", "_combine")
+
+
+class StageEvents:
+    """Record CUDA events around every call of ``owner.<name>`` for each
+    name while in use; ``ms()`` sums each name's spans. The stream runs the
+    work in order, so a span is the device time of what was enqueued inside
+    it (and any wait for the host, which in a prefill is short)."""
+
+    def __init__(self, owner, names):
+        self.owner, self.spans = owner, {n: [] for n in names}
+        self.orig = {n: getattr(owner, n) for n in names}
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def run(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.spans[name].append((start, end))
+            return out
+        return run
+
+    def __enter__(self):
+        for name in self.orig:
+            setattr(self.owner, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.owner, name, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {n: sum(a.elapsed_time(b) for a, b in spans) for n, spans in self.spans.items()}
+
+
+def moe_serve_phase(cfg):
+    """An MoE config (qwen3-moe-235b-a22b at full width, 8 layers) in bf16,
+    through ServeEngine: a cold and a warm batch, then one more prefill
+    split by stage."""
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(2304, 2561)).tolist()
+               for _ in range(4)]
+    eng = ServeEngine(model, params, ServeConfig(max_len=4096, max_new_tokens=16,
+                                                 cache_dtype=torch.bfloat16))
+    prefill, after_prefill = model.prefill, []
+
+    def counted_prefill(*args):
+        out = prefill(*args)
+        after_prefill.append(counts())
+        return out
+
+    model.prefill = counted_prefill
+    runs = []
+    for _ in range(2):  # cold, then warm
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, rng_seed=SEED)
+        dt = time.perf_counter() - t0
+        check_outputs(outs, 4, 16, cfg.vocab_size)
+        runs.append((dict(eng.last_timing), counts(), dt, sum(len(o) for o in outs)))
+    model.prefill = prefill
+    per_prefill = launch_counts(flash_wgmma=cfg.n_layers)
+    for (_, launches, _, _), at_prefill in zip(runs, after_prefill):
+        need(at_prefill == per_prefill, f"moe prefill launches {at_prefill}")
+        need(launches == per_prefill, f"moe launches {launches}: decode launched flash")
+
+    # the prefill split by stage, the batch padded as the engine pads it
+    plen = max(len(p) for p in prompts)
+    toks = torch.zeros(4, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = torch.tensor(p)
+    cache = model.init_cache(4, 4096, torch.bfloat16)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode(), StageEvents(MoE, MOE_STAGES) as moe_ev, \
+            StageEvents(fa_ops, ["attention"]) as flash_ev:
+        start.record()
+        model.prefill(params, {"tokens": toks.cuda()}, cache)
+        end.record()
+        split = {**moe_ev.ms(), "flash": flash_ev.ms()["attention"]}
+    prefill_dev_ms = start.elapsed_time(end)
+    need(all(len(v) == cfg.n_layers for v in moe_ev.spans.values()), "moe stage calls")
+    (cold, _, _, _), (warm, launches, dt, n_tok) = runs
+    dec = warm["decode_s"]
+    # a decode step reads every layer weight (all 128 experts run, C = 1) and the head
+    step_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+                     if n != "embed")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+           "params": sum(p.numel() for p in params.parameters()), "dtype": "bfloat16",
+           "batch": 4, "prompt_lens": [len(p) for p in prompts], "prefill_len": plen,
+           "prefill_ms_cold": cold["prefill_s"] * 1e3, "prefill_ms": warm["prefill_s"] * 1e3,
+           "prefill_tok_per_s": 4 * plen / warm["prefill_s"],
+           "decode_ms_per_step": 1e3 * sum(dec) / len(dec),
+           "decode_ms_per_step_median": 1e3 * float(np.median(dec)),
+           "decode_ms_per_step_cold": 1e3 * sum(cold["decode_s"]) / len(cold["decode_s"]),
+           "decode_step_weight_bytes": step_bytes,
+           "decode_step_bytes_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "new_tokens": n_tok, "tok_per_s": n_tok / dt, "seconds": dt,
+           "launches": launches, "launches_per_prefill": after_prefill[-1],
+           "prefill_device_ms": prefill_dev_ms,
+           "prefill_split_ms": {k.lstrip("_"): v for k, v in split.items()},
+           "prefill_split_share": {k.lstrip("_"): v / prefill_dev_ms for k, v in split.items()},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("moe_serve", json.dumps(rec), flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phases 9-11: training
 # ---------------------------------------------------------------------------
@@ -636,11 +765,13 @@ def train_phase():
     return rec
 
 
-def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
+def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol, remat_policy=None):
     """Full width, depth cut to ``n_layers``, fp32 (TF32 off): the loss and
     every parameter's gradient on the card (kernels) against the same
-    weights and batch on the CPU (plain twins). No remat: the CPU tests hold
-    every remat policy to the gradients of none."""
+    weights and batch on the CPU (plain twins). No remat unless asked: the
+    CPU tests hold every remat policy to the gradients of none. An MoE
+    config also compares ``moe_aux`` (within ``loss_tol``) and reports its
+    routers' worst gradient."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
     batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=SEED)).batch(0)
@@ -648,10 +779,11 @@ def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
     def loss_and_grads(lm, dev):
         lm.requires_grad_(True)
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        loss, _ = lm_loss(lm, tb, remat_policy=None)
+        loss, metrics = lm_loss(lm, tb, remat_policy=remat_policy)
         names, params = zip(*lm.named_parameters())
         grads = torch.autograd.grad(loss, params)
-        return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+        return (float(loss.detach()), float(metrics["moe_aux"].detach()),
+                {n: g.cpu() for n, g in zip(names, grads)})
 
     # WKV's training route: the chunked twin, called once a layer (counted by
     # wrapping it for the card's run)
@@ -659,7 +791,7 @@ def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
     wkv_ref.wkv6_chunked = lambda *a, **kw: calls.append(1) or chunked(*a, **kw)
     reset_counts()
     try:
-        loss, grads = loss_and_grads(lm, torch.device("cuda"))
+        loss, aux, grads = loss_and_grads(lm, torch.device("cuda"))
         torch.cuda.synchronize()
     finally:
         wkv_ref.wkv6_chunked = chunked
@@ -672,7 +804,7 @@ def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
     del lm
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = loss_and_grads(cpu_lm, torch.device("cpu"))
+    cpu_loss, cpu_aux, cpu_grads = loss_and_grads(cpu_lm, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     rel = {n: float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
            for n, g in cpu_grads.items()}
@@ -681,7 +813,14 @@ def train_check_phase(arch, n_layers, B, S, expect, loss_tol, grad_tol):
            "loss": loss, "cpu_loss": cpu_loss, "loss_abs_err": abs(loss - cpu_loss),
            "loss_tol": loss_tol, "worst_leaf": worst, "worst_leaf_rel_err": rel[worst],
            "grad_tol": f"{grad_tol} * max|g| per leaf", "leaves": len(rel),
-           "launches": launches, "wkv6_chunked_calls": len(calls), "cpu_s": cpu_s}
+           "launches": launches, "wkv6_chunked_calls": len(calls), "cpu_s": cpu_s,
+           "remat_policy": remat_policy}
+    if cfg.is_moe:
+        routers = [n for n in rel if n.endswith("moe.router")]
+        need(len(routers) == n_layers, f"{arch}: router gradients {routers}")
+        rec.update(moe_aux=aux, cpu_moe_aux=cpu_aux, moe_aux_abs_err=abs(aux - cpu_aux),
+                   router_rel_err=max(rel[n] for n in routers))
+        need(abs(aux - cpu_aux) <= loss_tol, f"{arch}: card vs CPU moe_aux {aux} vs {cpu_aux}")
     print("train_check", json.dumps(rec), flush=True)
     need(np.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
          f"{arch} train check: non-finite loss or gradient")
@@ -1203,24 +1342,50 @@ def main():
         f"head_dim {d} {smem(d)} bytes" for d in fa_ops.WGMMA_HEAD_DIMS), flush=True)
     print_rings()
 
-    (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = kernel_phase()
+    phase_s = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = phase(
+        "kernels", kernel_phase)
     lru_mixed = next(c for c in lru_checks if c["dtype_b"] != c["dtype"] and "ms" in c)
-    serve = recurrentgemma_serve_phase()
+    serve = phase("serve", recurrentgemma_serve_phase)
     # fp32 over the cut depth and a 256000-way head (rwkv6: 65536); logits O(1)
-    check = model_check_phase("recurrentgemma-9b", 3, launch_counts(flash=1, rglru=2), 2e-3)
-    gemma2 = gemma2_phase()
-    rwkv6 = rwkv6_serve_phase()
-    rwkv6_check = model_check_phase("rwkv6-7b", 2, launch_counts(wkv=8), 2e-3)
-    train = train_phase()
+    check = phase("check", model_check_phase, "recurrentgemma-9b", 3,
+                  launch_counts(flash=1, rglru=2), 2e-3)
+    gemma2 = phase("gemma2", gemma2_phase)
+    rwkv6 = phase("rwkv6", rwkv6_serve_phase)
+    rwkv6_check = phase("rwkv6_check", model_check_phase, "rwkv6-7b", 2,
+                        launch_counts(wkv=8), 2e-3)
+    moe_cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=8)
+    need((moe_cfg.d_model, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim,
+          moe_cfg.n_experts, moe_cfg.experts_per_token, moe_cfg.qk_norm)
+         == (4096, 64, 4, 128, 128, 8, True), "qwen3-moe width")
+    moe_serve = phase("moe_serve", moe_serve_phase, moe_cfg)
+    torch.cuda.empty_cache()
+    # fp32 over one full-width layer (128 experts) and a 151936-way head
+    moe_check = phase("moe_check", model_check_phase, "qwen3-moe-235b-a22b", 1,
+                      launch_counts(flash=1), 2e-3)
+    train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
     # 2e-3 of its leaf's largest, the summation orders of card and CPU apart
-    train_check = train_check_phase("recurrentgemma-9b", 3, 1, 2176,
-                                    launch_counts(flash=1, rglru=2 * 2), 1e-4, 2e-3)
-    rwkv6_train_check = train_check_phase("rwkv6-7b", 2, 1, 256, launch_counts(), 1e-4, 2e-3)
-    train_lm_rec = train_lm_phase()
-    dispatch = dispatch_phase()
-    elastic = elastic_phase()
+    train_check = phase("train_check", train_check_phase, "recurrentgemma-9b", 3, 1, 2176,
+                        launch_counts(flash=1, rglru=2 * 2), 1e-4, 2e-3)
+    rwkv6_train_check = phase("rwkv6_train_check", train_check_phase, "rwkv6-7b", 2, 1, 256,
+                              launch_counts(), 1e-4, 2e-3)
+    # the one layer is a remat group: flash in the forward and the recompute
+    moe_train_check = phase("moe_train_check", train_check_phase, "phi3.5-moe-42b-a6.6b",
+                            1, 1, 1024, launch_counts(flash=2), 1e-4, 2e-3,
+                            remat_policy="nothing")
+    train_lm_rec = phase("train_lm", train_lm_phase)
+    dispatch = phase("dispatch", dispatch_phase)
+    elastic = phase("elastic", elastic_phase)
+    print("phase_seconds", json.dumps(phase_s), flush=True)
     elastic_launches = lambda name: {  # noqa: E731
         run: elastic[key][name] for run, key in (("a", "launches_a"), ("b", "launches_b"))}
 
@@ -1238,6 +1403,7 @@ def main():
                       previous_ms=flash["previous_ms"],
                       launches_train_4_steps=train["launches_per_4_steps"][
                           "flash_attention_wgmma"],
+                      launches_moe_serve=moe_serve["launches"]["flash_attention_wgmma"],
                       launches_elastic=elastic_launches("flash_attention_wgmma")),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1245,6 +1411,8 @@ def main():
                       check["launches"]["flash_attention"], simt_main, simt_checks,
                       launches_in="check: recurrentgemma-9b fp32, 3 layers",
                       launches_train_check=train_check["launches"]["flash_attention"],
+                      launches_moe_check=moe_check["launches"]["flash_attention"],
+                      launches_moe_train_check=moe_train_check["launches"]["flash_attention"],
                       launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
@@ -1262,8 +1430,10 @@ def main():
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
                "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check,
+               "moe_serve": moe_serve, "moe_check": moe_check,
                "train": train, "train_check": train_check,
-               "rwkv6_train_check": rwkv6_train_check, "train_lm": train_lm_rec,
+               "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
+               "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

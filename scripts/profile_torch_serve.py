@@ -1,6 +1,6 @@
 """Where the time goes in the PyTorch port's serve path, on the card.
 
-    python3 scripts/profile_torch_serve.py [--arch recurrentgemma-9b]
+    python3 scripts/profile_torch_serve.py [--arch recurrentgemma-9b] [--layers N]
 
 Serves one warm-up batch with the port (full width, random seeded bf16
 weights, 4 requests of 2304-2560 tokens, as ``chip_smoke.py``), then
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -92,12 +93,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-9b")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (qwen3-moe-235b-a22b: 8 fit the card)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     print(_smi())
     cuda_build.build(KERNELS)
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(args.seed, torch.bfloat16)
     rng = np.random.default_rng(args.seed)
@@ -130,7 +135,8 @@ def main(argv=None):
                 logits, state["cache"] = model.decode_step(params, state["cache"], nxt)
                 nxt = logits.argmax(-1)
 
-        out = {"arch": cfg.name, "gpu": _smi(), "prefill_len": plen, "batch": 4,
+        out = {"arch": cfg.name, "layers": cfg.n_layers, "gpu": _smi(),
+               "prefill_len": plen, "batch": 4,
                "phases": [_phase("prefill", run_prefill), _phase("decode x8", run_decode)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -20,8 +20,8 @@ stands for the allocated GPUs. Training is the sharded step
 40, a checkpoint every 10, batch 8 x 48 tokens, fp32. Without it, the card's
 run: recurrentgemma-9b at full width cut to one pattern group of 3 layers
 (the depth whose fp32 masters and moments fit the card), bf16 compute over
-fp32 masters, batch 1 x 2048, 6 steps, a checkpoint and the failure at step
-3, one checkpoint kept.
+fp32 masters, batch 1 x 2048, 5 steps, a checkpoint and the failure at step
+3 (the one save of the run), one checkpoint kept.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def quick_flow() -> Flow:
 
 def card_flow() -> Flow:
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
-    return Flow(cfg, steps=6, fail_at=3, ckpt_every=3, batch=1, seq=2048,
+    return Flow(cfg, steps=5, fail_at=3, ckpt_every=3, batch=1, seq=2048,
                 compute_dtype=torch.bfloat16, log_every=1, keep=1)
 
 

@@ -1,4 +1,4 @@
-"""Self-attention layer: GQA/MQA with RoPE, sliding window, softcap.
+"""Self-attention layer: GQA/MQA with RoPE, sliding window, softcap, QK-norm.
 
 Counterpart of ``repro/models/attention.py`` (self-attention only; the
 encoder-decoder cross-attention comes with the enc-dec family).
@@ -51,6 +51,9 @@ class Attention(nn.Module):
             self.bq = common.param((hq, hd), device, dtype)
             self.bk = common.param((hkv, hd), device, dtype)
             self.bv = common.param((hkv, hd), device, dtype)
+        if cfg.qk_norm:  # qwen3: per-head RMSNorm of q and k, (1 + scale)
+            self.q_norm = common.param((hd,), device, dtype)
+            self.k_norm = common.param((hd,), device, dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for name in ("wq", "wk", "wv", "wo"):
@@ -58,6 +61,9 @@ class Attention(nn.Module):
         if self.cfg.qkv_bias:
             for name in ("bq", "bk", "bv"):
                 getattr(self, name).zero_()
+        if self.cfg.qk_norm:
+            self.q_norm.zero_()
+            self.k_norm.zero_()
 
     def _project(self, x: torch.Tensor, w: torch.Tensor,
                  bias_name: str) -> torch.Tensor:
@@ -73,6 +79,9 @@ class Attention(nn.Module):
         q = self._project(x, self.wq, "bq")
         k = self._project(x, self.wk, "bk")
         v = self._project(x, self.wv, "bv")
+        if self.cfg.qk_norm:  # after the bias, before RoPE, as the reference
+            q = common.rms_norm(self.q_norm, q)
+            k = common.rms_norm(self.k_norm, k)
         sin, cos = common.rope_angles(positions, self.cfg.head_dim,
                                       self.cfg.rope_theta)
         return common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos), v

@@ -7,8 +7,8 @@
   prefill(params, batch, cache)          -> (last-token logits, cache)
   decode_step(params, cache, tokens)     -> (logits, cache)
 
-MoE and encoder-decoder families, and a batch carrying ``prefix_embeds``
-(the vision and audio frontends' prefix), raise ``NotImplementedError``.
+The encoder-decoder family, and a batch carrying ``prefix_embeds`` (the
+vision and audio frontends' prefix), raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

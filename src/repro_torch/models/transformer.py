@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, rglru, rwkv6
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
@@ -42,13 +43,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
             "(ROADMAP.md queue A, models/encdec)")
-    if cfg.is_moe:
+    if not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: MoE models are not ported yet (ROADMAP.md queue A, models/moe)")
-    if cfg.qk_norm or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: QK-norm and learned positions come with the families "
-            "that use them (ROADMAP.md queue A)")
+            f"{cfg.name}: learned positions come with the encoder-decoder family "
+            "(ROADMAP.md queue A)")
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -70,7 +68,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 class Block(nn.Module):
     """Pre-norm residual block: mixer (attention, RG-LRU or RWKV time mix),
-    then MLP (the RWKV channel mix for ``rwkv``)."""
+    then MLP (the RWKV channel mix for ``rwkv``, the experts for MoE configs)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, device, dtype):
         super().__init__()
@@ -88,6 +86,8 @@ class Block(nn.Module):
         self.norm2 = common.norm_init(cfg.norm_type, d, device, dtype)
         if mixer == "rwkv":
             self.cm = ChannelMix(cfg, device, dtype)
+        elif cfg.is_moe:
+            self.moe = MoE(cfg, device, dtype)
         else:
             self.mlp = MLP(cfg, device, dtype)
 
@@ -101,7 +101,9 @@ class Block(nn.Module):
         else:
             self.attn.reset_parameters(gen)
         common.reset_norm_(self.norm2)
-        (self.cm if self.mixer == "rwkv" else self.mlp).reset_parameters(gen)
+        for name in ("cm", "moe", "mlp"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(gen)
 
     def _time_mix(self, h, cache, carried: bool) -> torch.Tensor:
         """The rwkv mixer. Prefill starts from zero states, as the reference
@@ -113,15 +115,19 @@ class Block(nn.Module):
         return h
 
     def _ffn(self, h, cache, carried: bool) -> torch.Tensor:
+        """The block's second half; serving drops the MoE aux term."""
+        if hasattr(self, "moe"):
+            return self.moe(h)[0]
         if self.mixer != "rwkv":
             return self.mlp(h)
         h, cm_shift = self.cm(h, cache["cm_shift"] if carried else None)
         cache["cm_shift"].copy_(cm_shift)
         return h
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """Full sequence, no cache (``apply_block``; the MoE aux term is 0
-        until MoE is ported)."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full sequence, no cache (``apply_block``): (x, MoE aux term), the
+        aux term an fp32 scalar, 0 without experts."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru(h)
@@ -131,8 +137,14 @@ class Block(nn.Module):
             h = self.attn(h, positions)
         x = x + h
         h = common.apply_norm(self.norm2, x)
-        h = self.cm(h)[0] if self.mixer == "rwkv" else self.mlp(h)
-        return x + h
+        aux = x.new_zeros((), dtype=torch.float32)
+        if self.mixer == "rwkv":
+            h = self.cm(h)[0]
+        elif hasattr(self, "moe"):
+            h, aux = self.moe(h)
+        else:
+            h = self.mlp(h)
+        return x + h, aux
 
     def prefill(self, x, positions, cache) -> torch.Tensor:
         """Full sequence; fills ``cache``."""
@@ -202,8 +214,10 @@ class LM(nn.Module):
         return logits
 
     def forward(self, tokens: torch.Tensor, remat_policy: Optional[str] = "nothing",
-                materialize: Optional[Materialize] = None) -> torch.Tensor:
-        """Training / scoring forward (``lm_forward``): logits [B, S, V].
+                materialize: Optional[Materialize] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training / scoring forward (``lm_forward``): (logits [B, S, V], the
+        MoE aux term summed over the groups, then the tail).
 
         With grad on, each pattern group of layers runs under ``remat_policy``
         (see ``_remat_context``); the tail layers never do, as in the
@@ -216,16 +230,19 @@ class LM(nn.Module):
         p = len(self.cfg.mixer_pattern)
         n_groups, _ = self.cfg.n_groups_and_tail()
         remat = remat_policy not in (None, "none") and torch.is_grad_enabled()
+        aux = x.new_zeros((), dtype=torch.float32)
         for g in range(n_groups):
             group = range(g * p, (g + 1) * p)
             if remat:
-                x = _remat_group(self.layers, group, x, positions, remat_policy, materialize)
+                x, a = _remat_group(self.layers, group, x, positions, remat_policy,
+                                    materialize)
             else:
-                for i in group:
-                    x = _run_layer(self.layers, i, x, positions, materialize)
+                x, a = _run_group(self.layers, group, x, positions, materialize)
+            aux = aux + a
         for i in range(n_groups * p, len(self.layers)):
-            x = _run_layer(self.layers, i, x, positions, materialize)
-        return self._logits(x)
+            x, a = _run_layer(self.layers, i, x, positions, materialize)
+            aux = aux + a
+        return self._logits(x), aux
 
     def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
         """Process the prompt [B, S], fill ``cache``; last-token logits [B,1,V]."""
@@ -276,25 +293,38 @@ def _remat_context(policy: str):
 
 
 def _call_layer(layer: Block, index: int, params: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor, materialize: Optional[Materialize]) -> torch.Tensor:
+                positions: torch.Tensor, materialize: Optional[Materialize]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     if materialize is not None:
         params = {n: materialize(f"layers.{index}.{n}", t) for n, t in params.items()}
     return functional_call(layer, params, (x, positions))
 
 
 def _run_layer(layers: nn.ModuleList, index: int, x: torch.Tensor, positions: torch.Tensor,
-               materialize: Optional[Materialize]) -> torch.Tensor:
+               materialize: Optional[Materialize]) -> Tuple[torch.Tensor, torch.Tensor]:
     layer = layers[index]
     if materialize is None:
         return layer(x, positions)
     return _call_layer(layer, index, dict(layer.named_parameters()), x, positions, materialize)
 
 
+def _run_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
+               positions: torch.Tensor, materialize: Optional[Materialize]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers ``group`` over x: (x, the group's aux terms summed in order)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i in group:
+        x, a = _run_layer(layers, i, x, positions, materialize)
+        aux = aux + a
+    return x, aux
+
+
 def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
                  positions: torch.Tensor, policy: str,
-                 materialize: Optional[Materialize] = None) -> torch.Tensor:
-    """The layers ``group`` (indices into ``layers``) over x under
-    ``torch.utils.checkpoint``.
+                 materialize: Optional[Materialize] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_run_group`` under ``torch.utils.checkpoint``: (x, aux) both come
+    out of the checkpoint, so every policy trains the router.
 
     The layers' parameters go in as explicit inputs: the backward's recompute
     then sees the same tensors as the forward, also when ``lm_loss`` swapped
@@ -305,11 +335,13 @@ def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
 
     def run(x, *tensors):
         k = 0
+        aux = x.new_zeros((), dtype=torch.float32)
         for i, ns in zip(group, names):
             params = dict(zip(ns, tensors[k:k + len(ns)]))
-            x = _call_layer(layers[i], i, params, x, positions, materialize)
+            x, a = _call_layer(layers[i], i, params, x, positions, materialize)
+            aux = aux + a
             k += len(ns)
-        return x
+        return x, aux
 
     return checkpoint(run, x, *flat, use_reentrant=False, context_fn=_remat_context(policy))
 
@@ -344,14 +376,13 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     if materialize is not None:
         outer = {n: prepare(n, p) for n, p in lm.named_parameters()
                  if not n.startswith("layers.")}
-        logits = functional_call(lm, outer, (tokens,),
-                                 {"remat_policy": remat_policy, "materialize": prepare})
+        logits, aux = functional_call(lm, outer, (tokens,),
+                                      {"remat_policy": remat_policy, "materialize": prepare})
     elif compute_dtype is None:
-        logits = lm(tokens, remat_policy=remat_policy)
+        logits, aux = lm(tokens, remat_policy=remat_policy)
     else:
         params = {n: prepare(n, p) for n, p in lm.named_parameters()}
-        logits = functional_call(lm, params, (tokens,), {"remat_policy": remat_policy})
+        logits, aux = functional_call(lm, params, (tokens,), {"remat_policy": remat_policy})
     xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no MoE yet
     loss = xent + MOE_AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}

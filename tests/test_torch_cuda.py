@@ -78,6 +78,9 @@ WGMMA_FLASH_CASES = [
     (1, 130, 130, 2, 2, 256, False, None, None, 0),   # bidirectional
     (3, 129, 129, 32, 8, 128, True, None, None, 0),   # mistral-nemo heads, one row past a tile
     (2, 1, 1, 16, 1, 256, True, 2048, None, 0),       # a one-token prompt
+    (4, 2560, 2560, 64, 4, 128, True, None, None, 0), # qwen3-moe prefill, group 16
+    (1, 2522, 2522, 64, 4, 128, True, None, None, 0), # qwen3-moe heads, ragged
+    (1, 1030, 1030, 32, 8, 128, True, None, None, 0), # phi3.5-moe heads
     (1, 37, 37, 4, 2, 128, True, 8, None, 0),         # fewer keys than one tile
 ]
 
@@ -319,6 +322,46 @@ def test_train_step_on_card_matches_cpu(cuda):
         for n, m in moments_c.items():
             err = float((moments_g[n].cpu() - m).abs().max())
             assert err <= 1e-4 * float(m.abs().max()), (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b"])
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """A reduced MoE model (experts, routing with drops in decode, qwen3's
+    QK-norm) at head_dim 128, fp32: prefill over 200 positions and 3 greedy
+    decode steps on the card against the same weights on the CPU. The flash
+    kernel (CUDA cores, fp32) runs once a layer in the prefill, never in
+    decode; logits within 1e-4 (fp32 sums in another order), the same
+    greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.weights import init_params
+
+    cfg = dataclasses.replace(ARCHS[name].reduced(), d_model=256, head_dim=128, d_ff=256)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 200)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev)
+        lm = init_params(cfg, seed=0, device="cpu").to(dev)
+        cache = model.init_cache(2, 256, torch.float32)
+        before = fa_ops.KERNEL.launches
+        with torch.inference_mode():
+            logits, cache = model.prefill(lm, {"tokens": toks.to(dev)}, cache)
+            launches = [fa_ops.KERNEL.launches - before]
+            steps = [logits.float().cpu()]
+            for _ in range(3):
+                nxt = steps[-1].argmax(-1)
+                logits, cache = model.decode_step(lm, cache, nxt.to(dev))
+                steps.append(logits.float().cpu())
+        launches.append(fa_ops.KERNEL.launches - before - launches[0])
+        out[str(dev)] = (torch.cat(steps, 1), launches)
+    (want, n_cpu), (got, n_card) = out["cpu"], out["cuda"]
+    assert n_cpu == [0, 0] and n_card == [cfg.n_layers, 0]
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
 def _wkv_inputs(device, B, T, H, dt, with_s0, seed):

@@ -123,14 +123,17 @@ def _port_loss_and_grads(cfg, np_params, batch, **kw):
     return loss.detach(), metrics, dict(zip(names, grads))
 
 
-def _reference_loss_and_grads(cfg, jmodel, np_params, batch, compute_dtype=None):
+def _reference_loss_and_grads(cfg, jmodel, np_params, batch, compute_dtype=None,
+                              remat_policy="nothing"):
+    """(loss, gradients keyed by state-dict name, metrics as floats)."""
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (loss, _), grads = jax.value_and_grad(
-        lambda p: jmodel.loss(p, jbatch, backend="reference", remat_policy="nothing",
+    (loss, metrics), grads = jax.value_and_grad(
+        lambda p: jmodel.loss(p, jbatch, backend="reference", remat_policy=remat_policy,
                               compute_dtype=compute_dtype), has_aux=True)(jparams)
     grads = jax.tree_util.tree_map(lambda g: np.asarray(g, np.float32), grads)
-    return float(loss), jax_params_to_state_dict(cfg, grads)
+    return (float(loss), jax_params_to_state_dict(cfg, grads),
+            {k: float(v) for k, v in metrics.items()})
 
 
 def _assert_grads_close(got, want, tol):
@@ -394,7 +397,7 @@ def test_lm_loss_and_every_gradient_match_reference(name):
     cfg, jmodel, np_params = _setup(name)
     batch = _batch(cfg, mask=(name == "gemma2-9b"))
     loss, metrics, grads = _port_loss_and_grads(cfg, np_params, batch)
-    want_loss, want_grads = _reference_loss_and_grads(cfg, jmodel, np_params, batch)
+    want_loss, want_grads, _ = _reference_loss_and_grads(cfg, jmodel, np_params, batch)
     assert abs(float(loss) - want_loss) <= LOSS_TOL * abs(want_loss)
     assert float(metrics["moe_aux"]) == 0.0
     _assert_grads_close(grads, want_grads, GRAD_TOL)
@@ -405,11 +408,12 @@ def test_lm_forward_logits_match_reference(name):
     cfg, _, np_params = _setup(name)
     jcfg = JARCHS[name].reduced()
     tokens = _batch(cfg)["tokens"]
-    want, _ = jtransformer.lm_forward(jax.tree_util.tree_map(jnp.asarray, np_params),
-                                      jcfg, jnp.asarray(tokens), backend="reference")
+    want, want_aux = jtransformer.lm_forward(jax.tree_util.tree_map(jnp.asarray, np_params),
+                                             jcfg, jnp.asarray(tokens), backend="reference")
     with torch.no_grad():
-        got = from_jax_params(cfg, np_params, device="cpu")(torch.from_numpy(tokens))
+        got, aux = from_jax_params(cfg, np_params, device="cpu")(torch.from_numpy(tokens))
     _close(got, want, 2e-4)
+    _close(aux, want_aux, OP_TOL)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -438,8 +442,8 @@ def test_lm_loss_bf16_compute_tracks_reference():
     loss, _, grads = _port_loss_and_grads(cfg, np_params, batch,
                                           compute_dtype=torch.bfloat16)
     assert all(g.dtype == torch.float32 for g in grads.values())
-    want_loss, want_grads = _reference_loss_and_grads(cfg, jmodel, np_params, batch,
-                                                      compute_dtype=jnp.bfloat16)
+    want_loss, want_grads, _ = _reference_loss_and_grads(cfg, jmodel, np_params, batch,
+                                                         compute_dtype=jnp.bfloat16)
     assert abs(float(loss) - want_loss) <= BF16_LOSS_TOL * abs(want_loss)
     _assert_grads_close(grads, want_grads, BF16_GRAD_TOL)
 
