@@ -15,7 +15,10 @@ calls, and fails (exit code not 0, no result line) on any miss:
               twin on the same inputs, with its stated tolerance, and its
               time beside the twin's, a library call's and its bound; the
               tensor-core flash kernel also beside the CUDA-core one on the
-              same bf16 inputs; the RG-LRU scan's path (TMA ring or simple)
+              same bf16 inputs, at recurrentgemma-9b's prefill and at
+              whisper-medium's encoder, decoder and cross-attention (head_dim
+              64); a bf16 case at head_dim 32 that stays on the CUDA-core
+              kernel; the RG-LRU scan's path (TMA ring or simple)
               for each case, as the wrapper picks it, and the scan with a
               bf16 a and an fp32 b (the training backward's call) at the
               training shape, timed; the WKV6 decode step also as a CUDA
@@ -48,6 +51,15 @@ calls, and fails (exit code not 0, no result line) on any miss:
               combine) and flash under CUDA events;
   8b. check   qwen3-moe-235b-a22b at full width, depth cut to 1 layer, fp32,
               card (the CUDA-core flash kernel) against CPU as in phase 5;
+  8c. whisper whisper-medium at full width (24 + 24 layers, head_dim 64),
+              bf16, through the model API: an encode of 4 x 1500 frames, cold
+              and warm under CUDA events with each flash call's span, exactly
+              24 tensor-core flash launches an encode, then 64 greedy decode
+              steps from the start token with none; the CUDA-core kernel's
+              time at the encoder shape (phase 3) times 24 against the encode;
+  8d. check   whisper-medium cut to 2 + 2 layers, fp32: the encode's memory,
+              the teacher-forced logits (448 tokens) and 8 decode steps, card
+              (the CUDA-core flash kernel) against CPU, the same argmax;
   9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -63,6 +75,12 @@ calls, and fails (exit code not 0, no result line) on any miss:
               phi3.5-moe-42b-a6.6b (1 layer, 16 experts top-2, layernorm, B 1
               x S 1024, remat "nothing": flash in the forward and again in the
               recompute; the routers' gradients and the aux loss compared);
+ 10a. whisper whisper-medium cut to 2 + 2 layers, fp32, B 1 x 1500 frames x 448
+              tokens, remat "nothing": the loss and every gradient, card
+              against CPU (the key biases' gradients, 0 exactly, held to
+              their layer's wk gradient); then at full width, B 4, bf16 over
+              fp32 masters, one cold and one timed AdamW step with 144
+              tensor-core flash launches (72 forward, 72 in the recompute);
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
  12. dispatch the BandPilot dispatcher (``repro_torch.core``) on the paper's
@@ -137,7 +155,7 @@ from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
-from repro_torch.train.train_loop import TrainRunConfig, train_loop  # noqa: E402
+from repro_torch.train.train_loop import TrainRunConfig, make_train_step, train_loop  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -195,27 +213,33 @@ def nbytes(*ts):
 # Phase 3: each kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-def visible_pairs(S, causal, window):
-    rows = np.arange(S)
-    hi = rows + 1 if causal else np.full(S, S)
-    lo = np.maximum(0, rows - window + 1) if window else np.zeros(S, int)
-    return int(np.sum(hi - lo))
+def visible_pairs(S_q, S_k, causal, window):
+    """(query, key) pairs a call attends to: each row sees keys up to its own
+    position under ``causal`` and the last ``window`` of them with one."""
+    rows = np.arange(S_q)
+    hi = np.minimum(rows + 1, S_k) if causal else np.full(S_q, S_k)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(S_q, int)
+    return int(np.sum(np.maximum(hi - lo, 0)))
 
 
 def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
-               previous=False):
+               previous=False, causal=True, S_k=None, graph=False):
     """Through ``fa_ops.attention``, which picks the kernel for dtype and
-    head_dim. tol bounds |kernel - plain| by tol * (1 + |plain|): in bf16 one
-    ulp of the output (the tensor-core kernel also rounds P to bf16 before
-    P V, a relative error of at most 2^-9 on each weight of an average), in
-    fp32 the summation order. ``previous``: the CUDA-core kernel on the same
-    inputs too, checked and, if ``timed``, timed in turns with the new one."""
+    head_dim; S queries against ``S_k`` keys (default S). tol bounds
+    |kernel - plain| by tol * (1 + |plain|): in bf16 one ulp of the output
+    (the tensor-core kernel also rounds P to bf16 before P V, a relative
+    error of at most 2^-9 on each weight of an average), in fp32 the
+    summation order. ``previous``: the CUDA-core kernel on the same inputs
+    too, checked and, if ``timed``, timed in turns with the new one.
+    ``graph``: also the call's device time as a CUDA graph's replay (a call
+    of tens of microseconds is otherwise timed at the wrapper's host time)."""
     dev = torch.device("cuda")
+    S_k = S if S_k is None else S_k
     g = torch.Generator(device=dev).manual_seed(S + Hkv)
     q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dtype)
-    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
-    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
-    kw = dict(causal=True, window=window, softcap=softcap)
+    k = torch.randn(B, S_k, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S_k, Hkv, D, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     kernel = fa_ops.kernel_for(dtype, D)
     out = fa_ops.attention(q, k, v, **kw)
     want = fa_ref.attention_plain(q, k, v, **kw).float()
@@ -229,8 +253,8 @@ def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
              f"flash {name} ({what}): error above {tol} * (1 + |plain|), max abs {err}")
         return err
 
-    rec = {"case": name, "kernel": kernel, "shape": [B, S, Hq, Hkv, D],
-           "dtype": str(dtype)[6:], "window": window, "softcap": softcap,
+    rec = {"case": name, "kernel": kernel, "shape": [B, S, Hq, Hkv, D], "S_k": S_k,
+           "causal": causal, "dtype": str(dtype)[6:], "window": window, "softcap": softcap,
            "max_abs_err": check(out, kernel), "tol": f"{tol} * (1 + |plain|)"}
     del out
     if previous:
@@ -242,10 +266,18 @@ def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
     run = lambda: fa_ops.attention(q, k, v, **kw)  # noqa: E731
     lib = None
     if softcap is None:  # one library call computes the same function
-        mask = fa_ref.attention_mask(S, S, True, window, 0, dev)
+        # its fastest form: no mask where every key is seen, is_causal where
+        # the mask is exactly causal, else the mask itself
+        if window is None and not causal:
+            rec["library_call"], lib_kw = "no mask", {}
+        elif window is None and S == S_k:
+            rec["library_call"], lib_kw = "is_causal", {"is_causal": True}
+        else:
+            rec["library_call"] = "mask"
+            lib_kw = {"attn_mask": fa_ref.attention_mask(S, S_k, causal, window, 0, dev)}
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            qh, kh, vh, enable_gqa=Hq != Hkv, **lib_kw)
         # a yardstick only: it must compute the same function (a wrong mask
         # would be off by O(1)), in its own rounding
         rec["library_max_abs_err"] = float((lib().transpose(1, 2).float() - want).abs().max())
@@ -259,8 +291,11 @@ def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
     rec["library_ms"] = cuda_ms(lib, iters=5) if lib else None
     runs.append(cuda_ms(run, iters=20))
     rec["ms_runs"], rec["ms"] = runs, sum(runs) / len(runs)
+    if graph:
+        rec["graph_ms"] = graph_ms(run)
+        rec["library_graph_ms"] = graph_ms(lib) if lib else None
     rec["plain_ms"] = cuda_ms(lambda: fa_ref.attention_plain(q, k, v, **kw), iters=3)
-    ops = 4 * D * visible_pairs(S, True, window) * B * Hq
+    ops = 4 * D * visible_pairs(S, S_k, causal, window) * B * Hq
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, q), ops, dtype)
     rec["tflop_per_s"] = ops / (rec["ms"] * 1e-3) / 1e12
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -363,12 +398,26 @@ def kernel_phase():
         flash_case("gemma2-9b local, softcap, ragged", 1, 2500, 16, 8, 256, 2048, 50.0,
                    torch.bfloat16, 2e-2, timed=False),
     ]
+    # whisper-medium's three attentions (head_dim 64, 16/16 heads, B 4, 1500
+    # frames, 448 tokens), the tensor-core kernel timed beside the CUDA-core one
+    whisper = [
+        flash_case("whisper-medium encoder", 4, 1500, 16, 16, 64, None, None,
+                   torch.bfloat16, 2e-2, timed=True, previous=True, causal=False, graph=True),
+        flash_case("whisper-medium decoder", 4, 448, 16, 16, 64, None, None,
+                   torch.bfloat16, 2e-2, timed=True, previous=True, graph=True),
+        flash_case("whisper-medium cross", 4, 448, 16, 16, 64, None, None,
+                   torch.bfloat16, 2e-2, timed=True, previous=True, causal=False, S_k=1500,
+                   graph=True),
+    ]
     simt_checks = [
         flash_case("recurrentgemma-9b heads, fp32", 1, 2560, 16, 1, 256, 2048, None,
                    torch.float32, 1e-5, timed=False),
+        flash_case("bf16 at head_dim 32", 2, 300, 8, 2, 32, None, None,
+                   torch.bfloat16, 2e-2, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks] == ["wgmma"] * 5
-         and simt_checks[0]["kernel"] == "simt", "flash cases took the wrong kernel")
+    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 8
+         and [c["kernel"] for c in simt_checks] == ["simt"] * 2,
+         "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
                      timed=True)
     lru_checks = [
@@ -400,7 +449,7 @@ def kernel_phase():
         wkv6_case("bf16, B*H 2 below the SM count", 1, 300, 2, False, torch.bfloat16,
                   timed=False),
     ]
-    return (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks)
+    return (flash, flash_checks, simt_checks, whisper), (lru, lru_checks), (wkv, wkv_checks)
 
 
 # ---------------------------------------------------------------------------
@@ -673,6 +722,262 @@ def moe_serve_phase(cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phases 8c-8f: whisper-medium, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+WHISPER_B, WHISPER_T, WHISPER_S = 4, 1500, 448  # 30 s of audio; the decoder's context
+WHISPER_DECODE_STEPS = 64
+WHISPER_START = 50258  # <|startoftranscript|> in whisper's vocabulary
+
+
+def whisper_cfg(n_layers=None):
+    """whisper-medium at full width; ``n_layers`` cuts both stacks."""
+    cfg = get_config("whisper-medium")
+    need((cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+          cfg.head_dim, cfg.frontend_seq_len, cfg.max_seq_len)
+         == (24, 24, 1024, 16, 16, 64, 1500, 448), "whisper-medium width")
+    if n_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers, n_encoder_layers=n_layers)
+
+
+def whisper_serve_phase(encoder_case):
+    """whisper-medium at full width in bf16 through the model API (the
+    reference's engine cannot serve it): an encode of 4 x 1500 frames, cold
+    then warm under CUDA events (the warm one with each flash call's span),
+    then 64 greedy decode steps from the start token. ``encoder_case``: the
+    kernel phase's encoder-shape record, whose CUDA-core time puts a figure
+    on the old route's share of an encode."""
+    cfg = whisper_cfg()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = torch.randn(WHISPER_B, WHISPER_T, cfg.d_model, generator=g,
+                         device="cuda").bfloat16()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    encode_ms, per_encode = [], []
+    with torch.inference_mode():
+        for warm in (False, True):
+            cache = model.init_cache(WHISPER_B, cfg.max_seq_len, torch.bfloat16)
+            reset_counts()
+            with StageEvents(fa_ops, ["attention"]) as flash_ev:
+                start.record()
+                memory, cache = model.prefill(params, {"frames": frames}, cache)
+                end.record()
+                flash_ms = flash_ev.ms()["attention"]
+            encode_ms.append(start.elapsed_time(end))
+            per_encode.append(counts())
+        for launches in per_encode:
+            need(launches == launch_counts(flash_wgmma=cfg.n_encoder_layers),
+                 f"whisper encode launches {launches}")
+        need(len(flash_ev.spans["attention"]) == cfg.n_encoder_layers, "whisper flash calls")
+        need(memory.shape == frames.shape and bool(torch.isfinite(memory).all()),
+             "whisper memory: shape or non-finite values")
+        reset_counts()
+        tok = torch.full((WHISPER_B, 1), WHISPER_START, device="cuda")
+        out = []
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(WHISPER_DECODE_STEPS):
+            logits, cache = model.decode_step(params, cache, tok, memory)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    decode_launches = counts()
+    need(decode_launches == launch_counts(), f"whisper decode launched {decode_launches}")
+    need(bool(torch.isfinite(logits).all()), "whisper decode: non-finite logits")
+    toks = torch.cat(out, dim=1).cpu()
+    need(toks.shape == (WHISPER_B, WHISPER_DECODE_STEPS) and cache["pos"] == WHISPER_DECODE_STEPS
+         and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "whisper decode tokens")
+    old_ms = encoder_case["previous_ms"] * cfg.n_encoder_layers
+    rec = {"arch": cfg.name, "layers": [cfg.n_encoder_layers, cfg.n_layers],
+           "d_model": cfg.d_model, "params": sum(p.numel() for p in params.parameters()),
+           "dtype": "bfloat16", "batch": WHISPER_B, "frames": WHISPER_T,
+           "encode_ms_cold": encode_ms[0], "encode_ms": encode_ms[1],
+           "encode_frames_per_s": WHISPER_B * WHISPER_T / (encode_ms[1] * 1e-3),
+           "encode_flash_ms": flash_ms, "encode_flash_share": flash_ms / encode_ms[1],
+           "decode_steps": WHISPER_DECODE_STEPS,
+           "decode_ms_per_step": wall * 1e3 / WHISPER_DECODE_STEPS,
+           "decode_device_ms_per_step": start.elapsed_time(end) / WHISPER_DECODE_STEPS,
+           "tok_per_s": WHISPER_B * WHISPER_DECODE_STEPS / wall,
+           "first_tokens": toks[:, :8].tolist(),
+           "launches_per_encode": per_encode[-1], "launches_decode": decode_launches,
+           "simt_encoder_ms_x_layers": old_ms,
+           "simt_share_of_warm_encode": old_ms / (encode_ms[1] - flash_ms + old_ms),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("whisper_serve", json.dumps(rec), flush=True)
+    return rec
+
+
+def whisper_check_phase(tol):
+    """whisper-medium at full width cut to 2 + 2 layers, fp32: the encode's
+    memory (2 x 1500 frames), the teacher-forced logits over 448 tokens and
+    8 decode steps fed the same tokens, on the card (the CUDA-core flash
+    kernel) against the same weights on the CPU (the plain path)."""
+    cfg = whisper_cfg(2)
+    params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal((2, WHISPER_T, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, WHISPER_S)))
+
+    def run(params, dev):
+        model = build_model(cfg, device=dev)
+        marks = [counts()]
+        with torch.inference_mode():
+            memory, cache = model.prefill(params, {"frames": frames.to(dev)},
+                                          model.init_cache(2, WHISPER_S, torch.float32))
+            marks.append(counts())
+            logits = params.decode_train(toks.to(dev), memory)
+            marks.append(counts())
+            steps = [model.decode_step(params, cache, toks[:, t:t + 1].to(dev), memory)[0].cpu()
+                     for t in range(8)]
+            marks.append(counts())
+        launches = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+        return memory.cpu(), logits.cpu(), torch.cat(steps, dim=1), launches
+
+    reset_counts()
+    card = run(params, torch.device("cuda"))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    del params
+    torch.cuda.empty_cache()
+    cpu = run(cpu_params, torch.device("cpu"))
+    need(card[3] == [launch_counts(flash=2), launch_counts(flash=4), launch_counts()],
+         f"whisper check launches {card[3]}")
+    errs = {name: float((a - b).abs().max())
+            for name, a, b in zip(("memory", "logits", "decode_logits"), card, cpu)}
+    argmax_equal = bool(torch.equal(card[2].argmax(-1), cpu[2].argmax(-1)))
+    rec = {"arch": cfg.name, "layers": [2, 2], "dtype": "float32", "batch": 2,
+           "frames": WHISPER_T, "tokens": WHISPER_S, "decode_steps": 8,
+           "max_abs_err": errs, "tol": tol, "max_abs_logit": float(cpu[1].abs().max()),
+           "decode_argmax_equal": argmax_equal,
+           "teacher_vs_decode_max_abs": float((cpu[2] - cpu[1][:, :8]).abs().max()),
+           "launches": dict(zip(("encode", "decode_train", "decode"), card[3]))}
+    print("whisper_check", json.dumps(rec), flush=True)
+    need(all(bool(torch.isfinite(t).all()) for t in card[:3]), "whisper check: non-finite")
+    need(max(errs.values()) <= tol, f"whisper card vs CPU differ by {errs} > {tol}")
+    need(argmax_equal, "whisper: card and CPU decode pick different tokens")
+    need(rec["teacher_vs_decode_max_abs"] <= tol, "whisper: decode disagrees with teacher forcing")
+    return rec
+
+
+def whisper_train_check_phase(loss_tol, grad_tol):
+    """2 + 2 layers at full width, fp32, B 1 x 1500 frames x 448 tokens,
+    remat "nothing" (each block a checkpoint: flash in the forward and again
+    in the recompute): the loss and every gradient, card against CPU. A key
+    bias's gradient is 0 exactly (softmax does not see a shift shared by
+    every key), so each side's is rounding noise: it is held to grad_tol of
+    the same layer's wk gradient instead of to its own size."""
+    cfg = whisper_cfg(2)
+    params = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"frames": rng.standard_normal((1, WHISPER_T, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (1, WHISPER_S)),
+             "labels": rng.integers(0, cfg.vocab_size, (1, WHISPER_S))}
+
+    def loss_and_grads(params, dev):
+        params.requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = build_model(cfg, device=dev).loss(params, tb, remat_policy="nothing")
+        names, ps = zip(*params.named_parameters())
+        grads = torch.autograd.grad(loss, ps)
+        return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+    reset_counts()
+    loss, grads = loss_and_grads(params, torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = counts()
+    need(launches == launch_counts(flash=2 * (2 + 2 * 2)),
+         f"whisper train check launches {launches}")
+    cpu_params = copy.deepcopy(params).to("cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(cpu_params, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    key_bias = [n for n in cpu_grads if n.endswith(".bk")]
+    rel = {n: float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for n, g in cpu_grads.items() if n not in key_bias}
+    bias_rel = {n: max(float(grads[n].abs().max()), float(cpu_grads[n].abs().max()))
+                / float(cpu_grads[n[:-2] + "wk"].abs().max()) for n in key_bias}
+    worst = max(rel, key=rel.get)
+    rec = {"arch": cfg.name, "layers": [2, 2], "dtype": "float32", "batch": 1,
+           "frames": WHISPER_T, "tokens": WHISPER_S, "remat_policy": "nothing",
+           "loss": loss, "cpu_loss": cpu_loss, "loss_abs_err": abs(loss - cpu_loss),
+           "loss_tol": loss_tol, "worst_leaf": worst, "worst_leaf_rel_err": rel[worst],
+           "grad_tol": f"{grad_tol} * max|g| per leaf", "leaves": len(rel) + len(key_bias),
+           "key_bias_noise_over_wk": max(bias_rel.values()), "launches": launches,
+           "cpu_s": cpu_s}
+    print("whisper_train_check", json.dumps(rec), flush=True)
+    need(np.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+         "whisper train check: non-finite loss or gradient")
+    need(abs(loss - cpu_loss) <= loss_tol, f"whisper: card vs CPU loss {loss} vs {cpu_loss}")
+    need(rel[worst] <= grad_tol, f"whisper: gradient of {worst} off by {rel[worst]}")
+    need(max(bias_rel.values()) <= grad_tol, f"whisper: key-bias gradients {bias_rel}")
+    return rec
+
+
+def whisper_train_phase():
+    """whisper-medium at full width (24 + 24 layers), bf16 compute over fp32
+    masters, remat "nothing", AdamW, B 4 x 1500 frames x 448 tokens: a cold
+    step, then the timed one (CUDA events); 24 + 2 x 24 tensor-core flash
+    launches a step in the forward and as many in the recompute."""
+    cfg = whisper_cfg()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"frames": torch.randn(WHISPER_B, WHISPER_T, cfg.d_model, generator=g,
+                                   device="cuda").bfloat16(),
+             "tokens": torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_S), generator=g,
+                                     device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_S), generator=g,
+                                     device="cuda")}
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1), total_steps=2,
+                         warmup_steps=1, remat_policy="nothing", compute_dtype=torch.bfloat16)
+    train_step, opt_init = make_train_step(model, run)
+    state = opt_init(params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    step_ms, losses, launches = [], [], []
+    for _ in range(2):  # cold, then the timed step
+        reset_counts()
+        start.record()
+        params, state, metrics = train_step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        launches.append(counts())
+    per_step = 2 * (cfg.n_encoder_layers + 2 * cfg.n_layers)
+    for n in launches:
+        need(n == launch_counts(flash_wgmma=per_step), f"whisper train launches {n}")
+    need(all(np.isfinite(losses)) and state.step == 2, f"whisper train: losses {losses}")
+    # model FLOPs: 6 x parameters x tokens for each stack's products (the
+    # tied head counted with the decoder), and attention's 4 D Hq a visible
+    # pair forward, twice that backward; remat's recompute is not model work
+    enc, dec = (sum(p.numel() for p in blocks.parameters())
+                for blocks in (params.enc_blocks, params.dec_blocks))
+    head = cfg.vocab_size * cfg.d_model
+    B, T, S = WHISPER_B, WHISPER_T, WHISPER_S
+    dense = 6 * (enc * B * T + (dec + head) * B * S)
+    pairs = (cfg.n_encoder_layers * visible_pairs(T, T, False, None)
+             + cfg.n_layers * (visible_pairs(S, S, True, None) + visible_pairs(S, T, False, None)))
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * B
+    rec = {"arch": cfg.name, "layers": [cfg.n_encoder_layers, cfg.n_layers],
+           "params": sum(p.numel() for p in params.parameters()), "compute_dtype": "bfloat16",
+           "master_dtype": "float32", "remat_policy": run.remat_policy, "batch": B,
+           "frames": T, "tokens": S, "losses": losses, "step_ms_cold": step_ms[0],
+           "step_ms": step_ms[1], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": launches[-1], "model_flops_per_step": dense + attn,
+           "model_flops_share_of_bf16_peak":
+               (dense + attn) / (step_ms[1] * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16]}
+    print("whisper_train", json.dumps(rec), flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phases 9-11: training
 # ---------------------------------------------------------------------------
 
@@ -741,7 +1046,7 @@ def train_phase():
     # embedding counted once, as the head's product), and the attention
     # layer's QK^T and PV, 4 D Hq per visible (query, key) pair forward and
     # twice that backward; remat's recompute is not model work
-    pairs = visible_pairs(TRAIN_S, True, cfg.window)
+    pairs = visible_pairs(TRAIN_S, TRAIN_S, True, cfg.window)
     n_attn = 1
     dense = 6 * n_params * TRAIN_B * TRAIN_S
     attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * TRAIN_B * n_attn
@@ -1266,6 +1571,11 @@ def elastic_phase():
     return rec
 
 
+WHISPER_FLASH_KEYS = ("case", "ms", "graph_ms", "bound_ms", "bound_by", "share_of_bound",
+                      "previous_ms", "library_ms", "library_graph_ms", "library_call", "plain_ms",
+                      "max_abs_err")
+
+
 def kernel_record(name, route, source, replaces, launches, main, checks, **extra):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
@@ -1350,8 +1660,8 @@ def main():
         phase_s[name] = time.perf_counter() - t0
         return out
 
-    (flash, flash_checks, simt_checks), (lru, lru_checks), (wkv, wkv_checks) = phase(
-        "kernels", kernel_phase)
+    (flash, flash_checks, simt_checks, whisper_flash), (lru, lru_checks), (wkv, wkv_checks) = \
+        phase("kernels", kernel_phase)
     lru_mixed = next(c for c in lru_checks if c["dtype_b"] != c["dtype"] and "ms" in c)
     serve = phase("serve", recurrentgemma_serve_phase)
     # fp32 over the cut depth and a 256000-way head (rwkv6: 65536); logits O(1)
@@ -1370,6 +1680,10 @@ def main():
     # fp32 over one full-width layer (128 experts) and a 151936-way head
     moe_check = phase("moe_check", model_check_phase, "qwen3-moe-235b-a22b", 1,
                       launch_counts(flash=1), 2e-3)
+    whisper_serve = phase("whisper_serve", whisper_serve_phase, whisper_flash[0])
+    torch.cuda.empty_cache()
+    # fp32 over 2 + 2 full-width layers and a 51865-way head, as the other checks
+    whisper_check = phase("whisper_check", whisper_check_phase, 2e-3)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -1382,6 +1696,10 @@ def main():
     moe_train_check = phase("moe_train_check", train_check_phase, "phi3.5-moe-42b-a6.6b",
                             1, 1, 1024, launch_counts(flash=2), 1e-4, 2e-3,
                             remat_policy="nothing")
+    # the tolerances of train_check: 1500 frames and 448 tokens, a 51865-way softmax
+    whisper_train_check = phase("whisper_train_check", whisper_train_check_phase, 1e-4, 2e-3)
+    whisper_train = phase("whisper_train", whisper_train_phase)
+    torch.cuda.empty_cache()
     train_lm_rec = phase("train_lm", train_lm_phase)
     dispatch = phase("dispatch", dispatch_phase)
     elastic = phase("elastic", elastic_phase)
@@ -1389,8 +1707,9 @@ def main():
     elastic_launches = lambda name: {  # noqa: E731
         run: elastic[key][name] for run, key in (("a", "launches_a"), ("b", "launches_b"))}
 
-    # the CUDA-core kernel serves fp32 (and the small head dims); its record
-    # holds its bf16 time at the serving shape, measured beside the new one
+    # the CUDA-core kernel serves fp32 (and head_dim 16 and 32); its record
+    # holds its bf16 time at the serving shape and at whisper-medium's
+    # encoder shape, each measured beside the tensor-core kernel
     simt_main = {"case": flash["case"] + " (bf16, CUDA-core kernel)",
                  "max_abs_err": flash["previous_max_abs_err"], "ms": flash["previous_ms"],
                  "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
@@ -1399,8 +1718,16 @@ def main():
         kernel_record("flash_attention_wgmma", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
-                      serve["launches"]["flash_attention_wgmma"], flash, flash_checks,
-                      previous_ms=flash["previous_ms"],
+                      serve["launches"]["flash_attention_wgmma"], flash,
+                      flash_checks + whisper_flash, previous_ms=flash["previous_ms"],
+                      whisper_head_dim_64=[{key: c[key] for key in WHISPER_FLASH_KEYS}
+                                           for c in whisper_flash],
+                      launches_whisper_encode=whisper_serve["launches_per_encode"][
+                          "flash_attention_wgmma"],
+                      launches_whisper_decode_64_steps=whisper_serve["launches_decode"][
+                          "flash_attention_wgmma"],
+                      launches_whisper_train_step=whisper_train["launches_per_step"][
+                          "flash_attention_wgmma"],
                       launches_train_4_steps=train["launches_per_4_steps"][
                           "flash_attention_wgmma"],
                       launches_moe_serve=moe_serve["launches"]["flash_attention_wgmma"],
@@ -1413,6 +1740,11 @@ def main():
                       launches_train_check=train_check["launches"]["flash_attention"],
                       launches_moe_check=moe_check["launches"]["flash_attention"],
                       launches_moe_train_check=moe_train_check["launches"]["flash_attention"],
+                      whisper_encoder_bf16_ms=whisper_flash[0]["previous_ms"],
+                      launches_whisper_check=sum(
+                          n["flash_attention"] for n in whisper_check["launches"].values()),
+                      launches_whisper_train_check=whisper_train_check["launches"][
+                          "flash_attention"],
                       launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
@@ -1431,6 +1763,8 @@ def main():
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
                "gemma2": gemma2, "rwkv6": rwkv6, "rwkv6_check": rwkv6_check,
                "moe_serve": moe_serve, "moe_check": moe_check,
+               "whisper_serve": whisper_serve, "whisper_check": whisper_check,
+               "whisper_train_check": whisper_train_check, "whisper_train": whisper_train,
                "train": train, "train_check": train_check,
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,

@@ -24,6 +24,11 @@
 // a KV-tile ring that overlaps loads with math are for a later change, which
 // is where the gap to the tensor-core bound closes.
 //
+// Since the tensor-core kernel (flash_attention_sm90.cu) took bf16 at head_dim
+// 64, 128 and 256, this kernel serves fp32 inputs (the card-vs-CPU checks and
+// fp32 training: TF32 would break the fp32 comparison) and head_dim 16 and 32;
+// ops.kernel_for picks between the two.
+//
 // Layout: the model's [B, S, H, D], contiguous, read in place (no transpose).
 
 #include <cuda_bf16.h>

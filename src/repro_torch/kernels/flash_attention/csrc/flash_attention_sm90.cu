@@ -7,30 +7,36 @@
 //   causal mask col <= row, window mask col > row - window (row counted from
 //   q_offset), logit softcap c*tanh(s/c) before the mask, fp32 running max / sum
 //   / accumulator, and 0 for a query row that sees no key.
-// It takes bf16 inputs with head_dim 128 or 256; flash_attention.cu keeps
-// fp32 inputs and the small head dims.
+// It takes bf16 inputs with head_dim 64, 128 or 256; flash_attention.cu keeps
+// fp32 inputs and head_dim 16 and 32.
 //
-// Bound on this card: at the serving shapes (head_dim 256, thousands of keys
-// per row) the work is 4*D operations per visible (query, key) pair against
-// reading q, k, v and writing o once, far above the H100's ~295 flop/byte
-// ridge, so the bound is the operations at the bf16 tensor-core rate
-// (989 TFLOP/s). Only wgmma reaches that rate; the fp32 CUDA cores top out at
-// 67 TFLOP/s, which is why the older kernel cannot come near it.
+// Bound on this card: at the serving shapes (thousands of keys per row) the
+// work is 4*D operations per visible (query, key) pair against reading q, k,
+// v and writing o once, far above the H100's ~295 flop/byte ridge, so the
+// bound is the operations at the bf16 tensor-core rate (989 TFLOP/s). Only
+// wgmma reaches that rate; the fp32 CUDA cores top out at 67 TFLOP/s, which
+// is why the older kernel cannot come near it.
 //
 // What the design does about it:
 //   * One block per (q tile of 128 rows, q head, batch): two warpgroups of 64
-//     query rows each, 256 threads with up to 255 registers: at D 256 a
-//     warpgroup holds its O rows (64 x D fp32, 128 registers a thread), one S
-//     tile and P: ptxas takes 237 registers and keeps the wgmmas in flight.
+//     query rows each, 256 threads. At D 256 a warpgroup holds its O rows
+//     (64 x D fp32, 128 registers a thread), one S tile and P: ptxas takes 237
+//     registers and keeps the wgmmas in flight, one block an SM. At D 64 the
+//     O rows take 32 registers a thread, so the block is built for
+//     FA_D64_BLOCKS_PER_SM blocks an SM (at most 128 registers a thread at
+//     2): the second block's wgmmas cover the first's softmax, which at D 64
+//     costs as much as its products (4 * 64 operations a score on the
+//     tensor cores against an exp2 and a few fp32 operations).
 //     (A third, producer warpgroup with setmaxnreg 24 / 240 left the
 //     consumers spilling and their wgmmas serialised under nvcc 12.9.)
 //   * TMA with a 4-D tensor map over the model's [B, S, H, D] layout, read in
 //     place, 128-byte swizzle, one box per 64-column slab of D. A tile past S
 //     is zero-filled, never the next batch's rows. Q is loaded once; K and V
-//     tiles of 64 keys go through a ring (2 stages at D 256, 4 at D 128): a
-//     full mbarrier per stage, and the last of the 8 warps to finish with a
-//     stage issues its refill, so loads run STAGES - 1 tiles ahead of the math
-//     without a producer warp.
+//     tiles of 64 keys go through a ring (2 stages at D 256, 4 at D 128,
+//     FA_D64_STAGES at D 64, where a stage is 16 KB): a full mbarrier per
+//     stage, and the last of the 8 warps to finish with a stage issues its
+//     refill, so loads run STAGES - 1 tiles ahead of the math without a
+//     producer warp.
 //   * q tiles are scheduled heaviest first (the tile index is the slowest grid
 //     dimension, walked down), which shortens the causal tail of the grid.
 //   * S = Q K^T with wgmma m64n64k16, both operands K-major in shared memory.
@@ -40,6 +46,8 @@
 //     accumulator layout (a row's 16 values per thread sit in one quad of
 //     lanes); masks only on tiles that cross the causal diagonal, the window
 //     edge or S_k; tiles wholly outside the band are neither loaded nor used.
+//     Ragged S_q and S_k (whisper's 1500 frames: 11 q tiles and 92 rows, 23
+//     key tiles and 28 keys) are zero-filled by TMA and masked, never padded.
 //   * O += P V with P as bf16 A fragments straight from the S registers
 //     (wgmma's register-A form) and V as an MN-major B operand, one
 //     m64n64k16 per 64-column slab of V.
@@ -50,11 +58,22 @@
 //     tiles multicast by TMA was correct but slower at every serving shape:
 //     a stage can be refilled only when all 16 warps of both CTAs are done
 //     with it, and that wait cost more than the halved L2 reads saved.
+//
+// FA_D64_STAGES and FA_D64_BLOCKS_PER_SM may be defined before this file to
+// build another design point at D 64 (scripts/ablate_flash_sm90.py times
+// them against the defaults below).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef FA_D64_STAGES
+#define FA_D64_STAGES 4
+#endif
+#ifndef FA_D64_BLOCKS_PER_SM
+#define FA_D64_BLOCKS_PER_SM 2
+#endif
 
 namespace {
 
@@ -67,7 +86,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 #define HD __host__ __device__
 HD constexpr int slab_q_bytes() { return BQ * 128; }  // 128 rows x 64 bf16
 HD constexpr int slab_kv_bytes() { return BK * 128; }  // 64 rows x 64 bf16
-template <int D> HD constexpr int stages() { return D == 256 ? 2 : 4; }
+template <int D> HD constexpr int stages() { return D == 256 ? 2 : D == 128 ? 4 : FA_D64_STAGES; }
 template <int D> HD constexpr int q_bytes() { return (D / 64) * slab_q_bytes(); }
 template <int D> HD constexpr int kv_bytes() { return (D / 64) * slab_kv_bytes(); }
 template <int D> HD constexpr size_t smem_bytes() {
@@ -196,7 +215,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---- the kernel ------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? FA_D64_BLOCKS_PER_SM : 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
@@ -527,7 +546,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 extern "C" {
 
-// bf16 q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D], o like q; D 128 or 256.
+// bf16 q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D], o like q; D 64, 128 or 256.
 // Returns the cudaError_t after the launch.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int Sq, int Sk, int Hq, int Hkv, int D, int causal,
@@ -543,12 +562,18 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* 
   if (D == 128)
     return (int)launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, has_window, window,
                             has_softcap, softcap, scale, q_offset, s);
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, has_window, window,
+                           has_softcap, softcap, scale, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory a block takes at head_dim D (0 for a D it does not take).
 int flash_attention_sm90_smem_bytes(int D) {
-  return D == 256 ? (int)smem_bytes<256>() : D == 128 ? (int)smem_bytes<128>() : 0;
+  return D == 256   ? (int)smem_bytes<256>()
+         : D == 128 ? (int)smem_bytes<128>()
+         : D == 64  ? (int)smem_bytes<64>()
+                    : 0;
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -9,9 +9,12 @@ the model's [B, S, H, D] layout, which both kernels read in place.
   * a CUDA tensor without ``kv_len`` launches one of two kernels, chosen
     before the launch by ``kernel_for(dtype, head_dim)``, or raises:
       - ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 with head_dim
-        128 or 256, on the tensor cores -- every bf16 serving config;
+        64, 128 or 256, on the tensor cores -- every bf16 config of the
+        repo (whisper-medium's encoder, decoder and cross-attention at 64);
       - ``"simt"`` (``csrc/flash_attention.cu``): everything else it takes,
-        fp32 inputs and the small head dims, on the CUDA cores.
+        on the CUDA cores: fp32 inputs (the card-vs-CPU checks and fp32
+        training, which TF32 would take out of the fp32 comparison) and
+        bf16 at head_dim 16 and 32.
     A failed launch raises; nothing retries on the other kernel or the twin.
 
 Differentiable, as the reference's custom VJP: when grad is on and an input
@@ -36,7 +39,7 @@ from repro_torch.kernels.flash_attention import ref
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 SOURCE_SM90 = Path(__file__).parent / "csrc" / "flash_attention_sm90.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c = ctypes.c_int

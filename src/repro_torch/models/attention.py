@@ -1,15 +1,23 @@
-"""Self-attention layer: GQA/MQA with RoPE, sliding window, softcap, QK-norm.
+"""Attention layer: GQA/MQA with RoPE, sliding window, softcap, QK-norm,
+and the encoder-decoder's cross-attention.
 
-Counterpart of ``repro/models/attention.py`` (self-attention only; the
-encoder-decoder cross-attention comes with the enc-dec family).
+Counterpart of ``repro/models/attention.py``.
 
-  * forward: full-sequence causal attention through the flash kernel, no
-    cache (training, ``attention_block``);
-  * prefill: the same, and the KV cache filled from the same k, v;
+  * forward: full-sequence attention through the flash kernel, no cache
+    (training, ``attention_block``): causal self-attention by default, the
+    encoder's non-causal self-attention with ``causal=False``, and with
+    ``memory`` the cross-attention (K and V projected from the encoder's
+    memory, non-causal, no window);
+  * prefill: the causal self-attention, and the KV cache filled from the
+    same k, v;
   * decode: one query against the cache. Local layers keep a ring of
     ``window`` slots (position p at slot p % window); softmax is
     permutation-invariant, so a validity mask is all decode needs. Decode
-    attention stays on the plain path, as in the reference.
+    attention stays on the plain path, as in the reference; so does the
+    decode cross-attention (``decode_cross``), which projects K and V from
+    the memory again at every step, as the reference does.
+
+RoPE is applied only when ``cfg.use_rope`` and only in self-attention.
 
 The cache is updated in place (the reference returns a new one); the
 engine allocates it once per batch, which saves a copy per layer and step.
@@ -17,13 +25,14 @@ engine allocates it once per batch, which saves a copy per layer and step.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import common
 
 Cache = Dict[str, torch.Tensor]
@@ -38,10 +47,17 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype, local: bool):
+    """``cross``: the decoder's attention over the encoder's memory, with as
+    many K/V heads as query heads (whisper's cross-attention is full MHA)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype, local: bool = False,
+                 cross: bool = False):
         super().__init__()
         d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if cross:
+            hkv = hq
         self.cfg = cfg
+        self.cross = cross
         self.window = cfg.window if local else None
         self.wq = common.param((d, hq, hd), device, dtype)
         self.wk = common.param((d, hkv, hd), device, dtype)
@@ -75,13 +91,19 @@ class Attention(nn.Module):
             out = out + getattr(self, bias_name)
         return out
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+             kv_x: Optional[torch.Tensor] = None):
+        """q from x; k and v from ``kv_x`` (the memory) or x. RoPE at
+        ``positions`` on self-attention's q and k when the config uses it."""
+        kv_x = x if kv_x is None else kv_x
         q = self._project(x, self.wq, "bq")
-        k = self._project(x, self.wk, "bk")
-        v = self._project(x, self.wv, "bv")
+        k = self._project(kv_x, self.wk, "bk")
+        v = self._project(kv_x, self.wv, "bv")
         if self.cfg.qk_norm:  # after the bias, before RoPE, as the reference
             q = common.rms_norm(self.q_norm, q)
             k = common.rms_norm(self.k_norm, k)
+        if self.cross or not self.cfg.use_rope:
+            return q, k, v
         sin, cos = common.rope_angles(positions, self.cfg.head_dim,
                                       self.cfg.rope_theta)
         return common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos), v
@@ -91,10 +113,19 @@ class Attention(nn.Module):
         B, S, h, hd = o.shape
         return o.reshape(B, S, h * hd) @ self.wo.reshape(h * hd, -1)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """Causal attention over the full sequence, no cache."""
-        q, k, v = self._qkv(x, positions)
-        out = fa_ops.attention(q, k, v, causal=True, window=self.window,
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+                memory: Optional[torch.Tensor] = None, causal: bool = True
+                ) -> torch.Tensor:
+        """Attention over the full sequence, no cache: self-attention
+        (causal unless ``causal=False``), or with ``memory`` [B, S_m, d] the
+        cross-attention, non-causal and without a window."""
+        if self.cross != (memory is not None):
+            raise ValueError("memory is given to the cross-attention, and only to it")
+        q, k, v = self._qkv(x, positions, memory)
+        if self.cross:
+            causal = False
+        out = fa_ops.attention(q, k, v, causal=causal,
+                               window=None if self.cross else self.window,
                                softcap=self.cfg.attn_softcap)
         return self._out(out)
 
@@ -127,4 +158,12 @@ class Attention(nn.Module):
         kv_len = torch.full((x.shape[0],), min(pos + 1, length), device=x.device)
         out = fa_ops.attention(q, cache["k"], cache["v"], causal=False,
                                kv_len=kv_len, softcap=self.cfg.attn_softcap)
+        return self._out(out)
+
+    def decode_cross(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """One decode step's cross-attention: K and V projected from
+        ``memory`` again, the plain path without softcap (the reference's
+        ``backend="reference"`` call), no cache."""
+        q, k, v = self._qkv(x, None, memory)
+        out = fa_ref.attention_plain(q, k, v, causal=False)
         return self._out(out)

@@ -1,0 +1,215 @@
+"""Whisper-style encoder-decoder backbone (``repro/models/encdec.py``).
+
+The audio frontend (mel and conv downsampling) is a stub, as in the
+reference: the batch carries frame embeddings [B, T_f, d]. The encoder adds
+learned positions and runs non-causal self-attention blocks; the decoder runs
+causal self-attention, cross-attention over the encoder's memory and the
+MLP, with the head tied to the embedding. Pre-norm LayerNorm, GELU MLP.
+
+The reference stacks each stack's blocks on a leading axis (``jax.vmap`` at
+init, ``lax.scan`` at run time); here each block is its own module,
+``enc_blocks.{i}`` and ``dec_blocks.{i}``, so a state-dict name is the
+reference's path with the layer index after the stack's name.
+
+Every attention of training and of the encode (the encoder's self-attention,
+the decoder's self-attention and cross-attention) goes through
+``fa_ops.attention``: on the card the flash kernels, in bf16 at whisper's
+head_dim 64 the tensor-core one. Decode takes the plain path, as the
+reference does, and projects the cross-attention's K and V from the memory
+again at every step.
+
+The frames must come in the weights' dtype (bf16 frames for bf16 weights, as
+the reference's input specs give them): the reference would promote a bf16
+model with fp32 frames to fp32 throughout, which the port does not do, so it
+raises instead.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, transformer
+from repro_torch.models.attention import Attention
+from repro_torch.models.mlp import MLP
+
+Cache = Dict[str, Any]  # {"self": [per-decoder-layer KV cache], "pos": int}
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device) -> Cache:
+    """A zeroed self-attention cache for every decoder layer, position 0."""
+    layers: List[Dict[str, torch.Tensor]] = [
+        attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+        for _ in range(cfg.n_layers)]
+    return {"self": layers, "pos": 0}
+
+
+class EncBlock(nn.Module):
+    """Pre-norm block: non-causal self-attention, then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.attn = Attention(cfg, device, dtype)
+        self.norm2 = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.mlp = MLP(cfg, device, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        common.reset_norm_(self.norm1)
+        self.attn.reset_parameters(gen)
+        common.reset_norm_(self.norm2)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(common.apply_norm(self.norm1, x), positions, causal=False)
+        return x + self.mlp(common.apply_norm(self.norm2, x))
+
+
+class DecBlock(nn.Module):
+    """Pre-norm block: causal self-attention, cross-attention over the
+    memory, then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.attn = Attention(cfg, device, dtype)
+        self.norm_x = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.xattn = Attention(cfg, device, dtype, cross=True)
+        self.norm2 = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.mlp = MLP(cfg, device, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for norm in (self.norm1, self.norm_x, self.norm2):
+            common.reset_norm_(norm)
+        self.attn.reset_parameters(gen)
+        self.xattn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                memory: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(common.apply_norm(self.norm1, x), positions)
+        x = x + self.xattn(common.apply_norm(self.norm_x, x), positions, memory=memory)
+        return x + self.mlp(common.apply_norm(self.norm2, x))
+
+    def decode(self, x: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
+               memory: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn.decode(common.apply_norm(self.norm1, x), pos, cache)
+        x = x + self.xattn.decode_cross(common.apply_norm(self.norm_x, x), memory)
+        return x + self.mlp(common.apply_norm(self.norm2, x))
+
+
+def _run_block(block: nn.Module, remat_policy: Optional[str], *args) -> torch.Tensor:
+    """``block(*args)``, under ``torch.utils.checkpoint`` with grad on and a
+    remat policy (the reference's ``_maybe_remat`` around each block). The
+    block's parameters go in as explicit inputs, as in
+    ``transformer._remat_group``: the recompute then sees the tensors the
+    forward saw, also the cast copies ``encdec_loss`` swaps in."""
+    if remat_policy in (None, "none") or not torch.is_grad_enabled():
+        return block(*args)
+    names, params = zip(*block.named_parameters())
+    n = len(names)
+
+    def run(*tensors):
+        return functional_call(block, dict(zip(names, tensors[:n])), tensors[n:])
+
+    return checkpoint(run, *params, *args, use_reentrant=False,
+                      context_fn=transformer._remat_context(remat_policy))
+
+
+class EncDec(nn.Module):
+    """The whole encoder-decoder; its parameters are the served weights."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.embed = common.param((cfg.vocab_size, d), device, dtype)
+        self.enc_pos = common.param((cfg.frontend_seq_len or 1500, d), device, dtype)
+        self.dec_pos = common.param((cfg.max_seq_len, d), device, dtype)
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg, device, dtype)
+                                        for _ in range(cfg.n_encoder_layers))
+        self.enc_norm = common.norm_init(cfg.norm_type, d, device, dtype)
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, device, dtype)
+                                        for _ in range(cfg.n_layers))
+        self.dec_norm = common.norm_init(cfg.norm_type, d, device, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for table in (self.embed, self.enc_pos, self.dec_pos):
+            common.embed_init_(table, gen)
+        for block in list(self.enc_blocks) + list(self.dec_blocks):
+            block.reset_parameters(gen)
+        common.reset_norm_(self.enc_norm)
+        common.reset_norm_(self.dec_norm)
+
+    def encode(self, frames: torch.Tensor, remat_policy: Optional[str] = None
+               ) -> torch.Tensor:
+        """frames [B, T_f, d] (the stub frontend's output) -> memory [B, T_f, d].
+        Positions past the table's length tile it, as in the reference."""
+        if frames.dtype != self.enc_pos.dtype:
+            raise ValueError(f"frames are {frames.dtype}, the weights "
+                             f"{self.enc_pos.dtype}: give the frames in the weights' dtype")
+        T = frames.shape[1]
+        positions = torch.arange(T, device=frames.device)
+        x = frames + self.enc_pos[positions % self.enc_pos.shape[0]][None]
+        for block in self.enc_blocks:
+            x = _run_block(block, remat_policy, x, positions)
+        return common.apply_norm(self.enc_norm, x)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return common.apply_norm(self.dec_norm, x) @ self.embed.T  # tied head
+
+    def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor,
+                     remat_policy: Optional[str] = None) -> torch.Tensor:
+        """Teacher-forced decoder forward: tokens [B, S] -> logits [B, S, V]."""
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        x = self.embed[tokens] + self.dec_pos[positions % self.dec_pos.shape[0]][None]
+        for block in self.dec_blocks:
+            x = _run_block(block, remat_policy, x, positions, memory)
+        return self._logits(x)
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
+                remat_policy: Optional[str] = None) -> torch.Tensor:
+        """Training forward: encode, then ``decode_train``; logits [B, S, V]."""
+        memory = self.encode(frames, remat_policy)
+        return self.decode_train(tokens, memory, remat_policy)
+
+    def decode_step(self, tokens: torch.Tensor, cache: Cache,
+                    memory: torch.Tensor) -> torch.Tensor:
+        """One token per row (tokens [B, 1]) against the self caches (updated
+        in place) and the memory; logits [B, 1, V]."""
+        pos = cache["pos"]
+        x = self.embed[tokens] + self.dec_pos[pos % self.dec_pos.shape[0]]
+        for block, c in zip(self.dec_blocks, cache["self"]):
+            x = block.decode(x, pos, c, memory)
+        cache["pos"] = pos + 1
+        return self._logits(x)
+
+
+def encdec_loss(model: EncDec, batch: Dict[str, Any], *,
+                remat_policy: Optional[str] = None,
+                compute_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: frames [B, T_f, d], tokens [B, S], labels [B, S], optional mask
+    -> (loss, metrics). ``compute_dtype`` casts the fp32/bf16 parameters
+    inside the differentiated function, as ``transformer.lm_loss`` does."""
+    args = (batch["frames"], batch["tokens"])
+    if compute_dtype is None:
+        logits = model(*args, remat_policy=remat_policy)
+    else:
+        params = {n: p.to(compute_dtype) if p.dtype in (torch.float32, torch.bfloat16)
+                  else p for n, p in model.named_parameters()}
+        logits = functional_call(model, params, args, {"remat_policy": remat_policy})
+    xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return xent, {"xent": xent, "moe_aux": xent.new_zeros((), dtype=torch.float32)}

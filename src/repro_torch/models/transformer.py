@@ -37,18 +37,6 @@ Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
 Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, tensor)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the families the port does not serve yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md queue A, models/encdec)")
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions come with the encoder-decoder family "
-            "(ROADMAP.md queue A)")
-
-
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       device) -> Cache:
     """Zeroed caches for every layer, in model order, and position 0."""
@@ -175,7 +163,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = common.param((cfg.vocab_size, cfg.d_model), device, dtype)
         self.final_norm = common.norm_init(cfg.norm_type, cfg.d_model, device, dtype)

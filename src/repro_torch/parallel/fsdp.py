@@ -131,6 +131,10 @@ class ShardedModel:
     (:func:`shard_module`), and returns the global batch's mean loss."""
 
     def __init__(self, model: Model, mesh: DeviceMesh, rules: Rules):
+        if model.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{model.cfg.name}: sharded encoder-decoder training is not "
+                "ported yet (ROADMAP.md queue A)")
         self.model, self.mesh, self.rules = model, mesh, rules
         self.cfg, self.device = model.cfg, model.device
 

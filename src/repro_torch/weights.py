@@ -1,4 +1,4 @@
-"""Weights for the port's LM: carried across from the reference, or drawn.
+"""Weights for the port's models: carried across from the reference, or drawn.
 
 ``from_jax_params`` takes the reference's parameter pytree (nested dicts and
 lists of numpy arrays, as ``repro.models.transformer.init_lm_params`` builds
@@ -6,6 +6,11 @@ it) and loads it into an :class:`~repro_torch.models.transformer.LM`:
 ``params["blocks"][i]`` holds pattern position ``i`` stacked over groups, so
 its entry ``g`` is layer ``g * len(pattern) + i``; ``params["tail"][j]`` is
 layer ``n_groups * len(pattern) + j``. Leaf names are module attribute names.
+For an encoder-decoder config it takes ``repro.models.encdec``'s pytree into
+an :class:`~repro_torch.models.encdec.EncDec`: ``enc_blocks`` and
+``dec_blocks`` hold their layers stacked on axis 0 (``jax.vmap`` at init),
+so entry ``i`` is ``enc_blocks.{i}`` / ``dec_blocks.{i}``; a LayerNorm is
+``{g, b}``.
 
 ``jax_params_to_state_dict`` maps any pytree of that layout, not only
 parameters: a reference gradient pytree (``jax.grad`` of ``model.loss``)
@@ -24,7 +29,7 @@ the numpy pytree back, so the reference can score a model the port trained.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
@@ -32,7 +37,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.surrogate import Surrogate
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
+
+Params = Union[LM, EncDec]
 
 
 def _flatten(prefix: str, tree: Any, index, out: Dict[str, torch.Tensor]) -> None:
@@ -46,9 +54,34 @@ def _flatten(prefix: str, tree: Any, index, out: Dict[str, torch.Tensor]) -> Non
     out[prefix] = torch.from_numpy(np.array(arr))  # a writable copy
 
 
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [leaf for sub in tree.values() for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _encdec_state_dict(cfg: ModelConfig, params: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    stacks = {"enc_blocks": cfg.n_encoder_layers, "dec_blocks": cfg.n_layers}
+    sd: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        n = stacks.get(name)
+        if n is None:
+            _flatten(name, sub, None, sd)
+            continue
+        if any(np.shape(leaf)[0] != n for leaf in _leaves(sub)):
+            raise ValueError(f"{name}: leaves are not stacked over {n} layers")
+        for i in range(n):
+            _flatten(f"{name}.{i}", sub, i, sd)
+    return sd
+
+
 def jax_params_to_state_dict(cfg: ModelConfig, params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
-    """The reference pytree as an fp32 CPU state dict of :class:`LM`."""
+    """The reference pytree as an fp32 CPU state dict of :class:`LM`, or of
+    :class:`EncDec` for an encoder-decoder config."""
+    if cfg.is_encoder_decoder:
+        return _encdec_state_dict(cfg, params)
     n_groups, n_tail = cfg.n_groups_and_tail()
     p = len(cfg.mixer_pattern)
     if len(params["blocks"]) != p or len(params["tail"]) != n_tail:
@@ -65,24 +98,29 @@ def jax_params_to_state_dict(cfg: ModelConfig, params: Dict[str, Any]
     return sd
 
 
+def new_module(cfg: ModelConfig, device: torch.device, dtype: torch.dtype) -> Params:
+    """The port's uninitialized module for ``cfg``: an EncDec or an LM."""
+    return (EncDec if cfg.is_encoder_decoder else LM)(cfg, device, dtype)
+
+
 def from_jax_params(cfg: ModelConfig, params: Dict[str, Any],
                     device: DeviceLike = "cuda",
-                    dtype: torch.dtype = torch.float32) -> LM:
+                    dtype: torch.dtype = torch.float32) -> Params:
     """Load the reference's parameter pytree into the port's modules."""
-    lm = LM(cfg, resolve_device(device), dtype)
-    lm.load_state_dict(jax_params_to_state_dict(cfg, params), strict=True)
-    return lm
+    model = new_module(cfg, resolve_device(device), dtype)
+    model.load_state_dict(jax_params_to_state_dict(cfg, params), strict=True)
+    return model
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda",
-                dtype: torch.dtype = torch.float32) -> LM:
+                dtype: torch.dtype = torch.float32) -> Params:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``."""
     dev = resolve_device(device)
-    lm = LM(cfg, dev, dtype)
+    model = new_module(cfg, dev, dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    lm.reset_parameters(gen)
-    return lm
+    model.reset_parameters(gen)
+    return model
 
 
 def _tree_to_state_dict(prefix: str, tree: Any, out: Dict[str, torch.Tensor]) -> None:

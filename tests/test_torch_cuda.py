@@ -8,7 +8,7 @@ This file imports neither JAX nor the reference (the card's machine has
 neither); the twins are held against the reference on the CPU in
 ``test_torch_kernels.py``. Tolerances: 1e-5 in fp32 (summation order);
 2e-2 * (1 + |plain|) in bf16 (one bf16 ulp of the output; the flash
-attention tensor-core kernel, which serves bf16 at head_dim 128 and 256,
+attention tensor-core kernel, which serves bf16 at head_dim 64, 128 and 256,
 also rounds P to bf16 before P V, a relative error of at most 2^-9 on
 each weight of an average, well inside that bound); the RG-LRU scan and
 the WKV6 state are exact, as they round like their twins (separate fp32
@@ -82,6 +82,11 @@ WGMMA_FLASH_CASES = [
     (1, 2522, 2522, 64, 4, 128, True, None, None, 0), # qwen3-moe heads, ragged
     (1, 1030, 1030, 32, 8, 128, True, None, None, 0), # phi3.5-moe heads
     (1, 37, 37, 4, 2, 128, True, 8, None, 0),         # fewer keys than one tile
+    (4, 1500, 1500, 16, 16, 64, False, None, None, 0),  # whisper-medium encoder
+    (4, 448, 448, 16, 16, 64, True, None, None, 0),     # whisper-medium decoder
+    (4, 448, 1500, 16, 16, 64, False, None, None, 0),   # whisper-medium cross
+    (2, 100, 1037, 8, 8, 64, False, None, None, 0),     # ragged S_k, S_q < one tile
+    (1, 300, 300, 8, 2, 64, True, 64, 30.0, 0),         # head_dim 64: GQA, window, softcap
 ]
 
 
@@ -131,7 +136,8 @@ def test_flash_wgmma_kernel_fully_masked_rows_are_zero(cuda):
     (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 256, "simt"),
-    (torch.bfloat16, 64, "simt"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "simt"),
 ])
 def test_flash_call_moves_only_its_kernels_count(cuda, dt, D, kernel):
     counts = {"wgmma": fa_ops.WGMMA_KERNEL, "simt": fa_ops.KERNEL}
@@ -228,7 +234,8 @@ def _grads(fn, inputs, cot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt,D", [(torch.float32, 64), (torch.bfloat16, 256)])
+@pytest.mark.parametrize("dt,D", [(torch.float32, 64), (torch.bfloat16, 256),
+                                  (torch.bfloat16, 64)])
 def test_flash_function_grads_on_card_match_autograd_through_plain(cuda, dt, D):
     """The attention Function (the kernel forward, a recompute backward)
     against autograd through ``mha_reference`` on the same card."""
@@ -362,6 +369,85 @@ def test_moe_prefill_and_decode_on_card_match_cpu(cuda, name):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def _whisper_runs(cfg, dtype, devices, S=10, steps=6):
+    """Reduced whisper from seeded fp32 weights, run in ``dtype`` on each
+    device in turn: the encode's memory (20 frames against a 16-row
+    enc_pos), the teacher-forced logits, and ``steps`` greedy decode steps
+    (every device is fed the first device's choices); each device's flash
+    launches (CUDA-core, tensor-core) in the encode, in decode_train and in
+    decode. Outputs come back as fp32 on the CPU."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.weights import init_params
+
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)))
+    weights = init_params(cfg, seed=0, device="cpu")
+    kerns = (fa_ops.KERNEL, fa_ops.WGMMA_KERNEL)
+    fed, out = [toks[:, :1]], {}
+    for dev in devices:
+        model = build_model(cfg, device=dev)
+        params = copy.deepcopy(weights).to(dev, dtype)
+        marks = [[k.launches for k in kerns]]
+        with torch.inference_mode():
+            memory, cache = model.prefill(params, {"frames": frames.to(dev, dtype)},
+                                          model.init_cache(2, 32, dtype))
+            marks.append([k.launches for k in kerns])
+            teacher = params.decode_train(toks.to(dev), memory)
+            marks.append([k.launches for k in kerns])
+            logits = []
+            for t in range(steps):
+                step, cache = model.decode_step(params, cache, fed[t].to(dev), memory)
+                logits.append(step.float().cpu())
+                if len(fed) < steps:
+                    fed.append(logits[-1].argmax(-1))
+            marks.append([k.launches for k in kerns])
+        launches = [tuple(b - a for a, b in zip(m0, m1)) for m0, m1 in zip(marks, marks[1:])]
+        out[str(dev)] = (memory.float().cpu(), teacher.float().cpu(), logits, launches)
+    return out
+
+
+@pytest.mark.cuda
+def test_whisper_encode_decode_train_and_decode_on_card_match_cpu(cuda):
+    """Reduced whisper (2 + 2 layers, head_dim 16) in fp32: memory, the
+    teacher-forced logits and 6 greedy decode steps on the card against the
+    same weights on the CPU, within 1e-4 (fp32 sums in another order) and
+    with the same argmax. The CUDA-core flash kernel runs once a layer in the
+    encode and twice a decoder layer (self, cross) in decode_train, never in
+    decode."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["whisper-medium"].reduced()
+    runs = _whisper_runs(cfg, torch.float32, ["cpu", cuda])
+    (m0, t0, s0, n0), (m1, t1, s1, n1) = runs["cpu"], runs["cuda"]
+    assert n0 == [(0, 0)] * 3 and n1 == [(2, 0), (4, 0), (0, 0)]
+    for got, want in [(m1, m0), (t1, t0)] + list(zip(s1, s0)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_whisper_bf16_at_head_dim_64_runs_the_tensor_core_kernel(cuda):
+    """Reduced whisper widened to head_dim 64 (d 128, 2 heads) in bf16: every
+    attention of the encode and of decode_train launches the tensor-core
+    kernel, decode none; the card's bf16 memory and logits lie within 5e-2
+    of their largest magnitude from the CPU's fp32 run from the same seed
+    (weights and activations rounded to bf16 on the card, 2 + 2 layers)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS["whisper-medium"].reduced(), d_model=128, n_heads=2,
+                              n_kv_heads=2, head_dim=64)
+    card = _whisper_runs(cfg, torch.bfloat16, [cuda])["cuda"]
+    assert card[3] == [(0, 2), (0, 4), (0, 0)]
+    cpu = _whisper_runs(cfg, torch.float32, ["cpu"])["cpu"]
+    for got, want in [(card[0], cpu[0]), (card[1], cpu[1])]:
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
 
 
 def _wkv_inputs(device, B, T, H, dt, with_s0, seed):

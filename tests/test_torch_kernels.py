@@ -167,9 +167,10 @@ def test_cpu_tensors_never_reach_the_kernels():
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", fa_ops.HEAD_DIMS)
 def test_flash_kernel_for_routes_by_dtype_and_head_dim(dt, head_dim):
-    """bf16 at head_dim 128 or 256 (every bf16 serving config) goes to the
-    tensor-core kernel; fp32 and the small head dims to the CUDA-core one."""
-    want = "wgmma" if dt == torch.bfloat16 and head_dim in (128, 256) else "simt"
+    """bf16 at head_dim 64, 128 or 256 (every bf16 config, whisper-medium's
+    64 too) goes to the tensor-core kernel; fp32 and head_dim 16 and 32 to
+    the CUDA-core one."""
+    want = "wgmma" if dt == torch.bfloat16 and head_dim in (64, 128, 256) else "simt"
     assert fa_ops.kernel_for(dt, head_dim) == want
 
 
@@ -196,7 +197,7 @@ def test_rglru_route_for_serving_width_is_the_ring():
 
 @pytest.mark.parametrize("launcher,dt,shape_q,shape_kv,match", [
     ("wgmma", torch.float32, (1, 8, 2, 256), (1, 8, 2, 256), "takes"),
-    ("wgmma", torch.bfloat16, (1, 8, 2, 64), (1, 8, 2, 64), "head_dim"),
+    ("wgmma", torch.bfloat16, (1, 8, 2, 32), (1, 8, 2, 32), "head_dim"),
     ("wgmma", torch.bfloat16, (1, 8, 3, 128), (1, 8, 2, 128), "multiple"),
     ("wgmma", torch.bfloat16, (1, 8, 2, 256), (1, 8, 1, 256), "CUDA tensors"),
     ("simt", torch.float16, (1, 8, 2, 64), (1, 8, 2, 64), "takes"),

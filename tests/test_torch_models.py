@@ -177,12 +177,6 @@ def test_init_params_statistics():
     assert not rg.conv_b.any() and not lm.final_norm.any() and not lm.layers[0].norm1.any()
 
 
-@pytest.mark.parametrize("name", ["whisper-medium"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ARCHS[name].reduced(), device="cpu")
-
-
 def test_prefix_embeds_raise_instead_of_being_dropped():
     """The reference prepends a frontend's prefix_embeds; the port refuses them."""
     cfg = ARCHS["internvl2-76b"].reduced()

@@ -49,6 +49,7 @@ from repro_torch.configs import ARCHS
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as pmesh
 from repro_torch.models import transformer
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import LM
 from repro_torch.parallel import collectives as coll
@@ -244,6 +245,58 @@ def test_cache_and_batch_specs_match_reference(shape, name, full):
                 for k, s in layer.items()}
         flat["pos"] = got["pos"].spec
         assert flat == want, strategy
+        jb = jshd.batch_specs(amesh, rules, jbatch)
+        assert shd.batch_specs(sizes, rules, jbatch) == {k: _spec(v) for k, v in jb.items()}
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
+@pytest.mark.parametrize("shape", list(MESHES))
+def test_whisper_param_and_batch_specs_match_reference(shape, full):
+    """whisper-medium, every strategy: ``param_specs`` of the port's EncDec
+    equals the reference's on the same shapes in the port's layout (one leaf
+    a layer of ``enc_blocks`` / ``dec_blocks``), and the reference's stacked
+    specs without their leading entry but for the dense MLP weights (see
+    ``test_param_specs_match_reference``). ``enc_pos`` and ``dec_pos`` have
+    no ``PARAM_LOGICAL`` entry and replicate on both sides; the LayerNorms
+    too. The frames / tokens batch resolves as the reference's."""
+    amesh, sizes = _meshes(shape)
+    cfg, jcfg = _cfgs("whisper-medium", full)
+    jshapes = jax.eval_shape(jbuild_model(jcfg).init, jax.random.PRNGKey(0))
+    model = EncDec(cfg, torch.device("meta"), torch.float32)
+    layout, stacked_of = {}, {}
+    for keys, leaf in _leaves(jshapes):
+        if keys[0] in ("enc_blocks", "dec_blocks"):
+            for i in range(leaf.shape[0]):
+                name = ".".join([keys[0], str(i)] + [str(k) for k in keys[1:]])
+                layout[name] = jax.ShapeDtypeStruct(leaf.shape[1:], leaf.dtype)
+                stacked_of[name] = ".".join(str(k) for k in keys)
+        else:
+            layout[".".join(str(k) for k in keys)] = leaf
+    assert {n: tuple(p.shape) for n, p in model.named_parameters()} == {
+        n: tuple(s.shape) for n, s in layout.items()}
+    mlp = {"w_up", "w_down"}
+    B, T, S = (16, 1500, 448) if full else (4, 16, 12)
+    jbatch = {"frames": jax.ShapeDtypeStruct((B, T, cfg.d_model), jnp.bfloat16),
+              "tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
+              "labels": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+    for strategy in jshd.STRATEGIES:
+        rules = jshd.STRATEGIES[strategy]()
+        want = {".".join(str(k) for k in keys): _spec(spec) for keys, spec in
+                _leaves(jshd.param_specs(amesh, rules, _nested(layout)), P)}
+        got = shd.param_specs(sizes, rules, model)
+        assert got == want, strategy
+        assert got["enc_pos"] == got["dec_pos"] == (None, None)
+        assert got["enc_blocks.0.norm1.g"] == got["dec_norm.b"] == (None,)
+        stacked = {".".join(str(k) for k in keys): _spec(spec) for keys, spec in
+                   _leaves(jshd.param_specs(amesh, rules, jshapes), P)}
+        for name, spec in got.items():
+            lead = stacked.get(stacked_of.get(name))
+            if lead is None:
+                assert stacked[name] == spec, (strategy, name)
+            elif lead[0] is None:
+                assert lead[1:] == spec, (strategy, name)
+            else:
+                assert name.rsplit(".", 1)[-1] in mlp, (strategy, name)
         jb = jshd.batch_specs(amesh, rules, jbatch)
         assert shd.batch_specs(sizes, rules, jbatch) == {k: _spec(v) for k, v in jb.items()}
 
