@@ -60,7 +60,19 @@ calls, and fails (exit code not 0, no result line) on any miss:
   8d. check   whisper-medium cut to 2 + 2 layers, fp32: the encode's memory,
               the teacher-forced logits (448 tokens) and 8 decode steps, card
               (the CUDA-core flash kernel) against CPU, the same argmax;
-  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
+  8e. vlm     internvl2-76b at full width (d 8192, 64/8 heads, head_dim 128,
+              d_ff 28672, vocab 128256), depth cut to 24 of 80 layers (42.2
+              GiB of bf16 weights; 80 do not fit 80 GB), through the model
+              API with a seeded 256-row prefix (the stub frontend's image
+              tile) before 2304-token prompts, B 4, a 4096-slot cache: a
+              prefill cold and warm under CUDA events with flash's share,
+              exactly 24 tensor-core flash launches a prefill, 16 greedy
+              decode steps with none; tok/s and peak memory;
+ 8f. check    internvl2-76b in fp32, card (the CUDA-core flash kernel) against
+              CPU: 2 layers, B 1, the prefix and 64 tokens, the prefill's and
+              8 decode steps' logits and argmax; 1 layer (2.96B parameters),
+              ``lm_loss`` with the prefix, the loss and every gradient;
+ 9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
               steps and one more with grad_accum=2; exactly 2 tensor-core
@@ -112,6 +124,17 @@ calls, and fails (exit code not 0, no result line) on any miss:
               and the time to recover split into re-dispatch, mesh build,
               restore and the first resumed step. Then
               ``repro_torch.launch.train`` on the same config for 2 steps.
+ 14. dryrun   the dry run (``launch/dryrun.py``) held against the card on a
+              1-rank NCCL mesh: internvl2-76b's train step (``launch/steps.py``;
+              1 layer, B 1 x (256 + 2048), bf16 over fp32 masters) and the
+              prefill of phase 8e, each traced on meta tensors and run: the
+              predicted FLOPs must equal ``FlopCounterMode``'s on the card and
+              the predicted peak memory be within 15% of
+              ``max_memory_allocated``; the roofline's three terms beside the
+              step's ms. Then ``python -m repro_torch.launch.dryrun`` on
+              internvl2-76b x {train_4k, prefill_32k, decode_32k} and
+              recurrentgemma-9b x long_500k (the 16 x 16 mesh of fake ranks),
+              its table printed.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -121,6 +144,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -132,6 +156,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -149,7 +174,8 @@ from repro_torch.ft.elastic import run_elastic_training  # noqa: E402
 from repro_torch.launch import elastic as launch_elastic  # noqa: E402
 from repro_torch.launch import serve as launch_serve, train_lm  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.mesh import process_group  # noqa: E402
+from repro_torch.launch import dryrun, roofline, shapes, steps  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_from_devices, process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
@@ -158,10 +184,9 @@ from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.train.train_loop import TrainRunConfig, make_train_step, train_loop  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# operations/s by input type (bf16 on the tensor cores, fp32 on the CUDA cores).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense), in ``launch/roofline.py``:
+# HBM bytes/s (``HBM_BW``) and operations/s by input type (``PEAK_OPS_PER_S``:
+# bf16 on the tensor cores, fp32 on the CUDA cores).
 
 SEED = 0
 SERVE_FLAGS = ["--batch", "4", "--prompt-len", "2560", "--min-prompt-len", "2304",
@@ -200,8 +225,8 @@ def graph_ms(fn, steps=20, replays=10):
 
 
 def bound(n_bytes, n_ops, dtype):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = n_bytes / roofline.HBM_BW * 1e3
+    t_ops = n_ops / roofline.PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -212,15 +237,6 @@ def nbytes(*ts):
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain twin
 # ---------------------------------------------------------------------------
-
-def visible_pairs(S_q, S_k, causal, window):
-    """(query, key) pairs a call attends to: each row sees keys up to its own
-    position under ``causal`` and the last ``window`` of them with one."""
-    rows = np.arange(S_q)
-    hi = np.minimum(rows + 1, S_k) if causal else np.full(S_q, S_k)
-    lo = np.maximum(0, rows - window + 1) if window else np.zeros(S_q, int)
-    return int(np.sum(np.maximum(hi - lo, 0)))
-
 
 def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
                previous=False, causal=True, S_k=None, graph=False):
@@ -295,7 +311,7 @@ def flash_case(name, B, S, Hq, Hkv, D, window, softcap, dtype, tol, timed,
         rec["graph_ms"] = graph_ms(run)
         rec["library_graph_ms"] = graph_ms(lib) if lib else None
     rec["plain_ms"] = cuda_ms(lambda: fa_ref.attention_plain(q, k, v, **kw), iters=3)
-    ops = 4 * D * visible_pairs(S, S_k, causal, window) * B * Hq
+    ops = 4 * D * fa_ops.visible_pairs(S, S_k, causal, window) * B * Hq
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, q), ops, dtype)
     rec["tflop_per_s"] = ops / (rec["ms"] * 1e-3) / 1e12
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -380,7 +396,7 @@ def wkv6_case(name, B, T, H, with_s0, dtype, timed):
     # (y's multiply-add; w*S, k*v and their sum); the fp32 rate counts a
     # multiply-add as 2 operations, so lanes issue at half of it. A derived
     # floor, printed here and kept out of the kernel's record.
-    floor_ms = 4 * B * T * H * 64 * 64 / (PEAK_OPS_PER_S[torch.float32] / 2) * 1e3
+    floor_ms = 4 * B * T * H * 64 * 64 / (roofline.PEAK_OPS_PER_S[torch.float32] / 2) * 1e3
     print("kernel_time wkv6", json.dumps({**rec, "instruction_floor_ms": floor_ms}), flush=True)
     return rec
 
@@ -397,6 +413,9 @@ def kernel_phase():
                    torch.bfloat16, 2e-2, timed=True),
         flash_case("gemma2-9b local, softcap, ragged", 1, 2500, 16, 8, 256, 2048, 50.0,
                    torch.bfloat16, 2e-2, timed=False),
+        # internvl2-76b's prefill: 256 prefix rows + 2304 prompt tokens, 64/8 heads
+        flash_case("internvl2-76b prefill", VLM_B, VLM_P + VLM_S, 64, 8, 128, None, None,
+                   torch.bfloat16, 2e-2, timed=True, graph=True),
     ]
     # whisper-medium's three attentions (head_dim 64, 16/16 heads, B 4, 1500
     # frames, 448 tokens), the tensor-core kernel timed beside the CUDA-core one
@@ -415,7 +434,7 @@ def kernel_phase():
         flash_case("bf16 at head_dim 32", 2, 300, 8, 2, 32, None, None,
                    torch.bfloat16, 2e-2, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 8
+    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 9
          and [c["kernel"] for c in simt_checks] == ["simt"] * 2,
          "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
@@ -710,7 +729,7 @@ def moe_serve_phase(cfg):
            "decode_ms_per_step_median": 1e3 * float(np.median(dec)),
            "decode_ms_per_step_cold": 1e3 * sum(cold["decode_s"]) / len(cold["decode_s"]),
            "decode_step_weight_bytes": step_bytes,
-           "decode_step_bytes_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_step_bytes_bound_ms": step_bytes / roofline.HBM_BW * 1e3,
            "new_tokens": n_tok, "tok_per_s": n_tok / dt, "seconds": dt,
            "launches": launches, "launches_per_prefill": after_prefill[-1],
            "prefill_device_ms": prefill_dev_ms,
@@ -962,8 +981,8 @@ def whisper_train_phase():
     head = cfg.vocab_size * cfg.d_model
     B, T, S = WHISPER_B, WHISPER_T, WHISPER_S
     dense = 6 * (enc * B * T + (dec + head) * B * S)
-    pairs = (cfg.n_encoder_layers * visible_pairs(T, T, False, None)
-             + cfg.n_layers * (visible_pairs(S, S, True, None) + visible_pairs(S, T, False, None)))
+    pairs = (cfg.n_encoder_layers * fa_ops.visible_pairs(T, T, False, None)
+             + cfg.n_layers * (fa_ops.visible_pairs(S, S, True, None) + fa_ops.visible_pairs(S, T, False, None)))
     attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * B
     rec = {"arch": cfg.name, "layers": [cfg.n_encoder_layers, cfg.n_layers],
            "params": sum(p.numel() for p in params.parameters()), "compute_dtype": "bfloat16",
@@ -972,8 +991,188 @@ def whisper_train_phase():
            "step_ms": step_ms[1], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches_per_step": launches[-1], "model_flops_per_step": dense + attn,
            "model_flops_share_of_bf16_peak":
-               (dense + attn) / (step_ms[1] * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16]}
+               (dense + attn) / (step_ms[1] * 1e-3) / roofline.PEAK_OPS_PER_S[torch.bfloat16]}
     print("whisper_train", json.dumps(rec), flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phases 8e-8f: internvl2-76b, the vision prefix
+# ---------------------------------------------------------------------------
+
+# B 4, one image tile (the stub frontend's 256 rows) before 2304-token prompts,
+# a 4096-slot cache, 16 greedy steps; 24 of 80 layers (42.2 GiB of bf16
+# weights; all 80 are 131 GiB)
+VLM_LAYERS, VLM_B, VLM_P, VLM_S, VLM_MAX_LEN, VLM_STEPS = 24, 4, 256, 2304, 4096, 16
+
+
+def vlm_cfg(n_layers):
+    """internvl2-76b at full width, depth cut to ``n_layers``."""
+    cfg = get_config("internvl2-76b")
+    need((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+          cfg.vocab_size, cfg.frontend, cfg.frontend_seq_len)
+         == (80, 8192, 64, 8, 128, 28672, 128256, "vision", VLM_P), "internvl2-76b width")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def vlm_serve_phase(flash_rec):
+    """internvl2-76b (24 layers, bf16) through the model API with a seeded
+    prefix: a prefill cold then warm under CUDA events (the warm one with each
+    flash call's span), exactly 24 tensor-core flash launches a prefill, then
+    16 greedy decode steps with none. ``flash_rec``: the kernel phase's
+    internvl2-shape record, whose time x 24 is set beside the flash spans."""
+    cfg = vlm_cfg(VLM_LAYERS)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    prefix = torch.randn(VLM_B, VLM_P, cfg.d_model, generator=g, device="cuda").bfloat16()
+    tokens = torch.randint(0, cfg.vocab_size, (VLM_B, VLM_S), generator=g, device="cuda")
+    batch = {"tokens": tokens, "prefix_embeds": prefix}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prefill_ms, per_prefill = [], []
+    with torch.inference_mode():
+        for _ in range(2):  # cold, then warm
+            cache = model.init_cache(VLM_B, VLM_MAX_LEN, torch.bfloat16)
+            reset_counts()
+            with StageEvents(fa_ops, ["attention"]) as flash_ev:
+                start.record()
+                logits, cache = model.prefill(params, batch, cache)
+                end.record()
+                flash_ms = flash_ev.ms()["attention"]
+            prefill_ms.append(start.elapsed_time(end))
+            per_prefill.append(counts())
+        for launches in per_prefill:
+            need(launches == launch_counts(flash_wgmma=VLM_LAYERS),
+                 f"vlm prefill launches {launches}")
+        need(logits.shape == (VLM_B, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+             "vlm prefill logits: shape or non-finite values")
+        need(cache["pos"] == VLM_P + VLM_S, f"vlm prefill pos {cache['pos']}")
+        reset_counts()
+        tok, out = logits.argmax(-1), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(VLM_STEPS):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    decode_launches = counts()
+    need(decode_launches == launch_counts(), f"vlm decode launched {decode_launches}")
+    toks = torch.cat(out, dim=1).cpu()
+    need(toks.shape == (VLM_B, VLM_STEPS) and cache["pos"] == VLM_P + VLM_S + VLM_STEPS
+         and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+         and bool(torch.isfinite(logits).all()), "vlm decode tokens")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in params.parameters()), "dtype": "bfloat16",
+           "batch": VLM_B, "prefix_rows": VLM_P, "prompt_len": VLM_S, "max_len": VLM_MAX_LEN,
+           "prefill_ms_cold": prefill_ms[0], "prefill_ms": prefill_ms[1],
+           "prefill_tok_per_s": VLM_B * (VLM_P + VLM_S) / (prefill_ms[1] * 1e-3),
+           "prefill_flash_ms": flash_ms, "prefill_flash_share": flash_ms / prefill_ms[1],
+           "flash_kernel_ms_x_layers": flash_rec["ms"] * cfg.n_layers,
+           "decode_steps": VLM_STEPS, "decode_ms_per_step": wall * 1e3 / VLM_STEPS,
+           "decode_device_ms_per_step": start.elapsed_time(end) / VLM_STEPS,
+           "tok_per_s": VLM_B * VLM_STEPS / wall, "first_tokens": toks[:, :8].tolist(),
+           "launches_per_prefill": per_prefill[-1], "launches_decode": decode_launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("vlm_serve", json.dumps(rec), flush=True)
+    return rec
+
+
+def vlm_check_phase(tol, loss_tol, grad_tol):
+    """Full width, fp32 (the CUDA-core flash kernel), card against CPU:
+    (a) 2 layers, B 1: prefill over the 256-row prefix and 64 tokens, then 8
+    decode steps fed the same tokens -- logits within ``tol``, the same argmax;
+    (b) 1 layer (2.96B parameters): ``lm_loss`` with the prefix over 64
+    tokens under remat "nothing", the loss within ``loss_tol`` and every
+    gradient within ``grad_tol`` of its leaf's largest."""
+    rng = np.random.default_rng(SEED)
+    cfg = vlm_cfg(2)
+    prefix = rng.standard_normal((1, VLM_P, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (1, 72))
+    lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+
+    def run(lm, dev):
+        model = build_model(cfg, device=dev)
+        marks = [counts()]
+        with torch.inference_mode():
+            cache = model.init_cache(1, 512, torch.float32)
+            out, cache = model.prefill(lm, {"tokens": torch.from_numpy(toks[:, :64]).to(dev),
+                                            "prefix_embeds": torch.from_numpy(prefix).to(dev)},
+                                       cache)
+            marks.append(counts())
+            outs = [out.float().cpu()]
+            for t in range(64, 72):
+                out, cache = model.decode_step(lm, cache, torch.from_numpy(toks[:, t:t + 1]).to(dev))
+                outs.append(out.float().cpu())
+            marks.append(counts())
+        launches = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+        return torch.cat(outs, dim=1), launches, cache["pos"]
+
+    reset_counts()
+    on_card, launches, pos = run(lm, torch.device("cuda"))
+    need(launches == [launch_counts(flash=2), launch_counts()], f"vlm check launches {launches}")
+    cpu_lm = LM(cfg, torch.device("cpu"), torch.float32)
+    cpu_lm.load_state_dict(lm.state_dict())
+    del lm
+    torch.cuda.empty_cache()
+    on_cpu, _, cpu_pos = run(cpu_lm, torch.device("cpu"))
+    del cpu_lm
+    err = float((on_card - on_cpu).abs().max())
+    rec = {"arch": cfg.name, "layers": 2, "dtype": "float32", "prefix_rows": VLM_P,
+           "prompt_len": 64, "decode_steps": 8, "pos": [pos, cpu_pos],
+           "max_abs_logit": float(on_cpu.abs().max()), "max_abs_err": err, "tol": tol,
+           "argmax_equal": bool(torch.equal(on_card.argmax(-1), on_cpu.argmax(-1))),
+           "launches": dict(zip(("prefill", "decode"), launches))}
+    need(pos == cpu_pos == VLM_P + 72, f"vlm check pos {pos}, {cpu_pos}")
+    need(torch.isfinite(on_card).all(), "vlm check: non-finite logits on the card")
+    need(err <= tol, f"vlm check: card vs CPU logits differ by {err} > {tol}")
+    need(rec["argmax_equal"], "vlm check: card and CPU pick different tokens")
+
+    cfg = vlm_cfg(1)
+    lm = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, 64)),
+             "labels": rng.integers(0, cfg.vocab_size, (1, 64)),
+             "prefix_embeds": rng.standard_normal((1, VLM_P, cfg.d_model)).astype(np.float32)}
+
+    def loss_and_grads(lm, dev):
+        lm.requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = lm_loss(lm, tb)
+        names, ps = zip(*lm.named_parameters())
+        grads = torch.autograd.grad(loss, ps)
+        return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+    reset_counts()
+    loss, grads = loss_and_grads(lm, torch.device("cuda"))
+    torch.cuda.synchronize()
+    loss_launches = counts()
+    # remat "nothing": flash in the forward and again in the layer's recompute
+    need(loss_launches == launch_counts(flash=2), f"vlm loss launches {loss_launches}")
+    cpu_lm = LM(cfg, torch.device("cpu"), torch.float32)
+    cpu_lm.load_state_dict(lm.state_dict())
+    n_params = sum(p.numel() for p in lm.parameters())
+    del lm
+    torch.cuda.empty_cache()
+    cpu_loss, cpu_grads = loss_and_grads(cpu_lm, torch.device("cpu"))
+    del cpu_lm
+    rel = {n: float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for n, g in cpu_grads.items()}
+    worst = max(rel, key=rel.get)
+    rec["loss_check"] = {"layers": 1, "params": n_params, "tokens": 64, "loss": loss,
+                         "cpu_loss": cpu_loss, "loss_abs_err": abs(loss - cpu_loss),
+                         "loss_tol": loss_tol, "worst_leaf": worst,
+                         "worst_leaf_rel_err": rel[worst],
+                         "grad_tol": f"{grad_tol} * max|g| per leaf", "leaves": len(rel),
+                         "launches": loss_launches}
+    print("vlm_check", json.dumps(rec), flush=True)
+    need(np.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values()),
+         "vlm loss check: non-finite loss or gradient")
+    need(abs(loss - cpu_loss) <= loss_tol, f"vlm: card vs CPU loss {loss} vs {cpu_loss}")
+    need(rel[worst] <= grad_tol, f"vlm: gradient of {worst} off by {rel[worst]}")
     return rec
 
 
@@ -1046,7 +1245,7 @@ def train_phase():
     # embedding counted once, as the head's product), and the attention
     # layer's QK^T and PV, 4 D Hq per visible (query, key) pair forward and
     # twice that backward; remat's recompute is not model work
-    pairs = visible_pairs(TRAIN_S, TRAIN_S, True, cfg.window)
+    pairs = fa_ops.visible_pairs(TRAIN_S, TRAIN_S, True, cfg.window)
     n_attn = 1
     dense = 6 * n_params * TRAIN_B * TRAIN_S
     attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * TRAIN_B * n_attn
@@ -1065,7 +1264,7 @@ def train_phase():
                                 f"12 * D {cfg.head_dim} * Hq {cfg.n_heads} * {pairs} pairs "
                                 f"* B {TRAIN_B} * {n_attn} attention layer",
            "model_flops_share_of_bf16_peak":
-               flops / (median_ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16]}
+               flops / (median_ms * 1e-3) / roofline.PEAK_OPS_PER_S[torch.bfloat16]}
     print("train", json.dumps(rec), flush=True)
     return rec
 
@@ -1571,6 +1770,116 @@ def elastic_phase():
     return rec
 
 
+# -- phase 14: the dry run against the card ------------------------------------
+
+DRYRUN_MEM_RTOL = 0.15
+DRYRUN_CELLS = [("internvl2-76b", "train_4k"), ("internvl2-76b", "prefill_32k"),
+                ("internvl2-76b", "decode_32k"), ("recurrentgemma-9b", "long_500k")]
+
+
+def measure_step(step):
+    """One call of ``step`` under ``FlopCounterMode`` (cold, counted), then one
+    under CUDA events with the peak memory reset just before: (FLOPs, ms,
+    peak bytes, the first call's launches)."""
+    reset_counts()
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    launches = counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    step()
+    end.record()
+    torch.cuda.synchronize()
+    return fc.get_total_flops(), start.elapsed_time(end), torch.cuda.max_memory_allocated(), \
+        launches
+
+
+def dryrun_check_case(cfg, cell, mesh, build, **kw):
+    """The step traced on meta by the dry run (predicted) and run on the card
+    (measured), on a 1-rank mesh."""
+    step = build(cfg, cell, mesh, device="meta", **kw)
+    predicted = dryrun.trace(step)
+    rep = roofline.analyze_from_costs(cfg.name, cfg, cell.name, cell.kind, "1x1", 1, predicted,
+                                      predicted["peak_bytes"], cell.global_batch, cell.seq_len)
+    del step
+    step = build(cfg, cell, mesh, device="cuda", seed=SEED, **kw)
+    flops, ms, peak, launches = measure_step(step)
+    del step
+    torch.cuda.empty_cache()
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "kind": cell.kind,
+           "batch": cell.global_batch, "prefix_rows": cfg.frontend_seq_len, "seq": cell.seq_len,
+           "flops_predicted": predicted["flops"], "flops_measured": flops,
+           "peak_gib_predicted": predicted["peak_bytes"] / 2**30,
+           "peak_gib_measured": peak / 2**30,
+           "peak_rel_err": abs(predicted["peak_bytes"] - peak) / peak,
+           "peak_by_category_gib": {k: v / 2**30
+                                    for k, v in predicted["peak_by_category"].items()},
+           "bytes_predicted": predicted["bytes"], "collectives": predicted["by_kind"],
+           "roofline_ms": {"compute": rep.compute_s * 1e3, "memory": rep.memory_s * 1e3,
+                           "collective": rep.collective_s * 1e3},
+           "bottleneck": rep.bottleneck, "measured_ms": ms,
+           "measured_over_roofline": ms / (rep.step_time_s * 1e3), "launches": launches,
+           "n_ops": predicted["n_ops"]}
+    print("dryrun_check", json.dumps(rec), flush=True)
+    need(flops == predicted["flops"], f"dryrun {cell.kind}: FLOPs {predicted['flops']} "
+                                      f"predicted, {flops} counted on the card")
+    need(rec["peak_rel_err"] <= DRYRUN_MEM_RTOL,
+         f"dryrun {cell.kind}: peak {rec['peak_gib_predicted']} GiB predicted, "
+         f"{rec['peak_gib_measured']} measured")
+    return rec
+
+
+def dryrun_cli(out_dir):
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS, all at
+    once (no card: the trace is on meta tensors in a fake 256-rank world)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--out", str(out_dir / f"dryrun_{arch}_{shape}")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for (arch, shape), p, out in zip(DRYRUN_CELLS, procs, outs):
+        need(p.returncode == 0, f"dryrun {arch} x {shape} exited {p.returncode}:\n{out[-3000:]}")
+        lines = (out_dir / f"dryrun_{arch}_{shape}.jsonl").read_text().splitlines()
+        records.extend(json.loads(line) for line in lines)
+        print(out[out.index("arch   "):].split("\nwrote")[0].strip(), flush=True)
+    need(all(r["status"] == "ok" for r in records), "dryrun: a cell did not run")
+    return records
+
+
+def dryrun_check_phase():
+    """The dry run held against the card on a 1-rank NCCL mesh: internvl2-76b
+    train at full width cut to 1 layer, B 1 x (256 + 2048), and vlm_serve's
+    prefill (24 layers, B 4 x (256 + 2304), a 4096-slot cache), each traced
+    and run; then the CLI on four cells of the 16 x 16 mesh."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        train = dryrun_check_case(vlm_cfg(1), shapes.ShapeCell("vlm_train_check", 2048, 1,
+                                                               "train"),
+                                  mesh, steps.build_train_step)
+        prefill = dryrun_check_case(vlm_cfg(VLM_LAYERS),
+                                    shapes.ShapeCell("vlm_serve_prefill", VLM_S, VLM_B,
+                                                     "prefill"),
+                                    mesh, steps.build_prefill_step, cache_len=VLM_MAX_LEN)
+    need(train["launches"] == launch_counts(flash_wgmma=2)
+         and prefill["launches"] == launch_counts(flash_wgmma=VLM_LAYERS),
+         f"dryrun check launches {train['launches']}, {prefill['launches']}")
+    return {"train": train, "prefill": prefill, "cli": dryrun_cli(out_dir)}
+
+
 WHISPER_FLASH_KEYS = ("case", "ms", "graph_ms", "bound_ms", "bound_by", "share_of_bound",
                       "previous_ms", "library_ms", "library_graph_ms", "library_call", "plain_ms",
                       "max_abs_err")
@@ -1684,6 +1993,12 @@ def main():
     torch.cuda.empty_cache()
     # fp32 over 2 + 2 full-width layers and a 51865-way head, as the other checks
     whisper_check = phase("whisper_check", whisper_check_phase, 2e-3)
+    vlm_flash = next(c for c in flash_checks if c["case"] == "internvl2-76b prefill")
+    vlm_serve = phase("vlm_serve", vlm_serve_phase, vlm_flash)
+    torch.cuda.empty_cache()
+    # fp32 over 2 full-width layers and a 128256-way head; the loss and
+    # gradients with train_check's tolerances
+    vlm_check = phase("vlm_check", vlm_check_phase, 2e-3, 1e-4, 2e-3)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -1703,6 +2018,8 @@ def main():
     train_lm_rec = phase("train_lm", train_lm_phase)
     dispatch = phase("dispatch", dispatch_phase)
     elastic = phase("elastic", elastic_phase)
+    torch.cuda.empty_cache()
+    dryrun_rec = phase("dryrun_check", dryrun_check_phase)
     print("phase_seconds", json.dumps(phase_s), flush=True)
     elastic_launches = lambda name: {  # noqa: E731
         run: elastic[key][name] for run, key in (("a", "launches_a"), ("b", "launches_b"))}
@@ -1731,7 +2048,13 @@ def main():
                       launches_train_4_steps=train["launches_per_4_steps"][
                           "flash_attention_wgmma"],
                       launches_moe_serve=moe_serve["launches"]["flash_attention_wgmma"],
-                      launches_elastic=elastic_launches("flash_attention_wgmma")),
+                      launches_elastic=elastic_launches("flash_attention_wgmma"),
+                      internvl2_prefill={key: vlm_flash[key] for key in WHISPER_FLASH_KEYS
+                                         if key in vlm_flash},
+                      launches_vlm_prefill=vlm_serve["launches_per_prefill"][
+                          "flash_attention_wgmma"],
+                      launches_vlm_decode_16_steps=vlm_serve["launches_decode"][
+                          "flash_attention_wgmma"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -1745,7 +2068,8 @@ def main():
                           n["flash_attention"] for n in whisper_check["launches"].values()),
                       launches_whisper_train_check=whisper_train_check["launches"][
                           "flash_attention"],
-                      launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"]),
+                      launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"],
+                      launches_vlm_check=vlm_check["launches"]["prefill"]["flash_attention"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
@@ -1768,7 +2092,8 @@ def main():
                "train": train, "train_check": train_check,
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
-               "dispatch": dispatch, "elastic": elastic}
+               "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
+               "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

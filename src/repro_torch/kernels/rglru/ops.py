@@ -21,6 +21,11 @@ dtype_b)`` picks one before the launch and the wrapper passes it to the kernel:
   - ``"simple"``: any other C (bf16 with C % 8 != 0), each thread loading its
     own chunks of steps.
 Neither path falls back to the plain twin; a failed launch raises.
+
+The launch is the operator ``torch.ops.repro_torch.rglru_scan`` (as
+``flash_attention/ops.py`` registers its own): its CUDA implementation
+launches the kernel, its fake implementation returns h and h_final's shapes
+and dtype, so a ``meta`` tensor (the dry run) follows the card's route.
 """
 
 from __future__ import annotations
@@ -79,13 +84,26 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     return h, h_final
 
 
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("rglru_scan(Tensor a, Tensor b, Tensor? h0) -> (Tensor, Tensor)")
+_LIB.impl("rglru_scan", rglru_scan_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::rglru_scan", lib=_LIB)
+def _scan_fake(a, b, h0):
+    """(h, h_final) shapes in a's dtype; raises on a dtype pair the kernel refuses."""
+    route_for(a.dtype, a.shape[-1], b.dtype)
+    return torch.empty_like(a), a.new_empty((a.shape[0], a.shape[-1]))
+
+
 def _scan(a, b, h0=None):
-    """The forward route: the plain loop for CPU tensors, else the kernel."""
+    """The forward route: the plain loop for CPU tensors, else the kernel
+    (for a meta tensor its fake implementation)."""
     if a.device.type == "cpu":
         return ref.linear_scan_reference(a, b, h0)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"linear_scan: unsupported device {a.device}")
-    return rglru_scan_cuda(a, b, h0)
+    return torch.ops.repro_torch.rglru_scan(a, b, h0)
 
 
 class _LinearScan(torch.autograd.Function):

@@ -9,6 +9,12 @@ reference's design, not a fallback: a failed kernel launch still raises.
 Both paths return ``y`` in r's dtype and ``s_final`` in fp32. With ``out``
 the final state is written there, and ``out`` may be ``s0`` itself: decode
 updates its cached state in place.
+
+The launch is the operator ``torch.ops.repro_torch.wkv6`` (as
+``flash_attention/ops.py`` registers its own), which writes the final state
+into its ``s_final`` argument: its CUDA implementation launches the kernel,
+its fake implementation returns y's shape and dtype, so a ``meta`` tensor
+(the dry run) follows the card's route.
 """
 
 from __future__ import annotations
@@ -72,6 +78,28 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
 
 
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? s0, "
+            "Tensor(a!) s_final) -> Tensor")
+
+
+def _wkv6_op_cuda(r, k, v, w, u, s0, s_final):
+    return wkv6_cuda(r, k, v, w, u, s0, s_final)[0]
+
+
+_LIB.impl("wkv6", _wkv6_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wkv6", lib=_LIB)
+def _wkv6_fake(r, k, v, w, u, s0, s_final):
+    """y's shape in r's dtype; raises on a dtype or head size the kernel refuses."""
+    if r.dtype not in _DTYPE_CODE:
+        raise ValueError(f"wkv6 kernel takes float32 or bfloat16, got {r.dtype}")
+    if r.shape[-1] != HEAD_SIZE or v.shape[-1] != HEAD_SIZE:
+        raise ValueError(f"wkv6 kernel takes K = V = {HEAD_SIZE}")
+    return r.new_empty(v.shape)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor, s0: Optional[torch.Tensor] = None,
         out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,6 +112,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if r.device.type == "cpu":
         y, s_final = ref.wkv6_reference(r, k, v, w, u, s0)
         return y, (s_final if out is None else out.copy_(s_final))
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"wkv: unsupported device {r.device}")
-    return wkv6_cuda(r, k, v, w, u, s0, out)
+    s_final = out
+    if s_final is None:
+        B, _, H, K = r.shape
+        s_final = torch.empty((B, H, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+    return torch.ops.repro_torch.wkv6(r, k, v, w, u, s0, s_final), s_final

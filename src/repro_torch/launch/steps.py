@@ -1,0 +1,200 @@
+"""Step builders for train / prefill / serve over a mesh.
+
+Counterpart of ``repro/launch/steps.py``. The reference jits each step with
+in/out shardings and lowers it on ``ShapeDtypeStruct``s; here a step is a
+callable over a :class:`~repro_torch.parallel.fsdp.ShardedModel` and its
+arguments, built on the ``meta`` device (shapes only: the dry run traces
+it, ``launch/dryrun.py``) or on a real one (seeded weights and inputs: the
+same step runs). A :class:`Step` holds the callable, its arguments and the
+mesh.
+
+What the port shards is what ``parallel/fsdp.py`` shards: parameters,
+AdamW's moments and decode caches at rest by the strategy's rules, the batch
+by its ``batch`` rule; every rank computes its own rows on gathered weights
+(the ``model`` axis does not split the compute yet, ROADMAP.md). The
+encoder-decoder is not sharded (``ShardedModel`` refuses it): its steps run
+the whole global batch on one rank, and the Step says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import shapes as shp
+from repro_torch.models.model_zoo import Model, build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardedModel
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_loop import TrainRunConfig, make_train_step
+
+
+@dataclasses.dataclass
+class Step:
+    kind: str
+    arch: str
+    shape: str
+    strategy: str
+    fn: Callable
+    args: Tuple
+    mesh: DeviceMesh
+    # category -> the tensors (any nesting) that exist before the step runs
+    state: Dict[str, Any]
+    sharded: bool = True
+    note: str = ""
+
+    def __call__(self):
+        return self.fn(*self.args)
+
+
+UNSHARDED_NOTE = ("encoder-decoder: ShardedModel refuses it, so this step runs the "
+                  "whole global batch unsharded on one rank")
+
+
+def _model(cfg: ModelConfig, mesh: DeviceMesh, strategy: str,
+           rules_override: Optional[Dict], device: torch.device):
+    """(the model the step calls, whether it is sharded)."""
+    model = build_model(cfg, device)
+    if cfg.is_encoder_decoder:
+        return model, False
+    rules = rules_override or shd.STRATEGIES[strategy]()
+    return ShardedModel(model, mesh, rules), True
+
+
+def _params(model, cfg: ModelConfig, dtype: torch.dtype, device: torch.device, seed: int):
+    """Seeded weights (shapes only on meta), sharded where the model is."""
+    base = model.model if isinstance(model, ShardedModel) else model
+    params = (shp.param_specs_shapes(cfg, dtype) if device.type == "meta"
+              else base.init(seed, dtype))
+    return model.shard(params) if isinstance(model, ShardedModel) else params
+
+
+def _fill(specs: Dict[str, torch.Tensor], cfg: ModelConfig, device: torch.device,
+          seed: int) -> Dict[str, torch.Tensor]:
+    """Inputs of the specs' shapes and dtypes on ``device``: seeded tokens
+    below the vocabulary and normal embeddings (the specs themselves on meta)."""
+    if device.type == "meta":
+        return specs
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, s in specs.items():
+        if s.dtype.is_floating_point:
+            out[k] = torch.randn(s.shape, generator=g, device=device).to(s.dtype)
+        else:
+            out[k] = torch.randint(0, cfg.vocab_size, s.shape, generator=g, device=device,
+                                   dtype=s.dtype)
+    return out
+
+
+def build_train_step(
+    cfg: ModelConfig,
+    cell: shp.ShapeCell,
+    mesh: DeviceMesh,
+    strategy: str = "fsdp_tp",
+    remat_policy: str = "nothing",
+    rules_override: Optional[Dict] = None,
+    grad_accum: int = 1,
+    device: DeviceLike = "meta",
+    seed: int = 0,
+) -> Step:
+    """AdamW (lr 3e-4, wd 0.1) over fp32 masters, bf16 compute, as the
+    reference's step; one call is one optimizer step."""
+    device = resolve_device(device)
+    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    run = TrainRunConfig(
+        optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+        remat_policy=remat_policy,
+        compute_dtype=torch.bfloat16,
+        grad_accum=grad_accum,
+    )
+    params = _params(model, cfg, torch.float32, device, seed)
+    train_step, opt_init = make_train_step(model, run)
+    opt_state = opt_init(params)
+    batch = _fill(shp.train_input_specs(cfg, cell), cfg, device, seed)
+    return Step("train", cfg.name, cell.name, strategy, train_step,
+                (params, opt_state, batch), mesh,
+                {"parameters": list(params.parameters()),
+                 "optimizer": [opt_state.mu, opt_state.nu], "inputs": batch},
+                sharded, "" if sharded else UNSHARDED_NOTE)
+
+
+def build_prefill_step(
+    cfg: ModelConfig,
+    cell: shp.ShapeCell,
+    mesh: DeviceMesh,
+    strategy: str = "fsdp_tp",
+    rules_override: Optional[Dict] = None,
+    device: DeviceLike = "meta",
+    seed: int = 0,
+    cache_len: Optional[int] = None,
+) -> Step:
+    """Inference prefill: forward over the full prompt, emit cache + logits
+    (the encoder pass for the encoder-decoder). ``cache_len`` defaults to
+    the cell's sequence length, as in the reference."""
+    device = resolve_device(device)
+    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    params = _params(model, cfg, torch.bfloat16, device, seed)
+    batch = _fill(shp.prefill_input_specs(cfg, cell), cfg, device, seed)
+    cache = model.init_cache(cell.global_batch, cache_len or cell.seq_len, torch.bfloat16)
+
+    @torch.no_grad()
+    def prefill(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return Step("prefill", cfg.name, cell.name, strategy, prefill, (params, batch, cache), mesh,
+                {"parameters": list(params.parameters()), "inputs": [batch, cache]},
+                sharded, "" if sharded else UNSHARDED_NOTE)
+
+
+def build_serve_step(
+    cfg: ModelConfig,
+    cell: shp.ShapeCell,
+    mesh: DeviceMesh,
+    strategy: str = "fsdp_tp",
+    rules_override: Optional[Dict] = None,
+    device: DeviceLike = "meta",
+    seed: int = 0,
+) -> Step:
+    """One-token decode against a seq_len cache (and the encoder's memory)."""
+    device = resolve_device(device)
+    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    params = _params(model, cfg, torch.bfloat16, device, seed)
+    cache = model.init_cache(cell.global_batch, cell.seq_len, torch.bfloat16)
+    tokens = _fill({"tokens": shp._spec((cell.global_batch, 1), torch.int32)}, cfg, device,
+                   seed)["tokens"]
+    args: Tuple = (params, cache, tokens)
+    if cfg.is_encoder_decoder:
+        memory = _fill({"memory": shp.memory_specs(cfg, cell)}, cfg, device, seed)["memory"]
+        args = args + (memory,)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, *memory):
+        return model.decode_step(params, cache, tokens, *memory)
+
+    return Step("decode", cfg.name, cell.name, strategy, serve_step, args, mesh,
+                {"parameters": list(params.parameters()), "inputs": list(args[1:])},
+                sharded, "" if sharded else UNSHARDED_NOTE)
+
+
+def build_step(
+    cfg: ModelConfig,
+    cell: shp.ShapeCell,
+    mesh: DeviceMesh,
+    strategy: str = "fsdp_tp",
+    remat_policy: str = "nothing",
+    rules_override: Optional[Dict] = None,
+    grad_accum: int = 1,
+    device: DeviceLike = "meta",
+    seed: int = 0,
+) -> Step:
+    if cell.kind == "train":
+        return build_train_step(cfg, cell, mesh, strategy, remat_policy, rules_override,
+                                grad_accum, device, seed)
+    if cell.kind == "prefill":
+        return build_prefill_step(cfg, cell, mesh, strategy, rules_override, device, seed)
+    return build_serve_step(cfg, cell, mesh, strategy, rules_override, device, seed)

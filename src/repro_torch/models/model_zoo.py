@@ -10,8 +10,8 @@ and the encoder-decoder family.
                                             pass: (memory, cache)
   decode_step(params, cache, tokens, memory=None) -> (logits, cache)
 
-A batch carrying ``prefix_embeds`` (the vision frontend's prefix) raises
-``NotImplementedError``.
+A batch may carry ``prefix_embeds`` [B, P, d] (the vision frontend's prefix,
+internvl2): ``loss`` and ``prefill`` put it before the tokens.
 """
 
 from __future__ import annotations
@@ -55,11 +55,7 @@ class Model:
                 cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
         if self.cfg.is_encoder_decoder:  # the encoder pass is the prefill
             return params.encode(batch["frames"]), cache
-        if batch.get("prefix_embeds") is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: prefix_embeds (the frontends' prefix) are not "
-                "ported yet (ROADMAP.md queue A2)")
-        return params.prefill(batch["tokens"], cache), cache
+        return params.prefill(batch["tokens"], cache, batch.get("prefix_embeds")), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any], tokens: torch.Tensor,
                     memory: Optional[torch.Tensor] = None

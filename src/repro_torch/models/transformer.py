@@ -11,10 +11,16 @@ The reference stacks each pattern position's parameters along a group axis
 and runs ``lax.scan``; here every layer is its own module, in model order:
 layer ``g * len(pattern) + i`` is group ``g``'s pattern position ``i``, and
 the tail follows the last group.
+
+A frontend's ``prefix_embeds`` [B, P, d] (internvl2's image tile) go before
+the token embeddings, cast to their dtype, as the reference's
+``_embed_tokens`` does: positions run 0..P+S-1, a prefill leaves ``pos`` at
+P+S, and ``lm_loss`` drops the prefix's logits before the cross-entropy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -22,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
@@ -35,6 +42,9 @@ from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
 Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
 Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, tensor)
+# (layer index, the layer's cache) -> a context giving the dict the layer
+# reads and writes (the sharded path's gathered rows, written back on exit)
+LayerCache = Callable[[int, Dict[str, torch.Tensor]], Any]
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -183,10 +193,14 @@ class LM(nn.Module):
         for layer in self.layers:
             layer.reset_parameters(gen)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (scaled where the config says), after the prefix."""
         x = self.embed[tokens]
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,10 +215,11 @@ class LM(nn.Module):
         return logits
 
     def forward(self, tokens: torch.Tensor, remat_policy: Optional[str] = "nothing",
-                materialize: Optional[Materialize] = None
+                materialize: Optional[Materialize] = None,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Training / scoring forward (``lm_forward``): (logits [B, S, V], the
-        MoE aux term summed over the groups, then the tail).
+        """Training / scoring forward (``lm_forward``): (logits [B, P+S, V],
+        the MoE aux term summed over the groups, then the tail).
 
         With grad on, each pattern group of layers runs under ``remat_policy``
         (see ``_remat_context``); the tail layers never do, as in the
@@ -212,7 +227,7 @@ class LM(nn.Module):
         layer parameter just before its layer runs (inside a rematerialized
         group, so again in the recompute); the sharded trainer gathers the
         group's weights there."""
-        x = self._embed(tokens)
+        x = self._embed(tokens, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
         p = len(self.cfg.mixer_pattern)
         n_groups, _ = self.cfg.n_groups_and_tail()
@@ -231,24 +246,50 @@ class LM(nn.Module):
             aux = aux + a
         return self._logits(x), aux
 
-    def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
-        """Process the prompt [B, S], fill ``cache``; last-token logits [B,1,V]."""
-        x = self._embed(tokens)
+    def prefill(self, tokens: torch.Tensor, cache: Cache,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                materialize: Optional[Materialize] = None,
+                layer_cache: Optional[LayerCache] = None) -> torch.Tensor:
+        """Process the prompt [B, S] after ``prefix_embeds`` [B, P, d], fill
+        ``cache``; last-token logits [B,1,V]. ``materialize`` as in
+        ``forward``; ``layer_cache(i, c)``, where given, is entered around
+        layer i with its cache ``c`` and gives the dict the layer fills."""
+        x = self._embed(tokens, prefix_embeds)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)
-        for layer, c in zip(self.layers, cache["layers"]):
-            x = layer.prefill(x, positions, c)
+        for i, c in enumerate(cache["layers"]):
+            with _cache_for(layer_cache, i, c) as c:
+                x = _run_method(self.layers, i, "prefill", materialize, x, positions, c)
         cache["pos"] = S
         return self._logits(x[:, -1:])
 
-    def decode_step(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
-        """One token per row (tokens [B, 1]); logits [B, 1, V]."""
+    def decode_step(self, tokens: torch.Tensor, cache: Cache,
+                    materialize: Optional[Materialize] = None,
+                    layer_cache: Optional[LayerCache] = None) -> torch.Tensor:
+        """One token per row (tokens [B, 1]); logits [B, 1, V]. The hooks as
+        in ``prefill``."""
         pos = cache["pos"]
         x = self._embed(tokens)
-        for layer, c in zip(self.layers, cache["layers"]):
-            x = layer.decode(x, pos, c)
+        for i, c in enumerate(cache["layers"]):
+            with _cache_for(layer_cache, i, c) as c:
+                x = _run_method(self.layers, i, "decode", materialize, x, pos, c)
         cache["pos"] = pos + 1
         return self._logits(x)
+
+
+def _cache_for(layer_cache: Optional[LayerCache], index: int, cache: Dict[str, torch.Tensor]):
+    return contextlib.nullcontext(cache) if layer_cache is None else layer_cache(index, cache)
+
+
+def _run_method(layers: nn.ModuleList, index: int, method: str,
+                materialize: Optional[Materialize], *args):
+    """``layers[index].<method>(*args)``, on materialized weights where given."""
+    layer = layers[index]
+    if materialize is None:
+        return getattr(layer, method)(*args)
+    params = {n: materialize(f"layers.{index}.{n}", t) for n, t in layer.named_parameters()}
+    with _reparametrize_module(layer, params):
+        return getattr(layer, method)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -340,18 +381,16 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
             compute_dtype: Optional[torch.dtype] = None,
             materialize: Optional[Materialize] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens [B,S], labels [B,S], optional mask -> (loss, metrics).
+    """batch: tokens [B,S], labels [B,S], optional mask and prefix_embeds
+    [B,P,d] -> (loss, metrics); the loss is over the token positions only.
 
     ``compute_dtype`` casts the fp32/bf16 parameters inside the differentiated
     function (``functional_call`` on cast copies), so the gradients reach the
     master parameters through the cast. ``materialize(name, tensor)``
     replaces each parameter before that cast: the embedding, final norm and
     head at the start, a layer's just before it runs (``LM.forward``)."""
-    if batch.get("prefix_embeds") is not None:
-        raise NotImplementedError(
-            f"{lm.cfg.name}: prefix_embeds (the frontends' prefix) are not "
-            "ported yet (ROADMAP.md queue A2)")
-    tokens = batch["tokens"]
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
+    kw = {"remat_policy": remat_policy, "prefix_embeds": prefix}
 
     def prepare(name: str, p: torch.Tensor) -> torch.Tensor:
         if materialize is not None:
@@ -363,13 +402,14 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     if materialize is not None:
         outer = {n: prepare(n, p) for n, p in lm.named_parameters()
                  if not n.startswith("layers.")}
-        logits, aux = functional_call(lm, outer, (tokens,),
-                                      {"remat_policy": remat_policy, "materialize": prepare})
+        logits, aux = functional_call(lm, outer, (tokens,), {**kw, "materialize": prepare})
     elif compute_dtype is None:
-        logits, aux = lm(tokens, remat_policy=remat_policy)
+        logits, aux = lm(tokens, **kw)
     else:
         params = {n: prepare(n, p) for n, p in lm.named_parameters()}
-        logits, aux = functional_call(lm, params, (tokens,), {"remat_policy": remat_policy})
+        logits, aux = functional_call(lm, params, (tokens,), kw)
+    if prefix is not None:  # the loss is over the token positions only
+        logits = logits[:, prefix.shape[1]:]
     xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
     loss = xent + MOE_AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}

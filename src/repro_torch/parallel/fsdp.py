@@ -31,6 +31,17 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
 * AdamW updates the DTensors in place; its moments are DTensors with the
   parameters' placements (ZeRO), and the clip's norm is the global one.
 
+Sharded serving (the reference's ``build_prefill_step`` and
+``build_serve_step``) works the same way: :meth:`ShardedModel.prefill` and
+:meth:`ShardedModel.decode_step` take the global batch, each rank computes
+its own rows on gathered weights, and the decode cache
+(:meth:`ShardedModel.init_cache`) is a structure of DTensors laid out by
+``sharding.cache_shardings``. Around each layer the layer's cache is brought
+to the compute's layout -- this rank's rows, whole along the other dims: an
+all-gather in decode, fresh buffers in a prefill, which overwrites every
+entry -- and the layer's writes go back to the layout at rest (a local
+slice). Logits come back as a DTensor sharded by rows.
+
 Not yet (ROADMAP.md): the ``model`` axis holds weights sharded at rest but
 does not split the compute. Tensor-parallel compute -- heads, ff and rnn
 split through the kernels, the ``act_*`` and ``seq`` rules of
@@ -40,15 +51,17 @@ later item; the batch's ``seq`` entry (sequence parallelism) is not applied.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, distribute_tensor
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.transformer import LM, lm_loss
+from repro_torch.models.transformer import LM, Cache, lm_loss
 from repro_torch.parallel import sharding as shd
 
 Rules = Dict[str, shd.MeshAxes]
@@ -154,17 +167,19 @@ class ShardedModel:
         return {k: distribute_tensor(v, self.mesh, place, src_data_rank=None).to_local()
                 for k, v in batch.items()}, axes
 
+    def _gather(self, reduce):
+        """The ``materialize`` hook: a DTensor parameter's whole tensor."""
+        def gather(name: str, p: torch.Tensor) -> torch.Tensor:
+            return _Gather.apply(p.to_local(), self.mesh, p.placements, p.shape, p.stride(),
+                                 reduce)
+        return gather
+
     def loss(self, lm: LM, batch: Dict[str, Any], **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``."""
         local, axes = self.local_batch(batch)
         reduce = _reduce_placements(self.mesh, axes)
-
-        def gather(name: str, p: torch.Tensor) -> torch.Tensor:
-            return _Gather.apply(p.to_local(), self.mesh, p.placements, p.shape, p.stride(),
-                                 reduce)
-
-        loss, metrics = lm_loss(lm, local, materialize=gather, **kw)
+        loss, metrics = lm_loss(lm, local, materialize=self._gather(reduce), **kw)
         mask = local.get("mask")
         n_local = (mask.float().sum() if mask is not None
                    else torch.tensor(float(local["tokens"].numel()), device=loss.device))
@@ -172,3 +187,65 @@ class ShardedModel:
         metrics = {k: _sum_over_batch(v.detach() * share, self.mesh, reduce)
                    for k, v in metrics.items()}
         return _SumOverBatch.apply(loss * share, self.mesh, reduce), metrics
+
+    # -- serving --------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> Cache:
+        """``Model.init_cache``'s zeroed cache, each leaf a DTensor laid out by
+        ``sharding.cache_shardings``."""
+        cache = self.model.init_cache(batch, max_len, dtype)
+        shardings = shd.cache_shardings(self.mesh, self.rules, cache)
+        layers = [{k: distribute_tensor(t, self.mesh, sh[k].placements,
+                                        src_data_rank=None)
+                   for k, t in c.items()}
+                  for c, sh in zip(cache["layers"], shardings["layers"])]
+        return {"layers": layers, "pos": cache["pos"]}
+
+    def _layer_cache(self, rows: Tuple[Placement, ...], n_rows: int, gather: bool):
+        """The ``layer_cache`` hook: a layer's cache as this rank's ``n_rows``
+        rows, whole along the other dims -- gathered (decode) or fresh (a
+        prefill overwrites every entry) -- written back to its layout at rest
+        when the layer is done."""
+
+        @contextlib.contextmanager
+        def hook(index: int, cache: Dict[str, DTensor]) -> Iterator[Dict[str, torch.Tensor]]:
+            if gather:
+                local = {k: t.redistribute(self.mesh, rows).to_local() for k, t in cache.items()}
+            else:
+                local = {k: t.to_local().new_empty((n_rows,) + tuple(t.shape[1:]))
+                         for k, t in cache.items()}
+            yield local
+            for k, t in cache.items():
+                back = DTensor.from_local(local[k], self.mesh, rows, run_check=False,
+                                          shape=t.shape, stride=t.stride())
+                t.to_local().copy_(back.redistribute(self.mesh, t.placements).to_local())
+
+        return hook
+
+    def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
+               gather_cache: bool) -> DTensor:
+        local, axes = self.local_batch(batch)
+        rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
+        gather = self._gather(_reduce_placements(self.mesh, axes))
+        outer = {n: gather(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
+        hooks = {"materialize": gather,
+                 "layer_cache": self._layer_cache(rows, local["tokens"].shape[0], gather_cache)}
+        with _reparametrize_module(lm, outer):
+            if method == "prefill":
+                logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
+            else:
+                logits = lm.decode_step(local["tokens"], cache, **hooks)
+        return DTensor.from_local(logits, self.mesh, rows, run_check=False)
+
+    def prefill(self, lm: LM, batch: Dict[str, torch.Tensor], cache: Cache
+                ) -> Tuple[DTensor, Cache]:
+        """``Model.prefill`` on the mesh: batch holds the global ``tokens`` (and
+        ``prefix_embeds``); returns (last-token logits [B, 1, V] sharded by
+        rows, ``cache`` filled)."""
+        return self._serve(lm, "prefill", batch, cache, gather_cache=False), cache
+
+    def decode_step(self, lm: LM, cache: Cache, tokens: torch.Tensor
+                    ) -> Tuple[DTensor, Cache]:
+        """``Model.decode_step`` on the mesh: tokens [B, 1], the global batch."""
+        return self._serve(lm, "decode", {"tokens": tokens}, cache, gather_cache=True), cache

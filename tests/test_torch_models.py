@@ -177,17 +177,6 @@ def test_init_params_statistics():
     assert not rg.conv_b.any() and not lm.final_norm.any() and not lm.layers[0].norm1.any()
 
 
-def test_prefix_embeds_raise_instead_of_being_dropped():
-    """The reference prepends a frontend's prefix_embeds; the port refuses them."""
-    cfg = ARCHS["internvl2-76b"].reduced()
-    model = build_model(cfg, device="cpu")
-    lm = LM(cfg, torch.device("meta"), torch.float32)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
-             "prefix_embeds": torch.zeros(1, cfg.frontend_seq_len, cfg.d_model)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A2"):
-        model.prefill(lm, batch, model.init_cache(1, 32, torch.float32))
-
-
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------

@@ -448,16 +448,6 @@ def test_lm_loss_bf16_compute_tracks_reference():
     _assert_grads_close(grads, want_grads, BF16_GRAD_TOL)
 
 
-def test_lm_loss_refuses_prefix_embeds():
-    cfg = ARCHS["internvl2-76b"].reduced()
-    lm = LM(cfg, torch.device("meta"), torch.float32)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
-             "labels": torch.zeros(1, 4, dtype=torch.long),
-             "prefix_embeds": torch.zeros(1, cfg.frontend_seq_len, cfg.d_model)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A2"):
-        build_model(cfg, device="cpu").loss(lm, batch)
-
-
 # ---------------------------------------------------------------------------
 # The training loop
 # ---------------------------------------------------------------------------
