@@ -72,6 +72,25 @@ calls, and fails (exit code not 0, no result line) on any miss:
               CPU: 2 layers, B 1, the prefix and 64 tokens, the prefill's and
               8 decode steps' logits and argmax; 1 layer (2.96B parameters),
               ``lm_loss`` with the prefix, the loss and every gradient;
+ 8g. tp_serve tensor-parallel serving on the ``model`` axis
+              (``parallel/tensor_parallel.py``), all in this one process on
+              the one card (two processes cannot share it: NCCL refuses two
+              ranks on one device, and gloo's collectives on CUDA tensors
+              crash): (c) phase 8e's weights sharded in place on a 1-rank
+              NCCL mesh, ``ShardedModel.prefill`` and 16 greedy
+              ``decode_step`` calls (every split whole, each merge over one
+              shard): 24 tensor-core flash launches a prefill, none in
+              decode, tokens equal to phase 8e's, prefill and step ms beside
+              its; (a) each rank's share of a split computed in turn through
+              the functions the ranks call (``tensor_parallel.share``), the
+              sum over ``model`` applied here: one full-width internvl2-76b
+              layer (64/8 heads, SwiGLU) at 8 and 16 ranks, one gemma2-9b
+              layer (16/8 heads, head_dim 256, window 4096, softcaps) at 16,
+              with each model's embedding and vocab head; B 1 x S 2560, fp32
+              (1e-4 of the largest) and bf16 (5e-2), the unsplit bf16
+              layer's own error against fp32 beside it. Phase 3 times flash
+              at the per-rank shapes (8/1 and 4/1 heads at D 128, 1/1 at D
+              256);
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -156,6 +175,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
@@ -178,7 +198,10 @@ from repro_torch.launch import dryrun, roofline, shapes, steps  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_from_devices, process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.moe import MoE  # noqa: E402
+from repro_torch.models import common  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
+from repro_torch.parallel import sharding as shd, tensor_parallel as tp  # noqa: E402
+from repro_torch.parallel.fsdp import ShardedModel  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.train.train_loop import TrainRunConfig, make_train_step, train_loop  # noqa: E402
@@ -401,6 +424,22 @@ def wkv6_case(name, B, T, H, with_s0, dtype, timed):
     return rec
 
 
+TP_FLASH_CASES = ("internvl2-76b at 8 model ranks", "internvl2-76b at 16 model ranks",
+                  "gemma2-9b at 16 model ranks")
+
+
+def tp_flash_cases():
+    """Flash at the shapes one rank of a tensor-parallel prefill gives it:
+    its query heads and the KV heads they read (``tensor_parallel``)."""
+    S = VLM_P + VLM_S
+    return [flash_case(TP_FLASH_CASES[0], VLM_B, S, 8, 1, 128, None, None, torch.bfloat16,
+                       2e-2, timed=True, graph=True),
+            flash_case(TP_FLASH_CASES[1], VLM_B, S, 4, 1, 128, None, None, torch.bfloat16,
+                       2e-2, timed=True, graph=True),
+            flash_case(TP_FLASH_CASES[2], VLM_B, S, 1, 1, 256, 4096, 50.0, torch.bfloat16,
+                       2e-2, timed=True, graph=True)]
+
+
 def kernel_phase():
     flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
                        torch.bfloat16, 2e-2, timed=True, previous=True)
@@ -416,7 +455,7 @@ def kernel_phase():
         # internvl2-76b's prefill: 256 prefix rows + 2304 prompt tokens, 64/8 heads
         flash_case("internvl2-76b prefill", VLM_B, VLM_P + VLM_S, 64, 8, 128, None, None,
                    torch.bfloat16, 2e-2, timed=True, graph=True),
-    ]
+    ] + tp_flash_cases()
     # whisper-medium's three attentions (head_dim 64, 16/16 heads, B 4, 1500
     # frames, 448 tokens), the tensor-core kernel timed beside the CUDA-core one
     whisper = [
@@ -434,7 +473,7 @@ def kernel_phase():
         flash_case("bf16 at head_dim 32", 2, 300, 8, 2, 32, None, None,
                    torch.bfloat16, 2e-2, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 9
+    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 12
          and [c["kernel"] for c in simt_checks] == ["simt"] * 2,
          "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
@@ -1079,7 +1118,7 @@ def vlm_serve_phase(flash_rec):
            "launches_per_prefill": per_prefill[-1], "launches_decode": decode_launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("vlm_serve", json.dumps(rec), flush=True)
-    return rec
+    return rec, {"cfg": cfg, "params": params, "batch": batch, "tokens": toks}
 
 
 def vlm_check_phase(tol, loss_tol, grad_tol):
@@ -1173,6 +1212,170 @@ def vlm_check_phase(tol, loss_tol, grad_tol):
          "vlm loss check: non-finite loss or gradient")
     need(abs(loss - cpu_loss) <= loss_tol, f"vlm: card vs CPU loss {loss} vs {cpu_loss}")
     need(rel[worst] <= grad_tol, f"vlm: gradient of {worst} off by {rel[worst]}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 8g: tensor-parallel serving on the model axis
+# ---------------------------------------------------------------------------
+
+TP_S, TP_HEAD_ROWS = 2560, 64
+TP_FP32_TOL, TP_BF16_TOL = 1e-4, 5e-2
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def tp_path(state, vlm):
+    """(c) phase 8e's weights sharded in place on a 1-rank NCCL mesh, through
+    ``ShardedModel``: a prefill cold then warm, 16 greedy steps."""
+    cfg, params, batch = state["cfg"], state["params"], state["batch"]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        model.shard(params)  # in place: each weight a DTensor over the one rank
+        prefill_ms = []
+        with torch.no_grad():
+            for _ in range(2):  # cold, then warm
+                cache = model.init_cache(VLM_B, VLM_MAX_LEN, torch.bfloat16)
+                reset_counts()
+                start.record()
+                logits, cache = model.prefill(params, batch, cache)
+                end.record()
+                torch.cuda.synchronize()
+                prefill_ms.append(start.elapsed_time(end))
+                prefill_launches = counts()
+            placements = [str(p) for p in logits.placements]
+            reset_counts()
+            tok, out = logits.full_tensor().argmax(-1), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(VLM_STEPS):
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = logits.full_tensor().argmax(-1)
+                out.append(tok)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        decode_launches = counts()
+        pos = cache["pos"]
+    toks = torch.cat(out, dim=1).cpu()
+    rec = {"mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp", "layers": cfg.n_layers,
+           "batch": VLM_B, "prefix_rows": VLM_P, "prompt_len": VLM_S,
+           "prefill_ms_cold": prefill_ms[0], "prefill_ms": prefill_ms[1],
+           "vlm_serve_prefill_ms": vlm["prefill_ms"],
+           "decode_ms_per_step": wall * 1e3 / VLM_STEPS,
+           "decode_device_ms_per_step": start.elapsed_time(end) / VLM_STEPS,
+           "vlm_serve_decode_ms_per_step": vlm["decode_ms_per_step"],
+           "logits_placements": placements, "tokens_equal": bool(torch.equal(toks,
+                                                                           state["tokens"])),
+           "launches_per_prefill": prefill_launches, "launches_decode": decode_launches}
+    print("tp_serve_path", json.dumps(rec), flush=True)
+    need(prefill_launches == launch_counts(flash_wgmma=VLM_LAYERS),
+         f"tp prefill launches {prefill_launches}")
+    need(decode_launches == launch_counts(), f"tp decode launched {decode_launches}")
+    need(pos == VLM_P + VLM_S + VLM_STEPS, f"tp pos {pos}")
+    need(rec["tokens_equal"], f"tp tokens {toks[:, :8].tolist()} differ from vlm_serve's "
+                              f"{state['tokens'][:, :8].tolist()}")
+    return rec
+
+
+def rank_heads(layer, cfg):
+    """(query heads, KV heads) of rank 0's flash call in a prefill."""
+    if layer.kv is not None:
+        return [layer.q.hi - layer.q.lo, layer.kv.hi - layer.kv.lo]
+    kv = tp.kv_heads(layer.q.lo, layer.q.hi, cfg.n_heads, cfg.n_kv_heads)
+    return [layer.q.hi - layer.q.lo, len(range(cfg.n_kv_heads)[kv]) if isinstance(kv, slice)
+            else len(kv)]
+
+
+def tp_shares(cfg, ranks):
+    """(a) one full-width layer of ``cfg`` and its head, fp32 then the same
+    weights in bf16: for each W in ``ranks`` every rank's share in turn, the
+    sums over ``model`` applied here, against the unsplit layer."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    model = build_model(lm.cfg)
+    block = lm.layers[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x32 = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, TP_S), generator=g, device="cuda")
+    positions = torch.arange(TP_S, device="cuda")
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        lm.to(dtype)
+        x = x32.to(dtype)
+        with torch.no_grad():
+            reset_counts()
+            want = block.prefill(x, positions, model.init_cache(1, TP_S, dtype)["layers"][0])
+            want_launches = counts()
+            want = {"layer": want, "logits": lm._logits(want[:, -TP_HEAD_ROWS:]),
+                    "embed": lm._embed(tokens)}
+            if unsplit32 is None:
+                unsplit32 = {k: v.float() for k, v in want.items()}
+            for W in ranks:
+                cache = model.init_cache(1, TP_S, dtype)
+                shares = [tp.share(lm, cache, r, W) for r in range(W)]
+
+                def each(fn):
+                    out = []
+                    for axis, params, rank_cache in shares:
+                        with _reparametrize_module(lm, params):
+                            out.append(fn(axis, rank_cache))
+                    return out
+
+                reset_counts()
+                h = common.apply_norm(block.norm1, x)
+                parts = each(lambda axis, c: block.attn.prefill(
+                    h, positions, c["layers"][0], axis.layer(0)))
+                launches = counts()
+                layer = shares[0][0].layer(0)
+                need(layer.attn_sum and layer.mlp_sum, f"{cfg.name} at {W}: no split")
+                x1 = x + sum(parts)
+                h = common.apply_norm(block.norm2, x1)
+                x2 = x1 + sum(each(lambda axis, c: block.mlp(h)))
+                logits = torch.cat(each(lambda axis, c: lm._logits(x2[:, -TP_HEAD_ROWS:])), -1)
+                embed = sum(each(lambda axis, c: lm._embed(tokens, model_axis=axis)))
+                got = {"layer": x2, "logits": logits, "embed": embed}
+                rec = {"case": f"{cfg.name} layer ({cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                               f"{cfg.mlp_type}) and {cfg.vocab_size}-way head",
+                       "model_ranks": W, "dtype": str(dtype)[6:], "B": 1, "S": TP_S,
+                       "rank_heads": rank_heads(layer, cfg),
+                       "rel_err": {k: rel_err(got[k], want[k]) for k in want},
+                       "tol": TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL,
+                       "launches_shares": launches, "launches_unsplit": want_launches}
+                if dtype == torch.bfloat16:
+                    rec["unsplit_vs_fp32"] = {k: rel_err(want[k], unsplit32[k]) for k in want}
+                    rec["shares_vs_fp32"] = {k: rel_err(got[k], unsplit32[k]) for k in want}
+                print("tp_shares", json.dumps(rec), flush=True)
+                kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[
+                    fa_ops.kernel_for(dtype, cfg.head_dim)]
+                need(launches == launch_counts(**{kernel: W}),
+                     f"tp shares {cfg.name} at {W} ({dtype}): launches {launches}")
+                need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                     f"tp shares {cfg.name} at {W}: non-finite")
+                need(max(rec["rel_err"].values()) <= rec["tol"],
+                     f"tp shares {cfg.name} at {W} ({dtype}): {rec['rel_err']}")
+                recs.append(rec)
+                del shares, parts, got
+    del lm
+    torch.cuda.empty_cache()
+    return recs
+
+
+def tp_serve_phase(vlm, state):
+    rec = {"path": tp_path(state, vlm)}
+    state.clear()  # phase 8e's weights
+    torch.cuda.empty_cache()
+    gemma2 = get_config("gemma2-9b")
+    need((gemma2.n_heads, gemma2.n_kv_heads, gemma2.head_dim, gemma2.window,
+          gemma2.attn_softcap, gemma2.mixer_pattern[0]) == (16, 8, 256, 4096, 50.0,
+                                                           "attn_local"), "gemma2-9b width")
+    rec["shares"] = tp_shares(vlm_cfg(1), (8, 16)) + tp_shares(gemma2, (16,))
     return rec
 
 
@@ -1994,7 +2197,9 @@ def main():
     # fp32 over 2 + 2 full-width layers and a 51865-way head, as the other checks
     whisper_check = phase("whisper_check", whisper_check_phase, 2e-3)
     vlm_flash = next(c for c in flash_checks if c["case"] == "internvl2-76b prefill")
-    vlm_serve = phase("vlm_serve", vlm_serve_phase, vlm_flash)
+    vlm_serve, vlm_state = phase("vlm_serve", vlm_serve_phase, vlm_flash)
+    tp_serve = phase("tp_serve", tp_serve_phase, vlm_serve, vlm_state)
+    del vlm_state
     torch.cuda.empty_cache()
     # fp32 over 2 full-width layers and a 128256-way head; the loss and
     # gradients with train_check's tolerances
@@ -2054,7 +2259,16 @@ def main():
                       launches_vlm_prefill=vlm_serve["launches_per_prefill"][
                           "flash_attention_wgmma"],
                       launches_vlm_decode_16_steps=vlm_serve["launches_decode"][
-                          "flash_attention_wgmma"]),
+                          "flash_attention_wgmma"],
+                      tp_per_rank=[{key: c[key] for key in WHISPER_FLASH_KEYS if key in c}
+                                   for c in flash_checks if c["case"] in TP_FLASH_CASES],
+                      launches_tp_prefill_1_rank=tp_serve["path"]["launches_per_prefill"][
+                          "flash_attention_wgmma"],
+                      launches_tp_decode_16_steps=tp_serve["path"]["launches_decode"][
+                          "flash_attention_wgmma"],
+                      launches_tp_shares_bf16=[r["launches_shares"]["flash_attention_wgmma"]
+                                               for r in tp_serve["shares"]
+                                               if r["dtype"] == "bfloat16"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -2069,7 +2283,10 @@ def main():
                       launches_whisper_train_check=whisper_train_check["launches"][
                           "flash_attention"],
                       launches_train_lm_60_steps=train_lm_rec["launches"]["flash_attention"],
-                      launches_vlm_check=vlm_check["launches"]["prefill"]["flash_attention"]),
+                      launches_vlm_check=vlm_check["launches"]["prefill"]["flash_attention"],
+                      launches_tp_shares_fp32=[r["launches_shares"]["flash_attention"]
+                                               for r in tp_serve["shares"]
+                                               if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
@@ -2093,6 +2310,7 @@ def main():
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
+               "tp_serve": tp_serve,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

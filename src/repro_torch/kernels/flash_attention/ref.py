@@ -71,6 +71,33 @@ def mha_reference(
     return out.reshape(B, S_q, H_q, D).to(q.dtype)
 
 
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, softcap: Optional[float] = None):
+    """``mha_reference``'s softmax over a block of the keys, unnormalized, in
+    fp32: q [B, S_q, H_q, D] against k/v [B, S_k, H_kv, D] where ``valid``
+    [S_k] -> (row max m, sum l, weighted V o), m and l [B, H_kv, G, S_q, 1],
+    o [B, H_kv, G, S_q, D] (G = H_q / H_kv). A block with no valid key gives
+    m = NEG_INF, l = 0, o = 0. Blocks merge by log-sum-exp
+    (:func:`merge_partials`): decode attention over a sequence-split cache."""
+    B, S_q, H_q, D = q.shape
+    H_kv = k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(D))).reshape(B, S_q, H_kv, H_q // H_kv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(valid, scores, torch.tensor(NEG_INF, device=q.device))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros((), device=q.device))
+    return m, p.sum(dim=-1, keepdim=True), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+
+def merge_partials(l: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output [B, S_q, H_q, D] from the blocks' sums, each block's
+    l and o already scaled by exp(m - max m) and summed over the blocks."""
+    B, H_kv, G, S_q, D = o.shape
+    return (o / l).permute(0, 3, 1, 2, 4).reshape(B, S_q, H_kv * G, D).to(dtype)
+
+
 def mha_chunked(q, k, v, causal: bool = True, window: Optional[int] = None,
                 softcap: Optional[float] = None, q_offset: int = 0,
                 chunk_q: int = CHUNK_Q) -> torch.Tensor:

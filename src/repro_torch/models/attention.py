@@ -130,12 +130,19 @@ class Attention(nn.Module):
         return self._out(out)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Cache) -> torch.Tensor:
-        """Causal attention over the prompt; fills ``cache`` in place."""
+                cache: Cache, axis=None) -> torch.Tensor:
+        """Causal attention over the prompt; fills ``cache`` in place.
+        ``axis``: the layer's ``tensor_parallel.LayerAxis`` in sharded
+        serving (the weights are this rank's heads; the output is its term of
+        the sum over ``model``)."""
         S = x.shape[1]
         q, k, v = self._qkv(x, positions)
-        out = fa_ops.attention(q, k, v, causal=True, window=self.window,
+        kq, vq = (k, v) if axis is None else axis.kv_for_queries(k, v)
+        out = fa_ops.attention(q, kq, vq, causal=True, window=self.window,
                                softcap=self.cfg.attn_softcap)
+        if axis is not None:
+            axis.fill_cache(cache, k, v)
+            return self._out(out)
         L = cache["k"].shape[1]
         for name, t in (("k", k), ("v", v)):
             if L >= S:
@@ -147,10 +154,14 @@ class Attention(nn.Module):
                 cache[name].copy_(torch.roll(t[:, S - L:], S % L, dims=1))
         return self._out(out)
 
-    def decode(self, x: torch.Tensor, pos: int, cache: Cache) -> torch.Tensor:
-        """One token at position ``pos`` against the cache (updated in place)."""
+    def decode(self, x: torch.Tensor, pos: int, cache: Cache, axis=None) -> torch.Tensor:
+        """One token at position ``pos`` against the cache (updated in place);
+        ``axis`` as in ``prefill``: this rank's block of the cache."""
         positions = torch.arange(pos, pos + 1, device=x.device)  # no host copy
         q, k_new, v_new = self._qkv(x, positions)
+        if axis is not None:
+            return self._out(axis.decode_attention(q, k_new, v_new, pos, cache,
+                                                   self.cfg.attn_softcap))
         length = cache["k"].shape[1]
         slot = pos % length
         cache["k"][:, slot] = k_new[:, 0]

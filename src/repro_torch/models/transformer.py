@@ -43,8 +43,9 @@ from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
 Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, tensor)
 # (layer index, the layer's cache) -> a context giving the dict the layer
-# reads and writes (the sharded path's gathered rows, written back on exit)
+# reads and writes (the sharded path's rows, written back on exit)
 LayerCache = Callable[[int, Dict[str, torch.Tensor]], Any]
+ModelAxis = Any  # parallel.tensor_parallel.ModelAxis: sharded serving's model split
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -112,10 +113,12 @@ class Block(nn.Module):
         cache["tm_shift"].copy_(tm_shift)
         return h
 
-    def _ffn(self, h, cache, carried: bool) -> torch.Tensor:
-        """The block's second half; serving drops the MoE aux term."""
+    def _ffn(self, h, cache, carried: bool, axis=None) -> torch.Tensor:
+        """The block's second half; serving drops the MoE aux term. Sharded
+        serving (``axis``) routes the MoE's tokens in the global batch's
+        groups (``LayerAxis.moe``)."""
         if hasattr(self, "moe"):
-            return self.moe(h)[0]
+            return self.moe(h)[0] if axis is None else axis.moe(self.moe, h)
         if self.mixer != "rwkv":
             return self.mlp(h)
         h, cm_shift = self.cm(h, cache["cm_shift"] if carried else None)
@@ -144,28 +147,38 @@ class Block(nn.Module):
             h = self.mlp(h)
         return x + h, aux
 
-    def prefill(self, x, positions, cache) -> torch.Tensor:
-        """Full sequence; fills ``cache``."""
+    def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
+        """Full sequence; fills ``cache``. ``axis``: the layer's
+        ``tensor_parallel.LayerAxis`` in sharded serving, which splits the
+        attention and the dense MLP along ``model``."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru.prefill(h, cache)
         elif self.mixer == "rwkv":
             h = self._time_mix(h, cache, carried=False)
         else:
-            h = self.attn.prefill(h, positions, cache)
+            h = _summed(self.attn.prefill(h, positions, cache, axis), axis, "attn_sum")
         x = x + h
-        return x + self._ffn(common.apply_norm(self.norm2, x), cache, carried=False)
+        h = self._ffn(common.apply_norm(self.norm2, x), cache, carried=False, axis=axis)
+        return x + _summed(h, axis, "mlp_sum")
 
-    def decode(self, x, pos: int, cache) -> torch.Tensor:
+    def decode(self, x, pos: int, cache, axis=None) -> torch.Tensor:
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru.decode(h, cache)
         elif self.mixer == "rwkv":
             h = self._time_mix(h, cache, carried=True)
         else:
-            h = self.attn.decode(h, pos, cache)
+            h = _summed(self.attn.decode(h, pos, cache, axis), axis, "attn_sum")
         x = x + h
-        return x + self._ffn(common.apply_norm(self.norm2, x), cache, carried=True)
+        h = self._ffn(common.apply_norm(self.norm2, x), cache, carried=True, axis=axis)
+        return x + _summed(h, axis, "mlp_sum")
+
+
+def _summed(h: torch.Tensor, axis, which: str) -> torch.Tensor:
+    """A row-parallel product's output, summed over ``model`` where the
+    layer's contracted dim was split (``LayerAxis.attn_sum`` / ``mlp_sum``)."""
+    return axis.axis.all_reduce(h) if axis is not None and getattr(axis, which) else h
 
 
 class LM(nn.Module):
@@ -194,9 +207,19 @@ class LM(nn.Module):
             layer.reset_parameters(gen)
 
     def _embed(self, tokens: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Token embeddings (scaled where the config says), after the prefix."""
-        x = self.embed[tokens]
+               prefix_embeds: Optional[torch.Tensor] = None,
+               model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
+        """Token embeddings (scaled where the config says), after the prefix.
+        Where ``model_axis`` splits the vocabulary, ``embed`` holds this rank's
+        rows: it looks up the tokens in its range, zeros for the others, and
+        the rows are summed over ``model``."""
+        split = None if model_axis is None else model_axis.split("embed")
+        if split is None:
+            x = self.embed[tokens]
+        else:
+            inside = (tokens >= split.lo) & (tokens < split.hi)
+            rows = self.embed[torch.where(inside, tokens - split.lo, 0)]
+            x = model_axis.all_reduce(torch.where(inside[..., None], rows, 0))
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         if prefix_embeds is not None:
@@ -204,6 +227,8 @@ class LM(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head; where sharded serving splits the vocabulary, the head's
+        weight is this rank's vocab block and so are the logits."""
         x = common.apply_norm(self.final_norm, x)
         if self.cfg.tie_embeddings:
             logits = x @ self.embed.T
@@ -249,32 +274,44 @@ class LM(nn.Module):
     def prefill(self, tokens: torch.Tensor, cache: Cache,
                 prefix_embeds: Optional[torch.Tensor] = None,
                 materialize: Optional[Materialize] = None,
-                layer_cache: Optional[LayerCache] = None) -> torch.Tensor:
+                layer_cache: Optional[LayerCache] = None,
+                model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """Process the prompt [B, S] after ``prefix_embeds`` [B, P, d], fill
         ``cache``; last-token logits [B,1,V]. ``materialize`` as in
         ``forward``; ``layer_cache(i, c)``, where given, is entered around
-        layer i with its cache ``c`` and gives the dict the layer fills."""
-        x = self._embed(tokens, prefix_embeds)
+        layer i with its cache ``c`` and gives the dict the layer fills;
+        ``model_axis`` (``parallel/tensor_parallel.py``), where given, splits
+        the embedding, attention, the dense MLP and the head along ``model``
+        (the weights ``materialize`` gives are this rank's blocks of them, and
+        the logits are its vocab block). The prefix is whole on every rank."""
+        x = self._embed(tokens, prefix_embeds, model_axis)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)
         for i, c in enumerate(cache["layers"]):
             with _cache_for(layer_cache, i, c) as c:
-                x = _run_method(self.layers, i, "prefill", materialize, x, positions, c)
+                x = _run_method(self.layers, i, "prefill", materialize, x, positions, c,
+                                _layer_axis(model_axis, i))
         cache["pos"] = S
         return self._logits(x[:, -1:])
 
     def decode_step(self, tokens: torch.Tensor, cache: Cache,
                     materialize: Optional[Materialize] = None,
-                    layer_cache: Optional[LayerCache] = None) -> torch.Tensor:
+                    layer_cache: Optional[LayerCache] = None,
+                    model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """One token per row (tokens [B, 1]); logits [B, 1, V]. The hooks as
         in ``prefill``."""
         pos = cache["pos"]
-        x = self._embed(tokens)
+        x = self._embed(tokens, model_axis=model_axis)
         for i, c in enumerate(cache["layers"]):
             with _cache_for(layer_cache, i, c) as c:
-                x = _run_method(self.layers, i, "decode", materialize, x, pos, c)
+                x = _run_method(self.layers, i, "decode", materialize, x, pos, c,
+                                _layer_axis(model_axis, i))
         cache["pos"] = pos + 1
         return self._logits(x)
+
+
+def _layer_axis(model_axis: Optional[ModelAxis], index: int):
+    return None if model_axis is None else model_axis.layer(index)
 
 
 def _cache_for(layer_cache: Optional[LayerCache], index: int, cache: Dict[str, torch.Tensor]):

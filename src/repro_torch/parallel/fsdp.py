@@ -32,37 +32,49 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   parameters' placements (ZeRO), and the clip's norm is the global one.
 
 Sharded serving (the reference's ``build_prefill_step`` and
-``build_serve_step``) works the same way: :meth:`ShardedModel.prefill` and
+``build_serve_step``): :meth:`ShardedModel.prefill` and
 :meth:`ShardedModel.decode_step` take the global batch, each rank computes
-its own rows on gathered weights, and the decode cache
+its own rows, and the model axis splits the compute
+(``parallel/tensor_parallel.py``): attention by heads, the dense MLP by
+``d_ff``, the embedding and the head by vocabulary, each rank's weights its
+``model`` block gathered over the other axes only, a sum over ``model``
+after each row-parallel product. The decode cache
 (:meth:`ShardedModel.init_cache`) is a structure of DTensors laid out by
-``sharding.cache_shardings``. Around each layer the layer's cache is brought
-to the compute's layout -- this rank's rows, whole along the other dims: an
-all-gather in decode, fresh buffers in a prefill, which overwrites every
-entry -- and the layer's writes go back to the layout at rest (a local
-slice). Logits come back as a DTensor sharded by rows.
+``sharding.cache_shardings``; an attention layer reads and writes its K/V
+where they lie (a prefill fills its block, a decode step merges partial
+softmaxes over the sequence's axes), and an RG-LRU or RWKV-6 layer's state,
+whose compute stays gathered, is brought to this rank's rows, whole along
+the other dims (gathered in decode, fresh in a prefill, which overwrites
+every entry) and written back to its layout at rest (a local slice).
+Logits come back as a DTensor: rows on the batch axes, the vocabulary on
+``model`` where it splits.
 
-Not yet (ROADMAP.md): the ``model`` axis holds weights sharded at rest but
-does not split the compute. Tensor-parallel compute -- heads, ff and rnn
-split through the kernels, the ``act_*`` and ``seq`` rules of
-``shard_activation``, ``REPRO_SP_GATHER`` and ``REPRO_CAST_BARRIER`` -- is a
-later item; the batch's ``seq`` entry (sequence parallelism) is not applied.
+Not yet (ROADMAP.md): tensor-parallel training (the loss gathers every
+weight whole: each rank along ``model`` computes the same rows), the
+RG-LRU ``rnn`` and RWKV-6 head splits, expert parallelism, ``serve_2d``'s
+weight-stationary decode (partial sums over ``data`` in place of the
+``embed`` gather), the ``act_*`` and ``seq`` rules of
+``shard_activation``, ``REPRO_SP_GATHER`` and ``REPRO_CAST_BARRIER``; the
+batch's ``seq`` entry (sequence parallelism) is not applied.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
+                                      distribute_tensor)
 from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import LM, Cache, lm_loss
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tp
 
 Rules = Dict[str, shd.MeshAxes]
 
@@ -150,6 +162,8 @@ class ShardedModel:
                 "ported yet (ROADMAP.md queue A)")
         self.model, self.mesh, self.rules = model, mesh, rules
         self.cfg, self.device = model.cfg, model.device
+        self._memo: Dict = {}  # serving's specs by name and shape
+        self._shapes: "weakref.WeakKeyDictionary[LM, Dict]" = weakref.WeakKeyDictionary()
 
     def init(self, seed: int = 0, dtype: torch.dtype = torch.float32) -> LM:
         return shard_module(self.model.init(seed, dtype), self.mesh, self.rules)
@@ -168,7 +182,7 @@ class ShardedModel:
                 for k, v in batch.items()}, axes
 
     def _gather(self, reduce):
-        """The ``materialize`` hook: a DTensor parameter's whole tensor."""
+        """Training's ``materialize`` hook: a DTensor parameter's whole tensor."""
         def gather(name: str, p: torch.Tensor) -> torch.Tensor:
             return _Gather.apply(p.to_local(), self.mesh, p.placements, p.shape, p.stride(),
                                  reduce)
@@ -203,13 +217,18 @@ class ShardedModel:
         return {"layers": layers, "pos": cache["pos"]}
 
     def _layer_cache(self, rows: Tuple[Placement, ...], n_rows: int, gather: bool):
-        """The ``layer_cache`` hook: a layer's cache as this rank's ``n_rows``
-        rows, whole along the other dims -- gathered (decode) or fresh (a
-        prefill overwrites every entry) -- written back to its layout at rest
-        when the layer is done."""
+        """The ``layer_cache`` hook. An attention layer's K/V: this rank's
+        blocks where they lie (the layer's ``LayerAxis`` reads and writes
+        them). A state (RG-LRU, RWKV-6): this rank's ``n_rows`` rows, whole
+        along the other dims -- gathered (decode) or fresh (a prefill
+        overwrites every entry) -- written back to its layout at rest when the
+        layer is done."""
 
         @contextlib.contextmanager
         def hook(index: int, cache: Dict[str, DTensor]) -> Iterator[Dict[str, torch.Tensor]]:
+            if "k" in cache:
+                yield {k: t.to_local() for k, t in cache.items()}
+                return
             if gather:
                 local = {k: t.redistribute(self.mesh, rows).to_local() for k, t in cache.items()}
             else:
@@ -223,26 +242,60 @@ class ShardedModel:
 
         return hook
 
+    def _serve_weights(self, axis: tp.ModelAxis):
+        """The serving ``materialize`` hook: a weight whose compute splits
+        along ``model`` (``axis.split``) keeps its ``model`` block and is
+        gathered over the other axes; every other weight is gathered whole."""
+        names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
+
+        def weight(name: str, p: DTensor) -> torch.Tensor:
+            split = axis.split(name) is not None
+            keep = tuple(pl if split and n == "model" else Replicate()
+                         for pl, n in zip(p.placements, names))
+            if all(a == b or size == 1 for a, b, size in zip(p.placements, keep, sizes)):
+                return p.to_local()  # nothing to gather: a mesh dim of one rank holds it all
+            return p.redistribute(self.mesh, keep).to_local()
+
+        return weight
+
+    def model_axis(self, lm: LM, cache: Cache, row_axes: Tuple[str, ...], n_rows: int
+                   ) -> tp.ModelAxis:
+        """This rank's view of the ``model`` split for serving ``lm`` over
+        ``cache``, the global batch's ``n_rows`` rows split over ``row_axes``."""
+        shapes = self._shapes.get(lm)
+        if shapes is None:
+            shapes = self._shapes[lm] = tp.param_shapes(lm)
+        return tp.ModelAxis(self.mesh, self.rules, shapes, cache,
+                            tp.MeshCollectives(self.mesh), memo=self._memo,
+                            rows=(row_axes, n_rows))
+
     def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
                gather_cache: bool) -> DTensor:
         local, axes = self.local_batch(batch)
         rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
-        gather = self._gather(_reduce_placements(self.mesh, axes))
-        outer = {n: gather(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
-        hooks = {"materialize": gather,
+        axis = self.model_axis(lm, cache, axes, batch["tokens"].shape[0])
+        weight = self._serve_weights(axis)
+        outer = {n: weight(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
+        hooks = {"materialize": weight, "model_axis": axis,
                  "layer_cache": self._layer_cache(rows, local["tokens"].shape[0], gather_cache)}
         with _reparametrize_module(lm, outer):
             if method == "prefill":
                 logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
             else:
                 logits = lm.decode_step(local["tokens"], cache, **hooks)
+        head = axis.split("unembed" if "unembed" in outer else "embed")
+        if head is not None:  # this rank's vocab block
+            names = self.mesh.mesh_dim_names
+            rows = tuple(Shard(logits.ndim - 1) if n == "model" else r
+                         for n, r in zip(names, rows))
         return DTensor.from_local(logits, self.mesh, rows, run_check=False)
 
     def prefill(self, lm: LM, batch: Dict[str, torch.Tensor], cache: Cache
                 ) -> Tuple[DTensor, Cache]:
         """``Model.prefill`` on the mesh: batch holds the global ``tokens`` (and
-        ``prefix_embeds``); returns (last-token logits [B, 1, V] sharded by
-        rows, ``cache`` filled)."""
+        ``prefix_embeds``); returns (last-token logits [B, 1, V], rows on the
+        batch axes and the vocabulary on ``model`` where it splits; ``cache``
+        filled)."""
         return self._serve(lm, "prefill", batch, cache, gather_cache=False), cache
 
     def decode_step(self, lm: LM, cache: Cache, tokens: torch.Tensor

@@ -263,11 +263,68 @@ def resolve_spec(mesh: Mesh, rules: Dict[str, MeshAxes],
     return tuple(spec)
 
 
+def _axes(entry: MeshAxes) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def coordinate(mesh: Mesh, coord: Optional[Mapping[str, int]] = None) -> Dict[str, int]:
+    """This rank's index along each mesh axis: ``coord`` where given (a mesh
+    of axis sizes has no ranks), else the ``DeviceMesh``'s own."""
+    if coord is not None:
+        return dict(coord)
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError("a mesh given by its axis sizes needs the rank's coordinate")
+    c = mesh.get_coordinate()
+    if c is None:
+        raise ValueError("this rank is not in the mesh")
+    return dict(zip(mesh.mesh_dim_names, c))
+
+
+class Split(NamedTuple):
+    """A dim of a leaf split over mesh axes: the dim, the axes (in mesh order)
+    and this rank's block ``[lo, hi)`` along it."""
+
+    dim: int
+    axes: Tuple[str, ...]
+    lo: int
+    hi: int
+
+
+def dim_split(mesh: Mesh, spec: Spec, dim: int, shape: Sequence[int],
+              coord: Optional[Mapping[str, int]] = None) -> Optional[Split]:
+    """Dim ``dim`` of a leaf laid out by the resolved ``spec``: None where no
+    axis splits it, else this rank's block, the axes taken row-major as
+    DTensor splits a dim over several (:func:`placements`)."""
+    axes = _axes(spec[dim]) if dim < len(spec) else ()
+    if not axes:
+        return None
+    sizes, at = axis_sizes(mesh), coordinate(mesh, coord)
+    index, n = 0, 1
+    for a in axes:
+        index, n = index * sizes[a] + at[a], n * sizes[a]
+    step = shape[dim] // n
+    return Split(dim, axes, index * step, (index + 1) * step)
+
+
+def model_split(mesh: Mesh, spec: Spec, shape: Sequence[int],
+                coord: Optional[Mapping[str, int]] = None) -> Optional[Split]:
+    """Which dim of a parameter or cache leaf the ``model`` axis splits, and
+    this rank's block along it; None where it splits none. ``spec`` is the
+    resolved one (:func:`resolve_spec`), so a dim the axis does not divide is
+    reported unsplit, as the reference replicates it."""
+    for dim, entry in enumerate(spec):
+        if "model" in _axes(entry):
+            return dim_split(mesh, spec, dim, shape, coord)
+    return None
+
+
 def shard_activation(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Lay an activation out by its logical axes: a no-op without a context,
     and for a plain (local) tensor, which is what the port's compute runs on
-    (the ``model`` axis does not split compute yet: ROADMAP.md); a DTensor
-    is redistributed to the resolved spec (``with_sharding_constraint``)."""
+    (sharded serving splits the ``model`` axis through explicit hooks,
+    ``parallel/tensor_parallel.py``, not through activation layouts); a
+    DTensor is redistributed to the resolved spec
+    (``with_sharding_constraint``)."""
     ctx = get_context()
     if ctx is None or not isinstance(x, DTensor):
         return x

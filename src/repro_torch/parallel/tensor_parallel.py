@@ -1,0 +1,364 @@
+"""Tensor-parallel serving on the ``model`` axis: one rank's share of
+attention, the dense MLP, the embedding and the vocab head.
+
+What GSPMD does to the reference's ``build_prefill_step`` and
+``build_serve_step`` under the strategies' ``heads``, ``kv_heads``, ``ff``,
+``vocab`` and ``seq_cache`` rules (``repro/parallel/sharding.py``), written
+out: every weight and cache keeps its layout at rest, and the compute
+follows it. A :class:`ModelAxis` is one rank's view of the split; the model
+code takes it as its ``model_axis`` hook (None in one process) and asks it
+
+* ``split(name)``: the model split of a parameter (``sharding.model_split``
+  on its resolved spec) where its compute splits (:func:`splits_compute`):
+  the rank's query heads of ``wq``/``bq``/``wo``, its KV heads where
+  ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its vocab rows;
+* ``all_reduce(x)``: the sum over ``model`` after a row-parallel product
+  (attention's ``wo``, the MLP's ``w_down``) and after the vocab-parallel
+  lookup. A layer sums only where the contracted dim was split
+  (:class:`LayerAxis` ``attn_sum``, ``mlp_sum``): a weight the axis does not
+  divide is whole on every rank, and a sum would multiply it by the axis;
+* ``layer(i)``: the attention layer's :class:`LayerAxis` -- the KV heads its
+  query heads read, the prefill's cache fill and decode attention over the
+  cache where it lies; and the MoE layer's routing groups, those of the
+  global batch as in one process (``LayerAxis.moe``).
+
+The cache's K/V [B, L, Hkv, D] at rest (``sharding.cache_shardings``) splits
+its sequence over the ``seq_cache`` axes (``model``, or ``data`` and
+``model`` under ``serve_2d``) where they divide L, else its heads over
+``model`` where they divide Hkv, else neither:
+
+* prefill: where the weights split the KV heads and the cache the sequence,
+  one all-to-all over ``model`` a layer takes the rank's heads to its
+  positions; where every rank computed K/V whole, it writes its own
+  positions, no communication;
+* decode, sequence split: the step's q is gathered over ``model`` (B x Hq x
+  D); each rank takes, in fp32, the partial softmax of every query head
+  over the positions it holds (row max, sum, weighted V:
+  ``flash_attention.ref.partial_attention``); the partials merge by
+  log-sum-exp over the sequence's axes, and each rank keeps its own heads'
+  rows for the row-parallel ``wo``. The new token's K/V row is written only
+  where slot ``pos % L`` lies (gathered over ``model`` first where the
+  weights split the KV heads). No cache entry moves;
+* decode, heads split or whole: the plain path on the rank's heads.
+
+Collectives come from a ``comm`` object: :class:`MeshCollectives` (the
+functional collectives on a ``DeviceMesh``, which the dry run's counter
+sees), or :class:`Shares` (one process computing one rank's share in turn:
+the sum over ``model`` returns the rank's partial term, for the caller to
+add up; the layouts it serves need no other collective).
+
+Out of this split, gathered whole as before: the RG-LRU and RWKV-6 mixers,
+the MoE experts and router, every norm, and all of training.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+import torch.distributed._functional_collectives as funcol
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models.moe import group_size_for
+from repro_torch.parallel import sharding as shd
+
+# a layer's submodules whose compute splits along ``model``, and the LM's own leaves
+SPLIT_MODULES = ("attn", "mlp")
+SPLIT_LEAVES = ("embed", "unembed")
+
+
+def splits_compute(name: str) -> bool:
+    """Whether a parameter's compute splits along ``model`` in serving:
+    attention's and the dense MLP's weights, the embedding and the head.
+    The RG-LRU, RWKV-6 and MoE weights, and every norm, are gathered whole."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return name in SPLIT_LEAVES
+    return len(parts) == 4 and parts[0] == "layers" and parts[2] in SPLIT_MODULES
+
+
+def _done(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+class MeshCollectives:
+    """Collectives over one axis of a ``DeviceMesh`` at a time. Over an axis
+    of one rank each is the identity, and returns its input."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.sizes = shd.axis_sizes(mesh)
+
+    def _group(self, axis: str):
+        return (self.mesh, self.mesh.mesh_dim_names.index(axis))
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        if self.sizes[axis] == 1:
+            return x
+        return _done(funcol.all_reduce(x, op, self._group(axis)))
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        if self.sizes[axis] == 1:
+            return x
+        return _done(funcol.all_gather_tensor(x.contiguous(), dim, self._group(axis)))
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Equal blocks of dim 0: block j goes to the axis's rank j, and the
+        result's block i came from rank i."""
+        if self.sizes[axis] == 1:
+            return x
+        return _done(funcol.all_to_all_single(x.contiguous(), None, None, self._group(axis)))
+
+
+class Shares:
+    """One rank's share computed alone: the sum over ``model`` is left to the
+    caller, so ``all_reduce`` returns the rank's own term."""
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        if (axis, op) != ("model", "sum"):
+            raise NotImplementedError(f"a share alone has no {op} over {axis}")
+        return x
+
+    def all_gather(self, x, dim, axis):
+        raise NotImplementedError("a share alone gathers nothing: give it a layout "
+                                  "without a sequence-split cache")
+
+    all_to_all = all_gather
+
+
+Comm = Union[MeshCollectives, Shares]
+
+
+def param_shapes(lm: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's global shape (a DTensor's too), by state-dict name."""
+    return {n: tuple(p.shape) for n, p in lm.named_parameters()}
+
+
+def kv_heads(q_lo: int, q_hi: int, n_q: int, n_kv: int) -> Union[slice, List[int]]:
+    """The KV heads query heads ``[q_lo, q_hi)`` read (query head i reads KV
+    head i // (n_q / n_kv)), in the form flash pairs them: a slice where the
+    rank's query heads group evenly onto it, else one KV head per query head."""
+    g = n_q // n_kv
+    lo, hi = q_lo // g, (q_hi - 1) // g + 1
+    n, m = q_hi - q_lo, hi - lo
+    if n % m == 0 and all((q_lo + j) // g - lo == j // (n // m) for j in range(n)):
+        return slice(lo, hi)
+    return [(q_lo + j) // g for j in range(n)]
+
+
+class ModelAxis:
+    """One rank's view of the ``model`` split for one serving call.
+
+    ``shapes``: the served LM's parameters' global shapes by state-dict name
+    (:func:`param_shapes`); ``cache``: its decode cache (global shapes);
+    ``coord``: the rank's mesh coordinate where ``mesh`` is given by axis
+    sizes; ``memo``: a dict kept across one rank's calls (a split depends
+    only on the name and the shape); ``rows``: the mesh axes the batch's rows
+    split over and the global batch (none: the rows are whole)."""
+
+    def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
+                 shapes: Mapping[str, Tuple[int, ...]], cache: Mapping[str, Any], comm: Comm,
+                 coord: Optional[Mapping[str, int]] = None, memo: Optional[Dict] = None,
+                 rows: Tuple[Tuple[str, ...], int] = ((), 0)):
+        self.mesh, self.rules, self.shapes, self.comm = mesh, rules, shapes, comm
+        self.row_axes, self.n_rows = rows
+        self.sizes = shd.axis_sizes(mesh)
+        self.coord = shd.coordinate(mesh, coord)
+        self._layers = cache["layers"]
+        self._memo = {} if memo is None else memo
+
+    def split(self, name: str) -> Optional[shd.Split]:
+        """The model split of parameter ``name`` where its compute splits,
+        else None (also for a name the LM does not have)."""
+        shape = self.shapes.get(name)
+        if shape is None or not splits_compute(name):
+            return None
+        key = (name, shape)
+        if key not in self._memo:
+            leaf = name.rsplit(".", 1)[-1]
+            spec = shd.resolve_spec(self.mesh, self.rules,
+                                    shd.logical_for_leaf(leaf, len(shape)), shape)
+            split = shd.model_split(self.mesh, spec, shape, self.coord)
+            if split is not None and split.axes != ("model",):
+                raise NotImplementedError(f"{name}: spec {spec} splits a dim over "
+                                          f"{split.axes}; only a split over model alone "
+                                          "is served")
+            self._memo[key] = split
+        return self._memo[key]
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model``."""
+        return self.comm.all_reduce(x, "model")
+
+    def layer(self, index: int) -> "LayerAxis":
+        return LayerAxis(self, index)
+
+    def _cache_shape(self, index: int):
+        c = self._layers[index]
+        return tuple(c["k"].shape) if "k" in c else None
+
+    def cache_split(self, index: int, dim: int) -> Optional[shd.Split]:
+        """Dim ``dim`` of layer ``index``'s K/V cache at rest."""
+        shape = self._cache_shape(index)
+        key = ("cache", shape, dim)
+        if key not in self._memo:
+            spec = shd.resolve_spec(self.mesh, self.rules, shd.CACHE_LOGICAL["k"], shape)
+            self._memo[key] = shd.dim_split(self.mesh, spec, dim, shape, self.coord)
+        return self._memo[key]
+
+
+class LayerAxis:
+    """A layer's split: whether attention and the MLP end in a sum over
+    ``model``, the rank's query and KV heads, and its K/V cache's layout."""
+
+    def __init__(self, axis: ModelAxis, index: int):
+        self.axis = axis
+        pre = f"layers.{index}."
+        self.attn_sum = axis.split(pre + "attn.wo") is not None
+        self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
+        self.q = axis.split(pre + "attn.wq")    # the rank's query heads, or None: all
+        self.kv = axis.split(pre + "attn.wk")   # its KV heads, or None: all
+        if axis._cache_shape(index) is None:
+            return
+        self.n_heads = axis.shapes[pre + "attn.wq"][1]
+        self.n_kv_heads = axis.shapes[pre + "attn.wk"][1]
+        self.length = axis._cache_shape(index)[1]
+        self.seq = axis.cache_split(index, 1)    # the positions held, or None: all
+        self.heads = axis.cache_split(index, 2)  # the KV heads held, or None: all
+        seq_axes = () if self.seq is None else self.seq.axes
+        # the kv_heads rule splits the weights and, where the sequence did not
+        # take model, the cache alike; a sequence split over model ends with it
+        if ((self.heads is not None and self.heads[2:] != self.kv[2:])
+                or (self.kv is not None and self.heads is None and "model" not in seq_axes)
+                or ("model" in seq_axes and seq_axes[-1] != "model")):
+            raise NotImplementedError(f"layer {index}: cache heads {self.heads}, sequence "
+                                      f"{self.seq}, weights' KV heads {self.kv}")
+
+    def moe(self, moe, h: torch.Tensor) -> torch.Tensor:
+        """The MoE layer (experts whole on every rank) on this rank's rows
+        [B, S, d], its tokens routed in the global batch's groups, as in one
+        process: where the rows hold whole groups, the global group size; else
+        the rows gathered over the batch axes, the global batch routed, and
+        this rank's rows kept."""
+        axis = self.axis
+        B, S = h.shape[:2]
+        g = group_size_for(axis.n_rows * S) if axis.row_axes else None
+        if g is None or (B * S) % g == 0:
+            return moe(h, **({} if g is None else {"group_size": g}))[0]
+        whole = h
+        for name in reversed(axis.row_axes):  # the innermost axis first: row-major
+            whole = axis.comm.all_gather(whole, 0, name)
+        index = 0
+        for name in axis.row_axes:
+            index = index * axis.sizes[name] + axis.coord[name]
+        return moe(whole)[0][index * B:(index + 1) * B]
+
+    def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):
+        """The KV heads [B, S, h, D] this rank's query heads read: its own
+        where the weights split them, all where its query heads are all, else
+        those of :func:`kv_heads` (the weights replicate K/V, so every rank
+        computed all of them)."""
+        if self.q is None or self.kv is not None:
+            return k, v
+        idx = kv_heads(self.q.lo, self.q.hi, self.n_heads, self.n_kv_heads)
+        return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+
+    def fill_cache(self, cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+        """Prefill: write this rank's block of the cache at rest from its K/V
+        [B, S, h, D] (its KV heads, or all)."""
+        L = self.length
+        lo, hi = (0, L) if self.seq is None else (self.seq.lo, self.seq.hi)
+        for name, t in (("k", k), ("v", v)):
+            local = cache[name]
+            if self.kv is None or self.heads is not None:  # the heads this block holds
+                _write_prompt(local, t, L, lo)
+                continue
+            # the rank's KV heads, a cache of every head over its positions: an
+            # all-to-all over model takes each head block to its positions
+            M, m = self.axis.sizes["model"], self.axis.coord["model"]
+            c = hi - lo
+            first = lo - m * c  # the model group's positions are contiguous
+            send = t.new_empty((t.shape[0], M * c) + tuple(t.shape[2:]))
+            _write_prompt(send, t, L, first)
+            B, _, h, D = send.shape
+            got = self.axis.comm.all_to_all(send.view(B, M, c, h, D).transpose(0, 1), "model")
+            local.copy_(got.permute(1, 2, 0, 3, 4).reshape(B, c, M * h, D))
+
+    def decode_attention(self, q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                         pos: int, cache: Dict[str, torch.Tensor],
+                         softcap: Optional[float]) -> torch.Tensor:
+        """One token's attention [B, 1, h, D] for this rank's query heads,
+        over the cache where it lies, after writing the token's K/V row."""
+        comm, L = self.axis.comm, self.length
+        lo, hi = (0, L) if self.seq is None else (self.seq.lo, self.seq.hi)
+        slot = pos % L
+        rows = torch.stack([k_new[:, 0], v_new[:, 0]])  # [2, B, h, D]
+        if self.kv is not None and self.heads is None:  # the owner holds every head
+            rows = comm.all_gather(rows, 2, "model")
+        if lo <= slot < hi:
+            cache["k"][:, slot - lo] = rows[0]
+            cache["v"][:, slot - lo] = rows[1]
+        n_valid = min(pos + 1, L)
+        if self.seq is None:  # every position is here: the plain path
+            k, v = self.kv_for_queries(cache["k"], cache["v"])
+            kv_len = torch.full((q.shape[0],), n_valid, device=q.device)
+            return fa_ops.attention(q, k, v, causal=False, kv_len=kv_len, softcap=softcap)
+        qa = q  # the queries of every head this block holds
+        if self.q is not None and self.heads is None:
+            qa = comm.all_gather(q, 2, "model")
+        valid = torch.arange(lo, hi, device=q.device) < n_valid
+        m, l, o = fa_ref.partial_attention(qa, cache["k"], cache["v"], valid, softcap)
+        top = m
+        for axis in self.seq.axes:
+            top = comm.all_reduce(top, axis, "max")
+        scale = torch.exp(m - top)
+        lo_sum = torch.cat([l * scale, o * scale], dim=-1)
+        for axis in self.seq.axes:
+            lo_sum = comm.all_reduce(lo_sum, axis)
+        out = fa_ref.merge_partials(lo_sum[..., :1], lo_sum[..., 1:], q.dtype)
+        if qa is not q:
+            out = out[:, :, self.q.lo:self.q.hi]
+        return out
+
+
+def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> None:
+    """Positions ``[first, first + out.shape[1])`` of a length-``L`` cache
+    filled from the prompt's K or V ``t`` [B, S, ...] into ``out``: the prompt
+    then zeros, or, for a prompt longer than the cache (a window's ring), its
+    last L positions with position p at slot p % L (``Attention.prefill``)."""
+    S, n = t.shape[1], out.shape[1]
+    if L >= S:
+        k = max(0, min(first + n, S) - first)
+        out[:, :k].copy_(t[:, first:first + k])
+        out[:, k:].zero_()
+    else:
+        out.copy_(torch.roll(t[:, S - L:], S % L, dims=1)[:, first:first + n])
+
+
+def share(lm: nn.Module, cache: Mapping[str, Any], rank: int, size: int,
+          rules: Optional[Dict[str, shd.MeshAxes]] = None):
+    """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
+    process (whole weights and cache given): (its :class:`ModelAxis` over
+    :class:`Shares`, its block of each parameter by state-dict name, its
+    block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
+    with the cache's sequence whole, so the cache splits its heads as the
+    weights do and no collective but the final sum is needed: each output
+    that ends in a sum over ``model`` is this rank's term of it."""
+    rules = {**(rules or shd.STRATEGIES["fsdp_tp"]()), "seq_cache": None}
+    mesh = {"model": size}
+    axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares(), coord={"model": rank})
+    params = {}
+    for name, p in lm.named_parameters():
+        split = axis.split(name)
+        params[name] = p if split is None else p.narrow(split.dim, split.lo, split.hi - split.lo)
+    layers = []
+    for i, c in enumerate(cache["layers"]):
+        heads = axis.cache_split(i, 2) if "k" in c else None
+        layers.append(c if heads is None else
+                      {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
+    return axis, params, {"layers": layers, "pos": cache["pos"]}

@@ -42,6 +42,7 @@ from repro_torch.launch import dryrun, op_analysis, roofline, shapes as shp, ste
 from repro_torch.launch.mesh import make_mesh_from_devices
 from repro_torch.launch.op_analysis import CollectiveOp, OpCounter
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tp
 
 from test_torch_train import _two_threads  # noqa: F401 (autouse fixture)
 
@@ -245,10 +246,16 @@ def test_counter_on_meta_equals_a_real_cpu_run():
 
 
 def test_all_gather_bytes_on_a_2x2_mesh_are_the_gathered_parameters():
-    """A prefill gathers every sharded weight once (bf16). A weight sharded
-    on one mesh dim is one all-gather whose output is the whole weight; on
-    both dims, two: the first's output is half of it. The cache is not
-    gathered in a prefill (it is overwritten), and nothing else is."""
+    """A prefill gathers every sharded weight once (bf16): a weight whose
+    compute splits along ``model`` (attention, the dense MLP, the embedding
+    and the head) over the other axis only, so its output is the rank's
+    ``model`` block of it (nothing where ``model`` alone shards it); any other
+    weight whole, one all-gather whose output is the whole weight on one
+    sharded mesh dim, two on both (the first's output is half of it). The
+    cache is not gathered (a prefill fills its block where it lies). Besides:
+    the sums over ``model`` (after attention and the MLP in each layer, after
+    the embedding lookup) and, since 2 KV heads split over model while the
+    cache splits its positions, one all-to-all of K and one of V a layer."""
     cfg = ARCHS["internvl2-76b"].reduced()
     cell = shp.ShapeCell("tiny", 32, 4, "prefill")
     with _mesh((2, 2)) as mesh:
@@ -258,11 +265,19 @@ def test_all_gather_bytes_on_a_2x2_mesh_are_the_gathered_parameters():
                                 shp.param_specs_shapes(cfg, torch.bfloat16))
     want = 0
     for name, p in shp.param_specs_shapes(cfg, torch.bfloat16).named_parameters():
-        dims = sum(1 if isinstance(a, str) else len(a) for a in specs[name] if a is not None)
-        want += {0: 0, 1: 1, 2: 1.5}[dims] * p.numel() * 2
-    assert costs["by_kind"] == {"all-gather": want}
+        axes = [a for e in specs[name] if e is not None
+                for a in ((e,) if isinstance(e, str) else e)]
+        if tp.splits_compute(name) and "model" in axes:
+            want += (len(axes) - 1) * p.numel() * 2 / 2
+        else:
+            want += {0: 0, 1: 1, 2: 1.5}[len(axes)] * p.numel() * 2
+    B, S, d = 2, cfg.frontend_seq_len + 32, cfg.d_model  # this rank's rows, the prefix too
+    sums = (2 * cfg.n_layers * B * S * d + B * 32 * d) * 2
+    # the cache (32 slots; the 48 positions fill it as a ring) holds 16 a rank
+    to_all = 2 * cfg.n_layers * B * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    assert costs["by_kind"] == {"all-gather": want, "all-reduce": sums, "all-to-all": to_all}
     # every group of a 4-rank mesh lies on one 8-GPU host
-    assert costs["nvlink"] == want and costs["nic"] == 0
+    assert costs["nvlink"] == want + sums + to_all and costs["nic"] == 0
 
 
 def test_split_by_fabric_on_known_groups():

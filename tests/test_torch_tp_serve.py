@@ -1,0 +1,344 @@
+"""Tensor-parallel serving on the ``model`` axis (``repro_torch.parallel``)
+against the unsplit layer and the JAX reference, on the CPU.
+
+Part (i), one process: for a ``model`` axis of W = 2 and 4, each rank's
+share of a reduced layer goes through the functions the ranks call
+(``Attention.prefill`` / ``decode``, ``MLP``, ``LM._embed`` / ``_logits`` on
+the rank's weight blocks, ``tensor_parallel.share``), and the shares summed
+over the ranks (or, for the head, laid side by side) equal the unsplit
+layer in fp32 to 1e-5: query heads with the KV heads they read (MHA, GQA
+with and without ``n_kv_heads`` dividing W, MQA), the QKV bias, QK-norm, a
+local window with the score softcap, the three MLPs and a ``d_ff`` W does
+not divide (no sum), the vocab-parallel embedding and head, tied and
+untied, with the final softcap, and a vocabulary W does not divide.
+
+Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh and
+strategy, four models each): ``ShardedModel.prefill`` and 12 greedy
+``decode_step`` calls on a (data 2, model 2) mesh under ``fsdp_tp`` and on
+(model 4) under ``tp_only`` and ``serve_2d``, for reduced gemma2-9b,
+internvl2-76b with its prefix, recurrentgemma-9b (attention and MLP split,
+the RG-LRU gathered) and qwen3-moe (attention split, the experts gathered),
+against ``repro.models``' single-process prefill and decode: logits to 2e-4
+in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal.
+
+Part (iii), the dry run's trace: a decode step's collectives do not grow
+with the cache (no cache entry moves), and the counter files the new
+collectives.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.nn.utils.stateless import _reparametrize_module
+
+from repro_torch.configs import ARCHS
+from repro_torch.launch import dryrun, shapes as shp, steps
+from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.models import common
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tp
+
+from _torch_ranks import run_ranks
+from test_torch_launch import _mesh
+from test_torch_models import LOGIT_TOL, _reference, _two_threads  # noqa: F401
+
+SHARE_TOL = 1e-5
+STEPS = 12
+CACHE_LEN = 64
+
+# ---------------------------------------------------------------------------
+# Part (i): each rank's share, one process
+# ---------------------------------------------------------------------------
+
+_BASE = dataclasses.replace(ARCHS["internvl2-76b"].reduced(), n_layers=1, frontend=None,
+                            frontend_seq_len=0)
+
+SHARE_CASES = {
+    "mha": dict(n_heads=4, n_kv_heads=4),
+    "gqa_kv_divides": dict(n_heads=8, n_kv_heads=4),
+    # 2 KV heads: they divide W 2, not W 4 (each rank's query head reads KV head r // 2)
+    "gqa_kv_does_not_divide": dict(n_heads=4, n_kv_heads=2),
+    # 6 KV heads on W 4: a rank's 3 query heads read KV heads (0, 0, 1), (1, 2, 2), ...
+    "gqa_uneven_groups": dict(n_heads=12, n_kv_heads=6),
+    "mqa": dict(n_heads=4, n_kv_heads=1),
+    "qkv_bias": dict(qkv_bias=True),
+    "qk_norm": dict(qk_norm=True),
+    "local_window_softcap": dict(mixer_pattern=("attn_local",), window=8, attn_softcap=5.0,
+                                 mlp_type="geglu", final_softcap=3.0, tie_embeddings=True,
+                                 embed_scale=True, norm_type="rmsnorm"),
+    "gelu_mlp": dict(mlp_type="gelu", norm_type="layernorm"),
+    # 130: divides W 2, not W 4 (whole on every rank, no sum)
+    "d_ff_does_not_divide": dict(d_ff=130),
+    # 510: divides W 2, not W 4 (the lookup and the head whole)
+    "vocab_does_not_divide": dict(vocab_size=510),
+    "tied_head_final_softcap": dict(tie_embeddings=True, final_softcap=3.0),
+}
+
+
+def _seeded_lm(cfg, seed=0):
+    """The LM with every leaf a seeded normal (norm scales, biases and QK-norm
+    too, which the init leaves at zero)."""
+    lm = build_model(cfg, device="cpu").init(seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in lm.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * (0.2 if p.ndim > 1 else 0.1))
+    return lm
+
+
+def _shares(lm, cache, W, run):
+    """``run(rank_lm, axis, rank_cache)`` for each rank, on its weight blocks."""
+    out = []
+    for r in range(W):
+        axis, params, rank_cache = tp.share(lm, cache, r, W)
+        with _reparametrize_module(lm, params):
+            out.append(run(lm, axis, rank_cache))
+    return out
+
+
+def _close(got, want, tol=SHARE_TOL):
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("case", sorted(SHARE_CASES))
+def test_summed_shares_equal_the_unsplit_layer(case, W):
+    cfg = dataclasses.replace(_BASE, **SHARE_CASES[case])
+    lm = _seeded_lm(cfg)
+    block = lm.layers[0]
+    B, S, L = 2, 12, 16
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    x_new = torch.randn(B, 1, cfg.d_model, generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    positions = torch.arange(S)
+    model = build_model(cfg, device="cpu")
+
+    def attention(lm, axis, cache):
+        """The layer's attention over the prompt, then one decode step."""
+        attn, layer = lm.layers[0].attn, None if axis is None else axis.layer(0)
+        h = common.apply_norm(lm.layers[0].norm1, x)
+        c = cache["layers"][0]
+        out = attn.prefill(h, positions, c, layer)
+        step = attn.decode(common.apply_norm(lm.layers[0].norm1, x_new), S, c, layer)
+        return out, step, c, layer
+
+    with torch.no_grad():
+        full_cache = model.init_cache(B, L, torch.float32)
+        want, want_step, want_c, _ = attention(lm, None, full_cache)
+        got = _shares(lm, model.init_cache(B, L, torch.float32), W, attention)
+        layer = got[0][3]
+        n_heads_split = cfg.n_heads % W == 0
+        assert layer.attn_sum == n_heads_split
+        assert (layer.kv is not None) == (cfg.n_kv_heads % W == 0)
+        for i, (out, step) in enumerate(((o, s) for o, s, _, _ in got)):
+            heads = got[i][3].q
+            assert heads == (shd.Split(1, ("model",), i * cfg.n_heads // W,
+                                       (i + 1) * cfg.n_heads // W) if n_heads_split else None)
+            # each rank's cache block holds its KV heads (or all) as filled and stepped
+            c, kv = got[i][2], got[i][3].kv
+            sel = slice(None) if kv is None else slice(kv.lo, kv.hi)
+            _close(c["k"], want_c["k"][:, :, sel])
+            _close(c["v"], want_c["v"][:, :, sel])
+        _close(sum(o for o, _, _, _ in got), want)
+        _close(sum(s for _, s, _, _ in got), want_step)
+
+        h = common.apply_norm(block.norm2, x)
+        want_mlp = block.mlp(h)
+        mlp = _shares(lm, full_cache, W, lambda lm, axis, _: (lm.layers[0].mlp(h),
+                                                              axis.layer(0).mlp_sum))
+        if cfg.d_ff % W == 0:
+            assert all(summed for _, summed in mlp)
+            _close(sum(out for out, _ in mlp), want_mlp)
+        else:  # whole on every rank: no sum
+            for out, summed in mlp:
+                assert not summed
+                _close(out, want_mlp)
+
+        want_embed, want_logits = lm._embed(tokens), lm._logits(x)
+        head = _shares(lm, full_cache, W, lambda lm, axis, _: (
+            lm._embed(tokens, model_axis=axis), lm._logits(x), axis.split("embed")))
+        if cfg.vocab_size % W == 0:
+            assert all(split is not None for _, _, split in head)
+            _close(sum(e for e, _, _ in head), want_embed)
+            _close(torch.cat([lo for _, lo, _ in head], dim=-1), want_logits)
+        else:
+            for e, lo, split in head:
+                assert split is None
+                _close(e, want_embed)
+                _close(lo, want_logits)
+
+
+def test_kv_heads_pair_each_query_head_with_its_group():
+    """Query head i reads KV head i // (Hq / Hkv): a slice where a rank's heads
+    group evenly, else one KV head per query head."""
+    assert tp.kv_heads(0, 4, 64, 8) == slice(0, 1)      # internvl2 at W 16
+    assert tp.kv_heads(60, 64, 64, 8) == slice(7, 8)
+    assert tp.kv_heads(8, 16, 64, 8) == slice(1, 2)     # W 8
+    assert tp.kv_heads(3, 4, 16, 8) == slice(1, 2)      # gemma2 at W 16
+    assert tp.kv_heads(0, 3, 12, 6) == [0, 0, 1]
+    assert tp.kv_heads(0, 8, 8, 2) == slice(0, 2)
+
+
+def test_model_split_reads_the_resolved_spec():
+    """The helper reports a dim the axis does not divide as unsplit, and a
+    dim split over (data, model) by its row-major block."""
+    mesh = {"data": 2, "model": 4}
+    rules = shd.STRATEGIES["fsdp_tp"]()
+    wq = shd.resolve_spec(mesh, rules, ("embed", "heads", "head_dim"), (64, 8, 16))
+    assert shd.model_split(mesh, wq, (64, 8, 16), {"data": 1, "model": 3}) == shd.Split(
+        1, ("model",), 6, 8)
+    wk = shd.resolve_spec(mesh, rules, ("embed", "kv_heads", "head_dim"), (64, 2, 16))
+    assert shd.model_split(mesh, wk, (64, 2, 16), {"data": 0, "model": 1}) is None
+    rules = shd.STRATEGIES["serve_2d"]()
+    k = shd.resolve_spec(mesh, rules, shd.CACHE_LOGICAL["k"], (4, 64, 2, 16))
+    assert shd.model_split(mesh, k, (4, 64, 2, 16), {"data": 1, "model": 2}) == shd.Split(
+        1, ("data", "model"), 48, 56)
+
+
+# ---------------------------------------------------------------------------
+# Part (ii): gloo ranks against the JAX reference
+# ---------------------------------------------------------------------------
+
+MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"]
+MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",)),
+          "serve_2d": ((4,), ("model",))}
+
+_RANKS = """
+from repro_torch.launch.mesh import make_mesh_from_devices
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardedModel
+from repro_torch.weights import from_jax_params
+
+strategy, shape, axes, cases, cache_len, steps = inputs
+mesh = make_mesh_from_devices(range(world), shape, axes, "cpu")
+result = {}
+for name, cfg, np_params, batch in cases:
+    model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES[strategy]())
+    lm = model.shard(from_jax_params(cfg, np_params, device="cpu"))
+    cache = model.init_cache(batch["tokens"].shape[0], cache_len, torch.float32)
+    with torch.no_grad():
+        logits, cache = model.prefill(lm, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                      cache)
+        out = [logits.full_tensor().numpy()]
+        for _ in range(steps):
+            logits, cache = model.decode_step(lm, cache, logits.full_tensor().argmax(-1))
+            out.append(logits.full_tensor().numpy())
+    result[name] = {"logits": out, "pos": cache["pos"],
+                    "placements": [(type(p).__name__, getattr(p, "dim", None))
+                                   for p in logits.placements]}
+"""
+
+
+def _batch(cfg, seed=3):
+    """B 4 x S 40 tokens (past the reduced window of 32), and internvl2's prefix."""
+    rng = np.random.default_rng(seed)
+    B, S = 4, 40 - cfg.frontend_seq_len
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.frontend:
+        batch["prefix_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_seq_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+_JAX = {}
+
+
+def _jax_run(name):
+    """The reference's single-process prefill and 12 greedy decode steps:
+    (logits of each call, greedy tokens)."""
+    if name not in _JAX:
+        jcfg, jmodel, jparams, _, _ = _reference(name)
+        batch = _batch(jcfg)
+        jcache = jmodel.init_cache(batch["tokens"].shape[0], max_len=CACHE_LEN,
+                                   dtype=jnp.float32)
+        logits, jcache = jmodel.prefill(jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+                                        jcache)
+        decode = jax.jit(jmodel.decode_step)
+        out, toks = [np.asarray(logits)], []
+        for _ in range(STEPS):
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            toks.append(np.asarray(tok))
+            logits, jcache = decode(jparams, jcache, tok)
+            out.append(np.asarray(logits))
+        _JAX[name] = (out, toks)
+    return _JAX[name]
+
+
+@pytest.fixture(scope="module", params=sorted(MESHES))
+def ranks(request, tmp_path_factory):
+    strategy = request.param
+    shape, axes = MESHES[strategy]
+    cases = []
+    for name in MODELS:
+        _, _, _, np_params, _ = _reference(name)
+        cfg = ARCHS[name].reduced()
+        cases.append((name, cfg, np_params, _batch(cfg)))
+    return strategy, run_ranks(_RANKS, 4, tmp_path_factory.mktemp(strategy),
+                               inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS),
+                               timeout=120)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_sharded_prefill_and_greedy_decode_equal_the_reference(ranks, name):
+    strategy, results = ranks
+    want, want_tokens = _jax_run(name)
+    cfg = ARCHS[name].reduced()
+    for res in results:
+        got = res[name]
+        assert got["pos"] == 40 + STEPS and len(got["logits"]) == STEPS + 1
+        # the vocabulary splits over model (512 divides 2 and 4), the last mesh axis
+        assert got["placements"][-1] == ("Shard", 2)
+        for i, (lo, w) in enumerate(zip(got["logits"], want)):
+            assert lo.shape == (4, 1, cfg.vocab_size)
+            np.testing.assert_allclose(lo, w, atol=LOGIT_TOL, rtol=LOGIT_TOL,
+                                       err_msg=f"{strategy} {name} call {i}")
+        tokens = [lo.argmax(-1) for lo in got["logits"][:-1]]
+        for t, w in zip(tokens, want_tokens):
+            np.testing.assert_array_equal(t, w)
+    for res in results[1:]:  # every rank sees the same global logits
+        for a, b in zip(res[name]["logits"], results[0][name]["logits"]):
+            np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Part (iii): what the dry run's trace sees
+# ---------------------------------------------------------------------------
+
+def _decode_costs(cfg, strategy, cache_len, mesh_shape=(2, 2)):
+    cell = shp.ShapeCell("tiny", cache_len, 4, "decode")
+    with _mesh(mesh_shape) as mesh:
+        step = steps.build_serve_step(cfg, cell, mesh, strategy)
+        return dryrun.trace(step)
+
+
+@pytest.mark.parametrize("strategy", ["fsdp_tp", "serve_2d"])
+def test_a_decode_step_moves_no_cache_entry(strategy):
+    """Collective bytes do not depend on the cache's length: a step moves the
+    new token's K/V row at most, never a cache entry."""
+    cfg = ARCHS["internvl2-76b"].reduced()
+    short, long = (_decode_costs(cfg, strategy, n) for n in (64, 256))
+    assert short["by_kind"] == long["by_kind"] and short["n_collectives"] > 0
+    assert set(short["by_kind"]) == {"all-gather", "all-reduce"}
+
+
+def test_prefill_counts_the_all_to_all_and_the_sums():
+    """With KV heads split over model and the cache over the sequence, each
+    attention layer's prefill is one all-to-all of K and one of V over model;
+    each layer sums attention and the MLP, and the lookup is summed once."""
+    cfg = ARCHS["internvl2-76b"].reduced()  # 2 KV heads on a model axis of 2
+    cell = shp.ShapeCell("tiny", 32, 4, "prefill")
+    with _mesh((2, 2)) as mesh:
+        step = steps.build_prefill_step(cfg, cell, mesh)
+        counter = OpCounter()
+        with counter:
+            step()
+    kinds = [op.kind for op in counter.collectives]
+    assert kinds.count("all-to-all") == 2 * cfg.n_layers
+    assert kinds.count("all-reduce") == 2 * cfg.n_layers + 1
