@@ -23,7 +23,12 @@ calls, and fails (exit code not 0, no result line) on any miss:
               bf16 a and an fp32 b (the training backward's call) at the
               training shape, timed; the WKV6 decode step also as a CUDA
               graph of 20 steps (its device time without the wrapper's host
-              time);
+              time); flash at one rank's shapes of a tensor-parallel training
+              step (internvl2-76b at 8 and 16 model ranks: 8/1 and 4/1 heads,
+              D 128, B 1 x S 2560): the forward kernel, the backward it trains
+              with (the plain fp32 recompute) checked against the plain
+              twin's and timed, forward plus backward beside SDPA
+              ``is_causal``'s, each with its bound;
   4. serve    ``repro_torch.launch.serve.main`` on recurrentgemma-9b at full
               width (38 layers, bf16, random seeded weights): 4 requests with
               prompts of 2304-2560 tokens, longer than the 2048 window, 16
@@ -91,6 +96,22 @@ calls, and fails (exit code not 0, no result line) on any miss:
               layer's own error against fp32 beside it. Phase 3 times flash
               at the per-rank shapes (8/1 and 4/1 heads at D 128, 1/1 at D
               256);
+ 8h. tp_train tensor-parallel training on the ``model`` axis, in this one
+              process: (c) internvl2-76b at full width, 1 layer, bf16 over
+              fp32 masters, remat "nothing", B 1 x (256 + 2048), 3 AdamW
+              steps through ``train_loop`` unsharded, then the same seeded
+              weights and batches through ``ShardedModel`` on a 1-rank NCCL
+              mesh (the split path, every split whole), one after the other
+              (about 47 GB each): losses within 1e-5, 2 tensor-core flash
+              launches a step (the forward and the group's recompute), step
+              ms of both; (a) each rank's training share of one full-width
+              internvl2-76b layer at 8 and 16 ranks and a gemma2-9b layer at
+              16 (its 8 KV heads read in part), each with its embedding, head
+              and vocab-parallel cross-entropy, B 1 x S 2560, the sums over
+              ``model`` applied here and one backward: the loss and the
+              layer's output within 1e-4 of the unsplit layer's largest and
+              each gradient within 2e-3 of its leaf's largest in fp32, 5e-2
+              in bf16 with the unsplit bf16 layer's own error beside it;
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -440,6 +461,77 @@ def tp_flash_cases():
                        2e-2, timed=True, graph=True)]
 
 
+TP_TRAIN_FLASH_CASES = ("internvl2-76b training at 8 model ranks",
+                        "internvl2-76b training at 16 model ranks")
+TP_TRAIN_FLASH_KEYS = ("case", "shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                       "library_graph_ms", "bound_ms", "bound_by", "max_abs_err", "bwd_ms",
+                       "bwd_rel_err", "bwd_bound_ms", "bwd_bound_by", "fwd_bwd_ms",
+                       "library_fwd_bwd_ms", "fwd_bwd_bound_ms", "fwd_bwd_bound_by",
+                       "train_ms_runs")
+
+
+def flash_train_case(name, B, S, Hq, Hkv, D):
+    """One rank's flash call in a tensor-parallel training step (causal, bf16):
+    ``flash_case``'s forward (the kernel against its plain twin, timed beside
+    SDPA ``is_causal``), then the backward the port trains with
+    (``ops._FlashAttention``: the plain fp32 recompute and its VJP) checked
+    against the plain twin's VJP and timed, and forward plus backward beside
+    SDPA's, each with its bound (the backward's 5 products to the forward's
+    2: 2.5 times its operations)."""
+    rec = flash_case(name, B, S, Hq, Hkv, D, None, None, torch.bfloat16, 2e-2, timed=True,
+                     graph=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(S + Hkv)  # flash_case's inputs
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(B, S, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = fa_ops.attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(fa_ref.attention_plain(qp, kp, vp, causal=True), (qp, kp, vp),
+                               dout)
+    rec["bwd_rel_err"] = max(rel_err(a, b) for a, b in zip(grads, want))
+    del grads, want, qp, kp, vp
+    need(rec["bwd_rel_err"] <= 2e-2, f"flash {name}: backward {rec['bwd_rel_err']}")
+    bwd = lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)  # noqa: E731
+
+    def fwd_bwd():
+        torch.autograd.grad(fa_ops.attention(q, k, v, causal=True), (q, k, v), dout)
+
+    qh, kh, vh = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dh = dout.transpose(1, 2)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=Hq != Hkv)
+        torch.autograd.grad(o, (qh, kh, vh), dh)
+
+    # in turns, twice: backward, forward plus backward, SDPA's
+    runs = [[cuda_ms(fn, iters=10, warmup=2) for fn in (bwd, fwd_bwd, lib_fwd_bwd)]
+            for _ in range(2)]
+    rec["train_ms_runs"] = runs
+    rec["bwd_ms"], rec["fwd_bwd_ms"], rec["library_fwd_bwd_ms"] = (
+        sum(r[i] for r in runs) / len(runs) for i in range(3))
+    fwd_ops = 4 * D * fa_ops.visible_pairs(S, S, True, None) * B * Hq
+    # bytes: q, k, v and dout read, dq, dk, dv written (and out, forward too)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(2 * nbytes(q, k, v) + nbytes(dout),
+                                                     2.5 * fwd_ops, torch.bfloat16)
+    rec["fwd_bwd_bound_ms"], rec["fwd_bwd_bound_by"] = bound(
+        2 * nbytes(q, k, v) + nbytes(out, dout), 3.5 * fwd_ops, torch.bfloat16)
+    print("kernel_time flash_attention_training", json.dumps(
+        {key: rec[key] for key in TP_TRAIN_FLASH_KEYS}), flush=True)
+    return rec
+
+
+def tp_train_flash_cases():
+    """Flash at one rank's shapes in a tensor-parallel training step of
+    internvl2-76b (64/8 heads, D 128) at 8 and 16 model ranks: 8/1 and 4/1
+    heads, B 1 x S 2560."""
+    return [flash_train_case(TP_TRAIN_FLASH_CASES[0], 1, TP_S, 8, 1, 128),
+            flash_train_case(TP_TRAIN_FLASH_CASES[1], 1, TP_S, 4, 1, 128)]
+
+
 def kernel_phase():
     flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
                        torch.bfloat16, 2e-2, timed=True, previous=True)
@@ -455,7 +547,7 @@ def kernel_phase():
         # internvl2-76b's prefill: 256 prefix rows + 2304 prompt tokens, 64/8 heads
         flash_case("internvl2-76b prefill", VLM_B, VLM_P + VLM_S, 64, 8, 128, None, None,
                    torch.bfloat16, 2e-2, timed=True, graph=True),
-    ] + tp_flash_cases()
+    ] + tp_flash_cases() + tp_train_flash_cases()
     # whisper-medium's three attentions (head_dim 64, 16/16 heads, B 4, 1500
     # frames, 448 tokens), the tensor-core kernel timed beside the CUDA-core one
     whisper = [
@@ -473,7 +565,7 @@ def kernel_phase():
         flash_case("bf16 at head_dim 32", 2, 300, 8, 2, 32, None, None,
                    torch.bfloat16, 2e-2, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 12
+    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 14
          and [c["kernel"] for c in simt_checks] == ["simt"] * 2,
          "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
@@ -1379,6 +1471,197 @@ def tp_serve_phase(vlm, state):
     return rec
 
 
+# B 1 x (256 prefix rows + 2048 tokens), 3 AdamW steps (lr 3e-4, wd 0.1), as
+# dryrun_check's train step; the sharded losses within 1e-5 of train_loop's
+TP_TRAIN_S, TP_TRAIN_STEPS, TP_TRAIN_LOSS_RTOL = 2048, 3, 1e-5
+# shares: each output within 1e-4 of the unsplit layer's largest (fp32), each
+# gradient within 2e-3 of its leaf's largest (train_check's tolerance); bf16 5e-2
+TP_TRAIN_GRAD_TOL = 2e-3
+
+
+def tp_train_shares(cfg, ranks):
+    """(a) one full-width layer of ``cfg`` with its embedding, head and
+    cross-entropy, fp32 then the same weights in bf16, B 1 x S 2560: for each
+    W in ``ranks`` every rank's training share in turn (its weight blocks,
+    ``tensor_parallel.share``), the sums over ``model`` applied here (the
+    lookups' and row-parallel terms added, the cross-entropy's terms merged
+    by ``Shares.merge_xent``; each column-parallel input fed to every rank,
+    so autograd adds its gradient's terms), one backward; the loss, the
+    layer's output and every gradient against the unsplit layer's. In bf16
+    twice: the W terms of each sum added in bf16, one rounding an addition,
+    as a bf16 all-reduce over ``model`` adds them; then added in fp32 and
+    rounded to bf16 once. The phase holds the second to the bf16 tolerance
+    and records the first beside it, with its worst leaf."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    block = lm.layers[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TP_S), generator=g, device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (1, TP_S), generator=g, device="cuda")
+    positions = torch.arange(TP_S, device="cuda")
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        lm.to(dtype).requires_grad_(True)
+        names, params = zip(*lm.named_parameters())
+        reset_counts()
+        x, _ = block(lm._embed(tokens), positions)
+        loss = common.softmax_xent(lm._logits(x), labels)
+        grads = torch.autograd.grad(loss, params)
+        want_launches = counts()
+        want = {"loss": loss.detach(), "layer": x.detach(),
+                **{n: gr for n, gr in zip(names, grads)}}
+        del x, loss, grads
+        if unsplit32 is None:
+            unsplit32 = want
+        for W, fp32_terms in [(W, f) for W in ranks
+                              for f in ((False,) if dtype == torch.float32 else (False, True))]:
+            shares = [tp.share(lm, None, r, W) for r in range(W)]
+
+            def each(fn, given=None):
+                """fn(axis, input) for every rank's share; ``given``, an input
+                every rank reads, reaches it through a cast from fp32 where
+                the terms add in fp32, so autograd adds its gradient's terms
+                there."""
+                src = given.float() if fp32_terms and given is not None else given
+                out = []
+                for axis, blocks, _ in shares:
+                    with _reparametrize_module(lm, blocks):
+                        out.append(fn(axis, None if src is None else src.to(dtype)))
+                return out
+
+            def add(terms):
+                return (sum(t.float() for t in terms).to(dtype) if fp32_terms
+                        else sum(terms))
+
+            reset_counts()
+            x = add(each(lambda axis, _: lm._embed(tokens, model_axis=axis)))
+            x = x + add(each(lambda axis, h: block.attn(h, positions, axis=axis.layer(0)),
+                             common.apply_norm(block.norm1, x)))
+            x = x + add(each(lambda axis, h: block.mlp(h), common.apply_norm(block.norm2, x)))
+            lse, gold = tp.Shares.merge_xent(
+                each(lambda axis, h: axis.xent_terms(lm._logits(h, axis), labels), x))
+            loss = common.masked_mean(lse - gold)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            launches = counts()
+            layer = shares[0][0].layer(0)
+            need(layer.attn_sum and layer.mlp_sum and shares[0][0].head is not None,
+                 f"{cfg.name} at {W}: no split")
+            got = {"loss": loss.detach(), "layer": x.detach(),
+                   **{n: gr for n, gr in zip(names, grads)}}
+            del x, loss, grads, lse, gold
+            err = {k: rel_err(got[k], want[k]) for k in want}
+            outputs = ("loss", "layer")
+            worst = max((k for k in err if k not in outputs), key=err.get)
+            tol = (TP_FP32_TOL, TP_TRAIN_GRAD_TOL) if dtype == torch.float32 else \
+                (TP_BF16_TOL, TP_BF16_TOL)
+            rec = {"case": f"{cfg.name} layer ({cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                           f"{cfg.mlp_type}), {cfg.vocab_size}-way head and cross-entropy",
+                   "model_ranks": W, "dtype": str(dtype)[6:], "B": 1, "S": TP_S,
+                   "terms_added_in": "float32" if fp32_terms else str(dtype)[6:],
+                   "rank_heads": rank_heads(layer, cfg),
+                   "summed_gradients": sorted(n for n in names
+                                              if shares[0][0].sums_gradient(n)),
+                   "rel_err": {k: err[k] for k in outputs}, "worst_leaf": worst,
+                   "worst_leaf_rel_err": err[worst], "leaves": len(names),
+                   "tol": {"outputs": tol[0], "gradients": tol[1]},
+                   "launches_shares": launches, "launches_unsplit": want_launches}
+            if dtype == torch.bfloat16:
+                for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                    e = {k: rel_err(side[k], unsplit32[k]) for k in unsplit32}
+                    leaf = max((k for k in e if k not in outputs), key=e.get)
+                    rec[tag] = {**{k: e[k] for k in outputs}, "worst_leaf": e[leaf],
+                                "worst_leaf_name": leaf}
+            print("tp_train_shares", json.dumps(rec), flush=True)
+            kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[
+                fa_ops.kernel_for(dtype, cfg.head_dim)]
+            need(launches == launch_counts(**{kernel: W}),
+                 f"tp train shares {cfg.name} at {W} ({dtype}): launches {launches}")
+            need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                 f"tp train shares {cfg.name} at {W}: non-finite")
+            gated = dtype == torch.float32 or fp32_terms
+            need(max(err[k] for k in outputs) <= tol[0] and (err[worst] <= tol[1] or not gated),
+                 f"tp train shares {cfg.name} at {W} ({dtype}, terms in "
+                 f"{rec['terms_added_in']}): {rec['rel_err']}, {worst} {err[worst]}")
+            recs.append(rec)
+            del shares, got
+        del want
+    del lm, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def tp_train_path():
+    """(c) internvl2-76b at full width, 1 layer, bf16 over fp32 masters, remat
+    "nothing", B 1 x (256 + 2048): ``train_loop`` unsharded, then the same
+    seeded weights and batches through ``ShardedModel`` on a 1-rank NCCL mesh
+    (the split path with every split whole), one after the other (each holds
+    about 47 GB: 2.96B parameters, their gradients and both moments in fp32);
+    the losses, step ms under CUDA events and the flash launches a step (the
+    forward and the group's recompute: 2)."""
+    cfg = vlm_cfg(1)
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+                         total_steps=TP_TRAIN_STEPS, warmup_steps=1, remat_policy="nothing",
+                         compute_dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TP_TRAIN_S, 1, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    batches = [{**data.batch(i), "prefix_embeds": rng.standard_normal(
+        (1, VLM_P, cfg.d_model)).astype(np.float32)} for i in range(TP_TRAIN_STEPS)]
+
+    def train(model, lm):
+        events = []
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        lm, state, hist = train_loop(model, lm, timed_batches(batches, events), run,
+                                     log_every=1)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(end)
+        return {"losses": [h["loss"] for h in hist], "launches": counts(),
+                "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    model = build_model(cfg)
+    lm = model.init(SEED, torch.float32)
+    n_params = sum(p.numel() for p in lm.parameters())
+    unsharded = train(model, lm)
+    del lm
+    torch.cuda.empty_cache()
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        lm = model.init(SEED, torch.float32)
+        sharded = train(model, lm)
+        del lm
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"], unsharded["losses"])]
+    per_step = launch_counts(flash_wgmma=2)
+    rec = {"arch": cfg.name, "layers": 1, "params": n_params, "batch": 1, "prefix_rows": VLM_P,
+           "seq": TP_TRAIN_S, "steps": TP_TRAIN_STEPS, "compute_dtype": "bfloat16",
+           "master_dtype": "float32", "remat_policy": "nothing",
+           "mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp", "unsharded": unsharded,
+           "sharded": sharded, "loss_max_rel_err": max(rel), "loss_tol": TP_TRAIN_LOSS_RTOL,
+           "launches_per_step_expected": per_step,
+           "step_ms_median_warm": {k: float(np.median(r["step_ms"][1:]))
+                                   for k, r in (("unsharded", unsharded),
+                                                ("sharded", sharded))}}
+    print("tp_train_path", json.dumps(rec), flush=True)
+    want = {k: v * TP_TRAIN_STEPS for k, v in per_step.items()}
+    need(unsharded["launches"] == want and sharded["launches"] == want,
+         f"tp train launches {unsharded['launches']}, {sharded['launches']}; expected {want}")
+    need(all(np.isfinite(sharded["losses"])) and max(rel) <= TP_TRAIN_LOSS_RTOL,
+         f"tp train: sharded losses {sharded['losses']} against {unsharded['losses']}")
+    return rec
+
+
+def tp_train_phase():
+    gemma2 = get_config("gemma2-9b")
+    rec = {"path": tp_train_path()}
+    rec["shares"] = tp_train_shares(vlm_cfg(1), (8, 16)) + tp_train_shares(gemma2, (16,))
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phases 9-11: training
 # ---------------------------------------------------------------------------
@@ -2204,6 +2487,7 @@ def main():
     # fp32 over 2 full-width layers and a 128256-way head; the loss and
     # gradients with train_check's tolerances
     vlm_check = phase("vlm_check", vlm_check_phase, 2e-3, 1e-4, 2e-3)
+    tp_train = phase("tp_train", tp_train_phase)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -2268,7 +2552,15 @@ def main():
                           "flash_attention_wgmma"],
                       launches_tp_shares_bf16=[r["launches_shares"]["flash_attention_wgmma"]
                                                for r in tp_serve["shares"]
-                                               if r["dtype"] == "bfloat16"]),
+                                               if r["dtype"] == "bfloat16"],
+                      tp_train_per_rank=[{key: c[key] for key in TP_TRAIN_FLASH_KEYS}
+                                         for c in flash_checks
+                                         if c["case"] in TP_TRAIN_FLASH_CASES],
+                      launches_tp_train_3_steps=tp_train["path"]["sharded"]["launches"][
+                          "flash_attention_wgmma"],
+                      launches_tp_train_shares_bf16=[
+                          r["launches_shares"]["flash_attention_wgmma"]
+                          for r in tp_train["shares"] if r["terms_added_in"] == "bfloat16"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -2286,7 +2578,10 @@ def main():
                       launches_vlm_check=vlm_check["launches"]["prefill"]["flash_attention"],
                       launches_tp_shares_fp32=[r["launches_shares"]["flash_attention"]
                                                for r in tp_serve["shares"]
-                                               if r["dtype"] == "float32"]),
+                                               if r["dtype"] == "float32"],
+                      launches_tp_train_shares_fp32=[r["launches_shares"]["flash_attention"]
+                                                     for r in tp_train["shares"]
+                                                     if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
@@ -2310,7 +2605,7 @@ def main():
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
-               "tp_serve": tp_serve,
+               "tp_serve": tp_serve, "tp_train": tp_train,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -48,7 +48,8 @@ def mha_reference(
     q_offset: int = 0,
     kv_len: Optional[torch.Tensor] = None,  # [B] or [1] valid KV lengths
 ) -> torch.Tensor:
-    """Grouped-query attention in fp32, O(S^2). Returns [B, S_q, H_q, D]."""
+    """Grouped-query attention in fp32 (fp64 inputs in fp64), O(S^2). Returns
+    [B, S_q, H_q, D]."""
     B, S_q, H_q, D = q.shape
     _, S_k, H_kv, _ = k.shape
     if H_q % H_kv:
@@ -56,8 +57,9 @@ def mha_reference(
     group = H_q // H_kv
     scale = 1.0 / math.sqrt(D)
     # GQA as a grouped einsum: K/V are never broadcast to the q-head width.
-    qf = (q.float() * scale).reshape(B, S_q, H_kv, group, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    up = torch.promote_types(q.dtype, torch.float32)
+    qf = (q.to(up) * scale).reshape(B, S_q, H_kv, group, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(up))
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     mask = attention_mask(S_q, S_k, causal, window, q_offset, q.device)
@@ -67,7 +69,7 @@ def mha_reference(
         mask = mask & valid[:, None, None, None, :]
     scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(up))
     return out.reshape(B, S_q, H_q, D).to(q.dtype)
 
 

@@ -14,11 +14,15 @@ card), or on real ones:
   write and collectives move nothing here;
 * collectives: every ``_c10d_functional`` op (all-gather, all-reduce,
   reduce-scatter, all-to-all), its bytes and its group's ranks: DTensor's
-  weight gathers and redistributions, and the tensor-parallel serving
-  path's own (``parallel/tensor_parallel.py``: the sums over ``model``, the
-  decode step's q gather and log-sum-exp merge, the prefill's all-to-all of
-  K and V). Bytes follow the reference's convention: the output for
-  all-gather and all-to-all, the operand for the others;
+  weight gathers and redistributions (among them a training step's sums
+  over ``model`` of the gradients of weights read in part), and the
+  tensor-parallel path's own (``parallel/tensor_parallel.py``: the sums
+  over ``model`` after the row-parallel products and the lookup, and in a
+  backward before the column-parallel ones, the vocab-parallel
+  cross-entropy's max and sum, the decode step's q gather and log-sum-exp
+  merge, the prefill's all-to-all of K and V). Bytes follow the reference's
+  convention: the output for all-gather and all-to-all, the operand for the
+  others;
 * memory: every storage alive at each op boundary, rounded up to the CUDA
   caching allocator's 512 bytes, and the peak split by category
   (:meth:`OpCounter.peak_by_category`).

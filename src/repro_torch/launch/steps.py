@@ -10,15 +10,15 @@ mesh.
 
 What the port shards is what ``parallel/fsdp.py`` shards: parameters,
 AdamW's moments and decode caches at rest by the strategy's rules, the batch
-by its ``batch`` rule; every rank computes its own rows. The prefill and
-decode steps split the compute along ``model``
-(``parallel/tensor_parallel.py``: attention by heads, the dense MLP by
-``d_ff``, the embedding and the head by vocabulary, decode attention over
-the cache where it lies); the train step computes on gathered weights (each
-rank along ``model`` repeats the others' work: tensor-parallel training is a
-later item, ROADMAP.md). The encoder-decoder is not sharded
-(``ShardedModel`` refuses it): its steps run the whole global batch on one
-rank, and the Step says so.
+by its ``batch`` rule; every rank computes its own rows. Every step splits
+the compute along ``model`` (``parallel/tensor_parallel.py``): attention by
+query heads, the dense MLP by ``d_ff``, the embedding and the head by
+vocabulary; the train step with the vocab-parallel cross-entropy and the
+gradient sums over ``model`` of its backward, the decode step with
+attention over the cache where it lies. The RG-LRU, RWKV-6 and MoE layers
+still compute whole on every rank along ``model`` (ROADMAP.md). The
+encoder-decoder is not sharded (``ShardedModel`` refuses it): its steps run
+the whole global batch on one rank, and the Step says so.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ Counterpart of ``repro/launch/train.py``:
 Flow: (1) model the device pool as a cluster (hosts of 8), (2) dispatch k
 devices through the requested policy (BandPilot = surrogate + hybrid
 search), (3) build the mesh over the *chosen, ordered* devices, (4) train
-with the parameters and AdamW moments laid out by the FSDP x TP rules
-(``parallel/fsdp.py``), with checkpointing and the deterministic data
-pipeline.
+with the parameters and AdamW moments laid out by the FSDP x TP rules and
+the compute split along ``model`` (``parallel/fsdp.py``), with
+checkpointing and the deterministic data pipeline.
 
 A device is a ``torch.distributed`` rank. ``--devices N`` (the reference's
 forced XLA device count) spawns N gloo ranks on the CPU and needs

@@ -114,14 +114,19 @@ class Attention(nn.Module):
         return o.reshape(B, S, h * hd) @ self.wo.reshape(h * hd, -1)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor],
-                memory: Optional[torch.Tensor] = None, causal: bool = True
-                ) -> torch.Tensor:
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
+                axis=None) -> torch.Tensor:
         """Attention over the full sequence, no cache: self-attention
         (causal unless ``causal=False``), or with ``memory`` [B, S_m, d] the
-        cross-attention, non-causal and without a window."""
+        cross-attention, non-causal and without a window. ``axis``: the
+        layer's ``tensor_parallel.LayerAxis`` in sharded training (the weights
+        are this rank's heads, flash reads the KV heads they read, and the
+        output is its term of the sum over ``model``)."""
         if self.cross != (memory is not None):
             raise ValueError("memory is given to the cross-attention, and only to it")
         q, k, v = self._qkv(x, positions, memory)
+        if axis is not None:
+            k, v = axis.kv_for_queries(k, v)
         if self.cross:
             causal = False
         out = fa_ops.attention(q, k, v, causal=causal,

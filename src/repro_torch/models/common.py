@@ -116,14 +116,24 @@ def softmax_xent(logits: torch.Tensor,  # [B, S, V]
                  labels: torch.Tensor,  # [B, S] integer
                  mask: Optional[torch.Tensor] = None,  # [B, S]
                  ) -> torch.Tensor:
-    """Mean cross-entropy in fp32; with ``mask``, the masked mean over
-    max(sum(mask), 1). The gold logit is a gather: the reference's one-hot
-    contraction is a sharding device and computes the same value."""
-    logits32 = logits.float()
+    """Mean cross-entropy in fp32 (fp64 logits stay fp64); with ``mask``, the
+    masked mean over max(sum(mask), 1). The gold logit is a gather: the
+    reference's one-hot contraction is a sharding device and computes the
+    same value."""
+    logits32 = at_least_fp32(logits)
     logz = torch.logsumexp(logits32, dim=-1)
     gold = logits32.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return masked_mean(logz - gold, mask)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or fp64 where it is fp64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of ``nll`` [B, S]; with ``mask``, over max(sum(mask), 1)."""
     if mask is not None:
-        mask = mask.float()
+        mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()

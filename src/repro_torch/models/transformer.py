@@ -45,7 +45,7 @@ Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, t
 # (layer index, the layer's cache) -> a context giving the dict the layer
 # reads and writes (the sharded path's rows, written back on exit)
 LayerCache = Callable[[int, Dict[str, torch.Tensor]], Any]
-ModelAxis = Any  # parallel.tensor_parallel.ModelAxis: sharded serving's model split
+ModelAxis = Any  # parallel.tensor_parallel.ModelAxis: the sharded model split
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -125,26 +125,30 @@ class Block(nn.Module):
         cache["cm_shift"].copy_(cm_shift)
         return h
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, axis=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full sequence, no cache (``apply_block``): (x, MoE aux term), the
-        aux term an fp32 scalar, 0 without experts."""
+        aux term an fp32 scalar, 0 without experts. ``axis``: the layer's
+        ``tensor_parallel.LayerAxis`` in sharded training, which splits the
+        attention and the dense MLP along ``model`` and routes the MoE's
+        tokens in the global batch's groups (``LayerAxis.moe``)."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru(h)
         elif self.mixer == "rwkv":
             h, _, _ = self.tm(h)
         else:
-            h = self.attn(h, positions)
+            h = _split_in(h, axis, "attn_sum")
+            h = _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
         x = x + h
         h = common.apply_norm(self.norm2, x)
         aux = x.new_zeros((), dtype=torch.float32)
         if self.mixer == "rwkv":
             h = self.cm(h)[0]
         elif hasattr(self, "moe"):
-            h, aux = self.moe(h)
+            h, aux = self.moe(h) if axis is None else axis.moe(self.moe, h, with_aux=True)
         else:
-            h = self.mlp(h)
+            h = _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
         return x + h, aux
 
     def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
@@ -178,7 +182,13 @@ class Block(nn.Module):
 def _summed(h: torch.Tensor, axis, which: str) -> torch.Tensor:
     """A row-parallel product's output, summed over ``model`` where the
     layer's contracted dim was split (``LayerAxis.attn_sum`` / ``mlp_sum``)."""
-    return axis.axis.all_reduce(h) if axis is not None and getattr(axis, which) else h
+    return axis.axis.from_split(h) if axis is not None and getattr(axis, which) else h
+
+
+def _split_in(h: torch.Tensor, axis, which: str) -> torch.Tensor:
+    """A column-parallel product's input where the layer splits: its gradient
+    is summed over ``model`` (``ModelAxis.to_split``)."""
+    return axis.axis.to_split(h) if axis is not None and getattr(axis, which) else h
 
 
 class LM(nn.Module):
@@ -219,17 +229,20 @@ class LM(nn.Module):
         else:
             inside = (tokens >= split.lo) & (tokens < split.hi)
             rows = self.embed[torch.where(inside, tokens - split.lo, 0)]
-            x = model_axis.all_reduce(torch.where(inside[..., None], rows, 0))
+            x = model_axis.from_split(torch.where(inside[..., None], rows, 0))
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The head; where sharded serving splits the vocabulary, the head's
+    def _logits(self, x: torch.Tensor, model_axis: Optional[ModelAxis] = None
+                ) -> torch.Tensor:
+        """The head; where ``model_axis`` splits the vocabulary, the head's
         weight is this rank's vocab block and so are the logits."""
         x = common.apply_norm(self.final_norm, x)
+        if model_axis is not None and model_axis.head is not None:
+            x = model_axis.to_split(x)
         if self.cfg.tie_embeddings:
             logits = x @ self.embed.T
         else:
@@ -241,7 +254,8 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, remat_policy: Optional[str] = "nothing",
                 materialize: Optional[Materialize] = None,
-                prefix_embeds: Optional[torch.Tensor] = None
+                prefix_embeds: Optional[torch.Tensor] = None,
+                model_axis: Optional[ModelAxis] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training / scoring forward (``lm_forward``): (logits [B, P+S, V],
         the MoE aux term summed over the groups, then the tail).
@@ -251,8 +265,9 @@ class LM(nn.Module):
         reference. ``materialize(name, tensor)``, where given, replaces each
         layer parameter just before its layer runs (inside a rematerialized
         group, so again in the recompute); the sharded trainer gathers the
-        group's weights there."""
-        x = self._embed(tokens, prefix_embeds)
+        group's weights there. ``model_axis`` as in ``prefill``: the logits
+        are then this rank's vocab block where the head splits."""
+        x = self._embed(tokens, prefix_embeds, model_axis)
         positions = torch.arange(x.shape[1], device=x.device)
         p = len(self.cfg.mixer_pattern)
         n_groups, _ = self.cfg.n_groups_and_tail()
@@ -262,14 +277,14 @@ class LM(nn.Module):
             group = range(g * p, (g + 1) * p)
             if remat:
                 x, a = _remat_group(self.layers, group, x, positions, remat_policy,
-                                    materialize)
+                                    materialize, model_axis)
             else:
-                x, a = _run_group(self.layers, group, x, positions, materialize)
+                x, a = _run_group(self.layers, group, x, positions, materialize, model_axis)
             aux = aux + a
         for i in range(n_groups * p, len(self.layers)):
-            x, a = _run_layer(self.layers, i, x, positions, materialize)
+            x, a = _run_layer(self.layers, i, x, positions, materialize, model_axis)
             aux = aux + a
-        return self._logits(x), aux
+        return self._logits(x, model_axis), aux
 
     def prefill(self, tokens: torch.Tensor, cache: Cache,
                 prefix_embeds: Optional[torch.Tensor] = None,
@@ -292,7 +307,7 @@ class LM(nn.Module):
                 x = _run_method(self.layers, i, "prefill", materialize, x, positions, c,
                                 _layer_axis(model_axis, i))
         cache["pos"] = S
-        return self._logits(x[:, -1:])
+        return self._logits(x[:, -1:], model_axis)
 
     def decode_step(self, tokens: torch.Tensor, cache: Cache,
                     materialize: Optional[Materialize] = None,
@@ -307,7 +322,7 @@ class LM(nn.Module):
                 x = _run_method(self.layers, i, "decode", materialize, x, pos, c,
                                 _layer_axis(model_axis, i))
         cache["pos"] = pos + 1
-        return self._logits(x)
+        return self._logits(x, model_axis)
 
 
 def _layer_axis(model_axis: Optional[ModelAxis], index: int):
@@ -358,43 +373,47 @@ def _remat_context(policy: str):
 
 
 def _call_layer(layer: Block, index: int, params: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor, materialize: Optional[Materialize]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                positions: torch.Tensor, materialize: Optional[Materialize],
+                model_axis: Optional[ModelAxis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     if materialize is not None:
         params = {n: materialize(f"layers.{index}.{n}", t) for n, t in params.items()}
-    return functional_call(layer, params, (x, positions))
+    return functional_call(layer, params, (x, positions, _layer_axis(model_axis, index)))
 
 
 def _run_layer(layers: nn.ModuleList, index: int, x: torch.Tensor, positions: torch.Tensor,
-               materialize: Optional[Materialize]) -> Tuple[torch.Tensor, torch.Tensor]:
+               materialize: Optional[Materialize], model_axis: Optional[ModelAxis] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     layer = layers[index]
     if materialize is None:
-        return layer(x, positions)
-    return _call_layer(layer, index, dict(layer.named_parameters()), x, positions, materialize)
+        return layer(x, positions, _layer_axis(model_axis, index))
+    return _call_layer(layer, index, dict(layer.named_parameters()), x, positions, materialize,
+                       model_axis)
 
 
 def _run_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
-               positions: torch.Tensor, materialize: Optional[Materialize]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, materialize: Optional[Materialize],
+               model_axis: Optional[ModelAxis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers ``group`` over x: (x, the group's aux terms summed in order)."""
     aux = x.new_zeros((), dtype=torch.float32)
     for i in group:
-        x, a = _run_layer(layers, i, x, positions, materialize)
+        x, a = _run_layer(layers, i, x, positions, materialize, model_axis)
         aux = aux + a
     return x, aux
 
 
 def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
                  positions: torch.Tensor, policy: str,
-                 materialize: Optional[Materialize] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 materialize: Optional[Materialize] = None,
+                 model_axis: Optional[ModelAxis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_run_group`` under ``torch.utils.checkpoint``: (x, aux) both come
     out of the checkpoint, so every policy trains the router.
 
     The layers' parameters go in as explicit inputs: the backward's recompute
     then sees the same tensors as the forward, also when ``lm_loss`` swapped
     in cast copies that are gone by then. ``materialize`` runs inside, so the
-    recompute materializes the weights again."""
+    recompute materializes the weights again; under ``model_axis`` it also
+    issues the forward's sums over ``model`` again, in the same order on
+    every rank."""
     names = [[n for n, _ in layers[i].named_parameters()] for i in group]
     flat = [t for i in group for _, t in layers[i].named_parameters()]
 
@@ -403,7 +422,7 @@ def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
         aux = x.new_zeros((), dtype=torch.float32)
         for i, ns in zip(group, names):
             params = dict(zip(ns, tensors[k:k + len(ns)]))
-            x, a = _call_layer(layers[i], i, params, x, positions, materialize)
+            x, a = _call_layer(layers[i], i, params, x, positions, materialize, model_axis)
             aux = aux + a
             k += len(ns)
         return x, aux
@@ -416,7 +435,8 @@ MOE_AUX_WEIGHT = 0.01
 
 def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "nothing",
             compute_dtype: Optional[torch.dtype] = None,
-            materialize: Optional[Materialize] = None
+            materialize: Optional[Materialize] = None,
+            model_axis: Optional[ModelAxis] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens [B,S], labels [B,S], optional mask and prefix_embeds
     [B,P,d] -> (loss, metrics); the loss is over the token positions only.
@@ -425,9 +445,15 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     function (``functional_call`` on cast copies), so the gradients reach the
     master parameters through the cast. ``materialize(name, tensor)``
     replaces each parameter before that cast: the embedding, final norm and
-    head at the start, a layer's just before it runs (``LM.forward``)."""
+    head at the start, a layer's just before it runs (``LM.forward``).
+    ``model_axis`` (``parallel/tensor_parallel.py``), where given, splits the
+    embedding, attention, the dense MLP and the head along ``model``, as in
+    ``LM.prefill``; where the head splits, the cross-entropy is the
+    vocab-parallel one (``ModelAxis.xent``) on this rank's logits block."""
     tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
     kw = {"remat_policy": remat_policy, "prefix_embeds": prefix}
+    if model_axis is not None:
+        kw["model_axis"] = model_axis
 
     def prepare(name: str, p: torch.Tensor) -> torch.Tensor:
         if materialize is not None:
@@ -447,6 +473,9 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
         logits, aux = functional_call(lm, params, (tokens,), kw)
     if prefix is not None:  # the loss is over the token positions only
         logits = logits[:, prefix.shape[1]:]
-    xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    if model_axis is not None and model_axis.head is not None:
+        xent = model_axis.xent(logits, batch["labels"], batch.get("mask"))
+    else:
+        xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
     loss = xent + MOE_AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}

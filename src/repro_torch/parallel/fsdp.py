@@ -1,68 +1,79 @@
-"""Sharded training: parameters and AdamW moments as DTensors, laid out by
-the logical-axis rule tables on a ``DeviceMesh``; compute on gathered weights.
+"""Sharded training and serving: parameters and AdamW moments as DTensors,
+laid out by the logical-axis rule tables on a ``DeviceMesh``; the compute
+split along ``model`` (``parallel/tensor_parallel.py``).
 
 Counterpart of the reference's pjit step (``repro/launch/train.py``: params
 ``device_put`` to ``param_shardings``, the step jitted under the mesh) and of
 ``make_train_step(..., grad_shardings=...)``. :func:`shard_module` turns
 every parameter of an LM into a DTensor ``Parameter`` with the placements of
 ``sharding.param_specs``; ``train_loop.make_train_step`` over a
-:class:`ShardedModel` then trains it:
+:class:`ShardedModel` then trains it as GSPMD splits the reference's step:
 
 * the batch is split along its first dim by the ``batch`` rule's axes
   (``sharding.batch_specs``); each rank takes its rows;
-* each weight is gathered whole just before use (:class:`_Gather`): the
+* the model axis splits the compute: attention by query heads, the dense
+  MLP by ``d_ff``, the embedding and the head by vocabulary, with a sum over
+  ``model`` after each row-parallel product and the lookup, a sum of the
+  gradient over ``model`` before each column-parallel one, and the
+  vocab-parallel cross-entropy on the rank's logits block;
+* each weight is materialized just before use (:class:`_Gather`): the
   embedding, final norm and head at the start of the forward, a layer
-  group's inside the group, so again in remat's recompute (FSDP). The flash
-  and scan kernels see ordinary tensors: DTensor's sharding propagation
-  cannot see through the ctypes-bound kernels;
+  group's inside the group, so again in remat's recompute. A weight whose
+  compute splits keeps its ``model`` block and is gathered over the other
+  axes only; every other weight is gathered whole (FSDP). The flash and scan
+  kernels see ordinary tensors: DTensor's sharding propagation cannot see
+  through the ctypes-bound kernels;
 * a weight's gradient is summed over the ranks that saw other rows of the
   batch (the batch axes) and brought back to the weight's placement -- a
   reduce-scatter where the weight is sharded on those axes, an all-reduce
-  where it is replicated on them, a local slice along the other axes. Ranks
-  along ``model`` saw the same rows: their gradients are equal, not summed
-  again. ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the
-  reduced gradient through bf16, as the reference's step states it: a
-  round trip of each rank's gradient before the reduction was tried and
-  parts from the single process's round trip by up to 6.5e-5 in the loss
-  after 6 steps (recurrentgemma-9b reduced, 4 ranks), as Adam turns the
-  rounding of small gradients into whole steps;
+  where it is replicated on them, a local slice along the other axes. A
+  split weight's block gradient is the rank's own. A weight that ``model``
+  replicates but the rank reads only in part (``ModelAxis.sums_gradient``:
+  K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales) has
+  its gradient summed over ``model`` too; every other replicated weight
+  (the norms, the RG-LRU, RWKV-6 and MoE leaves) is computed whole and
+  equal on every rank along ``model``, and not summed.
+  ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the reduced
+  gradient through bf16, as the reference's step states it: a round trip
+  of each rank's gradient before the reduction was tried and parts from the
+  single process's round trip by up to 6.5e-5 in the loss after 6 steps
+  (recurrentgemma-9b reduced, 4 ranks), as Adam turns the rounding of small
+  gradients into whole steps;
 * the loss is averaged over the global batch: each rank's mean is weighted
-  by its share of the tokens and summed over the batch axes;
+  by its share of the tokens and summed over the batch axes (ranks along
+  ``model`` hold the same loss);
 * AdamW updates the DTensors in place; its moments are DTensors with the
-  parameters' placements (ZeRO), and the clip's norm is the global one.
+  parameters' placements (ZeRO), and the clip's norm is the global one,
+  each block counted once.
 
 Sharded serving (the reference's ``build_prefill_step`` and
 ``build_serve_step``): :meth:`ShardedModel.prefill` and
 :meth:`ShardedModel.decode_step` take the global batch, each rank computes
-its own rows, and the model axis splits the compute
-(``parallel/tensor_parallel.py``): attention by heads, the dense MLP by
-``d_ff``, the embedding and the head by vocabulary, each rank's weights its
-``model`` block gathered over the other axes only, a sum over ``model``
-after each row-parallel product. The decode cache
-(:meth:`ShardedModel.init_cache`) is a structure of DTensors laid out by
-``sharding.cache_shardings``; an attention layer reads and writes its K/V
-where they lie (a prefill fills its block, a decode step merges partial
-softmaxes over the sequence's axes), and an RG-LRU or RWKV-6 layer's state,
-whose compute stays gathered, is brought to this rank's rows, whole along
-the other dims (gathered in decode, fresh in a prefill, which overwrites
-every entry) and written back to its layout at rest (a local slice).
-Logits come back as a DTensor: rows on the batch axes, the vocabulary on
-``model`` where it splits.
+its own rows, and the model axis splits the compute as in training, each
+rank's weights its ``model`` block gathered over the other axes only. The
+decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
+laid out by ``sharding.cache_shardings``; an attention layer reads and
+writes its K/V where they lie (a prefill fills its block, a decode step
+merges partial softmaxes over the sequence's axes), and an RG-LRU or RWKV-6
+layer's state, whose compute stays gathered, is brought to this rank's
+rows, whole along the other dims (gathered in decode, fresh in a prefill,
+which overwrites every entry) and written back to its layout at rest (a
+local slice). Logits come back as a DTensor: rows on the batch axes, the
+vocabulary on ``model`` where it splits.
 
-Not yet (ROADMAP.md): tensor-parallel training (the loss gathers every
-weight whole: each rank along ``model`` computes the same rows), the
-RG-LRU ``rnn`` and RWKV-6 head splits, expert parallelism, ``serve_2d``'s
+Not yet (ROADMAP.md): sequence parallelism (the ``seq`` rule of the
+residual stream and the batch's ``seq`` entry, ``shard_activation``'s
+``act_*`` rules, ``REPRO_SP_GATHER``, ``REPRO_CAST_BARRIER``), the RG-LRU
+``rnn`` and RWKV-6 head splits, expert parallelism, ``serve_2d``'s
 weight-stationary decode (partial sums over ``data`` in place of the
-``embed`` gather), the ``act_*`` and ``seq`` rules of
-``shard_activation``, ``REPRO_SP_GATHER`` and ``REPRO_CAST_BARRIER``; the
-batch's ``seq`` entry (sequence parallelism) is not applied.
+``embed`` gather).
 """
 
 from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -114,21 +125,29 @@ def _reduce_placements(mesh: DeviceMesh, axes: Tuple[str, ...]) -> Tuple[Placeme
 
 
 class _Gather(torch.autograd.Function):
-    """A DTensor's local block -> the whole tensor (all-gather). Backward:
-    the whole gradient, a sum pending over the batch axes, redistributed to
-    the block's placement."""
+    """A DTensor's local block -> the tensor laid out by ``keep`` (the whole
+    tensor, or its ``model`` block gathered over the other axes). Backward:
+    the gradient laid out by ``back`` (``keep`` with a sum pending over the
+    batch axes, and over ``model`` for a weight read in part), redistributed
+    to the block's placement."""
 
     @staticmethod
-    def forward(ctx, local, mesh, placements, shape, stride, reduce):
-        ctx.mesh, ctx.placements, ctx.reduce = mesh, placements, reduce
+    def forward(ctx, local, mesh, placements, shape, stride, keep, back):
+        ctx.mesh, ctx.placements, ctx.back = mesh, placements, back
+        ctx.shape, ctx.stride = shape, stride
+        if keep == placements:
+            return local.view_as(local)
         return DTensor.from_local(local.detach(), mesh, placements, run_check=False,
-                                  shape=shape, stride=stride).full_tensor()
+                                  shape=shape, stride=stride).redistribute(mesh, keep).to_local()
 
     @staticmethod
     def backward(ctx, grad):
-        pending = DTensor.from_local(grad.contiguous(), ctx.mesh, ctx.reduce, run_check=False)
+        if ctx.back == ctx.placements:
+            return grad, None, None, None, None, None, None
+        pending = DTensor.from_local(grad.contiguous(), ctx.mesh, ctx.back, run_check=False,
+                                     shape=ctx.shape, stride=ctx.stride)
         local = pending.redistribute(ctx.mesh, ctx.placements).to_local()
-        return local, None, None, None, None, None
+        return local, None, None, None, None, None, None
 
 
 class _SumOverBatch(torch.autograd.Function):
@@ -181,19 +200,35 @@ class ShardedModel:
         return {k: distribute_tensor(v, self.mesh, place, src_data_rank=None).to_local()
                 for k, v in batch.items()}, axes
 
-    def _gather(self, reduce):
-        """Training's ``materialize`` hook: a DTensor parameter's whole tensor."""
-        def gather(name: str, p: torch.Tensor) -> torch.Tensor:
+    def _weights(self, axis: tp.ModelAxis, row_axes: Tuple[str, ...]):
+        """The ``materialize`` hook of training (and, with no gradient, of
+        serving): a weight whose compute splits along ``model`` keeps its
+        ``model`` block and is gathered over the other axes; every other
+        weight is gathered whole. Its gradient comes back summed
+        over the batch axes, and over ``model`` where ``axis.sums_gradient``.
+        A mesh dim of one rank holds the whole dim: nothing moves over it."""
+        names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
+
+        def weight(name: str, p: DTensor) -> torch.Tensor:
+            split = axis.split(name) is not None
+            keep = tuple(pl if size == 1 or (split and n == "model") else Replicate()
+                         for pl, n, size in zip(p.placements, names, sizes))
+            sums = axis.sums_gradient(name)
+            back = tuple(Partial() if size > 1 and (n in row_axes or (sums and n == "model"))
+                         else k for n, k, size in zip(names, keep, sizes))
             return _Gather.apply(p.to_local(), self.mesh, p.placements, p.shape, p.stride(),
-                                 reduce)
-        return gather
+                                 keep, back)
+
+        return weight
 
     def loss(self, lm: LM, batch: Dict[str, Any], **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``."""
         local, axes = self.local_batch(batch)
         reduce = _reduce_placements(self.mesh, axes)
-        loss, metrics = lm_loss(lm, local, materialize=self._gather(reduce), **kw)
+        axis = self.model_axis(lm, None, axes, batch["tokens"].shape[0])
+        loss, metrics = lm_loss(lm, local, materialize=self._weights(axis, axes),
+                                model_axis=axis, **kw)
         mask = local.get("mask")
         n_local = (mask.float().sum() if mask is not None
                    else torch.tensor(float(local["tokens"].numel()), device=loss.device))
@@ -242,26 +277,11 @@ class ShardedModel:
 
         return hook
 
-    def _serve_weights(self, axis: tp.ModelAxis):
-        """The serving ``materialize`` hook: a weight whose compute splits
-        along ``model`` (``axis.split``) keeps its ``model`` block and is
-        gathered over the other axes; every other weight is gathered whole."""
-        names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
-
-        def weight(name: str, p: DTensor) -> torch.Tensor:
-            split = axis.split(name) is not None
-            keep = tuple(pl if split and n == "model" else Replicate()
-                         for pl, n in zip(p.placements, names))
-            if all(a == b or size == 1 for a, b, size in zip(p.placements, keep, sizes)):
-                return p.to_local()  # nothing to gather: a mesh dim of one rank holds it all
-            return p.redistribute(self.mesh, keep).to_local()
-
-        return weight
-
-    def model_axis(self, lm: LM, cache: Cache, row_axes: Tuple[str, ...], n_rows: int
-                   ) -> tp.ModelAxis:
+    def model_axis(self, lm: LM, cache: Optional[Cache], row_axes: Tuple[str, ...],
+                   n_rows: int) -> tp.ModelAxis:
         """This rank's view of the ``model`` split for serving ``lm`` over
-        ``cache``, the global batch's ``n_rows`` rows split over ``row_axes``."""
+        ``cache`` (training: None), the global batch's ``n_rows`` rows split
+        over ``row_axes``."""
         shapes = self._shapes.get(lm)
         if shapes is None:
             shapes = self._shapes[lm] = tp.param_shapes(lm)
@@ -274,7 +294,7 @@ class ShardedModel:
         local, axes = self.local_batch(batch)
         rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
         axis = self.model_axis(lm, cache, axes, batch["tokens"].shape[0])
-        weight = self._serve_weights(axis)
+        weight = self._weights(axis, ())  # under no_grad: the gather alone
         outer = {n: weight(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
         hooks = {"materialize": weight, "model_axis": axis,
                  "layer_cache": self._layer_cache(rows, local["tokens"].shape[0], gather_cache)}
@@ -283,8 +303,7 @@ class ShardedModel:
                 logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
             else:
                 logits = lm.decode_step(local["tokens"], cache, **hooks)
-        head = axis.split("unembed" if "unembed" in outer else "embed")
-        if head is not None:  # this rank's vocab block
+        if axis.head is not None:  # this rank's vocab block
             names = self.mesh.mesh_dim_names
             rows = tuple(Shard(logits.ndim - 1) if n == "model" else r
                          for n, r in zip(names, rows))

@@ -1,26 +1,43 @@
-"""Tensor-parallel serving on the ``model`` axis: one rank's share of
-attention, the dense MLP, the embedding and the vocab head.
+"""Tensor-parallel compute on the ``model`` axis: one rank's share of
+attention, the dense MLP, the embedding and the vocab head, in serving and
+in training.
 
-What GSPMD does to the reference's ``build_prefill_step`` and
-``build_serve_step`` under the strategies' ``heads``, ``kv_heads``, ``ff``,
-``vocab`` and ``seq_cache`` rules (``repro/parallel/sharding.py``), written
-out: every weight and cache keeps its layout at rest, and the compute
-follows it. A :class:`ModelAxis` is one rank's view of the split; the model
-code takes it as its ``model_axis`` hook (None in one process) and asks it
+What GSPMD does to the reference's ``build_prefill_step``,
+``build_serve_step`` and ``train_step`` under the strategies' ``heads``,
+``kv_heads``, ``ff``, ``vocab`` and ``seq_cache`` rules
+(``repro/parallel/sharding.py``), written out: every weight and cache keeps
+its layout at rest, and the compute follows it. A :class:`ModelAxis` is one
+rank's view of the split; the model code takes it as its ``model_axis``
+hook (None in one process) and asks it
 
 * ``split(name)``: the model split of a parameter (``sharding.model_split``
   on its resolved spec) where its compute splits (:func:`splits_compute`):
   the rank's query heads of ``wq``/``bq``/``wo``, its KV heads where
   ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its vocab rows;
-* ``all_reduce(x)``: the sum over ``model`` after a row-parallel product
+* ``from_split(x)``: the sum over ``model`` after a row-parallel product
   (attention's ``wo``, the MLP's ``w_down``) and after the vocab-parallel
-  lookup. A layer sums only where the contracted dim was split
-  (:class:`LayerAxis` ``attn_sum``, ``mlp_sum``): a weight the axis does not
-  divide is whole on every rank, and a sum would multiply it by the axis;
+  lookup; its backward passes the gradient through. A layer sums only where
+  the contracted dim was split (:class:`LayerAxis` ``attn_sum``,
+  ``mlp_sum``): a weight the axis does not divide is whole on every rank,
+  and a sum would multiply it by the axis;
+* ``to_split(x)``: the column-parallel input (after ``norm1``, ``norm2`` and
+  ``final_norm`` where the layer or the head splits): the identity, whose
+  backward sums the gradient over ``model``, so the norm's input gradient,
+  and its scale's, are whole and equal on every rank;
+* ``sums_gradient(name)``: whether a weight the axis replicates is read in
+  part by the rank (``wk``/``wv``/``bk``/``bv`` where ``n_kv_heads`` does not
+  divide the axis, QK-norm's scales: the rank's query heads read some of
+  them), so its gradient is a partial term to be summed over ``model``;
+  every other replicated weight is computed whole and equal on every rank;
+* ``xent(logits, labels, mask)``: the vocab-parallel cross-entropy on the
+  rank's [B, S, V/M] logits block: the row max over ``model`` (no
+  gradient), the sum of ``exp`` over ``model``, the label's logit from the
+  rank that holds it; the [B, S, V] logits are never whole;
 * ``layer(i)``: the attention layer's :class:`LayerAxis` -- the KV heads its
   query heads read, the prefill's cache fill and decode attention over the
   cache where it lies; and the MoE layer's routing groups, those of the
-  global batch as in one process (``LayerAxis.moe``).
+  global batch as in one process, and in training its aux term, the global
+  batch's (``LayerAxis.moe``).
 
 The cache's K/V [B, L, Hkv, D] at rest (``sharding.cache_shardings``) splits
 its sequence over the ``seq_cache`` axes (``model``, or ``data`` and
@@ -44,11 +61,14 @@ its sequence over the ``seq_cache`` axes (``model``, or ``data`` and
 Collectives come from a ``comm`` object: :class:`MeshCollectives` (the
 functional collectives on a ``DeviceMesh``, which the dry run's counter
 sees), or :class:`Shares` (one process computing one rank's share in turn:
-the sum over ``model`` returns the rank's partial term, for the caller to
-add up; the layouts it serves need no other collective).
+each reduction over ``model``, forward or backward, returns the rank's own
+term, for the caller to combine -- a caller that feeds every rank's share
+the same input and adds their outputs has autograd sum the input's
+gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms).
 
-Out of this split, gathered whole as before: the RG-LRU and RWKV-6 mixers,
-the MoE experts and router, every norm, and all of training.
+Out of this split, gathered whole on every rank: the RG-LRU and RWKV-6
+mixers, the MoE experts and router (their gradients equal on every rank
+along ``model``, not summed), and every norm.
 """
 
 from __future__ import annotations
@@ -62,6 +82,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models import common
 from repro_torch.models.moe import group_size_for
 from repro_torch.parallel import sharding as shd
 
@@ -71,8 +92,8 @@ SPLIT_LEAVES = ("embed", "unembed")
 
 
 def splits_compute(name: str) -> bool:
-    """Whether a parameter's compute splits along ``model`` in serving:
-    attention's and the dense MLP's weights, the embedding and the head.
+    """Whether a parameter's compute splits along ``model``: attention's and
+    the dense MLP's weights, the embedding and the head.
     The RG-LRU, RWKV-6 and MoE weights, and every norm, are gathered whole."""
     parts = name.split(".")
     if len(parts) == 1:
@@ -115,13 +136,23 @@ class MeshCollectives:
 
 
 class Shares:
-    """One rank's share computed alone: the sum over ``model`` is left to the
-    caller, so ``all_reduce`` returns the rank's own term."""
+    """One rank's share computed alone: a reduction over ``model`` (a sum, or
+    the cross-entropy's max) is left to the caller, so ``all_reduce``
+    returns the rank's own term, forward and backward."""
 
     def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
-        if (axis, op) != ("model", "sum"):
+        if axis != "model" or op not in ("sum", "max"):
             raise NotImplementedError(f"a share alone has no {op} over {axis}")
         return x
+
+    @staticmethod
+    def merge_xent(terms: List[Tuple[torch.Tensor, torch.Tensor]]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every rank's :meth:`ModelAxis.xent_terms` (the log-sum-exp of its
+        own logits block, its own label logit) -> the terms over ``model``, as
+        the mesh's reductions give them to every rank."""
+        lse = torch.logsumexp(torch.stack([t[0] for t in terms]), 0)
+        return lse, sum(gold for _, gold in terms)
 
     def all_gather(self, x, dim, axis):
         raise NotImplementedError("a share alone gathers nothing: give it a layout "
@@ -131,6 +162,95 @@ class Shares:
 
 
 Comm = Union[MeshCollectives, Shares]
+
+
+class _ToSplit(torch.autograd.Function):
+    """Into the split: the identity; backward, the gradient summed over
+    ``model`` (each rank's term comes from its own heads, columns or rows)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_reduce(grad, "model"), None
+
+
+class _LogSumExp(torch.autograd.Function):
+    """The log-sum-exp [B, S] over ``model`` of the rank's fp32 logits block
+    [B, S, V/M]: ``max + log(sum(exp(logits - max)))``, the max and the sum
+    taken over ``model`` (the max without a gradient). Backward: the
+    gradient times ``exp(logits - lse)`` on the rank's block, no
+    communication; both sides are ``torch.logsumexp``'s own formulas, so a
+    one-rank axis computes it bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, comm):
+        m = comm.all_reduce(logits.amax(-1), "model", "max")
+        s = comm.all_reduce(torch.exp(logits - m[..., None]).sum(-1), "model")
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+class _FromSplit(torch.autograd.Function):
+    """Out of the split: the sum over ``model``; backward, the gradient passed
+    through to each rank's term."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        out = comm.all_reduce(x, "model")
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _sum_over(x: torch.Tensor, comm: Comm, axes: Tuple[str, ...]) -> torch.Tensor:
+    for name in axes:
+        x = comm.all_reduce(x, name)
+    return x
+
+
+class _SumAndUse(torch.autograd.Function):
+    """The sum over the batch axes of a term every rank then uses in its own
+    loss; backward, the gradient summed over them too."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        out = _sum_over(x, comm, axes)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.comm, ctx.axes), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows [B, ...] gathered over the batch axes, in row-major order of the
+    axes (this rank's block is block ``index``); backward, the gradient
+    summed over them (every rank's loss read every row) and this rank's rows
+    kept."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes, index):
+        ctx.comm, ctx.axes, ctx.rows = comm, axes, slice(index * len(x), (index + 1) * len(x))
+        for name in reversed(axes):  # the innermost axis first: row-major
+            x = comm.all_gather(x, 0, name)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.comm, ctx.axes)[ctx.rows], None, None, None
 
 
 def param_shapes(lm: nn.Module) -> Dict[str, Tuple[int, ...]]:
@@ -151,25 +271,29 @@ def kv_heads(q_lo: int, q_hi: int, n_q: int, n_kv: int) -> Union[slice, List[int
 
 
 class ModelAxis:
-    """One rank's view of the ``model`` split for one serving call.
+    """One rank's view of the ``model`` split for one serving call or one
+    training loss.
 
-    ``shapes``: the served LM's parameters' global shapes by state-dict name
-    (:func:`param_shapes`); ``cache``: its decode cache (global shapes);
+    ``shapes``: the LM's parameters' global shapes by state-dict name
+    (:func:`param_shapes`); ``cache``: its decode cache (global shapes; None
+    in training);
     ``coord``: the rank's mesh coordinate where ``mesh`` is given by axis
     sizes; ``memo``: a dict kept across one rank's calls (a split depends
     only on the name and the shape); ``rows``: the mesh axes the batch's rows
     split over and the global batch (none: the rows are whole)."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
-                 shapes: Mapping[str, Tuple[int, ...]], cache: Mapping[str, Any], comm: Comm,
+                 shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
+                 comm: Comm,
                  coord: Optional[Mapping[str, int]] = None, memo: Optional[Dict] = None,
                  rows: Tuple[Tuple[str, ...], int] = ((), 0)):
         self.mesh, self.rules, self.shapes, self.comm = mesh, rules, shapes, comm
         self.row_axes, self.n_rows = rows
         self.sizes = shd.axis_sizes(mesh)
         self.coord = shd.coordinate(mesh, coord)
-        self._layers = cache["layers"]
+        self._layers = None if cache is None else cache["layers"]
         self._memo = {} if memo is None else memo
+        self.head = self.split("unembed" if "unembed" in shapes else "embed")
 
     def split(self, name: str) -> Optional[shd.Split]:
         """The model split of parameter ``name`` where its compute splits,
@@ -190,14 +314,55 @@ class ModelAxis:
             self._memo[key] = split
         return self._memo[key]
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over ``model``."""
-        return self.comm.all_reduce(x, "model")
+    def from_split(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model``; its backward passes the gradient through."""
+        return _FromSplit.apply(x, self.comm)
+
+    def to_split(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; its backward sums the gradient over ``model``."""
+        return _ToSplit.apply(x, self.comm)
+
+    def sums_gradient(self, name: str) -> bool:
+        """Whether parameter ``name`` is replicated over ``model`` (its
+        resolved spec does not split it) and yet read in part by this rank,
+        because its module's compute splits: its gradient is then this rank's
+        term of a sum over ``model``."""
+        if not splits_compute(name) or self.split(name) is not None:
+            return False
+        parts = name.split(".")
+        if len(parts) == 1:  # the embedding and the head split with the vocabulary
+            return False
+        layer = self.layer(int(parts[1]))
+        return layer.attn_sum if parts[2] == "attn" else layer.mlp_sum
+
+    def xent_terms(self, logits: torch.Tensor, labels: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The vocab-parallel cross-entropy's terms [B, S] on this rank's
+        logits block [B, S, V/M] (the head's split, after the final softcap),
+        in fp32 (fp64 stays fp64): the log-sum-exp over ``model`` (the row max over ``model``,
+        the sum of ``exp`` over ``model``: :class:`_LogSumExp`) and the label's
+        logit, a masked gather on each rank summed over ``model`` (only its
+        owner's is not 0). Under :class:`Shares`, the rank's own terms."""
+        split = self.head
+        logits = common.at_least_fp32(logits)
+        labels = labels.long()
+        inside = (labels >= split.lo) & (labels < split.hi)
+        gold = logits.gather(-1, torch.where(inside, labels - split.lo, 0)[..., None])[..., 0]
+        return _LogSumExp.apply(logits, self.comm), self.from_split(torch.where(inside, gold, 0.0))
+
+    def xent(self, logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``common.softmax_xent`` on this rank's logits block: the masked mean
+        of ``log-sum-exp - label logit`` (:meth:`xent_terms`)."""
+        lse, gold = self.xent_terms(logits, labels)
+        return common.masked_mean(lse - gold, mask)
 
     def layer(self, index: int) -> "LayerAxis":
         return LayerAxis(self, index)
 
     def _cache_shape(self, index: int):
+        if self._layers is None:
+            return None
         c = self._layers[index]
         return tuple(c["k"].shape) if "k" in c else None
 
@@ -222,10 +387,11 @@ class LayerAxis:
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
         self.q = axis.split(pre + "attn.wq")    # the rank's query heads, or None: all
         self.kv = axis.split(pre + "attn.wk")   # its KV heads, or None: all
+        if pre + "attn.wq" in axis.shapes:
+            self.n_heads = axis.shapes[pre + "attn.wq"][1]
+            self.n_kv_heads = axis.shapes[pre + "attn.wk"][1]
         if axis._cache_shape(index) is None:
             return
-        self.n_heads = axis.shapes[pre + "attn.wq"][1]
-        self.n_kv_heads = axis.shapes[pre + "attn.wk"][1]
         self.length = axis._cache_shape(index)[1]
         self.seq = axis.cache_split(index, 1)    # the positions held, or None: all
         self.heads = axis.cache_split(index, 2)  # the KV heads held, or None: all
@@ -238,24 +404,28 @@ class LayerAxis:
             raise NotImplementedError(f"layer {index}: cache heads {self.heads}, sequence "
                                       f"{self.seq}, weights' KV heads {self.kv}")
 
-    def moe(self, moe, h: torch.Tensor) -> torch.Tensor:
+    def moe(self, moe, h: torch.Tensor, with_aux: bool = False):
         """The MoE layer (experts whole on every rank) on this rank's rows
         [B, S, d], its tokens routed in the global batch's groups, as in one
-        process: where the rows hold whole groups, the global group size; else
-        the rows gathered over the batch axes, the global batch routed, and
-        this rank's rows kept."""
+        process: where the rows hold whole groups, the global group size;
+        else the rows gathered over the batch axes, the global batch routed,
+        and this rank's rows kept. ``with_aux`` (training): (out, the
+        global batch's aux term, as every rank along the batch axes holds
+        it); else out."""
         axis = self.axis
         B, S = h.shape[:2]
         g = group_size_for(axis.n_rows * S) if axis.row_axes else None
         if g is None or (B * S) % g == 0:
-            return moe(h, **({} if g is None else {"group_size": g}))[0]
-        whole = h
-        for name in reversed(axis.row_axes):  # the innermost axis first: row-major
-            whole = axis.comm.all_gather(whole, 0, name)
+            out, aux = moe(h, **({} if g is None else {"group_size": g}))
+            if with_aux and axis.row_axes:  # the mean over every rank's groups
+                aux = _SumAndUse.apply(aux * (B / axis.n_rows), axis.comm, axis.row_axes)
+            return (out, aux) if with_aux else out
         index = 0
         for name in axis.row_axes:
             index = index * axis.sizes[name] + axis.coord[name]
-        return moe(whole)[0][index * B:(index + 1) * B]
+        out, aux = moe(_GatherRows.apply(h, axis.comm, axis.row_axes, index))
+        out = out[index * B:(index + 1) * B]
+        return (out, aux) if with_aux else out
 
     def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):
         """The KV heads [B, S, h, D] this rank's query heads read: its own
@@ -340,15 +510,17 @@ def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> Non
         out.copy_(torch.roll(t[:, S - L:], S % L, dims=1)[:, first:first + n])
 
 
-def share(lm: nn.Module, cache: Mapping[str, Any], rank: int, size: int,
+def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: int,
           rules: Optional[Dict[str, shd.MeshAxes]] = None):
     """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
-    process (whole weights and cache given): (its :class:`ModelAxis` over
-    :class:`Shares`, its block of each parameter by state-dict name, its
+    process (whole weights and cache given; no cache in training): (its
+    :class:`ModelAxis` over :class:`Shares`, its block of each parameter by
+    state-dict name -- a view, so a gradient reaches the whole weight --, its
     block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
     with the cache's sequence whole, so the cache splits its heads as the
-    weights do and no collective but the final sum is needed: each output
-    that ends in a sum over ``model`` is this rank's term of it."""
+    weights do and no collective but the final sums is needed: each output
+    that ends in a sum over ``model`` is this rank's term of it, and so is
+    the input gradient of each ``to_split``."""
     rules = {**(rules or shd.STRATEGIES["fsdp_tp"]()), "seq_cache": None}
     mesh = {"model": size}
     axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares(), coord={"model": rank})
@@ -356,6 +528,8 @@ def share(lm: nn.Module, cache: Mapping[str, Any], rank: int, size: int,
     for name, p in lm.named_parameters():
         split = axis.split(name)
         params[name] = p if split is None else p.narrow(split.dim, split.lo, split.hi - split.lo)
+    if cache is None:
+        return axis, params, None
     layers = []
     for i, c in enumerate(cache["layers"]):
         heads = axis.cache_split(i, 2) if "k" in c else None

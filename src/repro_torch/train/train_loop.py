@@ -13,15 +13,16 @@ here (``requires_grad_``); serving never needs their gradients.
 
 With a :class:`~repro_torch.parallel.fsdp.ShardedModel` for ``model`` the
 same step trains an LM whose parameters are DTensors on a mesh
-(``parallel/fsdp.py``): the model's loss splits the batch, gathers the
-weights and averages the loss over the global batch, and the gradients come
-back from autograd already reduced to each parameter's placement.
+(``parallel/fsdp.py``): the model's loss splits the batch and, along
+``model``, the compute, materializes each rank's weights and averages the
+loss over the global batch, and the gradients come back from autograd
+already reduced to each parameter's placement.
 
 ``REPRO_GRAD_SYNC_BF16=1`` round-trips the gradients through bf16 before
-the optimizer, as the reference does (on a mesh, the reduced gradients).
-The reference's other cross-shard knobs
-(``REPRO_CAST_BARRIER``, ``REPRO_SP_GATHER``) come with tensor-parallel
-compute (ROADMAP.md).
+the optimizer, as the reference does (on a mesh, the gradients after every
+reduction: over the batch axes and over ``model``). The reference's other
+cross-shard knobs (``REPRO_CAST_BARRIER``, ``REPRO_SP_GATHER``) come with
+sequence parallelism (ROADMAP.md).
 """
 
 from __future__ import annotations

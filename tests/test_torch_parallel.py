@@ -18,12 +18,30 @@ Tolerances:
     per participant;
   * the pipeline against the JAX oracle: 1e-5 (fp32, tanh stages);
   * sharded training on a 2 x 2 mesh against the single-process loop, fp32,
-    6 steps: losses 1e-5 relative, parameters 1e-5 absolute (about 8e-8 and
-    3e-6 are seen: sums in another order). With ``REPRO_GRAD_SYNC_BF16=1``
-    on both sides the losses hold 1e-5; a parameter may move by one bf16
-    rounding of its gradient a step, where the fp32 sums of the two sides
-    land on either side of a bf16 rounding boundary: lr * 2^-8 a step
-    (about 2e-5 is seen against 6 * 3e-3 * 2^-8 = 7.0e-5).
+    6 steps: losses 1e-5 relative, parameters 1e-5 absolute, but for the
+    few where AdamW amplifies the split's rounding (below). With
+    ``REPRO_GRAD_SYNC_BF16=1`` on both sides the losses hold 1e-5; a
+    parameter may move by one bf16 rounding of its gradient a step, where
+    the fp32 sums of the two sides land on either side of a bf16 rounding
+    boundary: lr * 2^-8 a step (about 2e-5 is seen against
+    6 * 3e-3 * 2^-8 = 7.0e-5). In float64 (masters, compute and moments) on
+    both sides, losses 1e-5 relative and every parameter 1e-5 absolute
+    (1.4e-6 is seen).
+
+The model axis splits the compute (attention by heads, the MLP by
+``d_ff``, the head by vocabulary), so the split's fp32 sums run in another
+order than the single process's: a gradient parts by about 3e-6 of its
+leaf's largest (2.6e-6 is seen, 5.1e-7 where every rank computed the same
+rows whole). AdamW's step, g / (|g| + 1e-8) at first, turns that into up to
+a whole step at an element whose gradient lies within a few eps of 0: in
+fp32, 11 of reduced recurrentgemma-9b's 340032 parameters end beyond 1e-5,
+the largest by 5.3e-5 (``layers.1.mlp.w_down[15, 49]``, whose first
+gradient is -2.588e-8 in one process and -3.050e-8 sharded); in
+``tests/test_torch_tp_train.py`` one of reduced qwen3-moe's 484736 by
+9.3e-4, 0.31 of a step at the peak lr. So in fp32 a parameter is held to
+FP32_SPLIT_PARAM_ATOL, one step at the peak lr, and all but a share
+SPLIT_OUTLIERS of a model's parameters (3.2e-5 is seen) to 1e-5; the
+float64 mode holds every one to 1e-5.
 """
 
 import random
@@ -68,6 +86,8 @@ LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-5
 TRAIN_STEPS, TRAIN_LR = 6, 3e-3
 BF16_PARAM_ATOL = TRAIN_STEPS * TRAIN_LR * 2.0 ** -8
+FP32_SPLIT_PARAM_ATOL = TRAIN_LR
+SPLIT_OUTLIERS = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -537,12 +557,34 @@ def test_production_mesh_needs_its_world():
 TRAIN_ARCHS = ["gemma-7b", "recurrentgemma-9b"]
 
 
-def _train_setup(name):
+def _train_setup(name, mode="fp32"):
+    """The config, data and run; the masters' dtype (float64 in the "fp64"
+    mode: masters, compute and moments; else fp32)."""
     cfg = ARCHS[name].reduced()
     data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=1))
+    if mode == "fp64":
+        opt = AdamWConfig(lr=TRAIN_LR, weight_decay=0.01, state_dtype=torch.float64)
+        run = TrainRunConfig(optimizer=opt, total_steps=TRAIN_STEPS, warmup_steps=2,
+                             compute_dtype=None)
+        return cfg, data, run, torch.float64
     run = TrainRunConfig(optimizer=AdamWConfig(lr=TRAIN_LR, weight_decay=0.01),
                          total_steps=TRAIN_STEPS, warmup_steps=2, compute_dtype=torch.float32)
-    return cfg, data, run
+    return cfg, data, run, torch.float32
+
+
+def assert_params_close(got, want, mode, outliers=SPLIT_OUTLIERS):
+    """Parameters by name after sharded training against the single process's,
+    within the mode's bound (the module's docstring); in fp32, all but a
+    share ``outliers`` of them within PARAM_ATOL (None: no share)."""
+    assert sorted(got) == sorted(want)
+    atol = {"fp32": FP32_SPLIT_PARAM_ATOL, "fp64": PARAM_ATOL,
+            "bf16_sync": BF16_PARAM_ATOL}[mode]
+    beyond = 0
+    for n, p in want.items():
+        np.testing.assert_allclose(got[n], p, rtol=0, atol=atol, err_msg=n)
+        beyond += int(np.sum(np.abs(got[n] - p) > PARAM_ATOL))
+    if mode == "fp32" and outliers is not None:
+        assert beyond <= outliers * sum(p.size for p in want.values()), beyond
 
 
 _SHARDED_TRAIN = """
@@ -554,20 +596,21 @@ from repro_torch.train.train_loop import train_loop
 
 mesh = make_mesh_from_devices(range(4), (2, 2), ("data", "model"), "cpu")
 result = {}
-for name, (cfg, data, run) in inputs.items():
+for name, (cfg, data, run, dtype) in inputs.items():
     model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES["fsdp_tp"]())
-    lm, state, hist = train_loop(model, model.init(0), data.batches(run.total_steps), run,
-                                 log_every=1)
+    lm, state, hist = train_loop(model, model.init(0, dtype), data.batches(run.total_steps),
+                                 run, log_every=1)
     result[name] = {"losses": [h["loss"] for h in hist], "opt_step": state.step,
                     "params": {n: p.numpy() for n, p in full_state(lm).items()}}
 """
 
-@pytest.fixture(scope="module", params=["fp32", "bf16_sync"])
+@pytest.fixture(scope="module", params=["fp32", "bf16_sync", "fp64"])
 def sharded_runs(request, tmp_path_factory):
     """Both archs trained on 4 ranks, once a mode."""
     env = {"REPRO_GRAD_SYNC_BF16": "1" if request.param == "bf16_sync" else "0"}
+    inputs = {name: _train_setup(name, request.param) for name in TRAIN_ARCHS}
     ranks = run_ranks(_SHARDED_TRAIN, 4, tmp_path_factory.mktemp(request.param),
-                      inputs={name: _train_setup(name) for name in TRAIN_ARCHS}, env=env)
+                      inputs=inputs, env=env)
     return request.param, env, ranks
 
 
@@ -576,18 +619,15 @@ def test_sharded_training_on_2x2_equals_the_single_process(sharded_runs, name, m
     mode, env, ranks = sharded_runs
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    cfg, data, run = _train_setup(name)
+    cfg, data, run, dtype = _train_setup(name, mode)
     model = build_model(cfg, device="cpu")
-    lm, state, hist = train_loop(model, model.init(0), data.batches(TRAIN_STEPS), run,
+    lm, state, hist = train_loop(model, model.init(0, dtype), data.batches(TRAIN_STEPS), run,
                                  log_every=1)
     losses = [h["loss"] for h in hist]
-    atol = PARAM_ATOL if mode == "fp32" else BF16_PARAM_ATOL
+    want = {n: p.detach().numpy() for n, p in lm.named_parameters()}
     for res in ranks:
         got = res[name]
         assert got["opt_step"] == state.step == TRAIN_STEPS
         np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL)
-        assert sorted(got["params"]) == sorted(n for n, _ in lm.named_parameters())
-        for n, p in lm.named_parameters():
-            np.testing.assert_allclose(got["params"][n], p.detach().numpy(), rtol=0,
-                                       atol=atol, err_msg=n)
+        assert_params_close(got["params"], want, mode)
     assert losses[-1] < losses[0] + 0.1 and np.all(np.isfinite(losses))

@@ -1,0 +1,472 @@
+"""Tensor-parallel training on the ``model`` axis (``repro_torch.parallel``)
+against the unsplit layer and the JAX reference, on the CPU.
+
+Part (i), one process: for a ``model`` axis of W = 2 and 4, each rank's
+training share of a reduced layer goes through the functions the ranks
+call, on its weight blocks (``tensor_parallel.share``, whose reductions over
+``model`` return the rank's own term). Attention and the MLP: each rank's
+forward term, its weight-block gradients and its input gradient from the
+same upstream gradient; the terms summed where the layer splits (else each
+rank's equal to the whole), a split weight's block gradient equal to that
+block of the unsplit gradient, a replicated weight read in part
+(``ModelAxis.sums_gradient``: K/V where ``n_kv_heads`` does not divide W,
+QK-norm's scales) summed over the ranks, every other weight's gradient
+whole on each rank. Cases: GQA with and without ``n_kv_heads`` dividing W,
+MQA, QK-norm, a local window with the score softcap, the three MLPs and a
+``d_ff`` W does not divide. The embedding, the head and the vocab-parallel
+cross-entropy (with a mask, tied and untied, with the final softcap): every
+rank's lookup summed, its logits block's terms combined as the mesh
+combines them (``Shares.merge_xent``), one backward. Everything within 1e-5
+of the largest value of the unsplit output or gradient, in fp32.
+
+Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh): reduced
+gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b and qwen3-moe on
+(data 2, model 2) under ``fsdp_tp`` and on (model 4) under ``tp_only``:
+``ShardedModel.loss`` and every gradient (``full_tensor``) against the
+reference's ``jax.value_and_grad`` of its loss on the same weights (the loss
+within 1e-5 relative, each gradient within 2e-5 of its leaf's largest, as
+``tests/test_torch_train.py``; qwen3-moe's gradients within MOE_GRAD_TOL,
+its bf16 gates'), then 6 AdamW steps in fp32 against the single process's
+``train_loop`` (``tests/test_torch_parallel.py``'s fp32 tolerances: the
+losses within 1e-5 relative; every parameter within FP32_SPLIT_PARAM_ATOL,
+and all but a share SPLIT_OUTLIERS of them within 1e-5, since AdamW turns
+the split's fp32 rounding into up to a whole step at a gradient within a few
+eps of 0. Seen: up to 5.0e-5 and 3 parameters beyond 1e-5 for the dense
+models. qwen3-moe's are held to FP32_SPLIT_PARAM_ATOL alone: its
+gradients part by up to MOE_GRAD_TOL, so whole expert rows may part by more
+than 1e-5 after 6 steps; seen up to 9.3e-4, and 403 of 484736 parameters
+beyond 1e-5 at S 128 on (model 4)).
+Sequences are 64 tokens (past the reduced window of 32): on the (data 2)
+mesh a rank's 128 tokens are half of qwen3-moe's routing group (256 tokens),
+so its rows are gathered over ``data`` and routed in the global group.
+qwen3-moe also runs at S 128, where a rank's rows hold a whole group: they
+are routed there with the global group size, and the aux term is the mean
+over every rank's groups (summed over ``data``), not weighted by the rank's
+share of the masked tokens.
+
+Part (iii), the dry run's trace of a train step on a (data 2, model 2)
+mesh: the collectives over ``model`` the op counter files, counted one by
+one, and no weight gathered over ``model``.
+"""
+
+import dataclasses
+import functools
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+from torch.nn.utils.stateless import _reparametrize_module
+
+from repro.configs import ARCHS as JARCHS
+from repro.models.model_zoo import build_model as jbuild_model
+from repro_torch.configs import ARCHS
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch import shapes as shp, steps
+from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.models import common
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_loop import TrainRunConfig, train_loop
+from repro_torch.weights import from_jax_params
+
+from _torch_ranks import run_ranks
+from test_torch_launch import _mesh
+from test_torch_parallel import (LOSS_RTOL, SPLIT_OUTLIERS, TRAIN_LR, TRAIN_STEPS,
+                                 assert_params_close)
+from test_torch_train import (GRAD_TOL, LOSS_TOL, _assert_grads_close, _numpy_params,
+                              _port_loss_and_grads, _reference_loss_and_grads,
+                              _two_threads)  # noqa: F401
+
+SHARE_TOL = 1e-5
+# qwen3-moe's gradients pass its bf16 gates, whose gradient is itself rounded
+# to bf16 (2^-8 relative) on every side: a change of 1e-7 upstream flips
+# such a rounding. The one-process port parts from the reference by 1.8e-4 of
+# the router's largest gradient on part (ii)'s batch, the sharded path from
+# the one process by 7.1e-5; the card-vs-CPU training check's tolerance
+# (``chip_smoke.py`` train_check) bounds them. A missed or doubled sum over
+# ``model`` would part by a whole term.
+MOE_GRAD_TOL = 2e-3
+
+# ---------------------------------------------------------------------------
+# Part (i): each rank's training share, one process
+# ---------------------------------------------------------------------------
+
+_BASE = dataclasses.replace(ARCHS["internvl2-76b"].reduced(), n_layers=1, frontend=None,
+                            frontend_seq_len=0)
+
+ATTN_CASES = {
+    "gqa_kv_divides": dict(n_heads=8, n_kv_heads=4),
+    # 2 KV heads: they divide W 2, not W 4 (two ranks read each, in part)
+    "gqa_kv_does_not_divide": dict(n_heads=4, n_kv_heads=2, qkv_bias=True),
+    "mqa": dict(n_heads=4, n_kv_heads=1),
+    "qk_norm": dict(qk_norm=True),
+    "local_window_softcap": dict(mixer_pattern=("attn_local",), window=8, attn_softcap=5.0),
+}
+MLP_CASES = {
+    "swiglu": dict(mlp_type="swiglu"),
+    "geglu": dict(mlp_type="geglu"),
+    "gelu": dict(mlp_type="gelu"),
+    # 130: divides W 2, not W 4 (whole on every rank, no sum)
+    "d_ff_does_not_divide": dict(d_ff=130),
+}
+HEAD_CASES = {
+    "untied": dict(),
+    "tied_final_softcap": dict(tie_embeddings=True, final_softcap=3.0, embed_scale=True),
+    # 510: divides W 2, not W 4 (the lookup, the head and the loss whole)
+    "vocab_does_not_divide": dict(vocab_size=510),
+}
+B, S = 2, 12
+
+
+def _seeded_lm(cfg, seed=0):
+    """The LM with every leaf a seeded normal (norm scales, biases and QK-norm
+    too, which the init leaves at zero), trainable."""
+    lm = build_model(cfg, device="cpu").init(seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in lm.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * (0.2 if p.ndim > 1 else 0.1))
+    return lm.requires_grad_(True)
+
+
+def _close(got, want, what=""):
+    tol = SHARE_TOL * max(float(want.abs().max()), 1e-12)
+    err = float((got - want).abs().max())
+    assert err <= tol, (what, err, tol)
+
+
+def _module_shares(lm, module, W, run):
+    """Each rank's (axis, forward term, input gradient, {state-dict name:
+    gradient of its block}) for ``run(module, x, axis)`` on the same input
+    and upstream gradient. ``module`` is the state-dict prefix."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, lm.cfg.d_model, generator=g)
+    gy = torch.randn(B, S, lm.cfg.d_model, generator=g)
+    names = [n for n, _ in lm.named_parameters() if n.startswith(module + ".")]
+    sub = lm.get_submodule(module)
+    xw = x.clone().requires_grad_()
+    out = run(sub, xw, None)
+    grads = torch.autograd.grad(out, [xw] + [lm.get_parameter(n) for n in names], gy)
+    want = (out.detach(), grads[0], dict(zip(names, grads[1:])))
+    ranks = []
+    for r in range(W):
+        axis, params, _ = tp.share(lm, None, r, W)
+        blocks = {n: params[n].detach().clone().requires_grad_() for n in names}
+        xr = x.clone().requires_grad_()
+        with _reparametrize_module(lm, blocks):
+            o = run(sub, xr, axis)
+        grads = torch.autograd.grad(o, [xr] + list(blocks.values()), gy)
+        ranks.append((axis, o.detach(), grads[0], dict(zip(names, grads[1:]))))
+    return want, ranks
+
+
+def _check_module(want, ranks, summed):
+    """The forward terms and input gradients summed where the layer splits
+    (``summed``), else each whole; each weight's gradient by its kind."""
+    out, dx, grads = want
+    if summed:
+        _close(sum(o for _, o, _, _ in ranks), out, "output")
+        _close(sum(d for _, _, d, _ in ranks), dx, "input gradient")
+    else:
+        for _, o, d, _ in ranks:
+            _close(o, out, "output")
+            _close(d, dx, "input gradient")
+    kinds = {}
+    for name, g in grads.items():
+        splits = [axis.split(name) for axis, _, _, _ in ranks]
+        sums = {axis.sums_gradient(name) for axis, _, _, _ in ranks}
+        assert len(sums) == 1, name
+        if splits[0] is not None:
+            kinds[name] = "block"
+            for s, (_, _, _, got) in zip(splits, ranks):
+                _close(got[name], g.narrow(s.dim, s.lo, s.hi - s.lo), name)
+        elif sums.pop():
+            kinds[name] = "summed"
+            _close(sum(got[name] for _, _, _, got in ranks), g, name)
+        else:
+            kinds[name] = "whole"
+            for _, _, _, got in ranks:
+                _close(got[name], g, name)
+    return kinds
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_training_shares_equal_the_unsplit_layer(case, W):
+    cfg = dataclasses.replace(_BASE, **ATTN_CASES[case])
+    lm = _seeded_lm(cfg)
+    positions = torch.arange(S)
+
+    def run(attn, x, axis):
+        layer = None if axis is None else axis.layer(0)
+        return attn(x if axis is None else axis.to_split(x), positions, axis=layer)
+
+    want, ranks = _module_shares(lm, "layers.0.attn", W, run)
+    layer = ranks[0][0].layer(0)
+    assert layer.attn_sum == (cfg.n_heads % W == 0)
+    kinds = _check_module(want, ranks, layer.attn_sum)
+    assert kinds["layers.0.attn.wq"] == kinds["layers.0.attn.wo"] == "block"
+    # K/V: the rank's KV heads where they divide W, else read in part by each rank
+    kv = "block" if cfg.n_kv_heads % W == 0 else "summed"
+    assert kinds["layers.0.attn.wk"] == kinds["layers.0.attn.wv"] == kv
+    if cfg.qkv_bias:
+        assert (kinds["layers.0.attn.bq"], kinds["layers.0.attn.bk"]) == ("block", kv)
+    if cfg.qk_norm:  # applied to the rank's heads only
+        assert kinds["layers.0.attn.q_norm"] == kinds["layers.0.attn.k_norm"] == "summed"
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("case", sorted(MLP_CASES))
+def test_mlp_training_shares_equal_the_unsplit_layer(case, W):
+    cfg = dataclasses.replace(_BASE, **MLP_CASES[case])
+    lm = _seeded_lm(cfg)
+
+    def run(mlp, x, axis):
+        return mlp(x if axis is None or not axis.layer(0).mlp_sum else axis.to_split(x))
+
+    want, ranks = _module_shares(lm, "layers.0.mlp", W, run)
+    split = cfg.d_ff % W == 0
+    assert ranks[0][0].layer(0).mlp_sum == split
+    kinds = _check_module(want, ranks, split)
+    assert set(kinds.values()) == {"block" if split else "whole"}
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("case", sorted(HEAD_CASES))
+def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
+    """The lookup's terms summed, each rank's logits block through the
+    cross-entropy's terms combined as the mesh combines them, one backward:
+    the loss, the embedding's and head's gradients (a tied embedding's block
+    takes the lookup's and the head's terms), the final norm's and the
+    input's, against ``softmax_xent`` on the unsplit head."""
+    cfg = dataclasses.replace(_BASE, **HEAD_CASES[case])
+    lm = _seeded_lm(cfg)
+    g = torch.Generator().manual_seed(2)
+    x0 = torch.randn(B, S, cfg.d_model, generator=g, requires_grad=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    mask = (torch.rand(B, S, generator=g) < 0.7).float()
+    leaves = [p for n, p in lm.named_parameters() if not n.startswith("layers.")]
+    names = [n for n, _ in lm.named_parameters() if not n.startswith("layers.")]
+
+    want = common.softmax_xent(lm._logits(x0 + lm._embed(tokens)), labels, mask)
+    want_grads = torch.autograd.grad(want, [x0] + leaves)
+
+    shares = [tp.share(lm, None, r, W) for r in range(W)]
+
+    def each(fn):
+        out = []
+        for axis, params, _ in shares:
+            with _reparametrize_module(lm, {n: params[n] for n in names}):
+                out.append(fn(axis))
+        return out
+
+    split = shares[0][0].head is not None
+    assert split == (cfg.vocab_size % W == 0)
+    lookups = each(lambda axis: lm._embed(tokens, model_axis=axis))
+    x = x0 + (sum(lookups) if split else lookups[0])  # whole on every rank: no sum
+    if split:
+        lse, gold = tp.Shares.merge_xent(
+            each(lambda axis: axis.xent_terms(lm._logits(x, axis), labels)))
+        got = common.masked_mean(lse - gold, mask)
+    else:  # whole on every rank: rank 0's loss is the loss
+        got = each(lambda axis: common.softmax_xent(lm._logits(x, axis), labels, mask))[0]
+    got_grads = torch.autograd.grad(got, [x0] + leaves)
+    _close(got.detach(), want.detach(), "loss")
+    for name, a, b in zip(["input"] + names, got_grads, want_grads):
+        _close(a, b, name)
+
+
+def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
+    """Replicated leaves read in part are summed; split leaves, norms and the
+    leaves of mixers outside the split are not."""
+    cfg = ARCHS["qwen3-moe-235b-a22b"].reduced()  # 4/2 heads, QK-norm, experts
+    meta = shp.param_specs_shapes(cfg, torch.float32)
+    for W, kv in ((2, False), (4, True)):
+        axis = tp.ModelAxis({"model": W}, shd.STRATEGIES["tp_only"](),
+                            tp.param_shapes(meta), None, tp.Shares(), coord={"model": 0})
+        summed = {n for n, _ in meta.named_parameters() if axis.sums_gradient(n)}
+        want = {f"layers.{i}.attn.{leaf}" for i in range(cfg.n_layers)
+                for leaf in ("q_norm", "k_norm") + (("wk", "wv") if kv else ())}
+        assert summed == want, (W, summed ^ want)
+    cfg = ARCHS["recurrentgemma-9b"].reduced()  # 1 KV head; RG-LRU layers gathered
+    meta = shp.param_specs_shapes(cfg, torch.float32)
+    axis = tp.ModelAxis({"model": 2}, shd.STRATEGIES["fsdp_tp"](), tp.param_shapes(meta),
+                        None, tp.Shares(), coord={"model": 1})
+    summed = {n for n, _ in meta.named_parameters() if axis.sums_gradient(n)}
+    assert summed == {f"layers.{i}.attn.{w}" for i in range(2, cfg.n_layers, 3)
+                      for w in ("wk", "wv")}
+
+
+# ---------------------------------------------------------------------------
+# Part (ii): gloo ranks against the JAX reference and the single process
+# ---------------------------------------------------------------------------
+
+# an arch at S 64, or "<arch>/S<n>" at S n
+MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
+          "qwen3-moe-235b-a22b/S128"]
+MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",))}
+
+_RANKS = """
+from repro_torch.launch.mesh import make_mesh_from_devices
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardedModel, full_state
+from repro_torch.train.train_loop import train_loop
+from repro_torch.weights import from_jax_params
+
+strategy, shape, axes, cases = inputs
+mesh = make_mesh_from_devices(range(world), shape, axes, "cpu")
+result = {}
+for name, cfg, np_params, batch, (data, run) in cases:
+    model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES[strategy]())
+    lm = model.shard(from_jax_params(cfg, np_params, device="cpu")).requires_grad_(True)
+    loss, metrics = model.loss(lm, {k: torch.from_numpy(v) for k, v in batch.items()},
+                               remat_policy="nothing")
+    names = [n for n, _ in lm.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in lm.named_parameters()])
+    out = {"loss": float(loss), "moe_aux": float(metrics["moe_aux"]),
+           "grads": {n: g.full_tensor().numpy() for n, g in zip(names, grads)}}
+    lm = model.shard(from_jax_params(cfg, np_params, device="cpu"))
+    lm, state, hist = train_loop(model, lm, data.batches(run.total_steps), run, log_every=1)
+    out.update(losses=[h["loss"] for h in hist], opt_step=state.step,
+               params={n: p.numpy() for n, p in full_state(lm).items()})
+    result[name] = out
+"""
+
+
+def _arch_and_seq(name):
+    arch, _, seq = name.partition("/S")
+    return arch, int(seq or 64)
+
+
+def _batch(cfg, S, seed=3):
+    """B 4 x S tokens and labels, a mask (denser in the first two rows, so
+    the (data 2) mesh's ranks hold unequal shares of the loss's tokens), and
+    internvl2's prefix."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
+             "mask": (rng.random((4, S)) < [[0.9], [0.9], [0.4], [0.4]]).astype(np.float32)}
+    if cfg.frontend:
+        batch["prefix_embeds"] = rng.standard_normal(
+            (4, cfg.frontend_seq_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _train_setup(cfg, S):
+    """``tests/test_torch_parallel.py``'s 6 steps in fp32."""
+    data = SyntheticLM(DataConfig(cfg.vocab_size, S, 4, seed=1))
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=TRAIN_LR, weight_decay=0.01),
+                         total_steps=TRAIN_STEPS, warmup_steps=2, compute_dtype=torch.float32)
+    return data, run
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    arch, S = _arch_and_seq(name)
+    cfg = ARCHS[arch].reduced()
+    return (name, cfg, _numpy_params(JARCHS[arch].reduced(), seed=1), _batch(cfg, S),
+            _train_setup(cfg, S))
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process(name):
+    """(the reference's loss and gradients, the one-process port's, and its
+    6 AdamW steps: the history and the trained LM)."""
+    _, cfg, np_params, batch, (data, run) = _case(name)
+    jcfg = JARCHS[_arch_and_seq(name)[0]].reduced()
+    want = _reference_loss_and_grads(cfg, jbuild_model(jcfg), np_params, batch)
+    one = _port_loss_and_grads(cfg, np_params, batch)
+    lm = from_jax_params(cfg, np_params, device="cpu")
+    trained = train_loop(build_model(cfg, device="cpu"), lm, data.batches(run.total_steps),
+                         run, log_every=1)
+    return want, one, trained
+
+
+@pytest.fixture(scope="module")
+def _runs(tmp_path_factory):
+    """Both meshes' rank runs, started at once; the one-process side is
+    computed while they run."""
+    cases = [_case(name) for name in MODELS]
+    with ThreadPoolExecutor(len(MESHES)) as pool:
+        runs = {strategy: pool.submit(run_ranks, _RANKS, 4, tmp_path_factory.mktemp(strategy),
+                                      inputs=(strategy, *MESHES[strategy], cases), timeout=180)
+                for strategy in MESHES}
+        for name in MODELS:
+            _one_process(name)
+        return {strategy: run.result() for strategy, run in runs.items()}
+
+
+@pytest.fixture(scope="module", params=sorted(MESHES))
+def ranks(request, _runs):
+    return request.param, _runs[request.param]
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_sharded_loss_and_every_gradient_equal_the_reference(ranks, name):
+    """Against the reference and against the one-process port on the same
+    batch: the loss (and the MoE aux term) within 1e-5 relative, each
+    gradient within GRAD_TOL of its leaf's largest (MOE_GRAD_TOL for
+    qwen3-moe)."""
+    strategy, results = ranks
+    cfg = _case(name)[1]
+    (want_loss, want_grads, _), (one_loss, one_metrics, one_grads), _ = _one_process(name)
+    tol = MOE_GRAD_TOL if cfg.is_moe else GRAD_TOL
+    _assert_grads_close(one_grads, want_grads, tol)
+    for res in results:  # every rank holds the whole loss and gradients
+        got = res[name]
+        assert abs(got["loss"] - want_loss) <= LOSS_TOL * abs(want_loss), (strategy, got["loss"])
+        assert abs(got["loss"] - float(one_loss)) <= LOSS_TOL * abs(want_loss)
+        # the aux term is the global batch's mean over its groups
+        one_aux = float(one_metrics["moe_aux"])
+        assert abs(got["moe_aux"] - one_aux) <= LOSS_TOL * abs(one_aux), (got["moe_aux"], one_aux)
+        grads = {n: torch.from_numpy(g) for n, g in got["grads"].items()}
+        _assert_grads_close(grads, want_grads, tol)
+        _assert_grads_close(grads, one_grads, tol)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_sharded_adamw_steps_equal_the_single_process(ranks, name):
+    strategy, results = ranks
+    cfg = _case(name)[1]
+    lm, state, hist = _one_process(name)[2]
+    losses = [h["loss"] for h in hist]
+    for res in results:
+        got = res[name]
+        assert got["opt_step"] == state.step == TRAIN_STEPS
+        np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL, err_msg=strategy)
+        assert_params_close(got["params"], {n: p.detach().numpy()
+                                            for n, p in lm.named_parameters()}, "fp32",
+                            outliers=None if cfg.is_moe else SPLIT_OUTLIERS)
+
+
+# ---------------------------------------------------------------------------
+# Part (iii): the collectives the dry run's counter sees
+# ---------------------------------------------------------------------------
+
+def test_a_train_step_counts_the_sums_over_model():
+    """Reduced internvl2-76b (2 layers, 4/2 heads, d_ff 128, vocab 512, all
+    split on a model axis of 2), remat "nothing" (each layer its own group).
+    Over ``model`` (rank 0's group {0, 1}) a step all-reduces: the lookup's
+    sum; each layer's two row-parallel sums in the forward; the
+    cross-entropy's max, sum of ``exp`` and label logit; the head's input
+    gradient; for each layer in the backward, the recompute's attention sum
+    (the checkpoint stops before the MLP's, whose output the backward does
+    not read) and its two column-parallel inputs' gradients; and the clip's
+    global norm: 1 + 2 * 2 + 3 + 1 + 2 * 3 + 1 = 16. No gradient is summed
+    over ``model`` (the KV heads divide it) and no weight gathered over it."""
+    cfg = ARCHS["internvl2-76b"].reduced()
+    cell = shp.ShapeCell("tiny", 32, 4, "train")
+    with _mesh((2, 2)) as mesh:
+        step = steps.build_train_step(cfg, cell, mesh)
+        counter = OpCounter()
+        with counter:
+            step()
+    over_model = [op.kind for op in counter.collectives if op.ranks == (0, 1)]
+    assert over_model == ["all-reduce"] * 16
+    over_data = {op.kind for op in counter.collectives if op.ranks == (0, 2)}
+    assert over_data == {"all-gather", "reduce-scatter", "all-reduce"}
