@@ -54,6 +54,35 @@ calls, and fails (exit code not 0, no result line) on any miss:
               flash launches a prefill and none in decode; a third prefill
               split into the MoE stages (route, dispatch, expert products,
               combine) and flash under CUDA events;
+  8a2. ep     expert parallelism on the ``model`` axis, right after 8a, in
+              this one process: (b) phase 8a's weights sharded in place on a
+              1-rank NCCL mesh, ``ShardedModel.prefill`` of its padded
+              prompts and 16 ``decode_step`` calls fed 8a's greedy tokens
+              (each MoE layer on the expert split's path, one block of all
+              128 experts; decode attention merging the partial softmax of
+              the cache's one sequence shard), against the same calls on
+              the unsharded model, whose greedy choices must be 8a's: every
+              call's logits within 5e-2 of the largest, the tokens that
+              differ reported with their top-2 margin (a bf16 near-tie), 8
+              tensor-core flash launches a prefill and none in decode,
+              prefill and step ms beside 8a's; (a) each rank's share of one
+              full-width MoE block computed in turn (``LayerAxis.moe`` over
+              ``tensor_parallel.Shares``), the sums over ``model`` applied
+              here: qwen3-moe-235b-a22b (128 experts top-8, ff 1536) at 8
+              and 16 ranks, phi3.5-moe-42b-a6.6b (16 experts top-2, ff
+              6400) at 16 (the expert split) and 32 (32 does not divide 16
+              experts: the ff split, 200 columns a rank, forward only), B 1
+              x S 2560; fp32: the output within 1e-4 of the unsplit block's
+              largest, the input's and every leaf's gradient of <out, gy>
+              and of the aux term within 2e-3 of its largest; bf16 within
+              5e-2, each sum's terms added in fp32, the unsplit bf16
+              block's own error against fp32 beside it; the slot rows a
+              rank; (c) phi3.5-moe-42b-a6.6b at
+              full width, 1 layer, bf16 over fp32 masters, B 1 x S 2048, 3
+              AdamW steps through ``train_loop`` unsharded, then the same
+              weights and batches through ``ShardedModel`` on a 1-rank NCCL
+              mesh: losses within 1e-5, 2 tensor-core flash launches a step,
+              step ms and peak memory of both;
   8b. check   qwen3-moe-235b-a22b at full width, depth cut to 1 layer, fp32,
               card (the CUDA-core flash kernel) against CPU as in phase 5;
   8c. whisper whisper-medium at full width (24 + 24 layers, head_dim 64),
@@ -799,7 +828,8 @@ class StageEvents:
 def moe_serve_phase(cfg):
     """An MoE config (qwen3-moe-235b-a22b at full width, 8 layers) in bf16,
     through ServeEngine: a cold and a warm batch, then one more prefill
-    split by stage."""
+    split by stage. Returns (the record, the weights, the padded prompts
+    and the warm batch's tokens, for the ``ep`` phase)."""
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(SEED, torch.bfloat16)
@@ -825,6 +855,7 @@ def moe_serve_phase(cfg):
         check_outputs(outs, 4, 16, cfg.vocab_size)
         runs.append((dict(eng.last_timing), counts(), dt, sum(len(o) for o in outs)))
     model.prefill = prefill
+    del eng
     per_prefill = launch_counts(flash_wgmma=cfg.n_layers)
     for (_, launches, _, _), at_prefill in zip(runs, after_prefill):
         need(at_prefill == per_prefill, f"moe prefill launches {at_prefill}")
@@ -868,7 +899,8 @@ def moe_serve_phase(cfg):
            "prefill_split_share": {k.lstrip("_"): v / prefill_dev_ms for k, v in split.items()},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("moe_serve", json.dumps(rec), flush=True)
-    return rec
+    return rec, {"cfg": cfg, "params": params, "tokens": toks,
+                 "outputs": torch.tensor(outs, dtype=torch.long)}
 
 
 # ---------------------------------------------------------------------------
@@ -1659,6 +1691,298 @@ def tp_train_phase():
     gemma2 = get_config("gemma2-9b")
     rec = {"path": tp_train_path()}
     rec["shares"] = tp_train_shares(vlm_cfg(1), (8, 16)) + tp_train_shares(gemma2, (16,))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 8i: expert parallelism on the model axis
+# ---------------------------------------------------------------------------
+
+EP_STEPS, EP_MAX_LEN = 16, 4096  # moe_serve's engine: 16 new tokens, a 4096-slot cache
+EP_TRAIN_S = 2048
+
+
+def ep_replay(model, params, toks, fed, full, prefills):
+    """A prefill of ``toks`` (``prefills`` times: cold, then warm), then one
+    decode step on each column of ``fed``: every call's logits in fp32
+    [1 + steps, B, 1, V], prefill ms, decode wall and device ms, launches."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(prefills):
+            cache = model.init_cache(toks.shape[0], EP_MAX_LEN, torch.bfloat16)
+            reset_counts()
+            start.record()
+            logits, cache = model.prefill(params, {"tokens": toks}, cache)
+            end.record()
+            torch.cuda.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            prefill_launches = counts()
+        out = [full(logits).float()]
+        reset_counts()
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(fed.shape[1]):
+            logits, cache = model.decode_step(params, cache, fed[:, i:i + 1])
+            out.append(full(logits).float())
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"logits": torch.stack(out), "prefill_ms": prefill_ms,
+            "prefill_launches": prefill_launches, "decode_launches": counts(),
+            "decode_ms_per_step": wall * 1e3 / fed.shape[1],
+            "decode_device_ms_per_step": start.elapsed_time(end) / fed.shape[1],
+            "pos": cache["pos"]}
+
+
+def ep_path(state, moe):
+    """(b) moe_serve's weights sharded in place on a 1-rank NCCL mesh,
+    through ``ShardedModel`` (each MoE layer on the expert split's path, one
+    block of all 128 experts; decode attention merging the partial softmax
+    of the cache's one sequence shard): a prefill of moe_serve's padded
+    prompts cold then warm, then 16 decode steps fed moe_serve's greedy
+    tokens, first through the unsharded model (whose greedy choices must be
+    moe_serve's), then sharded. Each call's logits are held to the
+    unsharded ones within TP_BF16_TOL of the largest: one bf16 rounding
+    apart passes, a wrong mask or merge parts them by a third. The sharded
+    argmax is compared with moe_serve's tokens and every flip is reported
+    with the unsharded top-2 margin there: a near-tie the bf16 logits'
+    difference can flip."""
+    cfg, params, toks = state["cfg"], state["params"], state["tokens"].cuda()
+    want_toks = state["outputs"]
+    fed = want_toks.cuda()
+    plain = ep_replay(build_model(cfg), params, toks, fed, lambda t: t, 1)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        model.shard(params)  # in place: each weight a DTensor over the one rank
+        layer = model.model_axis(params, model.init_cache(toks.shape[0], EP_MAX_LEN,
+                                                          torch.bfloat16), (), 1).layer(0)
+        sharded = ep_replay(model, params, toks, fed, lambda t: t.full_tensor(), 2)
+    want, got = plain["logits"], sharded["logits"]
+    steps = want_toks.shape[1]
+    plain_toks = want[:steps, :, 0].argmax(-1).T.cpu()
+    got_toks = got[:steps, :, 0].argmax(-1).T.cpu()
+    top2 = want[:steps, :, 0].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).T.cpu()
+    diff = (got - want).abs().amax(dim=(1, 2, 3)).cpu()
+    flips = [{"row": r, "step": i, "margin": float(margin[r, i]), "max_abs_dlogit": float(diff[i])}
+             for r, i in torch.nonzero(got_toks != want_toks).tolist()]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
+           "strategy": "fsdp_tp", "batch": toks.shape[0], "prefill_len": toks.shape[1],
+           "experts_split": list(layer.experts), "cache_seq_split": list(layer.seq),
+           "prefill_ms_cold": sharded["prefill_ms"][0], "prefill_ms": sharded["prefill_ms"][1],
+           "moe_serve_prefill_ms": moe["prefill_ms"],
+           "decode_ms_per_step": sharded["decode_ms_per_step"],
+           "decode_device_ms_per_step": sharded["decode_device_ms_per_step"],
+           "unsharded_decode_ms_per_step": plain["decode_ms_per_step"],
+           "moe_serve_decode_ms_per_step": moe["decode_ms_per_step"],
+           "unsharded_tokens_equal_moe_serve": bool(torch.equal(plain_toks, want_toks)),
+           "prefill_logits_equal": bool(torch.equal(got[0], want[0])),
+           "logits_rel_err": [rel_err(g, w) for g, w in zip(got, want)],
+           "logits_max_abs": float(want.abs().max()), "logits_tol": TP_BF16_TOL,
+           "tokens_equal": int((got_toks == want_toks).sum()), "tokens": want_toks.numel(),
+           "flips": flips,
+           "launches_per_prefill": sharded["prefill_launches"],
+           "launches_decode": sharded["decode_launches"]}
+    print("ep_serve_path", json.dumps(rec), flush=True)
+    need(layer.experts is not None and layer.experts.dim == 0,
+         f"ep: experts not split ({layer.experts})")
+    need(layer.seq is not None, "ep: the cache's sequence not split: no merge ran")
+    need(sharded["prefill_launches"] == launch_counts(flash_wgmma=cfg.n_layers),
+         f"ep prefill launches {sharded['prefill_launches']}")
+    need(sharded["decode_launches"] == launch_counts(), f"ep decode launched "
+                                                        f"{sharded['decode_launches']}")
+    need(sharded["pos"] == toks.shape[1] + steps, f"ep pos {sharded['pos']}")
+    need(rec["unsharded_tokens_equal_moe_serve"],
+         f"ep: the unsharded replay's tokens {plain_toks[:, :8].tolist()} differ from "
+         f"moe_serve's {want_toks[:, :8].tolist()}")
+    need(torch.isfinite(got).all() and max(rec["logits_rel_err"]) <= TP_BF16_TOL,
+         f"ep logits {rec['logits_rel_err']}")
+    return rec
+
+
+def ep_grads(out, aux, gy, x, leaves, names):
+    """The gradients of <out, gy> (the input's and every leaf's) and of the
+    aux term (the input's and the router's: it reaches no expert), by name."""
+    g = torch.autograd.grad((out.float() * gy).sum(), [x] + leaves, retain_graph=True)
+    router = names.index("router")
+    ga = torch.autograd.grad(aux, [x, leaves[router]])
+    return {"input": g[0], **dict(zip(names, g[1:])), "aux:input": ga[0], "aux:router": ga[1]}
+
+
+def ep_shares(cfg, ranks):
+    """(a) one full-width MoE block of ``cfg``, fp32 then the same weights in
+    bf16, B 1 x S 2560: for each W in ``ranks`` every rank's share in turn
+    through ``LayerAxis.moe`` over ``Shares`` (its expert blocks, or where W
+    does not divide E every expert's ff columns, the tokens routed whole),
+    the sums over ``model`` applied here, a backward of <out, gy> and one of
+    the ranks' aux terms (each one's gradient 1/W of the whole; apart, since
+    beside the gates' it would be lost): the output and the input's and
+    every leaf's gradient of each against the unsplit block's. The ff split
+    runs forward only: its gates' gradient is summed over ``model`` before
+    its bf16 rounding, which a share alone cannot do. Each rank's blocks are cast from fp32 masters and its input
+    from an fp32 copy, so the terms of every sum, forward and backward, add
+    in fp32."""
+    moe = MoE(cfg, "cuda", torch.float32)
+    moe.reset_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    names = [n for n, _ in moe.named_parameters()]
+    shapes = {f"layers.0.moe.{n}": tuple(p.shape) for n, p in moe.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x32 = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    gy = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    route = moe._route(x32.view(-1, cfg.d_model), 256)
+    per_expert = route.n_slots // cfg.n_experts  # G * C
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        moe.to(dtype).requires_grad_(True)
+        x = x32.to(dtype).requires_grad_()
+        out, aux = moe(x)
+        want = {"output": out.detach(), **ep_grads(out, aux, gy, x, list(moe.parameters()),
+                                                   names)}
+        del out
+        if unsplit32 is None:
+            unsplit32 = want
+        masters = {n: p.detach().float().requires_grad_() for n, p in moe.named_parameters()}
+        for W in ranks:
+            xm = x32.clone().requires_grad_()
+            outs, auxs, blocks_of = [], [], []
+            for r in range(W):
+                axis = tp.ModelAxis({"model": W}, shd.STRATEGIES["fsdp_tp"](), shapes, None,
+                                    tp.Shares(), coord={"model": r})
+                layer = axis.layer(0)
+                need(layer.moe_sum, f"{cfg.name} at {W}: no split")
+                form = "experts" if layer.experts.dim == 0 else "ff"
+                blocks = {}
+                for n in names:
+                    sp = axis.split(f"layers.0.moe.{n}")
+                    t = masters[n] if sp is None else masters[n].narrow(sp.dim, sp.lo,
+                                                                        sp.hi - sp.lo)
+                    blocks[n] = t.to(dtype)
+                # the ff split's forward only: a share alone cannot sum its gates'
+                # gradient over model before the bf16 rounding (it raises)
+                with _reparametrize_module(moe, blocks), \
+                        torch.set_grad_enabled(form == "experts"):
+                    o, a = layer.moe(moe, xm.to(dtype), with_aux=True)
+                outs.append(o)
+                auxs.append(a)
+                blocks_of.append(blocks["w_up"].shape[layer.experts.dim])
+            got_out = sum(o.float() for o in outs)
+            got = {"output": got_out}
+            if form == "experts":
+                got.update(ep_grads(got_out, sum(auxs), gy, xm, [masters[n] for n in names],
+                                    names))
+            torch.cuda.synchronize()
+            need(set(blocks_of) == {(cfg.n_experts if form == "experts" else cfg.d_ff) // W},
+                 f"{cfg.name} at {W}: {form} blocks {blocks_of}")
+            err = {k: rel_err(got[k], want[k]) for k in got}
+            worst = max((k for k in err if k != "output"), key=err.get, default="output")
+            tol = (TP_FP32_TOL, TP_TRAIN_GRAD_TOL) if dtype == torch.float32 else \
+                (TP_BF16_TOL, TP_BF16_TOL)
+            rec = {"case": f"{cfg.name} MoE block ({cfg.n_experts} experts top-"
+                           f"{cfg.experts_per_token}, d {cfg.d_model}, ff {cfg.d_ff})",
+                   "model_ranks": W, "form": form, "backward": form == "experts",
+                   "dtype": str(dtype)[6:], "B": 1, "S": TP_S, "terms_added_in": "float32",
+                   "slot_rows_a_rank": [cfg.n_experts // W if form == "experts" else
+                                        cfg.n_experts, per_expert],
+                   "ff_columns_a_rank": cfg.d_ff if form == "experts" else cfg.d_ff // W,
+                   "slot_rows_whole": [cfg.n_experts, per_expert],
+                   "aux_equal": all(float(a) == float(aux) for a in auxs),
+                   "rel_err": err, "worst_gradient": worst,
+                   "tol": {"output": tol[0], "gradients": tol[1]},
+                   "summed_gradients": sorted(n for n in names
+                                              if axis.sums_gradient(f"layers.0.moe.{n}"))}
+            if dtype == torch.bfloat16:
+                rec["unsplit_vs_fp32"] = {k: rel_err(want[k], unsplit32[k]) for k in got}
+                rec["shares_vs_fp32"] = {k: rel_err(got[k], unsplit32[k]) for k in got}
+            print("ep_shares", json.dumps(rec), flush=True)
+            need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                 f"ep shares {cfg.name} at {W}: non-finite")
+            need(rec["aux_equal"] and rec["summed_gradients"] == ["router"],
+                 f"ep shares {cfg.name} at {W}: aux {rec['aux_equal']}, "
+                 f"summed {rec['summed_gradients']}")
+            need(err["output"] <= tol[0] and err[worst] <= tol[1],
+                 f"ep shares {cfg.name} at {W} ({dtype}): output {err['output']}, "
+                 f"{worst} {err[worst]}")
+            recs.append(rec)
+            del outs, auxs, got, got_out
+        del want, masters
+    del moe, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def ep_train_path():
+    """(c) phi3.5-moe-42b-a6.6b at full width, 1 layer (16 experts top-2),
+    bf16 over fp32 masters, remat "nothing", B 1 x S 2048, 3 AdamW steps:
+    ``train_loop`` unsharded, then the same seeded weights and batches through
+    ``ShardedModel`` on a 1-rank NCCL mesh (the expert split's path, one
+    block of all 16 experts); losses, step ms, peak memory, flash launches."""
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=1)
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+                         total_steps=TP_TRAIN_STEPS, warmup_steps=1, remat_policy="nothing",
+                         compute_dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, EP_TRAIN_S, 1, seed=SEED))
+    batches = [data.batch(i) for i in range(TP_TRAIN_STEPS)]
+
+    def train(model, lm):
+        events = []
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        lm, state, hist = train_loop(model, lm, timed_batches(batches, events), run,
+                                     log_every=1)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(end)
+        return {"losses": [h["loss"] for h in hist], "launches": counts(),
+                "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    model = build_model(cfg)
+    lm = model.init(SEED, torch.float32)
+    n_params = sum(p.numel() for p in lm.parameters())
+    unsharded = train(model, lm)
+    del lm
+    torch.cuda.empty_cache()
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        lm = model.init(SEED, torch.float32)
+        experts = model.model_axis(lm, None, (), 1).layer(0).experts
+        sharded = train(model, lm)
+        del lm
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"], unsharded["losses"])]
+    per_step = launch_counts(flash_wgmma=2)
+    rec = {"arch": cfg.name, "layers": 1, "params": n_params, "batch": 1, "seq": EP_TRAIN_S,
+           "steps": TP_TRAIN_STEPS, "compute_dtype": "bfloat16", "master_dtype": "float32",
+           "remat_policy": "nothing", "mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp",
+           "experts_split": None if experts is None else list(experts),
+           "unsharded": unsharded, "sharded": sharded, "loss_max_rel_err": max(rel),
+           "loss_tol": TP_TRAIN_LOSS_RTOL, "launches_per_step_expected": per_step,
+           "step_ms_median_warm": {k: float(np.median(r["step_ms"][1:]))
+                                   for k, r in (("unsharded", unsharded),
+                                                ("sharded", sharded))}}
+    print("ep_train_path", json.dumps(rec), flush=True)
+    want = {k: v * TP_TRAIN_STEPS for k, v in per_step.items()}
+    need(experts is not None and experts.dim == 0, f"ep train: experts not split ({experts})")
+    need(unsharded["launches"] == want and sharded["launches"] == want,
+         f"ep train launches {unsharded['launches']}, {sharded['launches']}; expected {want}")
+    need(all(np.isfinite(sharded["losses"])) and max(rel) <= TP_TRAIN_LOSS_RTOL,
+         f"ep train: sharded losses {sharded['losses']} against {unsharded['losses']}")
+    return rec
+
+
+def ep_phase(moe, state):
+    rec = {"path": ep_path(state, moe)}
+    state.clear()  # moe_serve's weights
+    torch.cuda.empty_cache()
+    qwen, phi = get_config("qwen3-moe-235b-a22b"), get_config("phi3.5-moe-42b-a6.6b")
+    need((phi.n_experts, phi.experts_per_token, phi.d_model, phi.d_ff) == (16, 2, 4096, 6400),
+         "phi3.5-moe width")
+    rec["shares"] = ep_shares(qwen, (8, 16)) + ep_shares(phi, (16, 32))
+    rec["train"] = ep_train_path()
     return rec
 
 
@@ -2470,7 +2794,9 @@ def main():
     need((moe_cfg.d_model, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim,
           moe_cfg.n_experts, moe_cfg.experts_per_token, moe_cfg.qk_norm)
          == (4096, 64, 4, 128, 128, 8, True), "qwen3-moe width")
-    moe_serve = phase("moe_serve", moe_serve_phase, moe_cfg)
+    moe_serve, moe_state = phase("moe_serve", moe_serve_phase, moe_cfg)
+    ep = phase("ep", ep_phase, moe_serve, moe_state)
+    del moe_state
     torch.cuda.empty_cache()
     # fp32 over one full-width layer (128 experts) and a 151936-way head
     moe_check = phase("moe_check", model_check_phase, "qwen3-moe-235b-a22b", 1,
@@ -2560,7 +2886,13 @@ def main():
                           "flash_attention_wgmma"],
                       launches_tp_train_shares_bf16=[
                           r["launches_shares"]["flash_attention_wgmma"]
-                          for r in tp_train["shares"] if r["terms_added_in"] == "bfloat16"]),
+                          for r in tp_train["shares"] if r["terms_added_in"] == "bfloat16"],
+                      launches_ep_prefill_1_rank=ep["path"]["launches_per_prefill"][
+                          "flash_attention_wgmma"],
+                      launches_ep_decode_16_steps=ep["path"]["launches_decode"][
+                          "flash_attention_wgmma"],
+                      launches_ep_train_3_steps=ep["train"]["sharded"]["launches"][
+                          "flash_attention_wgmma"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -2605,7 +2937,7 @@ def main():
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
-               "tp_serve": tp_serve, "tp_train": tp_train,
+               "tp_serve": tp_serve, "tp_train": tp_train, "ep": ep,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

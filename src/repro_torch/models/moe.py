@@ -34,12 +34,31 @@ tokens an expert gets:
 
 ``forward`` runs the four stages as the methods ``_route``, ``_dispatch``,
 ``_experts`` and ``_combine``, which a profiler can time one by one.
+
+Expert parallelism (``parallel/tensor_parallel.py``, ``LayerAxis.moe``):
+where the ``model`` axis divides E, a rank holds the block of experts
+``[lo, hi)`` and ``forward(..., experts=(lo, hi))`` routes every token over
+all E as one process does (the same choices, queue positions and drops),
+keeps the choices of its own experts (``_local``: the block's rows of the
+slot grid, [(hi-lo), G*C, d]; every other choice gets gate 0 and reads no
+row) and returns the block's term of the output. Where the axis splits
+``d_ff`` instead, every slot is dispatched and the rank's ff columns and
+``w_down`` rows give its term; each gate's gradient is then a partial term
+too, which the caller's ``gates`` sums over ``model`` before the bf16
+rounding, as one process rounds the whole (rounding each rank's term apart
+parts from it by about 2e-3 of the router's largest gradient). Either way
+the terms are summed over ``model``: one all-reduce of [B, S, d] a layer.
+The rows are whole along ``model`` (the residual stream has no sequence
+split), so the all-to-all GSPMD derives from sequence-sharded rows has
+nothing to move here; an all-to-all pair of the dispatch buffer would move
+about k * capacity_factor times the sum's bytes (10x at qwen3-moe's top-8
+and 1.25).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,9 +73,10 @@ DEFAULT_GROUP_SIZE = 256
 class Route(NamedTuple):
     """Where each token's k choices go: top_vals, keep and slot are [T, k]."""
     top_vals: torch.Tensor  # renormalized fp32 gates
-    keep: torch.Tensor      # False where capacity dropped the choice
-    slot: torch.Tensor      # row of the [E * G * C] slot grid (0 where dropped)
-    n_slots: int            # E * G * C
+    keep: torch.Tensor      # False where capacity dropped the choice (or, after
+                            # ``_local``, its expert lies outside the block)
+    slot: torch.Tensor      # row of the slot grid (0 where not kept)
+    n_slots: int            # the grid's rows: E * G * C (a block's: its E_b * G * C)
     aux: torch.Tensor       # the Switch load-balancing loss, fp32
 
 
@@ -66,6 +86,12 @@ def group_size_for(tokens: int, group_size: int = DEFAULT_GROUP_SIZE) -> int:
     while tokens % g:
         g -= 1
     return g
+
+
+def bf16_gates(top_vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gates passed through bf16 (the reference's bf16 combine), in
+    ``dtype``; their gradient is rounded to bf16 on the way back."""
+    return top_vals.to(torch.bfloat16).to(dtype)
 
 
 def capacity(group: int, k: int, n_experts: int, factor: float) -> int:
@@ -118,15 +144,25 @@ class MoE(nn.Module):
         aux = E * (density * probs.view(G, g, E).mean(1)).sum(-1).mean()
         return Route(top_vals, keep, slot, E * G * C, aux)
 
+    def _local(self, r: Route, lo: int, hi: int) -> Route:
+        """The choices whose expert lies in ``[lo, hi)``, on that block's rows
+        of the slot grid; every other choice is not kept (gate 0, row 0)."""
+        per_expert = r.n_slots // self.n_experts  # G * C
+        first = lo * per_expert
+        mine = r.keep & (r.slot >= first) & (r.slot < hi * per_expert)
+        return r._replace(keep=mine, slot=torch.where(mine, r.slot - first, 0),
+                          n_slots=(hi - lo) * per_expert)
+
     def _dispatch(self, xt: torch.Tensor, r: Route) -> torch.Tensor:
-        """Each slot's token row, [E, G*C, d]; an empty slot reads the zero
-        row appended to xt. Dropped choices all write the discarded last
-        entry of the slot-to-token map."""
+        """Each slot's token row, [E, G*C, d] (the experts whose weights the
+        module holds); an empty slot reads the zero row appended to xt.
+        Choices not kept all write the discarded last entry of the
+        slot-to-token map."""
         T, d = xt.shape
         token = torch.arange(T, device=xt.device).repeat_interleave(self.k)
         src = torch.full((r.n_slots + 1,), T, dtype=torch.long, device=xt.device)
         src.scatter_(0, torch.where(r.keep, r.slot, r.n_slots).reshape(-1), token)
-        return F.pad(xt, (0, 0, 0, 1))[src[:r.n_slots]].view(self.n_experts, -1, d)
+        return F.pad(xt, (0, 0, 0, 1))[src[:r.n_slots]].view(len(self.w_up), -1, d)
 
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
         """Each expert's MLP over its slots: [E, n, d] -> [E*n, d]."""
@@ -139,16 +175,24 @@ class MoE(nn.Module):
             h = F.gelu(up, approximate="tanh")
         return torch.bmm(h, self.w_down).flatten(0, 1)
 
-    def _combine(self, expert_out: torch.Tensor, r: Route) -> torch.Tensor:
+    def _combine(self, expert_out: torch.Tensor, r: Route,
+                 gates: Callable = bf16_gates) -> torch.Tensor:
         """Each token's k expert rows weighted by their bf16-rounded gates
         (0 where dropped) and summed: [T, d]."""
-        gate = r.top_vals.to(torch.bfloat16).to(expert_out.dtype) * r.keep
+        gate = gates(r.top_vals, expert_out.dtype) * r.keep
         return torch.bmm(gate.unsqueeze(1), expert_out[r.slot]).squeeze(1)
 
-    def forward(self, x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE
+    def forward(self, x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
+                experts: Optional[Tuple[int, int]] = None, gates: Callable = bf16_gates
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B, S, d] -> (out [B, S, d], aux loss, an fp32 scalar)."""
+        """x [B, S, d] -> (out [B, S, d], aux loss, an fp32 scalar).
+        ``experts`` (lo, hi): the module holds experts ``[lo, hi)`` only (its
+        expert weights are their block); out is then their term of the
+        output, the aux loss still the whole one. ``gates(top_vals, dtype)``:
+        the gates' bf16 rounding (:func:`bf16_gates`)."""
         xt = x.reshape(-1, x.shape[-1])
         r = self._route(xt, group_size)
-        out = self._combine(self._experts(self._dispatch(xt, r)), r)
+        if experts is not None:
+            r = self._local(r, *experts)
+        out = self._combine(self._experts(self._dispatch(xt, r)), r, gates)
         return out.view(x.shape), r.aux

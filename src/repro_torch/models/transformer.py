@@ -116,7 +116,8 @@ class Block(nn.Module):
     def _ffn(self, h, cache, carried: bool, axis=None) -> torch.Tensor:
         """The block's second half; serving drops the MoE aux term. Sharded
         serving (``axis``) routes the MoE's tokens in the global batch's
-        groups (``LayerAxis.moe``)."""
+        groups and computes the rank's experts, their term summed over
+        ``model`` (``LayerAxis.moe``)."""
         if hasattr(self, "moe"):
             return self.moe(h)[0] if axis is None else axis.moe(self.moe, h)
         if self.mixer != "rwkv":
@@ -130,8 +131,9 @@ class Block(nn.Module):
         """Full sequence, no cache (``apply_block``): (x, MoE aux term), the
         aux term an fp32 scalar, 0 without experts. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded training, which splits the
-        attention and the dense MLP along ``model`` and routes the MoE's
-        tokens in the global batch's groups (``LayerAxis.moe``)."""
+        attention, the dense MLP and the MoE's experts along ``model`` and
+        routes the MoE's tokens in the global batch's groups
+        (``LayerAxis.moe``)."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru(h)
@@ -154,7 +156,7 @@ class Block(nn.Module):
     def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
         """Full sequence; fills ``cache``. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded serving, which splits the
-        attention and the dense MLP along ``model``."""
+        attention, the dense MLP and the MoE's experts along ``model``."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = self.rglru.prefill(h, cache)

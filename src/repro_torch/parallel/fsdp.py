@@ -12,15 +12,18 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
 * the batch is split along its first dim by the ``batch`` rule's axes
   (``sharding.batch_specs``); each rank takes its rows;
 * the model axis splits the compute: attention by query heads, the dense
-  MLP by ``d_ff``, the embedding and the head by vocabulary, with a sum over
-  ``model`` after each row-parallel product and the lookup, a sum of the
-  gradient over ``model`` before each column-parallel one, and the
-  vocab-parallel cross-entropy on the rank's logits block;
+  MLP by ``d_ff``, each MoE layer by experts (by every expert's ``d_ff``
+  where the axis does not divide E), the embedding and the head by
+  vocabulary, with a sum over ``model`` after each row-parallel product, the
+  MoE's combine and the lookup, a sum of the gradient over ``model`` before
+  each column-parallel one, and the vocab-parallel cross-entropy on the
+  rank's logits block;
 * each weight is materialized just before use (:class:`_Gather`): the
   embedding, final norm and head at the start of the forward, a layer
   group's inside the group, so again in remat's recompute. A weight whose
-  compute splits keeps its ``model`` block and is gathered over the other
-  axes only; every other weight is gathered whole (FSDP). The flash and scan
+  compute splits (a MoE layer's expert leaves among them) keeps its
+  ``model`` block and is gathered over the other axes only; every other
+  weight is gathered whole (FSDP). The flash and scan
   kernels see ordinary tensors: DTensor's sharding propagation cannot see
   through the ctypes-bound kernels;
 * a weight's gradient is summed over the ranks that saw other rows of the
@@ -29,10 +32,11 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   where it is replicated on them, a local slice along the other axes. A
   split weight's block gradient is the rank's own. A weight that ``model``
   replicates but the rank reads only in part (``ModelAxis.sums_gradient``:
-  K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales) has
-  its gradient summed over ``model`` too; every other replicated weight
-  (the norms, the RG-LRU, RWKV-6 and MoE leaves) is computed whole and
-  equal on every rank along ``model``, and not summed.
+  K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales, the
+  MoE router where the experts split) has its gradient summed over
+  ``model`` too; every other replicated weight (the norms, the RG-LRU and
+  RWKV-6 leaves, expert leaves the axis divides in no dim) is computed
+  whole and equal on every rank along ``model``, and not summed.
   ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the reduced
   gradient through bf16, as the reference's step states it: a round trip
   of each rank's gradient before the reduction was tried and parts from the
@@ -63,10 +67,10 @@ vocabulary on ``model`` where it splits.
 
 Not yet (ROADMAP.md): sequence parallelism (the ``seq`` rule of the
 residual stream and the batch's ``seq`` entry, ``shard_activation``'s
-``act_*`` rules, ``REPRO_SP_GATHER``, ``REPRO_CAST_BARRIER``), the RG-LRU
-``rnn`` and RWKV-6 head splits, expert parallelism, ``serve_2d``'s
-weight-stationary decode (partial sums over ``data`` in place of the
-``embed`` gather).
+``act_*`` rules, ``REPRO_SP_GATHER``, ``REPRO_CAST_BARRIER``) and with it
+the MoE's token all-to-all, the RG-LRU ``rnn`` and RWKV-6 head splits,
+``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
+place of the ``embed`` gather).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Tensor-parallel compute on the ``model`` axis: one rank's share of
-attention, the dense MLP, the embedding and the vocab head, in serving and
-in training.
+attention, the dense MLP, the MoE experts, the embedding and the vocab head,
+in serving and in training.
 
 What GSPMD does to the reference's ``build_prefill_step``,
 ``build_serve_step`` and ``train_step`` under the strategies' ``heads``,
-``kv_heads``, ``ff``, ``vocab`` and ``seq_cache`` rules
+``kv_heads``, ``ff``, ``experts``, ``vocab`` and ``seq_cache`` rules
 (``repro/parallel/sharding.py``), written out: every weight and cache keeps
 its layout at rest, and the compute follows it. A :class:`ModelAxis` is one
 rank's view of the split; the model code takes it as its ``model_axis``
@@ -13,13 +13,16 @@ hook (None in one process) and asks it
 * ``split(name)``: the model split of a parameter (``sharding.model_split``
   on its resolved spec) where its compute splits (:func:`splits_compute`):
   the rank's query heads of ``wq``/``bq``/``wo``, its KV heads where
-  ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its vocab rows;
+  ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its block of each
+  MoE layer's experts (dim 0 of ``w_up``/``w_gate``/``w_down`` where the
+  axis divides E, else every expert's ``d_ff`` columns where it divides
+  ``d_ff``, as the resolver gives the spec), its vocab rows;
 * ``from_split(x)``: the sum over ``model`` after a row-parallel product
-  (attention's ``wo``, the MLP's ``w_down``) and after the vocab-parallel
-  lookup; its backward passes the gradient through. A layer sums only where
-  the contracted dim was split (:class:`LayerAxis` ``attn_sum``,
-  ``mlp_sum``): a weight the axis does not divide is whole on every rank,
-  and a sum would multiply it by the axis;
+  (attention's ``wo``, the MLP's ``w_down``, the MoE's combine) and after
+  the vocab-parallel lookup; its backward passes the gradient through. A
+  layer sums only where the contracted dim was split (:class:`LayerAxis`
+  ``attn_sum``, ``mlp_sum``, ``moe_sum``): a weight the axis does not divide
+  is whole on every rank, and a sum would multiply it by the axis;
 * ``to_split(x)``: the column-parallel input (after ``norm1``, ``norm2`` and
   ``final_norm`` where the layer or the head splits): the identity, whose
   backward sums the gradient over ``model``, so the norm's input gradient,
@@ -27,17 +30,23 @@ hook (None in one process) and asks it
 * ``sums_gradient(name)``: whether a weight the axis replicates is read in
   part by the rank (``wk``/``wv``/``bk``/``bv`` where ``n_kv_heads`` does not
   divide the axis, QK-norm's scales: the rank's query heads read some of
-  them), so its gradient is a partial term to be summed over ``model``;
-  every other replicated weight is computed whole and equal on every rank;
+  them; the router where the experts split: each gate's gradient comes
+  from the rank's own experts' term), so its gradient is a partial term to
+  be summed over ``model``; every other replicated weight is computed whole
+  and equal on every rank;
 * ``xent(logits, labels, mask)``: the vocab-parallel cross-entropy on the
   rank's [B, S, V/M] logits block: the row max over ``model`` (no
   gradient), the sum of ``exp`` over ``model``, the label's logit from the
   rank that holds it; the [B, S, V] logits are never whole;
 * ``layer(i)``: the attention layer's :class:`LayerAxis` -- the KV heads its
   query heads read, the prefill's cache fill and decode attention over the
-  cache where it lies; and the MoE layer's routing groups, those of the
-  global batch as in one process, and in training its aux term, the global
-  batch's (``LayerAxis.moe``).
+  cache where it lies; and the MoE layer (``LayerAxis.moe``): its tokens
+  routed whole on every rank in the global batch's groups, as in one
+  process, the rank's experts (or ff columns) computed and their term
+  summed over ``model``, and in training its aux term, the global batch's.
+  The router reads its input whole on every rank, so the aux term's part
+  of the router's and the input's gradients would count once a rank where
+  they are summed: :class:`_OneShare` lets it in at 1/M a rank.
 
 The cache's K/V [B, L, Hkv, D] at rest (``sharding.cache_shardings``) splits
 its sequence over the ``seq_cache`` axes (``model``, or ``data`` and
@@ -67,8 +76,12 @@ the same input and adds their outputs has autograd sum the input's
 gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms).
 
 Out of this split, gathered whole on every rank: the RG-LRU and RWKV-6
-mixers, the MoE experts and router (their gradients equal on every rank
-along ``model``, not summed), and every norm.
+mixers (their gradients equal on every rank along ``model``, not summed),
+the MoE router (computed whole, its gradient summed where the experts
+split) and every norm. Expert parallelism takes no all-to-all: the rows
+are whole along ``model``, so each rank routes them all and sums its
+experts' term (``models/moe.py``); the token all-to-all comes with the
+sequence split of the residual stream.
 """
 
 from __future__ import annotations
@@ -83,18 +96,20 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import common
-from repro_torch.models.moe import group_size_for
+from repro_torch.models.moe import bf16_gates, group_size_for
 from repro_torch.parallel import sharding as shd
 
 # a layer's submodules whose compute splits along ``model``, and the LM's own leaves
-SPLIT_MODULES = ("attn", "mlp")
+SPLIT_MODULES = ("attn", "mlp", "moe")
 SPLIT_LEAVES = ("embed", "unembed")
 
 
 def splits_compute(name: str) -> bool:
-    """Whether a parameter's compute splits along ``model``: attention's and
-    the dense MLP's weights, the embedding and the head.
-    The RG-LRU, RWKV-6 and MoE weights, and every norm, are gathered whole."""
+    """Whether a parameter's compute splits along ``model``: attention's, the
+    dense MLP's and the MoE's weights, the embedding and the head. The MoE's
+    router is among them with its spec unsplit: it is read whole, its
+    gradient summed where the experts split (``ModelAxis.sums_gradient``).
+    The RG-LRU and RWKV-6 weights, and every norm, are gathered whole."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
@@ -198,6 +213,43 @@ class _LogSumExp(torch.autograd.Function):
     def backward(ctx, grad):
         logits, lse = ctx.saved_tensors
         return grad[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+class _OneShare(torch.autograd.Function):
+    """A term whole and equal on every rank along ``model`` (the MoE's aux
+    loss) whose gradient enters sums over ``model``: the identity; backward,
+    the gradient divided by the axis's size, so the sums count it once."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
+
+
+class _SummedGates(torch.autograd.Function):
+    """The MoE gates passed through bf16 (``moe.bf16_gates``) where each
+    rank's expert outputs are a partial term (the ff split): backward, the
+    gates' gradient summed over ``model`` before its bf16 rounding, as one
+    process rounds the whole, and 1/M of it returned to each rank, whose
+    router and input gradients are summed over ``model``. A share alone
+    has no other rank's term to round with, and raises."""
+
+    @staticmethod
+    def forward(ctx, top_vals, dtype, comm, size):
+        ctx.comm, ctx.size, ctx.dtype = comm, size, top_vals.dtype
+        return bf16_gates(top_vals, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(ctx.comm, Shares):
+            raise NotImplementedError("a share alone cannot round the summed gradient of "
+                                      "the gates of an ff-split MoE: run it on the ranks")
+        whole = ctx.comm.all_reduce(grad, "model")
+        return whole.to(torch.bfloat16).to(ctx.dtype) / ctx.size, None, None, None
 
 
 class _FromSplit(torch.autograd.Function):
@@ -332,8 +384,7 @@ class ModelAxis:
         parts = name.split(".")
         if len(parts) == 1:  # the embedding and the head split with the vocabulary
             return False
-        layer = self.layer(int(parts[1]))
-        return layer.attn_sum if parts[2] == "attn" else layer.mlp_sum
+        return getattr(self.layer(int(parts[1])), parts[2] + "_sum")
 
     def xent_terms(self, logits: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -377,14 +428,18 @@ class ModelAxis:
 
 
 class LayerAxis:
-    """A layer's split: whether attention and the MLP end in a sum over
-    ``model``, the rank's query and KV heads, and its K/V cache's layout."""
+    """A layer's split: whether attention, the MLP and the MoE end in a sum
+    over ``model``, the rank's query and KV heads, its experts, and its K/V
+    cache's layout."""
 
     def __init__(self, axis: ModelAxis, index: int):
         self.axis = axis
         pre = f"layers.{index}."
         self.attn_sum = axis.split(pre + "attn.wo") is not None
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
+        # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
+        self.experts = axis.split(pre + "moe.w_up")
+        self.moe_sum = self.experts is not None
         self.q = axis.split(pre + "attn.wq")    # the rank's query heads, or None: all
         self.kv = axis.split(pre + "attn.wk")   # its KV heads, or None: all
         if pre + "attn.wq" in axis.shapes:
@@ -405,26 +460,44 @@ class LayerAxis:
                                       f"{self.seq}, weights' KV heads {self.kv}")
 
     def moe(self, moe, h: torch.Tensor, with_aux: bool = False):
-        """The MoE layer (experts whole on every rank) on this rank's rows
-        [B, S, d], its tokens routed in the global batch's groups, as in one
-        process: where the rows hold whole groups, the global group size;
-        else the rows gathered over the batch axes, the global batch routed,
-        and this rank's rows kept. ``with_aux`` (training): (out, the
-        global batch's aux term, as every rank along the batch axes holds
-        it); else out."""
+        """The MoE layer on this rank's rows [B, S, d] (after ``norm2``), its
+        tokens routed in the global batch's groups, as in one process: where
+        the rows hold whole groups, the global group size; else the rows
+        gathered over the batch axes, the global batch routed, and this
+        rank's rows kept. Where the experts split (``moe_sum``), the rank
+        computes its experts, or every expert's ff columns (the gates'
+        gradient then summed before its rounding: :class:`_SummedGates`),
+        and the output is summed over ``model``; ``h`` goes in through
+        ``to_split``, and the aux term's gradient at 1/M a rank
+        (:class:`_OneShare`). ``with_aux`` (training): (out, the global
+        batch's aux term, as every rank along the batch axes holds it); else
+        out."""
         axis = self.axis
         B, S = h.shape[:2]
+        kw = {}
+        if self.moe_sum:
+            h = axis.to_split(h)
+            M = axis.sizes["model"]
+            if self.experts.dim == 0:
+                kw["experts"] = (self.experts.lo, self.experts.hi)
+            else:  # every expert's ff columns: each gate's gradient is a partial term
+                kw["gates"] = lambda t, dtype: _SummedGates.apply(t, dtype, axis.comm, M)
         g = group_size_for(axis.n_rows * S) if axis.row_axes else None
         if g is None or (B * S) % g == 0:
-            out, aux = moe(h, **({} if g is None else {"group_size": g}))
+            if g is not None:
+                kw["group_size"] = g
+            out, aux = moe(h, **kw)
             if with_aux and axis.row_axes:  # the mean over every rank's groups
                 aux = _SumAndUse.apply(aux * (B / axis.n_rows), axis.comm, axis.row_axes)
-            return (out, aux) if with_aux else out
-        index = 0
-        for name in axis.row_axes:
-            index = index * axis.sizes[name] + axis.coord[name]
-        out, aux = moe(_GatherRows.apply(h, axis.comm, axis.row_axes, index))
-        out = out[index * B:(index + 1) * B]
+        else:
+            index = 0
+            for name in axis.row_axes:
+                index = index * axis.sizes[name] + axis.coord[name]
+            out, aux = moe(_GatherRows.apply(h, axis.comm, axis.row_axes, index), **kw)
+            out = out[index * B:(index + 1) * B]
+        if self.moe_sum:
+            out = axis.from_split(out)
+            aux = _OneShare.apply(aux, M)
         return (out, aux) if with_aux else out
 
     def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):

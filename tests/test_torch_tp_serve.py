@@ -13,11 +13,13 @@ not divide (no sum), the vocab-parallel embedding and head, tied and
 untied, with the final softcap, and a vocabulary W does not divide.
 
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh and
-strategy, four models each): ``ShardedModel.prefill`` and 12 greedy
+strategy, five models each): ``ShardedModel.prefill`` and 12 greedy
 ``decode_step`` calls on a (data 2, model 2) mesh under ``fsdp_tp`` and on
 (model 4) under ``tp_only`` and ``serve_2d``, for reduced gemma2-9b,
 internvl2-76b with its prefix, recurrentgemma-9b (attention and MLP split,
-the RG-LRU gathered) and qwen3-moe (attention split, the experts gathered),
+the RG-LRU gathered), qwen3-moe and phi3.5-moe (attention split, each
+rank computing its block of the 8 experts, their term summed over
+``model``),
 against ``repro.models``' single-process prefill and decode: logits to 2e-4
 in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal.
 
@@ -205,7 +207,8 @@ def test_model_split_reads_the_resolved_spec():
 # Part (ii): gloo ranks against the JAX reference
 # ---------------------------------------------------------------------------
 
-MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"]
+MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
+          "phi3.5-moe-42b-a6.6b"]
 MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",)),
           "serve_2d": ((4,), ("model",))}
 

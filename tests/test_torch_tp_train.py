@@ -20,19 +20,24 @@ combines them (``Shares.merge_xent``), one backward. Everything within 1e-5
 of the largest value of the unsplit output or gradient, in fp32.
 
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh): reduced
-gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b and qwen3-moe on
-(data 2, model 2) under ``fsdp_tp`` and on (model 4) under ``tp_only``:
+gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b, qwen3-moe and
+phi3.5-moe (8 experts: each rank computes its block of them, the expert
+split), and phi3.5-moe with 6 experts (3 a rank on (data 2, model 2); on
+(model 4), which does not divide 6, every expert's ff columns: the ff
+split) on (data 2, model 2) under ``fsdp_tp`` and on (model 4) under
+``tp_only``:
 ``ShardedModel.loss`` and every gradient (``full_tensor``) against the
 reference's ``jax.value_and_grad`` of its loss on the same weights (the loss
 within 1e-5 relative, each gradient within 2e-5 of its leaf's largest, as
-``tests/test_torch_train.py``; qwen3-moe's gradients within MOE_GRAD_TOL,
-its bf16 gates'), then 6 AdamW steps in fp32 against the single process's
+``tests/test_torch_train.py``; the MoE models' gradients within
+MOE_GRAD_TOL, their bf16 gates'), then 6 AdamW steps in fp32 against the
+single process's
 ``train_loop`` (``tests/test_torch_parallel.py``'s fp32 tolerances: the
 losses within 1e-5 relative; every parameter within FP32_SPLIT_PARAM_ATOL,
 and all but a share SPLIT_OUTLIERS of them within 1e-5, since AdamW turns
 the split's fp32 rounding into up to a whole step at a gradient within a few
 eps of 0. Seen: up to 5.0e-5 and 3 parameters beyond 1e-5 for the dense
-models. qwen3-moe's are held to FP32_SPLIT_PARAM_ATOL alone: its
+models. The MoE models' are held to FP32_SPLIT_PARAM_ATOL alone: their
 gradients part by up to MOE_GRAD_TOL, so whole expert rows may part by more
 than 1e-5 after 6 steps; seen up to 9.3e-4, and 403 of 484736 parameters
 beyond 1e-5 at S 128 on (model 4)).
@@ -281,16 +286,18 @@ def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
 
 
 def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
-    """Replicated leaves read in part are summed; split leaves, norms and the
-    leaves of mixers outside the split are not."""
-    cfg = ARCHS["qwen3-moe-235b-a22b"].reduced()  # 4/2 heads, QK-norm, experts
+    """Replicated leaves read in part are summed (the MoE router where the
+    experts split); split leaves, norms and the leaves of mixers outside the
+    split are not."""
+    cfg = ARCHS["qwen3-moe-235b-a22b"].reduced()  # 4/2 heads, QK-norm, 8 experts
     meta = shp.param_specs_shapes(cfg, torch.float32)
     for W, kv in ((2, False), (4, True)):
         axis = tp.ModelAxis({"model": W}, shd.STRATEGIES["tp_only"](),
                             tp.param_shapes(meta), None, tp.Shares(), coord={"model": 0})
         summed = {n for n, _ in meta.named_parameters() if axis.sums_gradient(n)}
-        want = {f"layers.{i}.attn.{leaf}" for i in range(cfg.n_layers)
-                for leaf in ("q_norm", "k_norm") + (("wk", "wv") if kv else ())}
+        want = {f"layers.{i}.{leaf}" for i in range(cfg.n_layers)
+                for leaf in ("attn.q_norm", "attn.k_norm", "moe.router")
+                + (("attn.wk", "attn.wv") if kv else ())}
         assert summed == want, (W, summed ^ want)
     cfg = ARCHS["recurrentgemma-9b"].reduced()  # 1 KV head; RG-LRU layers gathered
     meta = shp.param_specs_shapes(cfg, torch.float32)
@@ -305,9 +312,9 @@ def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
 # Part (ii): gloo ranks against the JAX reference and the single process
 # ---------------------------------------------------------------------------
 
-# an arch at S 64, or "<arch>/S<n>" at S n
+# an arch at S 64, "<arch>/S<n>" at S n, "<arch>/E<n>" with n experts
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
-          "qwen3-moe-235b-a22b/S128"]
+          "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6"]
 MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",))}
 
 _RANKS = """
@@ -339,8 +346,18 @@ for name, cfg, np_params, batch, (data, run) in cases:
 
 
 def _arch_and_seq(name):
-    arch, _, seq = name.partition("/S")
-    return arch, int(seq or 64)
+    """(arch, S, the config's fields replaced)."""
+    arch, _, var = name.partition("/")
+    if var.startswith("E"):
+        return arch, 64, {"n_experts": int(var[1:])}
+    return arch, int(var[1:] or 64), {}
+
+
+def _cfgs(name):
+    """(the port's reduced config, the reference's)."""
+    arch, _, over = _arch_and_seq(name)
+    return (dataclasses.replace(ARCHS[arch].reduced(), **over),
+            dataclasses.replace(JARCHS[arch].reduced(), **over))
 
 
 def _batch(cfg, S, seed=3):
@@ -367,10 +384,9 @@ def _train_setup(cfg, S):
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
-    arch, S = _arch_and_seq(name)
-    cfg = ARCHS[arch].reduced()
-    return (name, cfg, _numpy_params(JARCHS[arch].reduced(), seed=1), _batch(cfg, S),
-            _train_setup(cfg, S))
+    S = _arch_and_seq(name)[1]
+    cfg, jcfg = _cfgs(name)
+    return name, cfg, _numpy_params(jcfg, seed=1), _batch(cfg, S), _train_setup(cfg, S)
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,7 +394,7 @@ def _one_process(name):
     """(the reference's loss and gradients, the one-process port's, and its
     6 AdamW steps: the history and the trained LM)."""
     _, cfg, np_params, batch, (data, run) = _case(name)
-    jcfg = JARCHS[_arch_and_seq(name)[0]].reduced()
+    jcfg = _cfgs(name)[1]
     want = _reference_loss_and_grads(cfg, jbuild_model(jcfg), np_params, batch)
     one = _port_loss_and_grads(cfg, np_params, batch)
     lm = from_jax_params(cfg, np_params, device="cpu")
