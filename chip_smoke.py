@@ -141,6 +141,21 @@ calls, and fails (exit code not 0, no result line) on any miss:
               layer's output within 1e-4 of the unsplit layer's largest and
               each gradient within 2e-3 of its leaf's largest in fp32, 5e-2
               in bf16 with the unsplit bf16 layer's own error beside it;
+ 8h2. sp_train sequence parallelism in sharded training, in this one
+              process: (a) each rank's share in the sequence form
+              (``tensor_parallel.seq_shares``: each rank normalizes its
+              2560/W positions, the gathers and reduce-scatters of the
+              stream played there): one full-width internvl2-76b layer at 8
+              and 16 ranks, one recurrentgemma-9b RG-LRU layer (the scan on
+              the gathered sequence) at 16, one qwen3-moe MoE half-block at
+              16, B 1 x S 2560, one backward: the output blocks concatenated
+              within 1e-4 of the unsplit layer's largest and each gradient
+              (the norm scales' and the RG-LRU's summed) within 2e-3 of its
+              leaf's largest in fp32, 5e-2 in bf16 (terms added in fp32)
+              with the unsplit bf16 layer's own error beside it; flash (one
+              a rank) and scan (two a rank) launches counted; (b) phase 8h's
+              1-rank path under ``fsdp_tp`` splits no sequence, its losses
+              bit-equal to ``train_loop``'s;
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -1695,6 +1710,146 @@ def tp_train_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 8h2: sequence parallelism in sharded training
+# ---------------------------------------------------------------------------
+
+def sp_shares(cfg, ranks, parts=("mix", "feed_forward")):
+    """(a) layer 0 of ``cfg`` at full width (or the halves ``parts`` of it),
+    B 1 x S 2560, fp32 then bf16 cast from the same fp32 masters: for each
+    W in ``ranks`` every rank's share in turn in the sequence form
+    (``tensor_parallel.share`` with ``seq_len``, driven by
+    ``tensor_parallel.seq_shares``: each rank normalizes its 2560/W
+    positions, the gathers and reduce-scatters played there, their terms
+    added in fp32), one backward of <out, gy> (+ the ranks' aux terms): the
+    ranks' output blocks concatenated and every leaf's gradient (the norm
+    scales' and the unsplit mixers' summed over the ranks at the masters)
+    against the unsplit layer's; in bf16 also each side against the fp32
+    unsplit layer. Flash and the scan launches counted over the shares'
+    forward and backward."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    block = lm.layers[0]
+    names = [n for n, _ in lm.named_parameters() if n.startswith("layers.0.")]
+    masters = [lm.get_parameter(n).requires_grad_(True) for n in names]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x32 = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    gy = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    positions = torch.arange(TP_S, device="cuda")
+
+    def grads(out, auxs, x):
+        """The output and the gradients of the input and every leaf the
+        parts read."""
+        loss = (out.float() * gy).sum() + sum(a.float() for a in auxs)
+        got = torch.autograd.grad(loss, [x] + masters, allow_unused=True)
+        return {"output": out.detach().float(), "input": got[0],
+                **{n[len("layers.0."):]: gr for n, gr in zip(names, got[1:])
+                   if gr is not None}}
+
+    def unsplit(dtype, x):
+        params = {n: t.to(dtype) for n, t in zip(names, masters)}
+        with _reparametrize_module(lm, params):
+            if "mix" in parts:
+                out, aux = block(x, positions)
+            else:
+                out, aux = block.feed_forward(common.apply_norm(block.norm2, x))
+                out = x + out
+        return grads(out, [aux], x)
+
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.clone().requires_grad_()
+        reset_counts()
+        want = unsplit(dtype, x.to(dtype))
+        want_launches = counts()
+        if unsplit32 is None:
+            unsplit32 = want
+        for W in ranks:
+            shares = []
+            for r in range(W):
+                axis, params, _ = tp.share(lm, None, r, W, seq_len=TP_S)
+                shares.append((axis, {n: params[n].to(dtype) for n in names}, None))
+            x = x32.clone().requires_grad_()
+            reset_counts()
+            out, auxs = tp.seq_shares(lm, 0, shares, x.to(dtype), positions, parts)
+            got = grads(out, auxs, x)
+            torch.cuda.synchronize()
+            launches = counts()
+            axis, layer = shares[0][0], shares[0][0].layer(0)
+            need(axis.seq is not None and axis.seq.hi - axis.seq.lo == TP_S // W,
+                 f"sp shares {cfg.name} at {W}: no sequence split")
+            err = {k: rel_err(got[k], want[k]) for k in want}
+            worst = max((k for k in err if k != "output"), key=err.get)
+            tol = (TP_FP32_TOL, TP_TRAIN_GRAD_TOL) if dtype == torch.float32 else \
+                (TP_BF16_TOL, TP_BF16_TOL)
+            rec = {"case": f"{cfg.name} layer 0 ({block.mixer}"
+                           + (", MoE" if hasattr(block, "moe") else f", {cfg.mlp_type}")
+                           + f"), {'+'.join(parts)}",
+                   "model_ranks": W, "dtype": str(dtype)[6:], "B": 1, "S": TP_S,
+                   "positions_a_rank": TP_S // W, "terms_added_in": "float32",
+                   "splits": {"attn": layer.attn_sum, "mlp": layer.mlp_sum,
+                              "moe": layer.moe_sum},
+                   "summed_gradients": sorted(n[len("layers.0."):] for n in names
+                                              if axis.sums_gradient(n)),
+                   "rel_err": {"output": err["output"]}, "worst_gradient": worst,
+                   "worst_gradient_rel_err": err[worst],
+                   "norm_scale_rel_err": {k: err[k] for k in err if k.startswith("norm")},
+                   "leaves": len(names), "tol": {"output": tol[0], "gradients": tol[1]},
+                   "launches_shares": launches, "launches_unsplit": want_launches}
+            if dtype == torch.bfloat16:
+                for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                    e = {k: rel_err(side[k], unsplit32[k]) for k in unsplit32}
+                    leaf = max((k for k in e if k != "output"), key=e.get)
+                    rec[tag] = {"output": e["output"], "worst_gradient": e[leaf],
+                                "worst_gradient_name": leaf}
+            print("sp_train_shares", json.dumps(rec), flush=True)
+            flash = {"wgmma": "flash_wgmma", "simt": "flash"}[
+                fa_ops.kernel_for(dtype, cfg.head_dim)]
+            expect = launch_counts(**({flash: W} if block.mixer == "attn" and "mix" in parts
+                                      else {"rglru": 2 * W} if block.mixer == "rglru"
+                                      else {}))
+            need(launches == expect, f"sp shares {cfg.name} at {W} ({dtype}): launches "
+                                     f"{launches}, expected {expect}")
+            need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                 f"sp shares {cfg.name} at {W}: non-finite")
+            need(err["output"] <= tol[0] and err[worst] <= tol[1],
+                 f"sp shares {cfg.name} at {W} ({dtype}): output {err['output']}, "
+                 f"{worst} {err[worst]}")
+            recs.append(rec)
+            del shares, got, out, auxs
+        del want
+    del lm, masters, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sp_train_phase(tp_train):
+    """(a) the shares: one internvl2-76b layer at 8 and 16 ranks, one
+    recurrentgemma-9b RG-LRU layer (the scan on the gathered sequence) at
+    16, one qwen3-moe MoE half-block (``norm2``, the experts' combine
+    reduce-scattered, the residual) at 16; (b) ``tp_train``'s 1-rank path
+    under ``fsdp_tp``: a one-rank axis splits no sequence, and its losses
+    are ``train_loop``'s bit for bit."""
+    cfg = vlm_cfg(1)
+    mesh = {"data": 1, "model": 1}
+    stream = (1, VLM_P + TP_TRAIN_S, cfg.d_model)
+    path = tp_train["path"]
+    rec = {"path": {"strategy": path["strategy"], "mesh": mesh,
+                    "stream_split": shd.stream_split(mesh, shd.STRATEGIES["fsdp_tp"](), stream,
+                                                     {"data": 0, "model": 0}),
+                    "losses": path["sharded"]["losses"],
+                    "train_loop_losses": path["unsharded"]["losses"],
+                    "bit_equal": path["sharded"]["losses"] == path["unsharded"]["losses"]}}
+    print("sp_train_path", json.dumps(rec["path"]), flush=True)
+    need(rec["path"]["stream_split"] is None and rec["path"]["bit_equal"],
+         f"sp train: the 1-rank path {rec['path']}")
+    rgemma, moe = get_config("recurrentgemma-9b"), get_config("qwen3-moe-235b-a22b")
+    need(rgemma.mixer_pattern[0] == "rglru" and moe.is_moe, "sp train configs")
+    rec["shares"] = (sp_shares(cfg, (8, 16)) + sp_shares(rgemma, (16,))
+                     + sp_shares(moe, (16,), parts=("feed_forward",)))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 8i: expert parallelism on the model axis
 # ---------------------------------------------------------------------------
 
@@ -2814,6 +2969,7 @@ def main():
     # gradients with train_check's tolerances
     vlm_check = phase("vlm_check", vlm_check_phase, 2e-3, 1e-4, 2e-3)
     tp_train = phase("tp_train", tp_train_phase)
+    sp_train = phase("sp_train", sp_train_phase, tp_train)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -2887,6 +3043,9 @@ def main():
                       launches_tp_train_shares_bf16=[
                           r["launches_shares"]["flash_attention_wgmma"]
                           for r in tp_train["shares"] if r["terms_added_in"] == "bfloat16"],
+                      launches_sp_train_shares_bf16=[
+                          r["launches_shares"]["flash_attention_wgmma"]
+                          for r in sp_train["shares"] if r["dtype"] == "bfloat16"],
                       launches_ep_prefill_1_rank=ep["path"]["launches_per_prefill"][
                           "flash_attention_wgmma"],
                       launches_ep_decode_16_steps=ep["path"]["launches_decode"][
@@ -2913,6 +3072,9 @@ def main():
                                                if r["dtype"] == "float32"],
                       launches_tp_train_shares_fp32=[r["launches_shares"]["flash_attention"]
                                                      for r in tp_train["shares"]
+                                                     if r["dtype"] == "float32"],
+                      launches_sp_train_shares_fp32=[r["launches_shares"]["flash_attention"]
+                                                     for r in sp_train["shares"]
                                                      if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
@@ -2920,6 +3082,8 @@ def main():
                       serve["launches"]["rglru_scan"], lru, lru_checks, path=lru["route"],
                       launches_train_4_steps=train["launches_per_4_steps"]["rglru_scan"],
                       launches_elastic=elastic_launches("rglru_scan"),
+                      launches_sp_train_shares=[r["launches_shares"]["rglru_scan"]
+                                                for r in sp_train["shares"]],
                       bf16_a_fp32_b_ms=lru_mixed["ms"], bf16_a_fp32_b_bound_ms=lru_mixed["bound_ms"],
                       bf16_a_fp32_b_plain_ms=lru_mixed["plain_ms"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -2937,7 +3101,7 @@ def main():
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
-               "tp_serve": tp_serve, "tp_train": tp_train, "ep": ep,
+               "tp_serve": tp_serve, "tp_train": tp_train, "sp_train": sp_train, "ep": ep,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

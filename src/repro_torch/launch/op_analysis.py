@@ -18,11 +18,14 @@ card), or on real ones:
   over ``model`` of the gradients of weights read in part), and the
   tensor-parallel path's own (``parallel/tensor_parallel.py``: the sums
   over ``model`` after the row-parallel products and the lookup, and in a
-  backward before the column-parallel ones, the vocab-parallel
-  cross-entropy's max and sum, the decode step's q gather and log-sum-exp
-  merge, the prefill's all-to-all of K and V). Bytes follow the reference's
-  convention: the output for all-gather and all-to-all, the operand for the
-  others;
+  backward before the column-parallel ones -- where a training stream's
+  sequence splits, reduce-scatters and all-gathers along it --, the
+  vocab-parallel cross-entropy's max and sum, the decode step's q gather
+  and log-sum-exp merge, the prefill's all-to-all of K and V). Bytes follow
+  the reference's convention: the output for all-gather and all-to-all, the
+  operand for the others (so an all-reduce of X counts X, and the
+  all-gather and reduce-scatter pair that replaces it counts 2X, though a
+  ring moves the same bytes for both);
 * memory: every storage alive at each op boundary, rounded up to the CUDA
   caching allocator's 512 bytes, and the peak split by category
   (:meth:`OpCounter.peak_by_category`).

@@ -47,12 +47,13 @@ row) and returns the block's term of the output. Where the axis splits
 too, which the caller's ``gates`` sums over ``model`` before the bf16
 rounding, as one process rounds the whole (rounding each rank's term apart
 parts from it by about 2e-3 of the router's largest gradient). Either way
-the terms are summed over ``model``: one all-reduce of [B, S, d] a layer.
-The rows are whole along ``model`` (the residual stream has no sequence
-split), so the all-to-all GSPMD derives from sequence-sharded rows has
-nothing to move here; an all-to-all pair of the dispatch buffer would move
-about k * capacity_factor times the sum's bytes (10x at qwen3-moe's top-8
-and 1.25).
+the terms are summed over ``model``: one all-reduce of [B, S, d] a layer,
+or in training, where the residual stream's sequence splits over
+``model``, a reduce-scatter of it after the rows were all-gathered along
+the sequence (``LayerAxis.moe``): the module sees whole rows either way.
+An all-to-all pair of the dispatch buffer in place of that gather and
+reduce-scatter would move about k * capacity_factor times their bytes
+(10x at qwen3-moe's top-8 and 1.25).
 """
 
 from __future__ import annotations

@@ -133,25 +133,36 @@ class Block(nn.Module):
         ``tensor_parallel.LayerAxis`` in sharded training, which splits the
         attention, the dense MLP and the MoE's experts along ``model`` and
         routes the MoE's tokens in the global batch's groups
-        (``LayerAxis.moe``)."""
-        h = common.apply_norm(self.norm1, x)
-        if self.mixer == "rglru":
-            h = self.rglru(h)
-        elif self.mixer == "rwkv":
-            h, _, _ = self.tm(h)
-        else:
-            h = _split_in(h, axis, "attn_sum")
-            h = _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
-        x = x + h
-        h = common.apply_norm(self.norm2, x)
-        aux = x.new_zeros((), dtype=torch.float32)
-        if self.mixer == "rwkv":
-            h = self.cm(h)[0]
-        elif hasattr(self, "moe"):
-            h, aux = self.moe(h) if axis is None else axis.moe(self.moe, h, with_aux=True)
-        else:
-            h = _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
+        (``LayerAxis.moe``). Where it splits the stream's sequence, x is the
+        rank's block of positions [B, S'/M, d] (``positions`` the whole
+        stream's): the norms and residual adds run on it, and each
+        sub-block's normed input is gathered along the sequence, its output
+        reduce-scattered (a split product) or sliced to the rank's block
+        (the RG-LRU and RWKV-6 mixers, the channel mix, a layer the axis
+        does not divide)."""
+        x = x + self.mix(common.apply_norm(self.norm1, x), positions, axis)
+        h, aux = self.feed_forward(common.apply_norm(self.norm2, x), axis)
         return x + h, aux
+
+    def mix(self, h: torch.Tensor, positions: torch.Tensor, axis=None) -> torch.Tensor:
+        """``forward``'s first half on the ``norm1``-normed stream: the mixer's
+        output, the rank's block of it where the sequence splits."""
+        if self.mixer == "rglru":
+            return _summed(self.rglru(_split_in(h, axis)), axis)
+        if self.mixer == "rwkv":
+            return _summed(self.tm(_split_in(h, axis))[0], axis)
+        h = _split_in(h, axis, "attn_sum")
+        return _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
+
+    def feed_forward(self, h: torch.Tensor, axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward``'s second half on the ``norm2``-normed stream: (output,
+        MoE aux term)."""
+        aux = h.new_zeros((), dtype=torch.float32)
+        if self.mixer == "rwkv":
+            return _summed(self.cm(_split_in(h, axis))[0], axis), aux
+        if hasattr(self, "moe"):
+            return self.moe(h) if axis is None else axis.moe(self.moe, h, with_aux=True)
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum"), aux
 
     def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
         """Full sequence; fills ``cache``. ``axis``: the layer's
@@ -181,16 +192,24 @@ class Block(nn.Module):
         return x + _summed(h, axis, "mlp_sum")
 
 
-def _summed(h: torch.Tensor, axis, which: str) -> torch.Tensor:
-    """A row-parallel product's output, summed over ``model`` where the
-    layer's contracted dim was split (``LayerAxis.attn_sum`` / ``mlp_sum``)."""
-    return axis.axis.from_split(h) if axis is not None and getattr(axis, which) else h
+def _summed(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
+    """A sub-block's output: a row-parallel product's summed over ``model``
+    where the layer's contracted dim was split (``LayerAxis.attn_sum`` /
+    ``mlp_sum``: ``ModelAxis.from_split``), else, computed whole, the rank's
+    positions where the stream's sequence splits (``ModelAxis.own``)."""
+    if axis is None:
+        return h
+    return axis.axis.from_split(h) if which and getattr(axis, which) else axis.axis.own(h)
 
 
-def _split_in(h: torch.Tensor, axis, which: str) -> torch.Tensor:
-    """A column-parallel product's input where the layer splits: its gradient
-    is summed over ``model`` (``ModelAxis.to_split``)."""
-    return axis.axis.to_split(h) if axis is not None and getattr(axis, which) else h
+def _split_in(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
+    """A sub-block's input: a column-parallel product's where the layer
+    splits, its gradient summed over ``model`` (``ModelAxis.to_split``),
+    else the whole stream where its sequence splits (``ModelAxis.gather``);
+    both all-gather the rank's block where the sequence splits."""
+    if axis is None:
+        return h
+    return axis.axis.to_split(h) if which and getattr(axis, which) else axis.axis.gather(h)
 
 
 class LM(nn.Module):
@@ -224,24 +243,39 @@ class LM(nn.Module):
         """Token embeddings (scaled where the config says), after the prefix.
         Where ``model_axis`` splits the vocabulary, ``embed`` holds this rank's
         rows: it looks up the tokens in its range, zeros for the others, and
-        the rows are summed over ``model``."""
+        the rows are summed over ``model`` (each term scaled first: all but
+        one are 0, so the sum is the same). Where it splits the stream's
+        sequence, the result is the rank's block of positions: the sum
+        reduce-scattered, the prefix going in before it in rank 0's term
+        (the sum adds it once); an unsplit lookup is sliced
+        (``ModelAxis.own``)."""
         split = None if model_axis is None else model_axis.split("embed")
         if split is None:
             x = self.embed[tokens]
         else:
             inside = (tokens >= split.lo) & (tokens < split.hi)
             rows = self.embed[torch.where(inside, tokens - split.lo, 0)]
-            x = model_axis.from_split(torch.where(inside[..., None], rows, 0))
+            x = torch.where(inside[..., None], rows, 0)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        seq = model_axis is not None and model_axis.seq is not None
+        if split is not None and not seq:
+            x = model_axis.from_split(x)
         if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+            prefix = prefix_embeds.to(x.dtype)
+            if split is not None and seq and model_axis.coord["model"] != 0:
+                prefix = torch.zeros_like(prefix)
+            x = torch.cat([prefix, x], dim=1)
+        if seq:
+            x = model_axis.own(x) if split is None else model_axis.from_split(x)
         return x
 
     def _logits(self, x: torch.Tensor, model_axis: Optional[ModelAxis] = None
                 ) -> torch.Tensor:
         """The head; where ``model_axis`` splits the vocabulary, the head's
-        weight is this rank's vocab block and so are the logits."""
+        weight is this rank's vocab block and so are the logits, over the
+        whole stream (the final-normed blocks gathered where its sequence
+        splits); an unsplit head there reads the rank's positions only."""
         x = common.apply_norm(self.final_norm, x)
         if model_axis is not None and model_axis.head is not None:
             x = model_axis.to_split(x)
@@ -268,9 +302,13 @@ class LM(nn.Module):
         layer parameter just before its layer runs (inside a rematerialized
         group, so again in the recompute); the sharded trainer gathers the
         group's weights there. ``model_axis`` as in ``prefill``: the logits
-        are then this rank's vocab block where the head splits."""
+        are then this rank's vocab block where the head splits. Where it
+        splits the stream's sequence, the stream between the layers, and so
+        each group's input that remat keeps, is the rank's block
+        [B, (P+S)/M, d] (``Block.forward``)."""
         x = self._embed(tokens, prefix_embeds, model_axis)
-        positions = torch.arange(x.shape[1], device=x.device)
+        n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        positions = torch.arange(n_prefix + tokens.shape[1], device=x.device)
         p = len(self.cfg.mixer_pattern)
         n_groups, _ = self.cfg.n_groups_and_tail()
         remat = remat_policy not in (None, "none") and torch.is_grad_enabled()
@@ -415,7 +453,9 @@ def _remat_group(layers: nn.ModuleList, group: Sequence[int], x: torch.Tensor,
     in cast copies that are gone by then. ``materialize`` runs inside, so the
     recompute materializes the weights again; under ``model_axis`` it also
     issues the forward's sums over ``model`` again, in the same order on
-    every rank."""
+    every rank. Where the stream's sequence splits, the input kept for the
+    backward is the rank's block [B, S'/M, d], and the recompute gathers it
+    again inside."""
     names = [[n for n, _ in layers[i].named_parameters()] for i in group]
     flat = [t for i in group for _, t in layers[i].named_parameters()]
 
@@ -451,7 +491,10 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     ``model_axis`` (``parallel/tensor_parallel.py``), where given, splits the
     embedding, attention, the dense MLP and the head along ``model``, as in
     ``LM.prefill``; where the head splits, the cross-entropy is the
-    vocab-parallel one (``ModelAxis.xent``) on this rank's logits block."""
+    vocab-parallel one (``ModelAxis.xent``) on this rank's logits block, the
+    prefix's logits dropped after the head's gather. Where the stream's
+    sequence splits and the head does not, the logits are the rank's
+    positions' (``ModelAxis.seq_xent``)."""
     tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
     kw = {"remat_policy": remat_policy, "prefix_embeds": prefix}
     if model_axis is not None:
@@ -473,11 +516,13 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     else:
         params = {n: prepare(n, p) for n, p in lm.named_parameters()}
         logits, aux = functional_call(lm, params, (tokens,), kw)
-    if prefix is not None:  # the loss is over the token positions only
-        logits = logits[:, prefix.shape[1]:]
+    n_prefix = 0 if prefix is None else prefix.shape[1]  # the loss is over the tokens only
+    labels, mask = batch["labels"], batch.get("mask")
     if model_axis is not None and model_axis.head is not None:
-        xent = model_axis.xent(logits, batch["labels"], batch.get("mask"))
+        xent = model_axis.xent(logits[:, n_prefix:], labels, mask)
+    elif model_axis is not None and model_axis.seq is not None:
+        xent = model_axis.seq_xent(logits, labels, mask, n_prefix)
     else:
-        xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
+        xent = common.softmax_xent(logits[:, n_prefix:], labels, mask)
     loss = xent + MOE_AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}

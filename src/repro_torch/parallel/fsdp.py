@@ -10,7 +10,11 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
 :class:`ShardedModel` then trains it as GSPMD splits the reference's step:
 
 * the batch is split along its first dim by the ``batch`` rule's axes
-  (``sharding.batch_specs``); each rank takes its rows;
+  (``sharding.batch_specs``); each rank takes its rows. Tokens, labels,
+  mask and prefix stay whole along ``model``: the vocab-parallel lookup
+  reads every position on every rank, and the loss reads the gathered
+  logits. The batch specs' ``seq`` entry is carried out in the residual
+  stream instead (next item);
 * the model axis splits the compute: attention by query heads, the dense
   MLP by ``d_ff``, each MoE layer by experts (by every expert's ``d_ff``
   where the axis does not divide E), the embedding and the head by
@@ -18,6 +22,20 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   MoE's combine and the lookup, a sum of the gradient over ``model`` before
   each column-parallel one, and the vocab-parallel cross-entropy on the
   rank's logits block;
+* sequence parallelism (the ``seq`` rule, ``"model"`` under ``fsdp_tp``,
+  ``tp_only`` and ``fsdp_tp_pod_fsdp``): the residual stream [B, P + S, d]
+  between the sub-blocks is the rank's contiguous block of positions
+  (``sharding.stream_split`` on the global shape; where ``model`` does not
+  divide P + S, or under ``fsdp_tp_noseq``, the stream is whole and the
+  path is the one above). The norms and residual adds run on the block;
+  each sub-block's normed input is all-gathered along the sequence (its
+  backward a reduce-scatter), and each sum over ``model`` after a
+  row-parallel product, the MoE's combine or the lookup becomes a
+  reduce-scatter along it (its backward an all-gather). A compute that does
+  not split along ``model`` (the RG-LRU and RWKV-6 mixers, the channel
+  mix, a layer, head or embedding the axis does not divide) runs on the
+  gathered stream and keeps the rank's positions. Remat keeps each group's
+  input as the rank's block: that is the memory the rule saves;
 * each weight is materialized just before use (:class:`_Gather`): the
   embedding, final norm and head at the start of the forward, a layer
   group's inside the group, so again in remat's recompute. A weight whose
@@ -34,8 +52,10 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   replicates but the rank reads only in part (``ModelAxis.sums_gradient``:
   K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales, the
   MoE router where the experts split) has its gradient summed over
-  ``model`` too; every other replicated weight (the norms, the RG-LRU and
-  RWKV-6 leaves, expert leaves the axis divides in no dim) is computed
+  ``model`` too. Where the stream's sequence splits, that is every
+  replicated weight: the norms' scales, the RG-LRU and RWKV-6 leaves, an
+  unsplit layer's, embedding's or head's, since each rank back-propagates
+  only its own positions' term; without the split the rest are computed
   whole and equal on every rank along ``model``, and not summed.
   ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the reduced
   gradient through bf16, as the reference's step states it: a round trip
@@ -65,12 +85,14 @@ which overwrites every entry) and written back to its layout at rest (a
 local slice). Logits come back as a DTensor: rows on the batch axes, the
 vocabulary on ``model`` where it splits.
 
-Not yet (ROADMAP.md): sequence parallelism (the ``seq`` rule of the
-residual stream and the batch's ``seq`` entry, ``shard_activation``'s
-``act_*`` rules, ``REPRO_SP_GATHER``, ``REPRO_CAST_BARRIER``) and with it
-the MoE's token all-to-all, the RG-LRU ``rnn`` and RWKV-6 head splits,
-``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
-place of the ``embed`` gather).
+The sequence split is always the explicit gather (the reference's
+``REPRO_SP_GATHER=1``); serving splits no sequence of the stream, as the
+reference's ``prefill_block`` constrains none.
+
+Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
+in place of its gather and reduce-scatter; the RG-LRU ``rnn`` and RWKV-6
+head splits; ``serve_2d``'s weight-stationary decode (partial sums over
+``data`` in place of the ``embed`` gather).
 """
 
 from __future__ import annotations
@@ -196,7 +218,10 @@ class ShardedModel:
 
     def local_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[Dict[str, torch.Tensor], Tuple[str, ...]]:
-        """This rank's rows of ``batch`` and the mesh axes the rows split over."""
+        """This rank's rows of ``batch`` and the mesh axes the rows split over.
+        The batch specs' ``seq`` entry is not taken here: every position
+        stays on every ``model`` rank, and the residual stream splits it
+        (``model_axis``'s ``stream``)."""
         specs = shd.batch_specs(self.mesh, self.rules, batch)
         axes = specs["tokens"][0]
         axes = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
@@ -227,10 +252,15 @@ class ShardedModel:
 
     def loss(self, lm: LM, batch: Dict[str, Any], **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``."""
+        """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``. The
+        residual stream [B, P + S, d] splits its sequence over ``model``
+        where the rules say so (``sharding.stream_split``)."""
         local, axes = self.local_batch(batch)
         reduce = _reduce_placements(self.mesh, axes)
-        axis = self.model_axis(lm, None, axes, batch["tokens"].shape[0])
+        B, S = batch["tokens"].shape
+        prefix = batch.get("prefix_embeds")
+        stream = (B, S + (0 if prefix is None else prefix.shape[1]), self.cfg.d_model)
+        axis = self.model_axis(lm, None, axes, B, stream)
         loss, metrics = lm_loss(lm, local, materialize=self._weights(axis, axes),
                                 model_axis=axis, **kw)
         mask = local.get("mask")
@@ -282,16 +312,18 @@ class ShardedModel:
         return hook
 
     def model_axis(self, lm: LM, cache: Optional[Cache], row_axes: Tuple[str, ...],
-                   n_rows: int) -> tp.ModelAxis:
+                   n_rows: int, stream: Optional[Tuple[int, int, int]] = None
+                   ) -> tp.ModelAxis:
         """This rank's view of the ``model`` split for serving ``lm`` over
-        ``cache`` (training: None), the global batch's ``n_rows`` rows split
-        over ``row_axes``."""
+        ``cache`` (training: None, and the residual stream's global shape
+        ``stream``), the global batch's ``n_rows`` rows split over
+        ``row_axes``."""
         shapes = self._shapes.get(lm)
         if shapes is None:
             shapes = self._shapes[lm] = tp.param_shapes(lm)
         return tp.ModelAxis(self.mesh, self.rules, shapes, cache,
                             tp.MeshCollectives(self.mesh), memo=self._memo,
-                            rows=(row_axes, n_rows))
+                            rows=(row_axes, n_rows), stream=stream)
 
     def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
                gather_cache: bool) -> DTensor:

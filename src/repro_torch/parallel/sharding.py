@@ -318,6 +318,30 @@ def model_split(mesh: Mesh, spec: Spec, shape: Sequence[int],
     return None
 
 
+STREAM_LOGICAL = ("batch", "seq", "act_embed")  # the residual stream [B, S', d]
+
+
+def stream_split(mesh: Mesh, rules: Dict[str, MeshAxes], shape: Sequence[int],
+                 coord: Optional[Mapping[str, int]] = None) -> Optional[Split]:
+    """The residual stream's sequence split in training: the rank's block of
+    positions ``[lo, hi)`` of the global stream ``shape`` (B, S', d), where
+    ``S' = P + S`` with a prefix, resolved as the reference constrains the
+    stream (``shard_activation(x, "batch", "seq", "act_embed")``). None where
+    ``model`` does not split it: a rule without ``seq`` (``fsdp_tp_noseq``,
+    ``serve_2d``), an S' the axis does not divide (the resolver replicates),
+    or a ``model`` axis of one rank, which splits nothing. Only a split over
+    ``model`` alone is ported."""
+    if axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    spec = resolve_spec(mesh, rules, STREAM_LOGICAL, shape)
+    if "model" not in _axes(spec[1]):
+        return None
+    if _axes(spec[1]) != ("model",):
+        raise NotImplementedError(f"the stream's sequence splits over {spec[1]}; only a "
+                                  "split over model alone is ported")
+    return dim_split(mesh, spec, 1, shape, coord)
+
+
 def shard_activation(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Lay an activation out by its logical axes: a no-op without a context,
     and for a plain (local) tensor, which is what the port's compute runs on

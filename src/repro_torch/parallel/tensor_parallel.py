@@ -19,21 +19,23 @@ hook (None in one process) and asks it
   ``d_ff``, as the resolver gives the spec), its vocab rows;
 * ``from_split(x)``: the sum over ``model`` after a row-parallel product
   (attention's ``wo``, the MLP's ``w_down``, the MoE's combine) and after
-  the vocab-parallel lookup; its backward passes the gradient through. A
+  the vocab-parallel lookup; its backward passes the gradient through
+  (a reduce-scatter where the stream's sequence splits, below). A
   layer sums only where the contracted dim was split (:class:`LayerAxis`
   ``attn_sum``, ``mlp_sum``, ``moe_sum``): a weight the axis does not divide
   is whole on every rank, and a sum would multiply it by the axis;
 * ``to_split(x)``: the column-parallel input (after ``norm1``, ``norm2`` and
   ``final_norm`` where the layer or the head splits): the identity, whose
   backward sums the gradient over ``model``, so the norm's input gradient,
-  and its scale's, are whole and equal on every rank;
+  and its scale's, are whole and equal on every rank (an all-gather where
+  the stream's sequence splits, below);
 * ``sums_gradient(name)``: whether a weight the axis replicates is read in
   part by the rank (``wk``/``wv``/``bk``/``bv`` where ``n_kv_heads`` does not
   divide the axis, QK-norm's scales: the rank's query heads read some of
   them; the router where the experts split: each gate's gradient comes
   from the rank's own experts' term), so its gradient is a partial term to
-  be summed over ``model``; every other replicated weight is computed whole
-  and equal on every rank;
+  be summed over ``model``; without the sequence split every other
+  replicated weight is computed whole and equal on every rank;
 * ``xent(logits, labels, mask)``: the vocab-parallel cross-entropy on the
   rank's [B, S, V/M] logits block: the row max over ``model`` (no
   gradient), the sum of ``exp`` over ``model``, the label's logit from the
@@ -73,15 +75,32 @@ sees), or :class:`Shares` (one process computing one rank's share in turn:
 each reduction over ``model``, forward or backward, returns the rank's own
 term, for the caller to combine -- a caller that feeds every rank's share
 the same input and adds their outputs has autograd sum the input's
-gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms).
+gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms; in
+the sequence form the caller feeds each gather the gathered input and
+sums and slices the whole term each reduce-scatter returns).
 
 Out of this split, gathered whole on every rank: the RG-LRU and RWKV-6
-mixers (their gradients equal on every rank along ``model``, not summed),
-the MoE router (computed whole, its gradient summed where the experts
-split) and every norm. Expert parallelism takes no all-to-all: the rows
-are whole along ``model``, so each rank routes them all and sums its
-experts' term (``models/moe.py``); the token all-to-all comes with the
-sequence split of the residual stream.
+mixers, the MoE router (computed whole, its gradient summed where the
+experts split) and every norm.
+
+Sequence parallelism in training (``seq``, the rank's positions of the
+residual stream: ``sharding.stream_split``, given the stream's global
+shape): the stream between sub-blocks is the rank's block [B, S'/M, d].
+``to_split`` then all-gathers the normed block along the sequence
+(:class:`_GatherSeq`, backward a reduce-scatter, which sums the ranks'
+terms as ``_ToSplit``'s all-reduce did) and ``from_split`` reduce-scatters
+the row-parallel term (:class:`_ScatterSeq`, backward an all-gather); a
+compute that does not split (the mixers, the channel mix, a layer, head or
+embedding the axis does not divide) takes the gathered stream
+(``gather``) and keeps the rank's positions (``own``: the slice's backward
+pads with zeros). Each rank then back-propagates only its own positions'
+term through every replicated weight, so ``sums_gradient`` names them all:
+the norms' and mixers' gradients are summed over ``model`` where the
+sequence splits, and not otherwise (equal on every rank). The MoE gathers
+its rows along the sequence before the batch axes and reduce-scatters its
+combine, so each rank still routes every token of the global groups and
+no token all-to-all is taken; :class:`Shares` plays the sequence form for
+one rank at a time (:func:`seq_shares`).
 """
 
 from __future__ import annotations
@@ -92,6 +111,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -149,6 +169,13 @@ class MeshCollectives:
             return x
         return _done(funcol.all_to_all_single(x.contiguous(), None, None, self._group(axis)))
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """The sum over the axis, split along ``dim``: rank i keeps block i."""
+        if self.sizes[axis] == 1:
+            return x
+        return _done(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim,
+                                                  self._group(axis)))
+
 
 class Shares:
     """One rank's share computed alone: a reduction over ``model`` (a sum, or
@@ -170,10 +197,24 @@ class Shares:
         return lse, sum(gold for _, gold in terms)
 
     def all_gather(self, x, dim, axis):
-        raise NotImplementedError("a share alone gathers nothing: give it a layout "
-                                  "without a sequence-split cache")
+        """The stream's sequence (dim 1 over ``model``): the caller plays the
+        gather and feeds the gathered input, so this is the identity.
+        Nothing else is gathered."""
+        if (dim, axis) != (1, "model"):
+            raise NotImplementedError("a share alone gathers nothing: give it a layout "
+                                      "without a sequence-split cache")
+        return x
 
-    all_to_all = all_gather
+    def reduce_scatter(self, x, dim, axis):
+        """The stream's sequence: the rank's whole term, for the caller to sum
+        over the ranks and slice."""
+        if (dim, axis) != (1, "model"):
+            raise NotImplementedError(f"a share alone has no reduce-scatter over {axis}")
+        return x
+
+    def all_to_all(self, x, axis):
+        raise NotImplementedError("a share alone moves nothing: give it a layout "
+                                  "without a sequence-split cache")
 
 
 Comm = Union[MeshCollectives, Shares]
@@ -266,6 +307,38 @@ class _FromSplit(torch.autograd.Function):
         return grad, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    """The rank's block of the stream [B, S'/M, ...] all-gathered over
+    ``model`` along the sequence; backward, the gradient reduce-scattered
+    (every rank's term summed, the rank's block kept)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        out = comm.all_gather(x, 1, "model")
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.reduce_scatter(grad, 1, "model"), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """A row-parallel term [B, S', ...] reduce-scattered over ``model`` along
+    the sequence: the sum, the rank's block of it; backward, the gradient
+    all-gathered (every rank's term reads every position)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        out = comm.reduce_scatter(x, 1, "model")
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_gather(grad, 1, "model"), None
+
+
 def _sum_over(x: torch.Tensor, comm: Comm, axes: Tuple[str, ...]) -> torch.Tensor:
     for name in axes:
         x = comm.all_reduce(x, name)
@@ -332,17 +405,22 @@ class ModelAxis:
     ``coord``: the rank's mesh coordinate where ``mesh`` is given by axis
     sizes; ``memo``: a dict kept across one rank's calls (a split depends
     only on the name and the shape); ``rows``: the mesh axes the batch's rows
-    split over and the global batch (none: the rows are whole)."""
+    split over and the global batch (none: the rows are whole); ``stream``:
+    in training, the residual stream's global shape (B, S', d), whose
+    sequence splits over ``model`` where the rules say so
+    (``sharding.stream_split``: ``seq``, the rank's positions, or None)."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
                  shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
                  comm: Comm,
                  coord: Optional[Mapping[str, int]] = None, memo: Optional[Dict] = None,
-                 rows: Tuple[Tuple[str, ...], int] = ((), 0)):
+                 rows: Tuple[Tuple[str, ...], int] = ((), 0),
+                 stream: Optional[Tuple[int, int, int]] = None):
         self.mesh, self.rules, self.shapes, self.comm = mesh, rules, shapes, comm
         self.row_axes, self.n_rows = rows
         self.sizes = shd.axis_sizes(mesh)
         self.coord = shd.coordinate(mesh, coord)
+        self.seq = None if stream is None else shd.stream_split(mesh, rules, stream, self.coord)
         self._layers = None if cache is None else cache["layers"]
         self._memo = {} if memo is None else memo
         self.head = self.split("unembed" if "unembed" in shapes else "embed")
@@ -367,19 +445,47 @@ class ModelAxis:
         return self._memo[key]
 
     def from_split(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over ``model``; its backward passes the gradient through."""
+        """Out of a row-parallel product: the sum over ``model``, its backward
+        passing the gradient through; where the sequence splits, the sum
+        reduce-scattered along it (the rank's block), its backward an
+        all-gather."""
+        if self.seq is not None:
+            return _ScatterSeq.apply(x, self.comm)
         return _FromSplit.apply(x, self.comm)
 
     def to_split(self, x: torch.Tensor) -> torch.Tensor:
-        """The identity; its backward sums the gradient over ``model``."""
+        """Into a column-parallel product: the identity, its backward summing
+        the gradient over ``model``; where the sequence splits, the rank's
+        block all-gathered along it, its backward a reduce-scatter."""
+        if self.seq is not None:
+            return _GatherSeq.apply(x, self.comm)
         return _ToSplit.apply(x, self.comm)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Into a compute that does not split along ``model`` (a mixer, a
+        layer the axis does not divide): where the sequence splits, the
+        rank's block all-gathered, as :meth:`to_split`; else ``x``."""
+        return x if self.seq is None else _GatherSeq.apply(x, self.comm)
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """Out of such a compute, whole on every rank: where the sequence
+        splits, the rank's positions (the slice's backward pads the gradient
+        with zeros); else ``x``."""
+        return x if self.seq is None else x[:, self.seq.lo:self.seq.hi]
 
     def sums_gradient(self, name: str) -> bool:
         """Whether parameter ``name`` is replicated over ``model`` (its
         resolved spec does not split it) and yet read in part by this rank,
-        because its module's compute splits: its gradient is then this rank's
-        term of a sum over ``model``."""
-        if not splits_compute(name) or self.split(name) is not None:
+        so that its gradient is this rank's term of a sum over ``model``:
+        where its module's compute splits; and, where the sequence splits,
+        every replicated weight, since each rank back-propagates only its
+        own positions' term (the norms on its block, a mixer or an unsplit
+        layer, embedding or head through :meth:`own`)."""
+        if self.split(name) is not None:
+            return False
+        if self.seq is not None:
+            return True
+        if not splits_compute(name):
             return False
         parts = name.split(".")
         if len(parts) == 1:  # the embedding and the head split with the vocabulary
@@ -399,7 +505,8 @@ class ModelAxis:
         labels = labels.long()
         inside = (labels >= split.lo) & (labels < split.hi)
         gold = logits.gather(-1, torch.where(inside, labels - split.lo, 0)[..., None])[..., 0]
-        return _LogSumExp.apply(logits, self.comm), self.from_split(torch.where(inside, gold, 0.0))
+        return _LogSumExp.apply(logits, self.comm), _FromSplit.apply(
+            torch.where(inside, gold, 0.0), self.comm)
 
     def xent(self, logits: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -407,6 +514,22 @@ class ModelAxis:
         of ``log-sum-exp - label logit`` (:meth:`xent_terms`)."""
         lse, gold = self.xent_terms(logits, labels)
         return common.masked_mean(lse - gold, mask)
+
+    def seq_xent(self, logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor], prefix_len: int) -> torch.Tensor:
+        """``common.softmax_xent`` where the sequence splits and the head does
+        not: ``logits`` [B, S'/M, V] are the rank's positions of the stream,
+        the prefix's ``prefix_len`` rows among them (dropped here); labels and
+        mask are whole. The rank's masked sum of ``log-sum-exp - label
+        logit`` is summed over ``model`` and divided by the whole count."""
+        first = max(self.seq.lo, prefix_len)
+        logits = common.at_least_fp32(logits[:, first - self.seq.lo:])
+        cols = slice(first - prefix_len, self.seq.hi - prefix_len)
+        nll = torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels[:, cols].long()[..., None])[..., 0]
+        mask = torch.ones_like(labels, dtype=nll.dtype) if mask is None else mask.to(nll.dtype)
+        return (_FromSplit.apply((nll * mask[:, cols]).sum(), self.comm)
+                / torch.clamp(mask.sum(), min=1.0))
 
     def layer(self, index: int) -> "LayerAxis":
         return LayerAxis(self, index)
@@ -464,20 +587,26 @@ class LayerAxis:
         tokens routed in the global batch's groups, as in one process: where
         the rows hold whole groups, the global group size; else the rows
         gathered over the batch axes, the global batch routed, and this
-        rank's rows kept. Where the experts split (``moe_sum``), the rank
-        computes its experts, or every expert's ff columns (the gates'
-        gradient then summed before its rounding: :class:`_SummedGates`),
-        and the output is summed over ``model``; ``h`` goes in through
-        ``to_split``, and the aux term's gradient at 1/M a rank
-        (:class:`_OneShare`). ``with_aux`` (training): (out, the global
-        batch's aux term, as every rank along the batch axes holds it); else
-        out."""
+        rank's rows kept. Where the stream's sequence splits, ``h`` is the
+        rank's block [B, S'/M, d], gathered along the sequence first (its
+        backward, a reduce-scatter, runs after the rows' gather's), and the
+        output ends as the rank's block. Where the experts split
+        (``moe_sum``), the rank computes its experts, or every expert's ff
+        columns (the gates' gradient then summed before its rounding:
+        :class:`_SummedGates`), and the output is summed over ``model``
+        (``to_split`` in, ``from_split`` out: a reduce-scatter where the
+        sequence splits); else it is computed whole (``gather`` in, ``own``
+        out). The aux term is whole and equal on every rank along ``model``;
+        where its gradient enters a sum over ``model`` (the experts or the
+        sequence split), it counts at 1/M a rank (:class:`_OneShare`).
+        ``with_aux`` (training): (out, the global batch's aux term, as every
+        rank along the batch axes holds it); else out."""
         axis = self.axis
+        M = axis.sizes["model"]
+        h = axis.to_split(h) if self.moe_sum else axis.gather(h)
         B, S = h.shape[:2]
         kw = {}
         if self.moe_sum:
-            h = axis.to_split(h)
-            M = axis.sizes["model"]
             if self.experts.dim == 0:
                 kw["experts"] = (self.experts.lo, self.experts.hi)
             else:  # every expert's ff columns: each gate's gradient is a partial term
@@ -495,8 +624,8 @@ class LayerAxis:
                 index = index * axis.sizes[name] + axis.coord[name]
             out, aux = moe(_GatherRows.apply(h, axis.comm, axis.row_axes, index), **kw)
             out = out[index * B:(index + 1) * B]
-        if self.moe_sum:
-            out = axis.from_split(out)
+        out = axis.from_split(out) if self.moe_sum else axis.own(out)
+        if self.moe_sum or axis.seq is not None:
             aux = _OneShare.apply(aux, M)
         return (out, aux) if with_aux else out
 
@@ -584,7 +713,7 @@ def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> Non
 
 
 def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: int,
-          rules: Optional[Dict[str, shd.MeshAxes]] = None):
+          rules: Optional[Dict[str, shd.MeshAxes]] = None, seq_len: Optional[int] = None):
     """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
     process (whole weights and cache given; no cache in training): (its
     :class:`ModelAxis` over :class:`Shares`, its block of each parameter by
@@ -593,10 +722,16 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     with the cache's sequence whole, so the cache splits its heads as the
     weights do and no collective but the final sums is needed: each output
     that ends in a sum over ``model`` is this rank's term of it, and so is
-    the input gradient of each ``to_split``."""
+    the input gradient of each ``to_split``. ``seq_len`` (training): the
+    stream's S', whose sequence then splits as the rules say (the
+    sequence form: the caller feeds each gather the gathered input, and
+    sums and slices the terms each reduce-scatter returns whole;
+    :meth:`ModelAxis.own` gives the rank's positions)."""
     rules = {**(rules or shd.STRATEGIES["fsdp_tp"]()), "seq_cache": None}
     mesh = {"model": size}
-    axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares(), coord={"model": rank})
+    stream = None if seq_len is None else (1, seq_len, lm.cfg.d_model)
+    axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares(), coord={"model": rank},
+                     stream=stream)
     params = {}
     for name, p in lm.named_parameters():
         split = axis.split(name)
@@ -609,3 +744,47 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
         layers.append(c if heads is None else
                       {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
     return axis, params, {"layers": layers, "pos": cache["pos"]}
+
+
+def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: torch.Tensor,
+               parts: Tuple[str, ...] = ("mix", "feed_forward")
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Layer ``index``'s ``Block.forward`` (or the halves ``parts`` of it)
+    on every rank's share in turn, in the sequence form (``shares``: each
+    rank's (axis, parameter blocks, _) from :func:`share` with
+    ``seq_len``), the collectives' other side played here: each rank
+    normalizes its own block of x [B, S', d]; the normed blocks,
+    concatenated, are every rank's gathered input; the whole terms a
+    reduce-scatter returns are summed in fp32 and sliced, a rank's own
+    positions taken as they are. The gathered input reaches each rank
+    through a cast from fp32, so autograd sums its gradient's terms in fp32
+    too. -> (the ranks' output blocks concatenated, each rank's aux term)."""
+    block = lm.layers[index]
+    bounds = [(axis.seq.lo, axis.seq.hi) for axis, _, _ in shares]
+    xs = [x[:, lo:hi] for lo, hi in bounds]
+
+    def each(fn, norm):
+        normed = []
+        for (_, params, _), xr in zip(shares, xs):
+            with _reparametrize_module(lm, params):
+                normed.append(common.apply_norm(getattr(block, norm), xr))
+        gathered = torch.cat(normed, 1).float()
+        outs = []
+        for axis, params, _ in shares:
+            with _reparametrize_module(lm, params):
+                outs.append(fn(gathered.to(x.dtype), axis.layer(index)))
+        return outs
+
+    def add(outs):
+        if outs[0].shape[1] == x.shape[1]:  # whole terms: summed, each rank's block
+            total = sum(o.float() for o in outs).to(x.dtype)
+            outs = [total[:, lo:hi] for lo, hi in bounds]
+        return [xr + o for xr, o in zip(xs, outs)]
+
+    aux = []
+    if "mix" in parts:
+        xs = add(each(lambda h, layer: block.mix(h, positions, layer), "norm1"))
+    if "feed_forward" in parts:
+        ffn = each(lambda h, layer: block.feed_forward(h, layer), "norm2")
+        xs, aux = add([o for o, _ in ffn]), [a for _, a in ffn]
+    return torch.cat(xs, 1), aux

@@ -266,8 +266,11 @@ def test_expert_leaves_take_the_resolved_spec():
 def test_a_sharded_step_materializes_the_rank_experts_and_sums_only_the_router(monkeypatch):
     """Reduced qwen3-moe (8 experts) on (data 2, model 2), one train step on
     meta tensors: each expert leaf comes out of the materialize hook as the
-    rank's [4, ...] block, only the router's gradient is summed over
-    ``model``, and the collectives over ``model`` are all-reduces."""
+    rank's [4, ...] block, the router's gradient is summed over ``model``
+    and the experts' are not, and over ``model`` nothing is all-to-all and
+    no weight is gathered: the stream's sequence splits over it, so its
+    all-gathers and reduce-scatters move a rank's [2, 64, d] stream in bf16
+    (the rest are all-reduces)."""
     cfg = ARCHS[MOE[1]].reduced()
     seen = {}
     weights = ShardedModel._weights
@@ -294,8 +297,9 @@ def test_a_sharded_step_materializes_the_rank_experts_and_sums_only_the_router(m
             "w_gate": ((E // 2, d, ff), False), "w_down": ((E // 2, ff, d), False)}
     assert seen == {f"layers.{i}.moe.{leaf}": v for i in range(cfg.n_layers)
                     for leaf, v in want.items()}
-    over_model = {op.kind for op in counter.collectives if op.ranks == (0, 1)}
-    assert over_model == {"all-reduce"}
+    over_model = [op for op in counter.collectives if op.ranks == (0, 1)]
+    assert {op.kind for op in over_model} == {"all-gather", "reduce-scatter", "all-reduce"}
+    assert {op.bytes for op in over_model if op.kind != "all-reduce"} == {2 * 64 * d * 2}
 
 
 _ONE_RANK = """

@@ -464,25 +464,58 @@ def test_sharded_adamw_steps_equal_the_single_process(ranks, name):
 # Part (iii): the collectives the dry run's counter sees
 # ---------------------------------------------------------------------------
 
-def test_a_train_step_counts_the_sums_over_model():
-    """Reduced internvl2-76b (2 layers, 4/2 heads, d_ff 128, vocab 512, all
-    split on a model axis of 2), remat "nothing" (each layer its own group).
-    Over ``model`` (rank 0's group {0, 1}) a step all-reduces: the lookup's
-    sum; each layer's two row-parallel sums in the forward; the
-    cross-entropy's max, sum of ``exp`` and label logit; the head's input
-    gradient; for each layer in the backward, the recompute's attention sum
-    (the checkpoint stops before the MLP's, whose output the backward does
-    not read) and its two column-parallel inputs' gradients; and the clip's
-    global norm: 1 + 2 * 2 + 3 + 1 + 2 * 3 + 1 = 16. No gradient is summed
-    over ``model`` (the KV heads divide it) and no weight gathered over it."""
+def _model_collectives(strategy, seq_len=32):
+    """A train step of reduced internvl2-76b (2 layers, 4/2 heads, d_ff 128,
+    vocab 512, all split on a model axis of 2; B 4 x (16 prefix rows +
+    ``seq_len`` tokens)) on a (data 2, model 2) mesh, remat "nothing" (each
+    layer its own group): the collectives over ``model`` (rank 0's group
+    {0, 1}), in order; those over ``data`` are a weight's gather and its
+    gradient's reduction alone."""
     cfg = ARCHS["internvl2-76b"].reduced()
-    cell = shp.ShapeCell("tiny", 32, 4, "train")
+    cell = shp.ShapeCell("tiny", seq_len, 4, "train")
     with _mesh((2, 2)) as mesh:
-        step = steps.build_train_step(cfg, cell, mesh)
+        step = steps.build_train_step(cfg, cell, mesh, strategy=strategy)
         counter = OpCounter()
         with counter:
             step()
-    over_model = [op.kind for op in counter.collectives if op.ranks == (0, 1)]
-    assert over_model == ["all-reduce"] * 16
     over_data = {op.kind for op in counter.collectives if op.ranks == (0, 2)}
     assert over_data == {"all-gather", "reduce-scatter", "all-reduce"}
+    return [op for op in counter.collectives if op.ranks == (0, 1)]
+
+
+def test_a_train_step_counts_the_sums_over_model():
+    """Without the sequence split (``fsdp_tp_noseq``), over ``model`` a step
+    all-reduces: the lookup's sum; each layer's two row-parallel sums in the
+    forward; the cross-entropy's max, sum of ``exp`` and label logit; the
+    head's input gradient; for each layer in the backward, the recompute's
+    attention sum (the checkpoint stops before the MLP's, whose output the
+    backward does not read) and its two column-parallel inputs' gradients;
+    and the clip's global norm: 1 + 2 * 2 + 3 + 1 + 2 * 3 + 1 = 16. No
+    gradient is summed over ``model`` (the KV heads divide it) and no weight
+    gathered over it."""
+    assert [op.kind for op in _model_collectives("fsdp_tp_noseq")] == ["all-reduce"] * 16
+
+
+def test_a_sequence_split_train_step_counts_its_gathers_and_scatters():
+    """Under ``fsdp_tp`` the stream's 48 positions split over ``model``.
+    All-gathers: in the forward each layer's two normed inputs and the
+    head's; in the backward, for each layer, the MLP's reduce-scatter's
+    gradient, the recompute's two gathers (it stops before the MLP's
+    reduce-scatter) and the attention's reduce-scatter's gradient; and the
+    lookup's reduce-scatter's gradient: 2 * 2 + 1 + 4 * 2 + 1 = 14.
+    Reduce-scatters: the lookup and each layer's two row-parallel sums in
+    the forward; the head's gather's gradient; for each layer the
+    recompute's attention sum and its two gathers' gradients:
+    1 + 2 * 2 + 1 + 3 * 2 = 12. All-reduces: the cross-entropy's three, each
+    layer's ``norm1`` and ``norm2`` scale gradients (each rank normalizes its
+    own positions), ``final_norm``'s and the clip's global norm:
+    3 + 2 * 2 + 1 + 1 = 9. No weight is gathered over ``model``: every
+    gather and reduce-scatter moves a rank's stream, [2, 48, d] in bf16."""
+    ops = _model_collectives("fsdp_tp")
+    kinds = [op.kind for op in ops]
+    stream = 2 * 48 * ARCHS["internvl2-76b"].reduced().d_model * 2
+    assert {op.bytes for op in ops if op.kind != "all-reduce"} == {stream}
+    assert {k: kinds.count(k) for k in set(kinds)} == {
+        "all-gather": 14, "reduce-scatter": 12, "all-reduce": 9}
+    assert kinds[:13] == (["reduce-scatter"] + ["all-gather", "reduce-scatter"] * 4
+                          + ["all-gather"] + ["all-reduce"] * 3)  # the forward
