@@ -150,12 +150,37 @@ calls, and fails (exit code not 0, no result line) on any miss:
               the gathered sequence) at 16, one qwen3-moe MoE half-block at
               16, B 1 x S 2560, one backward: the output blocks concatenated
               within 1e-4 of the unsplit layer's largest and each gradient
-              (the norm scales' and the RG-LRU's summed) within 2e-3 of its
-              leaf's largest in fp32, 5e-2 in bf16 (terms added in fp32)
-              with the unsplit bf16 layer's own error beside it; flash (one
-              a rank) and scan (two a rank) launches counted; (b) phase 8h's
-              1-rank path under ``fsdp_tp`` splits no sequence, its losses
-              bit-equal to ``train_loop``'s;
+              (the norm scales' summed, the RG-LRU's its rank's channels)
+              within 2e-3 of its leaf's largest in fp32, 5e-2 in bf16
+              (terms added in fp32) with the unsplit bf16 layer's own error
+              beside it; flash (one a rank) and scan (two a rank) launches
+              counted; (b) phase 8h's 1-rank path under ``fsdp_tp`` splits
+              no sequence, its losses bit-equal to ``train_loop``'s;
+ 8h3. rnn_split the RG-LRU split along its recurrent channels on the model
+              axis, in this one process: (a) each rank's share of
+              recurrentgemma-9b's layer 0 at full width (norm1, the RG-LRU,
+              the residual) at 8 and 16 ranks (512 and 256 channels, 2 and 1
+              gate blocks a rank), B 1 x S 2560, in the plain form (every
+              rank on the whole normed stream) and the sequence form
+              (``tensor_parallel.seq_shares``), the terms added in fp32, one
+              backward: the output within 1e-4 of the unsplit half's largest
+              and every gradient (the gates' from their blocks) within 2e-3
+              of its leaf's largest in fp32, 5e-2 in bf16 with the unsplit
+              bf16 half's own error beside it, two scan launches a rank
+              (forward and backward) on its channels; (b) recurrentgemma-9b
+              at one (rglru, rglru, attn_local) group on a 1-rank NCCL mesh
+              (one block of all 4096 channels): a bf16 prefill of B 2 x S
+              2560 and 16 decode steps unsharded and through
+              ``ShardedModel`` fed the same tokens, each call's greedy token
+              equal (a flip only at a near-tie, reported with its margin),
+              2 scan launches and 1 flash a prefill, none a step; 2 AdamW
+              steps (bf16 over fp32 masters, B 1 x S 2048) through
+              ``train_loop`` unsharded and sharded, the losses bit-equal, 6
+              scan and 2 flash launches a step; prefill, step and training
+              ms of each side. The kernels phase times the scan at one
+              rank's widths: [1, 2560, 256] and [1, 2560, 512] bf16, the
+              backward's bf16 a with fp32 b at [1, 2560, 256], and the
+              serving [4, 2560, 256];
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -576,6 +601,17 @@ def tp_train_flash_cases():
             flash_train_case(TP_TRAIN_FLASH_CASES[1], 1, TP_S, 4, 1, 128)]
 
 
+# the scan on one rank's channels of recurrentgemma-9b's 4096 (``rnn_split``):
+# training at 16 and 8 model ranks (B 1), its backward's pair at 16, serving
+# at 16 (B 4); S 2560
+RNN_SCAN_CASES = ("recurrentgemma-9b training, a rank of 16", "recurrentgemma-9b training, "
+                  "a rank of 8", "bf16 a, fp32 b: the training backward, a rank of 16",
+                  "recurrentgemma-9b prefill, a rank of 16")
+RNN_SCAN_SHAPES = ((1, 256, None), (1, 512, None), (1, 256, torch.float32), (4, 256, None))
+RNN_SCAN_KEYS = ("case", "shape", "dtype", "dtype_b", "route", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+
+
 def kernel_phase():
     flash = flash_case("recurrentgemma-9b prefill", 4, 2560, 16, 1, 256, 2048, None,
                        torch.bfloat16, 2e-2, timed=True, previous=True)
@@ -628,9 +664,11 @@ def kernel_phase():
                    False, torch.bfloat16, timed=True, dtype_b=torch.float32),
         rglru_case("bf16 a, fp32 b, with h0, unaligned C: simple path", 1, 37, 100, True,
                    torch.bfloat16, timed=False, dtype_b=torch.float32),
-    ]
+    ] + [rglru_case(name, B, 2560, C, False, torch.bfloat16, timed=True, dtype_b=dtype_b)
+         for name, (B, C, dtype_b) in zip(RNN_SCAN_CASES, RNN_SCAN_SHAPES)]
     need(lru["route"] == "ring" and [c["route"] for c in lru_checks]
-         == ["ring"] * 4 + ["simple", "ring", "simple"], "rglru cases took the wrong path")
+         == ["ring"] * 4 + ["simple", "ring", "simple"] + ["ring"] * len(RNN_SCAN_CASES),
+         "rglru cases took the wrong path")
     wkv = wkv6_case("rwkv6-7b prefill", 4, 2560, 64, False, torch.bfloat16, timed=True)
     wkv_checks = [
         wkv6_case("fp32 with s0, ragged", 3, 1001, 8, True, torch.float32, timed=False),
@@ -1850,6 +1888,265 @@ def sp_train_phase(tp_train):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8h3: the RG-LRU split on the model axis
+# ---------------------------------------------------------------------------
+
+# (b): B 2 x S 2560 served with 16 greedy steps; 2 AdamW steps at B 1 x S 2048
+RNN_B, RNN_STEPS, RNN_TRAIN_S, RNN_TRAIN_STEPS = 2, 16, 2048, 2
+
+
+def rnn_shares(cfg, ranks):
+    """(a) recurrentgemma-9b's layer 0 at full width, its mixer half (``norm1``,
+    the RG-LRU, the residual), B 1 x S 2560, fp32 then bf16 cast from the same
+    fp32 masters: for each W in ``ranks`` every rank's share in turn on its
+    4096/W channels (``tensor_parallel.share``), in the plain form (every
+    rank reads the whole normed stream, its terms added in fp32) and in the
+    sequence form (``tensor_parallel.seq_shares``: each rank normalizes its
+    2560/W positions, its whole term reduce-scattered there), one backward
+    of <out, gy>: the output and the input's and every leaf's gradient (the
+    gates' from their blocks) against the unsplit half's; in bf16 also each
+    side against the fp32 unsplit half. Scan launches counted over the
+    shares' forward and backward: two a rank."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    block = lm.layers[0]
+    need(block.mixer == "rglru", f"rnn shares: layer 0 of {cfg.name} is {block.mixer}")
+    names = [n for n, _ in lm.named_parameters()
+             if n.startswith(("layers.0.norm1", "layers.0.rglru."))]
+    masters = [lm.get_parameter(n).requires_grad_(True) for n in names]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x32 = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    gy = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
+    positions = torch.arange(TP_S, device="cuda")
+
+    def grads(out, x):
+        got = torch.autograd.grad((out.float() * gy).sum(), [x] + masters)
+        return {"output": out.detach().float(), "input": got[0],
+                **{n[len("layers.0."):]: gr for n, gr in zip(names, got[1:])}}
+
+    def plain_form(shares, x):
+        with _reparametrize_module(lm, shares[0][1]):  # norm1 is whole on every rank
+            h = common.apply_norm(block.norm1, x).float()
+        terms = []
+        for axis, params, _ in shares:
+            with _reparametrize_module(lm, params):
+                terms.append(block.mix(h.to(x.dtype), positions, axis.layer(0)))
+        return x + sum(t.float() for t in terms).to(x.dtype)
+
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.clone().requires_grad_()
+        reset_counts()
+        with _reparametrize_module(lm, {n: t.to(dtype) for n, t in zip(names, masters)}):
+            xd = x.to(dtype)
+            want = grads(xd + block.mix(common.apply_norm(block.norm1, xd), positions), x)
+        want_launches = counts()
+        if unsplit32 is None:
+            unsplit32 = want
+        for W, form in [(W, f) for W in ranks for f in ("plain", "sequence")]:
+            shares = []
+            for r in range(W):
+                axis, params, _ = tp.share(lm, None, r, W,
+                                           seq_len=TP_S if form == "sequence" else None)
+                shares.append((axis, {n: params[n].to(dtype) for n in names}, None))
+            x = x32.clone().requires_grad_()
+            reset_counts()
+            if form == "sequence":
+                out, _ = tp.seq_shares(lm, 0, shares, x.to(dtype), positions, parts=("mix",))
+            else:
+                out = plain_form(shares, x.to(dtype))
+            got = grads(out, x)
+            torch.cuda.synchronize()
+            launches = counts()
+            axis, layer = shares[0][0], shares[0][0].layer(0)
+            width = cfg.rnn_width // W
+            need(layer.rglru_sum and layer.rnn.hi - layer.rnn.lo == width
+                 and (axis.seq is not None) == (form == "sequence"),
+                 f"rnn shares at {W} ({form}): the split {layer.rnn}, sequence {axis.seq}")
+            err = {k: rel_err(got[k], want[k]) for k in want}
+            worst = max((k for k in err if k != "output"), key=err.get)
+            tol = (TP_FP32_TOL, TP_TRAIN_GRAD_TOL) if dtype == torch.float32 else \
+                (TP_BF16_TOL, TP_BF16_TOL)
+            rec = {"case": f"{cfg.name} layer 0 (RG-LRU, {cfg.n_heads} gate blocks), norm1 + "
+                           f"mix", "model_ranks": W, "form": form, "dtype": str(dtype)[6:],
+                   "B": 1, "S": TP_S, "channels_a_rank": width,
+                   "gate_blocks_a_rank": cfg.n_heads // W,
+                   "scan_shape": [1, TP_S, width], "scan_route": lru_ops.route_for(dtype, width),
+                   "terms_added_in": "float32",
+                   "block_gradients": sorted(n[len("layers.0."):] for n in names
+                                             if axis.split(n) is not None),
+                   "summed_gradients": sorted(n[len("layers.0."):] for n in names
+                                              if axis.sums_gradient(n)),
+                   "rel_err": {"output": err["output"]}, "worst_gradient": worst,
+                   "worst_gradient_rel_err": err[worst],
+                   "gates_rel_err": {k: err[k] for k in err if ".gate_" in k},
+                   "leaves": len(names), "tol": {"output": tol[0], "gradients": tol[1]},
+                   "launches_shares": launches, "launches_unsplit": want_launches}
+            if dtype == torch.bfloat16:
+                for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                    e = {k: rel_err(side[k], unsplit32[k]) for k in unsplit32}
+                    leaf = max((k for k in e if k != "output"), key=e.get)
+                    rec[tag] = {"output": e["output"], "worst_gradient": e[leaf],
+                                "worst_gradient_name": leaf}
+            print("rnn_split_shares", json.dumps(rec), flush=True)
+            need(launches == launch_counts(rglru=2 * W),
+                 f"rnn shares at {W} ({form}, {dtype}): launches {launches}")
+            need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                 f"rnn shares at {W} ({form}): non-finite")
+            need(err["output"] <= tol[0] and err[worst] <= tol[1],
+                 f"rnn shares at {W} ({form}, {dtype}): output {err['output']}, "
+                 f"{worst} {err[worst]}")
+            recs.append(rec)
+            del shares, got, out
+        del want
+    del lm, masters, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def rnn_serve(run_model, params, toks, full, fed=None):
+    """A prefill of ``toks`` (cold, then warm), then 16 decode steps, each fed
+    the last call's greedy token (or the column of ``fed``): (each call's
+    greedy token [B, 16], every call's fp32 logits, the prefills' ms and
+    decode ms a step under CUDA events, the prefill's and the steps'
+    launches, pos)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            cache = run_model.init_cache(toks.shape[0], toks.shape[1] + RNN_STEPS,
+                                         torch.bfloat16)
+            reset_counts()
+            start.record()
+            logits, cache = run_model.prefill(params, {"tokens": toks}, cache)
+            end.record()
+            torch.cuda.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            prefill_launches = counts()
+        out = [full(logits).float()]
+        reset_counts()
+        start.record()
+        for i in range(RNN_STEPS):
+            tok = out[-1].argmax(-1) if fed is None else fed[:, i:i + 1]
+            logits, cache = run_model.decode_step(params, cache, tok)
+            out.append(full(logits).float())
+        end.record()
+        torch.cuda.synchronize()
+    logits = torch.stack(out)  # [1 + steps, B, 1, V]
+    return {"tokens": logits[:RNN_STEPS, :, 0].argmax(-1).T.cpu(), "logits": logits,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": start.elapsed_time(end) / RNN_STEPS,
+            "prefill_launches": prefill_launches, "decode_launches": counts(),
+            "pos": cache["pos"]}
+
+
+def rnn_path():
+    """(b) recurrentgemma-9b at full width, one (rglru, rglru, attn_local)
+    group, on a 1-rank NCCL mesh under ``fsdp_tp`` (each RG-LRU layer on the
+    split's path with one block of all 4096 channels, its state read where
+    it lies): a bf16 prefill of B 2 x S 2560 and 16 greedy decode steps,
+    unsharded then through ``ShardedModel`` (the weights sharded in place),
+    the sharded steps fed the unsharded greedy tokens: each call's greedy
+    token equal (a flip is reported with the unsharded top-2 margin, and
+    passes only where that margin is below the logits' difference: a bf16
+    near-tie); then 2 AdamW steps (bf16 over fp32 masters, remat
+    "nothing", B 1 x S 2048) through ``train_loop`` unsharded and sharded,
+    the losses bit-equal; ms of each side."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+    need(cfg.n_groups_and_tail() == (1, 0), "rnn path: one group")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (RNN_B, TP_S), generator=g, device="cuda")
+    params = build_model(cfg).init(SEED, torch.bfloat16)
+    plain = rnn_serve(build_model(cfg), params, toks, lambda t: t)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        model.shard(params)  # in place: each weight a DTensor over the one rank
+        layer = model.model_axis(params, None, (), 1).layer(0)
+        sharded = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
+                            fed=plain["tokens"].to(toks.device))
+    del params
+    torch.cuda.empty_cache()
+    want, got = plain["logits"], sharded["logits"]
+    top2 = want[:RNN_STEPS, :, 0].topk(2, dim=-1).values  # [steps, B, 2]
+    margin = (top2[..., 0] - top2[..., 1]).T.cpu()
+    diff = (got - want).abs().amax(dim=(1, 2, 3)).cpu()
+    flips = [{"row": r, "step": i, "margin": float(margin[r, i]),
+              "max_abs_dlogit": float(diff[i])}
+             for r, i in torch.nonzero(sharded["tokens"] != plain["tokens"]).tolist()]
+    serve = {"batch": RNN_B, "prompt_len": TP_S, "steps": RNN_STEPS,
+             "rglru_split": list(layer.rnn), "tokens_equal": not flips, "flips": flips,
+             "prefill_logits_equal": bool(torch.equal(got[0], want[0])),
+             "logits_rel_err": max(rel_err(a, b) for a, b in zip(got, want)),
+             "logits_tol": TP_BF16_TOL,
+             **{f"{k}_{side}": r[k] for side, r in (("unsharded", plain), ("sharded", sharded))
+                for k in ("prefill_ms", "decode_ms_per_step", "prefill_launches",
+                          "decode_launches")}}
+
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+                         total_steps=RNN_TRAIN_STEPS, warmup_steps=1, remat_policy="nothing",
+                         compute_dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, RNN_TRAIN_S, 1, seed=SEED))
+    batches = [data.batch(i) for i in range(RNN_TRAIN_STEPS)]
+
+    def train(model):
+        lm = model.init(SEED, torch.float32)
+        events = []
+        reset_counts()
+        lm, _, hist = train_loop(model, lm, timed_batches(batches, events), run, log_every=1)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(end)
+        return {"losses": [h["loss"] for h in hist], "launches": counts(),
+                "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])]}
+
+    unsharded = train(build_model(cfg))
+    torch.cuda.empty_cache()
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        sharded_train = train(ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]()))
+    torch.cuda.empty_cache()
+    per_step = launch_counts(flash_wgmma=2, rglru=6)
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
+           "strategy": "fsdp_tp", "serve": serve,
+           "train": {"batch": 1, "seq": RNN_TRAIN_S, "steps": RNN_TRAIN_STEPS,
+                     "compute_dtype": "bfloat16", "master_dtype": "float32",
+                     "remat_policy": "nothing", "unsharded": unsharded,
+                     "sharded": sharded_train,
+                     "bit_equal": sharded_train["losses"] == unsharded["losses"],
+                     "launches_per_step_expected": per_step}}
+    print("rnn_split_path", json.dumps(rec), flush=True)
+    for side in ("unsharded", "sharded"):
+        need(serve[f"prefill_launches_{side}"] == launch_counts(flash_wgmma=1, rglru=2)
+             and serve[f"decode_launches_{side}"] == launch_counts(),
+             f"rnn path {side} launches {serve[f'prefill_launches_{side}']}, "
+             f"{serve[f'decode_launches_{side}']}")
+    need(layer.rnn is not None and layer.rnn.hi - layer.rnn.lo == cfg.rnn_width,
+         f"rnn path: the RG-LRU split {layer.rnn}")
+    need(sharded["pos"] == TP_S + RNN_STEPS, f"rnn path pos {sharded['pos']}")
+    need(torch.isfinite(got).all() and serve["logits_rel_err"] <= TP_BF16_TOL,
+         f"rnn path logits {serve['logits_rel_err']}")
+    need(all(f["margin"] <= f["max_abs_dlogit"] for f in flips),
+         f"rnn path: tokens differ beyond a near-tie: {flips}")
+    want_launches = {k: v * RNN_TRAIN_STEPS for k, v in per_step.items()}
+    need(unsharded["launches"] == want_launches and sharded_train["launches"] == want_launches,
+         f"rnn path train launches {unsharded['launches']}, {sharded_train['launches']}")
+    need(all(np.isfinite(unsharded["losses"])) and rec["train"]["bit_equal"],
+         f"rnn path: sharded losses {sharded_train['losses']}, train_loop's "
+         f"{unsharded['losses']}")
+    return rec
+
+
+def rnn_split_phase():
+    """(a) the shares of one full-width RG-LRU layer at 8 and 16 ranks; (b)
+    the 1-rank path's serving and training."""
+    cfg = get_config("recurrentgemma-9b")
+    need((cfg.d_model, cfg.rnn_width, cfg.n_heads, cfg.conv_width) == (4096, 4096, 16, 4),
+         "recurrentgemma-9b width")
+    return {"shares": rnn_shares(cfg, (8, 16)), "path": rnn_path()}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8i: expert parallelism on the model axis
 # ---------------------------------------------------------------------------
 
@@ -2970,6 +3267,7 @@ def main():
     vlm_check = phase("vlm_check", vlm_check_phase, 2e-3, 1e-4, 2e-3)
     tp_train = phase("tp_train", tp_train_phase)
     sp_train = phase("sp_train", sp_train_phase, tp_train)
+    rnn_split = phase("rnn_split", rnn_split_phase)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -3084,6 +3382,17 @@ def main():
                       launches_elastic=elastic_launches("rglru_scan"),
                       launches_sp_train_shares=[r["launches_shares"]["rglru_scan"]
                                                 for r in sp_train["shares"]],
+                      rnn_split_per_rank=[{key: c[key] for key in RNN_SCAN_KEYS}
+                                          for c in lru_checks if c["case"] in RNN_SCAN_CASES],
+                      launches_rnn_split_shares=[
+                          [r["model_ranks"], r["form"], r["dtype"],
+                           r["launches_shares"]["rglru_scan"]] for r in rnn_split["shares"]],
+                      launches_rnn_split_prefill_1_rank=rnn_split["path"]["serve"][
+                          "prefill_launches_sharded"]["rglru_scan"],
+                      launches_rnn_split_decode_16_steps=rnn_split["path"]["serve"][
+                          "decode_launches_sharded"]["rglru_scan"],
+                      launches_rnn_split_train_2_steps=rnn_split["path"]["train"]["sharded"][
+                          "launches"]["rglru_scan"],
                       bf16_a_fp32_b_ms=lru_mixed["ms"], bf16_a_fp32_b_bound_ms=lru_mixed["bound_ms"],
                       bf16_a_fp32_b_plain_ms=lru_mixed["plain_ms"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -3101,7 +3410,8 @@ def main():
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
-               "tp_serve": tp_serve, "tp_train": tp_train, "sp_train": sp_train, "ep": ep,
+               "tp_serve": tp_serve, "tp_train": tp_train, "sp_train": sp_train,
+               "rnn_split": rnn_split, "ep": ep,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -18,8 +18,9 @@ rank 0's):
 plus MODEL_FLOPS = 6 N D (train) or 2 N D (forward only) per rank (MoE:
 active N), and the usefulness ratio MODEL_FLOPS / op FLOPs, which shows
 remat's recompute and the compute the ``model`` split leaves whole (the
-RG-LRU and RWKV-6 mixers, the MoE router), the ranks along it repeating
-each other's work there.
+RWKV-6 mixer and channel mix, an RG-LRU layer whose gate blocks the axis
+does not divide, the MoE router), the ranks along it repeating each
+other's work there.
 """
 
 from __future__ import annotations

@@ -12,12 +12,13 @@ What the port shards is what ``parallel/fsdp.py`` shards: parameters,
 AdamW's moments and decode caches at rest by the strategy's rules, the batch
 by its ``batch`` rule; every rank computes its own rows. Every step splits
 the compute along ``model`` (``parallel/tensor_parallel.py``): attention by
-query heads, the dense MLP by ``d_ff``, the embedding and the head by
-vocabulary, the MoE by experts; the train step with the vocab-parallel
-cross-entropy, the gradient sums over ``model`` of its backward and the
-residual stream's sequence split over ``model`` where the rules say so, the
-decode step with attention over the cache where it lies. The RG-LRU and
-RWKV-6 mixers still compute whole on every rank along ``model``
+query heads, the dense MLP by ``d_ff``, the RG-LRU by its recurrent
+channels, the embedding and the head by vocabulary, the MoE by experts; the
+train step with the vocab-parallel cross-entropy, the gradient sums over
+``model`` of its backward and the residual stream's sequence split over
+``model`` where the rules say so, the decode step with attention over the
+cache where it lies and the RG-LRU state where it lies. The RWKV-6 mixer
+and channel mix still compute whole on every rank along ``model``
 (ROADMAP.md). The
 encoder-decoder is not sharded (``ShardedModel`` refuses it): its steps run
 the whole global batch on one rank, and the Step says so.

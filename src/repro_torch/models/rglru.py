@@ -9,6 +9,16 @@ Counterpart of ``repro/models/rglru.py``:
 The gates are block-diagonal linears (n_blocks = n_heads). In the
 cache-free forward (training) and in prefill the diagonal recurrence runs
 through the CUDA scan; decode is one plain step.
+
+Every op after the two input products acts on each channel alone, or on
+one gate block's channels, so the layer splits along its channels: on one
+rank's contiguous block ``[lo, hi)`` of them (``parallel/tensor_parallel.py``
+splits it over ``model`` where the axis divides the gate blocks), the
+module's weights are that block's -- the columns of ``w_in_rec`` and
+``w_in_gate``, the conv's taps and bias, ``lam``, the gates' blocks, the
+rows of ``w_out`` -- its state is the block's, the scan runs on
+[B, S, hi - lo], and the output is the rank's term of the sum over
+``model``. The code is the same: each weight's shape says the width.
 """
 
 from __future__ import annotations

@@ -131,14 +131,14 @@ class Block(nn.Module):
         """Full sequence, no cache (``apply_block``): (x, MoE aux term), the
         aux term an fp32 scalar, 0 without experts. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded training, which splits the
-        attention, the dense MLP and the MoE's experts along ``model`` and
-        routes the MoE's tokens in the global batch's groups
-        (``LayerAxis.moe``). Where it splits the stream's sequence, x is the
-        rank's block of positions [B, S'/M, d] (``positions`` the whole
-        stream's): the norms and residual adds run on it, and each
-        sub-block's normed input is gathered along the sequence, its output
-        reduce-scattered (a split product) or sliced to the rank's block
-        (the RG-LRU and RWKV-6 mixers, the channel mix, a layer the axis
+        attention, the dense MLP, the RG-LRU's channels and the MoE's
+        experts along ``model`` and routes the MoE's tokens in the global
+        batch's groups (``LayerAxis.moe``). Where it splits the stream's
+        sequence, x is the rank's block of positions [B, S'/M, d]
+        (``positions`` the whole stream's): the norms and residual adds run
+        on it, and each sub-block's normed input is gathered along the
+        sequence, its output reduce-scattered (a split product) or sliced to
+        the rank's block (the RWKV-6 mixer and channel mix, a layer the axis
         does not divide)."""
         x = x + self.mix(common.apply_norm(self.norm1, x), positions, axis)
         h, aux = self.feed_forward(common.apply_norm(self.norm2, x), axis)
@@ -148,7 +148,7 @@ class Block(nn.Module):
         """``forward``'s first half on the ``norm1``-normed stream: the mixer's
         output, the rank's block of it where the sequence splits."""
         if self.mixer == "rglru":
-            return _summed(self.rglru(_split_in(h, axis)), axis)
+            return _summed(self.rglru(_split_in(h, axis, "rglru_sum")), axis, "rglru_sum")
         if self.mixer == "rwkv":
             return _summed(self.tm(_split_in(h, axis))[0], axis)
         h = _split_in(h, axis, "attn_sum")
@@ -167,10 +167,13 @@ class Block(nn.Module):
     def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
         """Full sequence; fills ``cache``. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded serving, which splits the
-        attention, the dense MLP and the MoE's experts along ``model``."""
+        attention, the dense MLP, the RG-LRU's channels (``cache`` then holds
+        the rank's block of the state) and the MoE's experts along
+        ``model``."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
-            h = self.rglru.prefill(h, cache)
+            h = _summed(self.rglru.prefill(_split_in(h, axis, "rglru_sum"), cache), axis,
+                        "rglru_sum")
         elif self.mixer == "rwkv":
             h = self._time_mix(h, cache, carried=False)
         else:
@@ -182,7 +185,8 @@ class Block(nn.Module):
     def decode(self, x, pos: int, cache, axis=None) -> torch.Tensor:
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
-            h = self.rglru.decode(h, cache)
+            h = _summed(self.rglru.decode(_split_in(h, axis, "rglru_sum"), cache), axis,
+                        "rglru_sum")
         elif self.mixer == "rwkv":
             h = self._time_mix(h, cache, carried=True)
         else:
@@ -195,7 +199,7 @@ class Block(nn.Module):
 def _summed(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
     """A sub-block's output: a row-parallel product's summed over ``model``
     where the layer's contracted dim was split (``LayerAxis.attn_sum`` /
-    ``mlp_sum``: ``ModelAxis.from_split``), else, computed whole, the rank's
+    ``mlp_sum`` / ``rglru_sum``: ``ModelAxis.from_split``), else, computed whole, the rank's
     positions where the stream's sequence splits (``ModelAxis.own``)."""
     if axis is None:
         return h

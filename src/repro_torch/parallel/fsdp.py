@@ -17,8 +17,9 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   stream instead (next item);
 * the model axis splits the compute: attention by query heads, the dense
   MLP by ``d_ff``, each MoE layer by experts (by every expert's ``d_ff``
-  where the axis does not divide E), the embedding and the head by
-  vocabulary, with a sum over ``model`` after each row-parallel product, the
+  where the axis does not divide E), each RG-LRU layer by its recurrent
+  channels (where the axis divides its gate blocks), the embedding and the
+  head by vocabulary, with a sum over ``model`` after each row-parallel product, the
   MoE's combine and the lookup, a sum of the gradient over ``model`` before
   each column-parallel one, and the vocab-parallel cross-entropy on the
   rank's logits block;
@@ -32,16 +33,19 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   backward a reduce-scatter), and each sum over ``model`` after a
   row-parallel product, the MoE's combine or the lookup becomes a
   reduce-scatter along it (its backward an all-gather). A compute that does
-  not split along ``model`` (the RG-LRU and RWKV-6 mixers, the channel
-  mix, a layer, head or embedding the axis does not divide) runs on the
-  gathered stream and keeps the rank's positions. Remat keeps each group's
+  not split along ``model`` (the RWKV-6 mixer and channel mix, a layer,
+  head or embedding the axis does not divide) runs on the gathered stream
+  and keeps the rank's positions. Remat keeps each group's
   input as the rank's block: that is the memory the rule saves;
 * each weight is materialized just before use (:class:`_Gather`): the
   embedding, final norm and head at the start of the forward, a layer
   group's inside the group, so again in remat's recompute. A weight whose
-  compute splits (a MoE layer's expert leaves among them) keeps its
-  ``model`` block and is gathered over the other axes only; every other
-  weight is gathered whole (FSDP). The flash and scan
+  compute splits (a MoE layer's expert leaves and an RG-LRU layer's among
+  them) is brought to its ``model`` block and gathered over the other axes
+  only -- the RG-LRU's gates, whole at rest, by a local slice, and under
+  ``serve_2d`` a leaf laid out over ``(data, model)`` to the contiguous
+  block of ``model`` alone --; every other weight is gathered whole (FSDP).
+  The flash and scan
   kernels see ordinary tensors: DTensor's sharding propagation cannot see
   through the ctypes-bound kernels;
 * a weight's gradient is summed over the ranks that saw other rows of the
@@ -53,10 +57,12 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales, the
   MoE router where the experts split) has its gradient summed over
   ``model`` too. Where the stream's sequence splits, that is every
-  replicated weight: the norms' scales, the RG-LRU and RWKV-6 leaves, an
-  unsplit layer's, embedding's or head's, since each rank back-propagates
-  only its own positions' term; without the split the rest are computed
-  whole and equal on every rank along ``model``, and not summed.
+  replicated weight: the norms' scales, the RWKV-6 leaves, an unsplit
+  layer's, embedding's or head's, since each rank back-propagates only its
+  own positions' term; without the split the rest are computed whole and
+  equal on every rank along ``model``, and not summed. The RG-LRU's gates,
+  whole at rest and read by blocks, get the blocks' gradients gathered
+  over ``model``.
   ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the reduced
   gradient through bf16, as the reference's step states it: a round trip
   of each rank's gradient before the reduction was tried and parts from the
@@ -78,21 +84,25 @@ rank's weights its ``model`` block gathered over the other axes only. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
-merges partial softmaxes over the sequence's axes), and an RG-LRU or RWKV-6
-layer's state, whose compute stays gathered, is brought to this rank's
-rows, whole along the other dims (gathered in decode, fresh in a prefill,
-which overwrites every entry) and written back to its layout at rest (a
-local slice). Logits come back as a DTensor: rows on the batch axes, the
-vocabulary on ``model`` where it splits.
+merges partial softmaxes over the sequence's axes). A recurrent state is
+brought to this rank's rows -- gathered in decode, fresh in a prefill,
+which overwrites every entry -- and written back to its layout at rest when
+the layer is done: a split RG-LRU layer's ``h`` and ``conv`` along the
+rank's block of channels, which under ``fsdp_tp`` is where they lie (no
+entry moves) and under ``serve_2d`` the block gathered over ``data``; an
+RWKV-6 or unsplit RG-LRU layer's whole along the other dims. Logits come
+back as a DTensor: rows on the batch axes, the vocabulary on ``model``
+where it splits.
 
 The sequence split is always the explicit gather (the reference's
 ``REPRO_SP_GATHER=1``); serving splits no sequence of the stream, as the
 reference's ``prefill_block`` constrains none.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter; the RG-LRU ``rnn`` and RWKV-6
-head splits; ``serve_2d``'s weight-stationary decode (partial sums over
-``data`` in place of the ``embed`` gather).
+in place of its gather and reduce-scatter; the RWKV-6 head split;
+``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
+place of the ``embed`` gather and of the RG-LRU state's gather over
+``data``).
 """
 
 from __future__ import annotations
@@ -231,16 +241,19 @@ class ShardedModel:
 
     def _weights(self, axis: tp.ModelAxis, row_axes: Tuple[str, ...]):
         """The ``materialize`` hook of training (and, with no gradient, of
-        serving): a weight whose compute splits along ``model`` keeps its
-        ``model`` block and is gathered over the other axes; every other
-        weight is gathered whole. Its gradient comes back summed
-        over the batch axes, and over ``model`` where ``axis.sums_gradient``.
-        A mesh dim of one rank holds the whole dim: nothing moves over it."""
+        serving): a weight whose compute splits along ``model`` is brought to
+        its ``model`` block (``axis.split``: where it lies, or a slice of a
+        weight whole at rest) and gathered over the other axes; every other
+        weight is gathered whole. Its gradient comes back summed over the
+        batch axes, and over ``model`` where ``axis.sums_gradient``; the
+        blocks of a weight whole at rest are gathered over ``model``. A mesh
+        dim of one rank holds the whole dim: nothing moves over it."""
         names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
 
         def weight(name: str, p: DTensor) -> torch.Tensor:
-            split = axis.split(name) is not None
-            keep = tuple(pl if size == 1 or (split and n == "model") else Replicate()
+            split = axis.split(name)
+            keep = tuple(pl if size == 1 else Shard(split.dim)
+                         if split is not None and n == "model" else Replicate()
                          for pl, n, size in zip(p.placements, names, sizes))
             sums = axis.sums_gradient(name)
             back = tuple(Partial() if size > 1 and (n in row_axes or (sums and n == "model"))
@@ -285,27 +298,41 @@ class ShardedModel:
                   for c, sh in zip(cache["layers"], shardings["layers"])]
         return {"layers": layers, "pos": cache["pos"]}
 
-    def _layer_cache(self, rows: Tuple[Placement, ...], n_rows: int, gather: bool):
+    def _layer_cache(self, axis: tp.ModelAxis, rows: Tuple[Placement, ...], n_rows: int,
+                     gather: bool):
         """The ``layer_cache`` hook. An attention layer's K/V: this rank's
         blocks where they lie (the layer's ``LayerAxis`` reads and writes
-        them). A state (RG-LRU, RWKV-6): this rank's ``n_rows`` rows, whole
-        along the other dims -- gathered (decode) or fresh (a prefill
-        overwrites every entry) -- written back to its layout at rest when the
-        layer is done."""
+        them). A state (RG-LRU, RWKV-6): this rank's ``n_rows`` rows and,
+        along its last dim, the rank's channels where the RG-LRU layer
+        splits them (``LayerAxis.rnn``), else all -- gathered (decode) or
+        fresh (a prefill overwrites every entry) -- written back to its
+        layout at rest when the layer is done. A state that lies so at rest
+        (a split layer's under ``fsdp_tp``) is read and written in place."""
+        names = self.mesh.mesh_dim_names
 
         @contextlib.contextmanager
         def hook(index: int, cache: Dict[str, DTensor]) -> Iterator[Dict[str, torch.Tensor]]:
             if "k" in cache:
                 yield {k: t.to_local() for k, t in cache.items()}
                 return
+            rnn = axis.layer(index).rnn if "h" in cache else None
+            place = {k: rows if rnn is None else tuple(
+                Shard(t.ndim - 1) if n == "model" else r for n, r in zip(names, rows))
+                for k, t in cache.items()}
+            if all(place[k] == t.placements for k, t in cache.items()):
+                yield {k: t.to_local() for k, t in cache.items()}
+                return
             if gather:
-                local = {k: t.redistribute(self.mesh, rows).to_local() for k, t in cache.items()}
-            else:
-                local = {k: t.to_local().new_empty((n_rows,) + tuple(t.shape[1:]))
+                local = {k: t.redistribute(self.mesh, place[k]).to_local()
                          for k, t in cache.items()}
+            else:
+                local = {k: t.to_local().new_empty(
+                    (n_rows,) + tuple(t.shape[1:-1])
+                    + (t.shape[-1] if rnn is None else rnn.hi - rnn.lo,))
+                    for k, t in cache.items()}
             yield local
             for k, t in cache.items():
-                back = DTensor.from_local(local[k], self.mesh, rows, run_check=False,
+                back = DTensor.from_local(local[k], self.mesh, place[k], run_check=False,
                                           shape=t.shape, stride=t.stride())
                 t.to_local().copy_(back.redistribute(self.mesh, t.placements).to_local())
 
@@ -333,7 +360,8 @@ class ShardedModel:
         weight = self._weights(axis, ())  # under no_grad: the gather alone
         outer = {n: weight(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
         hooks = {"materialize": weight, "model_axis": axis,
-                 "layer_cache": self._layer_cache(rows, local["tokens"].shape[0], gather_cache)}
+                 "layer_cache": self._layer_cache(axis, rows, local["tokens"].shape[0],
+                                                  gather_cache)}
         with _reparametrize_module(lm, outer):
             if method == "prefill":
                 logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)

@@ -1,11 +1,11 @@
 """Tensor-parallel compute on the ``model`` axis: one rank's share of
-attention, the dense MLP, the MoE experts, the embedding and the vocab head,
-in serving and in training.
+attention, the dense MLP, the MoE experts, the RG-LRU's recurrent channels,
+the embedding and the vocab head, in serving and in training.
 
 What GSPMD does to the reference's ``build_prefill_step``,
 ``build_serve_step`` and ``train_step`` under the strategies' ``heads``,
 ``kv_heads``, ``ff``, ``experts``, ``vocab`` and ``seq_cache`` rules
-(``repro/parallel/sharding.py``), written out: every weight and cache keeps
+and ``rnn`` rules (``repro/parallel/sharding.py``), written out: every weight and cache keeps
 its layout at rest, and the compute follows it. A :class:`ModelAxis` is one
 rank's view of the split; the model code takes it as its ``model_axis``
 hook (None in one process) and asks it
@@ -18,14 +18,16 @@ hook (None in one process) and asks it
   axis divides E, else every expert's ``d_ff`` columns where it divides
   ``d_ff``, as the resolver gives the spec), its vocab rows;
 * ``from_split(x)``: the sum over ``model`` after a row-parallel product
-  (attention's ``wo``, the MLP's ``w_down``, the MoE's combine) and after
+  (attention's ``wo``, the MLP's ``w_down``, the RG-LRU's ``w_out``, the
+  MoE's combine) and after
   the vocab-parallel lookup; its backward passes the gradient through
   (a reduce-scatter where the stream's sequence splits, below). A
   layer sums only where the contracted dim was split (:class:`LayerAxis`
-  ``attn_sum``, ``mlp_sum``, ``moe_sum``): a weight the axis does not divide
+  ``attn_sum``, ``mlp_sum``, ``rglru_sum``, ``moe_sum``): a weight the axis does not divide
   is whole on every rank, and a sum would multiply it by the axis;
 * ``to_split(x)``: the column-parallel input (after ``norm1``, ``norm2`` and
-  ``final_norm`` where the layer or the head splits): the identity, whose
+  ``final_norm`` where the layer or the head splits; the RG-LRU's two input
+  products): the identity, whose
   backward sums the gradient over ``model``, so the norm's input gradient,
   and its scale's, are whole and equal on every rank (an all-gather where
   the stream's sequence splits, below);
@@ -79,9 +81,16 @@ gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms; in
 the sequence form the caller feeds each gather the gathered input and
 sums and slices the whole term each reduce-scatter returns).
 
-Out of this split, gathered whole on every rank: the RG-LRU and RWKV-6
-mixers, the MoE router (computed whole, its gradient summed where the
-experts split) and every norm.
+A split weight's gradient is the rank's own block. That holds for the
+RG-LRU's gates too, which lie whole on every rank: the rank materializes
+its blocks of them (``parallel/fsdp.py``), and the backward gathers the
+blocks' gradients over ``model`` into the whole one, the sum over the
+ranks' partial terms without its zeros.
+
+Out of this split, computed whole on every rank: the RWKV-6 mixer and
+channel mix, an RG-LRU layer whose gate blocks the axis does not divide,
+the MoE router (its gradient summed where the experts split) and every
+norm.
 
 Sequence parallelism in training (``seq``, the rank's positions of the
 residual stream: ``sharding.stream_split``, given the stream's global
@@ -90,12 +99,12 @@ shape): the stream between sub-blocks is the rank's block [B, S'/M, d].
 (:class:`_GatherSeq`, backward a reduce-scatter, which sums the ranks'
 terms as ``_ToSplit``'s all-reduce did) and ``from_split`` reduce-scatters
 the row-parallel term (:class:`_ScatterSeq`, backward an all-gather); a
-compute that does not split (the mixers, the channel mix, a layer, head or
-embedding the axis does not divide) takes the gathered stream
+compute that does not split (the RWKV-6 mixer and channel mix, a layer,
+head or embedding the axis does not divide) takes the gathered stream
 (``gather``) and keeps the rank's positions (``own``: the slice's backward
 pads with zeros). Each rank then back-propagates only its own positions'
 term through every replicated weight, so ``sums_gradient`` names them all:
-the norms' and mixers' gradients are summed over ``model`` where the
+the norms' and unsplit mixers' gradients are summed over ``model`` where the
 sequence splits, and not otherwise (equal on every rank). The MoE gathers
 its rows along the sequence before the batch axes and reduce-scatters its
 combine, so each rank still routes every token of the global groups and
@@ -120,16 +129,17 @@ from repro_torch.models.moe import bf16_gates, group_size_for
 from repro_torch.parallel import sharding as shd
 
 # a layer's submodules whose compute splits along ``model``, and the LM's own leaves
-SPLIT_MODULES = ("attn", "mlp", "moe")
+SPLIT_MODULES = ("attn", "mlp", "moe", "rglru")
 SPLIT_LEAVES = ("embed", "unembed")
 
 
 def splits_compute(name: str) -> bool:
     """Whether a parameter's compute splits along ``model``: attention's, the
-    dense MLP's and the MoE's weights, the embedding and the head. The MoE's
-    router is among them with its spec unsplit: it is read whole, its
-    gradient summed where the experts split (``ModelAxis.sums_gradient``).
-    The RG-LRU and RWKV-6 weights, and every norm, are gathered whole."""
+    dense MLP's, the MoE's and the RG-LRU's weights, the embedding and the
+    head. The MoE's router is among them with its spec unsplit: it is read
+    whole, its gradient summed where the experts split
+    (``ModelAxis.sums_gradient``). The RWKV-6 weights, and every norm, are
+    gathered whole."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
@@ -432,6 +442,8 @@ class ModelAxis:
         if shape is None or not splits_compute(name):
             return None
         key = (name, shape)
+        if key not in self._memo and ".rglru." in name:
+            self._memo[key] = self._rnn_split(name, shape)
         if key not in self._memo:
             leaf = name.rsplit(".", 1)[-1]
             spec = shd.resolve_spec(self.mesh, self.rules,
@@ -443,6 +455,23 @@ class ModelAxis:
                                           "is served")
             self._memo[key] = split
         return self._memo[key]
+
+    def _rnn_split(self, name: str, shape: Tuple[int, ...]) -> Optional[shd.Split]:
+        """An RG-LRU leaf's block along its channel dim (its logical ``rnn``
+        dim, the gates' ``blocks``): the ``model`` block
+        ``[m n/M, (m+1) n/M)``, where the rules split
+        ``rnn`` over ``model`` and the axis divides the layer's gate blocks;
+        else None (the layer runs whole). The block is ``model``'s alone,
+        also where ``serve_2d`` lays a leaf out over ``(data, model)``: the
+        weights' gather brings it there (``parallel/fsdp.py``)."""
+        M = self.sizes.get("model")
+        n_blocks = self.shapes[name.rsplit(".", 1)[0] + ".gate_a"][0]
+        if M is None or "model" not in shd._axes(self.rules.get("rnn")) or n_blocks % M:
+            return None
+        logical = shd.logical_for_leaf(name.rsplit(".", 1)[-1], len(shape))
+        dim = next(i for i, a in enumerate(logical) if a in ("rnn", "blocks"))
+        step, m = shape[dim] // M, self.coord["model"]
+        return shd.Split(dim, ("model",), m * step, (m + 1) * step)
 
     def from_split(self, x: torch.Tensor) -> torch.Tensor:
         """Out of a row-parallel product: the sum over ``model``, its backward
@@ -551,15 +580,17 @@ class ModelAxis:
 
 
 class LayerAxis:
-    """A layer's split: whether attention, the MLP and the MoE end in a sum
-    over ``model``, the rank's query and KV heads, its experts, and its K/V
-    cache's layout."""
+    """A layer's split: whether attention, the MLP, the RG-LRU and the MoE
+    end in a sum over ``model``, the rank's query and KV heads, its
+    recurrent channels, its experts, and its K/V cache's layout."""
 
     def __init__(self, axis: ModelAxis, index: int):
         self.axis = axis
         pre = f"layers.{index}."
         self.attn_sum = axis.split(pre + "attn.wo") is not None
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
+        self.rnn = axis.split(pre + "rglru.lam")  # the rank's channels, or None: all
+        self.rglru_sum = self.rnn is not None
         # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
         self.experts = axis.split(pre + "moe.w_up")
         self.moe_sum = self.experts is not None
@@ -720,7 +751,8 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     state-dict name -- a view, so a gradient reaches the whole weight --, its
     block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
     with the cache's sequence whole, so the cache splits its heads as the
-    weights do and no collective but the final sums is needed: each output
+    weights do (an RG-LRU state: the rank's channels) and no collective but
+    the final sums is needed: each output
     that ends in a sum over ``model`` is this rank's term of it, and so is
     the input gradient of each ``to_split``. ``seq_len`` (training): the
     stream's S', whose sequence then splits as the rules say (the
@@ -740,9 +772,14 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
         return axis, params, None
     layers = []
     for i, c in enumerate(cache["layers"]):
-        heads = axis.cache_split(i, 2) if "k" in c else None
-        layers.append(c if heads is None else
-                      {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
+        if "k" in c:
+            heads = axis.cache_split(i, 2)
+            layers.append(c if heads is None else
+                          {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
+            continue
+        rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
+        layers.append(c if rnn is None else
+                      {k: t[..., rnn.lo:rnn.hi].clone() for k, t in c.items()})
     return axis, params, {"layers": layers, "pos": cache["pos"]}
 
 

@@ -704,7 +704,8 @@ def test_sharded_step_on_one_card_is_train_loop(cuda, tmp_path):
     a checkpoint of the DTensor state restored into a fresh mesh's
     placements, 2 more, give train_loop's losses and parameters (bf16
     compute, the card's kernels; same operations, so 1e-5 relative is
-    generous). The flash and scan kernels run on the gathered weights."""
+    generous). The flash and scan kernels run on the rank's weight blocks,
+    on one rank the whole weights."""
     from repro_torch.checkpoint.ckpt import Checkpointer
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.mesh import make_mesh_from_devices, process_group

@@ -12,14 +12,18 @@ leaf's gradient (the norms' and the unsplit mixers' summed over the ranks)
 against the unsplit ``Block.forward``, within 1e-5 of the largest value
 (the MoE's gradients within ``MOE_GRAD_TOL``). Layers: attention and a
 dense MLP, attention whose heads and an MLP whose ``d_ff`` W 4 does not
-divide (computed whole, each rank's positions kept), RG-LRU and RWKV-6
-(gathered, each rank's positions kept), and the MoE (qwen3-moe: the rows
+divide (computed whole, each rank's positions kept), RG-LRU (the rank's
+channels of the gathered stream, the term reduce-scattered; with 2 gate
+blocks, which W 4 does not divide, whole, each rank's positions kept),
+RWKV-6 (gathered, each rank's positions kept), and the MoE (qwen3-moe: the rows
 gathered, the experts split, the combine reduce-scattered; with 6 experts
 and a ``d_ff`` of 130 at W 4, whole, its aux term's gradient at 1/W a
 rank). For RWKV-6 and
 RG-LRU, a rank that ran its mixer on its own block alone would part at its
 block's first position, where the token shift's t-1 and the conv's taps
-read the previous rank's positions: the test shows that it does.
+read the previous rank's positions: the test shows that it does, and that
+the ranks' terms on the gathered stream (the RG-LRU's summed over the
+ranks) give the unsplit mixer's output on the rank's positions.
 
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh):
 ``ShardedModel.loss`` and every gradient (``full_tensor``) on (data 2,
@@ -47,6 +51,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro.configs import ARCHS as JARCHS
 from repro.models.model_zoo import build_model as jbuild_model
@@ -72,6 +77,9 @@ LAYERS = {
     # 6 heads (2 KV) and d_ff 130: W 4 divides neither; W 2 splits both
     "attention_mlp_undivided": (dataclasses.replace(_ATTN, n_heads=6, d_ff=130), 0),
     "rglru": (ARCHS["recurrentgemma-9b"].reduced(), 0),
+    # 2 gate blocks: W 2 splits the channels, W 4 runs the layer whole
+    "rglru_undivided": (dataclasses.replace(ARCHS["recurrentgemma-9b"].reduced(), n_heads=2),
+                        0),
     "rwkv": (ARCHS["rwkv6-7b"].reduced(), 0),
     "moe": (ARCHS["qwen3-moe-235b-a22b"].reduced(), 0),
     # 6 experts, d_ff 130: W 2 splits the experts, W 4 neither (computed whole)
@@ -127,9 +135,13 @@ def test_sequence_shares_equal_the_unsplit_layer(case, W):
     layer = axis.layer(index)
     for name in names:
         assert axis.sums_gradient(name) == (axis.split(name) is None), name
-    leaf = {"rglru": "rglru.lam", "rwkv": "tm.decay_base"}.get(case)
-    if leaf:
-        assert axis.sums_gradient(f"layers.{index}.{leaf}")
+    if case == "rwkv":
+        assert axis.sums_gradient(f"layers.{index}.tm.decay_base")
+    if case.startswith("rglru"):  # the rank's channels and their gates' blocks, or whole
+        split = block.rglru.gate_a.shape[0] % W == 0
+        assert layer.rglru_sum == split
+        for leaf in ("lam", "gate_a", "w_out"):
+            assert axis.sums_gradient(f"layers.{index}.rglru.{leaf}") == (not split)
     assert axis.sums_gradient(f"layers.{index}.norm1")
     if case == "attention_mlp_undivided":
         assert (layer.attn_sum, layer.mlp_sum) == (W == 2, W == 2)
@@ -139,18 +151,26 @@ def test_sequence_shares_equal_the_unsplit_layer(case, W):
 
 @pytest.mark.parametrize("case", ["rglru", "rwkv"])
 def test_a_rank_alone_parts_at_its_shard_boundary(case):
-    """Rank 1 of 4 (positions 6..11): its mixer run on the gathered stream
-    gives the unsplit mixer's output there; run on its own block alone, its
-    first position reads zeros where the token shift and the conv read
-    positions 5, 4 and 3, and the output parts."""
+    """Rank 1 of 4 (positions 6..11): the mixer run on the gathered stream
+    gives the unsplit mixer's output there (RWKV-6: the rank's positions of
+    its whole output; RG-LRU: every rank's channels, their terms summed and
+    the rank's positions kept, as the reduce-scatter keeps them); run on its
+    own block alone, its first position reads zeros where the token shift
+    and the conv read positions 5, 4 and 3, and the output parts."""
     lm, index, x, _, positions = _layer_case(case)
     block = lm.layers[index]
     with torch.no_grad():
         h = common.apply_norm(block.norm1, x)
         want = block.mix(h, positions)
-        axis = tp.share(lm, None, 1, 4, seq_len=S)[0]
-        lo, hi = axis.seq.lo, axis.seq.hi
-        got = block.mix(h, positions, axis.layer(index))  # the gather played here: h whole
+        shares = [tp.share(lm, None, r, 4, seq_len=S) for r in range(4)]
+        lo, hi = shares[1][0].seq.lo, shares[1][0].seq.hi
+        terms = []
+        for axis, params, _ in shares:  # the gather played here: h whole
+            with _reparametrize_module(lm, params):
+                terms.append(block.mix(h, positions, axis.layer(index)))
+        summed = shares[1][0].layer(index).rglru_sum
+        assert summed == (case == "rglru")
+        got = sum(terms)[:, lo:hi] if summed else terms[1]
         alone = block.mix(h[:, lo:hi], positions[lo:hi])
     assert got.shape[1] == hi - lo == 6
     _close(got, want[:, lo:hi], "gathered")

@@ -12,20 +12,29 @@ local window with the score softcap, the three MLPs and a ``d_ff`` W does
 not divide (no sum), the vocab-parallel embedding and head, tied and
 untied, with the final softcap, and a vocabulary W does not divide.
 
+The RG-LRU layer of reduced recurrentgemma-9b (4 gate blocks) the same
+way at W 2, 4 and 8: each rank's prefill and decode step on its channels
+(``RGLRU.prefill`` / ``decode`` on its weight blocks and its block of the
+state), the terms summed against the unsplit layer, each rank's state
+block equal to that block of the unsplit state; at W 8, which does not
+divide the 4 blocks, the layer is whole on every rank (no sum).
+
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh and
 strategy, five models each): ``ShardedModel.prefill`` and 12 greedy
-``decode_step`` calls on a (data 2, model 2) mesh under ``fsdp_tp`` and on
-(model 4) under ``tp_only`` and ``serve_2d``, for reduced gemma2-9b,
-internvl2-76b with its prefix, recurrentgemma-9b (attention and MLP split,
-the RG-LRU gathered), qwen3-moe and phi3.5-moe (attention split, each
-rank computing its block of the 8 experts, their term summed over
-``model``),
+``decode_step`` calls on a (data 2, model 2) mesh under ``fsdp_tp`` and
+``serve_2d`` and on (model 4) under ``tp_only`` and ``serve_2d``, for
+reduced gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b
+(attention, the MLP and the RG-LRU's channels split), qwen3-moe and
+phi3.5-moe (attention split, each rank computing its block of the 8
+experts, their term summed over ``model``),
 against ``repro.models``' single-process prefill and decode: logits to 2e-4
-in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal.
+in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal; and the
+RG-LRU weight a rank computes with holds its w/M channels.
 
 Part (iii), the dry run's trace: a decode step's collectives do not grow
-with the cache (no cache entry moves), and the counter files the new
-collectives.
+with the cache (no cache entry moves), the counter files the new
+collectives, and under ``fsdp_tp`` a decode step moves no RG-LRU state over
+``model`` and sums each RG-LRU layer's term over it once.
 """
 
 import dataclasses
@@ -176,6 +185,48 @@ def test_summed_shares_equal_the_unsplit_layer(case, W):
                 _close(lo, want_logits)
 
 
+_RGLRU = dataclasses.replace(ARCHS["recurrentgemma-9b"].reduced(), n_layers=1)
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_rglru_shares_equal_the_unsplit_layer(W):
+    """Each rank's RG-LRU prefill and decode step on its channels: 4 gate
+    blocks split at W 2 and 4, and run whole at W 8."""
+    cfg = _RGLRU
+    lm = _seeded_lm(cfg)
+    rglru = lm.layers[0].rglru
+    model = build_model(cfg, device="cpu")
+    B, S = 2, 12
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    x_new = torch.randn(B, 1, cfg.d_model, generator=g)
+
+    def run(lm, axis, cache):
+        c = cache["layers"][0]
+        out = lm.layers[0].rglru.prefill(x, c)
+        step = lm.layers[0].rglru.decode(x_new, c)
+        return out, step, c, None if axis is None else axis.layer(0)
+
+    with torch.no_grad():
+        want, want_step, want_c, _ = run(lm, None, model.init_cache(B, S, torch.float32))
+        got = _shares(lm, model.init_cache(B, S, torch.float32), W, run)
+    split = rglru.gate_a.shape[0] % W == 0
+    width = cfg.rnn_width // W
+    for i, (out, step, c, layer) in enumerate(got):
+        assert layer.rglru_sum == split
+        assert layer.rnn == (shd.Split(0, ("model",), i * width, (i + 1) * width) if split
+                             else None)
+        sel = slice(i * width, (i + 1) * width) if split else slice(None)
+        _close(c["h"], want_c["h"][:, sel])
+        _close(c["conv"], want_c["conv"][..., sel])
+        if not split:  # whole on every rank: no sum
+            _close(out, want)
+            _close(step, want_step)
+    if split:
+        _close(sum(o for o, _, _, _ in got), want)
+        _close(sum(s for _, s, _, _ in got), want_step)
+
+
 def test_kv_heads_pair_each_query_head_with_its_group():
     """Query head i reads KV head i // (Hq / Hkv): a slice where a rank's heads
     group evenly, else one KV head per query head."""
@@ -209,8 +260,12 @@ def test_model_split_reads_the_resolved_spec():
 
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
           "phi3.5-moe-42b-a6.6b"]
-MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",)),
-          "serve_2d": ((4,), ("model",))}
+# name -> (strategy, mesh shape, axes)
+MESHES = {"fsdp_tp": ("fsdp_tp", (2, 2), ("data", "model")),
+          "tp_only": ("tp_only", (4,), ("model",)),
+          "serve_2d": ("serve_2d", (4,), ("model",)),
+          # the RG-LRU's leaves and state over (data, model), its w_in_rec over model
+          "serve_2d_data_model": ("serve_2d", (2, 2), ("data", "model"))}
 
 _RANKS = """
 from repro_torch.launch.mesh import make_mesh_from_devices
@@ -236,6 +291,12 @@ for name, cfg, np_params, batch in cases:
     result[name] = {"logits": out, "pos": cache["pos"],
                     "placements": [(type(p).__name__, getattr(p, "dim", None))
                                    for p in logits.placements]}
+    if cfg.mixer_pattern[0] == "rglru":  # layer 0's w_in_rec at rest and computed with
+        w = lm.layers[0].rglru.w_in_rec
+        axis = model.model_axis(lm, cache, (), 4)
+        with torch.no_grad():
+            used = model._weights(axis, ())("layers.0.rglru.w_in_rec", w)
+        result[name]["w_in_rec"] = (tuple(w.to_local().shape), tuple(used.shape))
 """
 
 
@@ -276,16 +337,15 @@ def _jax_run(name):
 
 @pytest.fixture(scope="module", params=sorted(MESHES))
 def ranks(request, tmp_path_factory):
-    strategy = request.param
-    shape, axes = MESHES[strategy]
+    strategy, shape, axes = MESHES[request.param]
     cases = []
     for name in MODELS:
         _, _, _, np_params, _ = _reference(name)
         cfg = ARCHS[name].reduced()
         cases.append((name, cfg, np_params, _batch(cfg)))
-    return strategy, run_ranks(_RANKS, 4, tmp_path_factory.mktemp(strategy),
-                               inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS),
-                               timeout=120)
+    return request.param, run_ranks(_RANKS, 4, tmp_path_factory.mktemp(request.param),
+                                    inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS),
+                                    timeout=120)
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -310,6 +370,22 @@ def test_sharded_prefill_and_greedy_decode_equal_the_reference(ranks, name):
             np.testing.assert_array_equal(a, b)
 
 
+def test_a_ranks_rglru_weight_holds_its_channels(ranks):
+    """recurrentgemma-9b's 4 gate blocks split over model 2 and 4: the
+    w_in_rec a rank computes with is [d, w/M], its ``model`` block of
+    columns, and so is its block at rest (over ``data`` too where ``embed``
+    takes it)."""
+    mesh, results = ranks
+    _, shape, axes = MESHES[mesh]
+    sizes = dict(zip(axes, shape))
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    d, w = cfg.d_model, cfg.rnn_width // sizes["model"]
+    for res in results:
+        at_rest, used = res["recurrentgemma-9b"]["w_in_rec"]
+        assert used == (d, w)
+        assert at_rest == (d // sizes.get("data", 1), w)
+
+
 # ---------------------------------------------------------------------------
 # Part (iii): what the dry run's trace sees
 # ---------------------------------------------------------------------------
@@ -329,6 +405,32 @@ def test_a_decode_step_moves_no_cache_entry(strategy):
     short, long = (_decode_costs(cfg, strategy, n) for n in (64, 256))
     assert short["by_kind"] == long["by_kind"] and short["n_collectives"] > 0
     assert set(short["by_kind"]) == {"all-gather", "all-reduce"}
+
+
+def test_a_decode_step_moves_no_rglru_state_over_model():
+    """Reduced recurrentgemma-9b (8 layers: 6 RG-LRU, 2 local attention) on a
+    (data 2, model 2) mesh under ``fsdp_tp``: over ``model`` a decode step
+    sums the stream once for the lookup, once a layer for the MLP and once
+    for each attention and each RG-LRU layer's row-parallel term (1 + 8 + 2
+    + 6 = 17), merges each attention layer's partial softmax (a max and a
+    sum) and gathers its query heads; the RG-LRU state lies at rest as the
+    rank computes it, so no other collective runs over ``model``."""
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    kinds = [cfg.mixer_pattern[i % 3] for i in range(cfg.n_layers)]
+    n_rglru, n_attn = kinds.count("rglru"), kinds.count("attn_local")
+    assert (n_rglru, n_attn) == (6, 2)
+    cell = shp.ShapeCell("tiny", 64, 4, "decode")
+    with _mesh((2, 2)) as mesh:
+        step = steps.build_serve_step(cfg, cell, mesh, "fsdp_tp")
+        counter = OpCounter()
+        with counter:
+            step()
+    ops = [op for op in counter.collectives if op.ranks == (0, 1)]
+    stream = 2 * 1 * cfg.d_model * 2  # a rank's 2 rows of one token, bf16
+    sums = [op for op in ops if op.kind == "all-reduce" and op.bytes == stream]
+    assert len(sums) == 1 + cfg.n_layers + n_attn + n_rglru
+    others = sorted(op.kind for op in ops if op not in sums)
+    assert others == ["all-gather"] * n_attn + ["all-reduce"] * 2 * n_attn
 
 
 def test_prefill_counts_the_all_to_all_and_the_sums():

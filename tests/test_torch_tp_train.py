@@ -13,7 +13,10 @@ block of the unsplit gradient, a replicated weight read in part
 QK-norm's scales) summed over the ranks, every other weight's gradient
 whole on each rank. Cases: GQA with and without ``n_kv_heads`` dividing W,
 MQA, QK-norm, a local window with the score softcap, the three MLPs and a
-``d_ff`` W does not divide. The embedding, the head and the vocab-parallel
+``d_ff`` W does not divide. The RG-LRU layer of reduced recurrentgemma-9b
+(4 gate blocks) at W 2, 4 and 8: the rank's channels (every leaf a block,
+the gates' blocks among them) where W divides the blocks, the layer whole
+at W 8. The embedding, the head and the vocab-parallel
 cross-entropy (with a mask, tied and untied, with the final softcap): every
 rank's lookup summed, its logits block's terms combined as the mesh
 combines them (``Shares.merge_xent``), one backward. Everything within 1e-5
@@ -239,6 +242,24 @@ def test_mlp_training_shares_equal_the_unsplit_layer(case, W):
     assert set(kinds.values()) == {"block" if split else "whole"}
 
 
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_rglru_training_shares_equal_the_unsplit_layer(W):
+    """Each rank's RG-LRU forward term on its channels, its input gradient
+    and every leaf's block gradient from one upstream gradient; at W 8,
+    which does not divide the 4 gate blocks, whole on every rank."""
+    cfg = dataclasses.replace(ARCHS["recurrentgemma-9b"].reduced(), n_layers=1)
+    lm = _seeded_lm(cfg)
+
+    def run(rglru, x, axis):
+        return rglru(x if axis is None or not axis.layer(0).rglru_sum else axis.to_split(x))
+
+    want, ranks = _module_shares(lm, "layers.0.rglru", W, run)
+    split = cfg.n_heads % W == 0
+    assert ranks[0][0].layer(0).rglru_sum == split
+    kinds = _check_module(want, ranks, split)
+    assert len(kinds) == 10 and set(kinds.values()) == {"block" if split else "whole"}
+
+
 @pytest.mark.parametrize("W", [2, 4])
 @pytest.mark.parametrize("case", sorted(HEAD_CASES))
 def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
@@ -287,8 +308,8 @@ def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
 
 def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
     """Replicated leaves read in part are summed (the MoE router where the
-    experts split); split leaves, norms and the leaves of mixers outside the
-    split are not."""
+    experts split); split leaves (the RG-LRU's, its gates' blocks among
+    them), norms and the leaves of mixers outside the split are not."""
     cfg = ARCHS["qwen3-moe-235b-a22b"].reduced()  # 4/2 heads, QK-norm, 8 experts
     meta = shp.param_specs_shapes(cfg, torch.float32)
     for W, kv in ((2, False), (4, True)):
@@ -299,13 +320,15 @@ def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
                 for leaf in ("attn.q_norm", "attn.k_norm", "moe.router")
                 + (("attn.wk", "attn.wv") if kv else ())}
         assert summed == want, (W, summed ^ want)
-    cfg = ARCHS["recurrentgemma-9b"].reduced()  # 1 KV head; RG-LRU layers gathered
+    cfg = ARCHS["recurrentgemma-9b"].reduced()  # 1 KV head; RG-LRU layers split
     meta = shp.param_specs_shapes(cfg, torch.float32)
     axis = tp.ModelAxis({"model": 2}, shd.STRATEGIES["fsdp_tp"](), tp.param_shapes(meta),
                         None, tp.Shares(), coord={"model": 1})
     summed = {n for n, _ in meta.named_parameters() if axis.sums_gradient(n)}
     assert summed == {f"layers.{i}.attn.{w}" for i in range(2, cfg.n_layers, 3)
                       for w in ("wk", "wv")}
+    rglru = [n for n, _ in meta.named_parameters() if ".rglru." in n]
+    assert len(rglru) == 10 * 6 and all(axis.split(n) is not None for n in rglru)
 
 
 # ---------------------------------------------------------------------------
