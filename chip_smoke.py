@@ -202,6 +202,26 @@ calls, and fails (exit code not 0, no result line) on any miss:
               their layer's wk gradient); then at full width, B 4, bf16 over
               fp32 masters, one cold and one timed AdamW step with 144
               tensor-core flash launches (72 forward, 72 in the recompute);
+ 10b. whisper_tp_train sharded whisper-medium training on the ``model``
+              axis, in this one process: (a) each rank's training share of
+              one full-width encoder block (B 1 x 1500 frames) and one
+              decoder block (B 1 x 448 tokens over a 1500-frame memory) at 4
+              and 16 ranks (4 heads and 1 head of 16, d_ff blocks of 1024
+              and 256; ``tensor_parallel.block_shares``: each part's normed
+              input and the memory fed to every rank, the split parts'
+              terms added in fp32), one backward from one upstream
+              gradient: the output, the input's and the memory's gradients
+              and every leaf's against the unsplit block's, fp32 (the
+              CUDA-core flash kernel) within 1e-5 of each largest, bf16 (the
+              tensor-core kernel) within 5e-2 beside the unsplit bf16 block's
+              own error; W flash launches an encoder block and 2W a decoder
+              block; (b) whisper-medium at 1 + 1 layers, B 4 x 1500 frames x
+              448 tokens, bf16 over fp32 masters: 3 steps of
+              ``launch/steps.build_train_step`` on a 1-rank NCCL mesh (the
+              sharded step) against ``train_loop`` unsharded from the same
+              seeded weights and batch, losses within 1e-6 (bit-equality
+              printed), step ms of both under CUDA events, 6 tensor-core
+              flash launches a step;
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
  12. dispatch the BandPilot dispatcher (``repro_torch.core``) on the paper's
@@ -1210,6 +1230,197 @@ def whisper_train_phase():
                (dense + attn) / (step_ms[1] * 1e-3) / roofline.PEAK_OPS_PER_S[torch.bfloat16]}
     print("whisper_train", json.dumps(rec), flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 10b: sharded whisper-medium training on the model axis
+# ---------------------------------------------------------------------------
+
+WHISPER_TP_RANKS = (4, 16)
+# shares: outputs and gradients within 1e-5 of each one's largest in fp32, 5e-2
+# in bf16; the 1-rank path's losses within 1e-6 of train_loop's
+WHISPER_TP_FP32_TOL, WHISPER_TP_BF16_TOL, WHISPER_TP_LOSS_RTOL = 1e-5, 5e-2, 1e-6
+WHISPER_TP_STEPS = 3
+
+
+def whisper_grad_errs(got, want):
+    """rel_err of each output and gradient; a key bias's gradient (0 exactly,
+    rounding noise on both sides) over its layer's largest wk gradient."""
+    return {k: (max(float(got[k].float().abs().max()), float(want[k].float().abs().max()))
+                / float(want[k[:-2] + "wk"].float().abs().max())) if k.endswith(".bk")
+            else rel_err(got[k], want[k]) for k in want}
+
+
+def whisper_tp_shares(ranks):
+    """(a) one full-width encoder block (B 1 x 1500 frames) and one decoder
+    block (B 1 x 448 tokens, a 1500-frame memory), fp32 then the same
+    weights in bf16: the unsplit block's output and gradients from one
+    upstream gradient, then for each W in ``ranks`` every rank's share in
+    turn (``tensor_parallel.block_shares``: its weight blocks, the split
+    parts' terms added in fp32, each part's normed input and the memory
+    reaching every rank through a cast from fp32), one backward; the output,
+    the input's and the memory's gradients and every leaf's against the
+    unsplit block's."""
+    cfg = whisper_cfg(1)
+    model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    d = cfg.d_model
+    inputs = {"enc_blocks": [torch.randn(1, WHISPER_T, d, generator=g, device="cuda")],
+              "dec_blocks": [torch.randn(1, WHISPER_S, d, generator=g, device="cuda"),
+                             torch.randn(1, WHISPER_T, d, generator=g, device="cuda")]}
+    upstream = {k: torch.randn(v[0].shape, generator=g, device="cuda")
+                for k, v in inputs.items()}
+    recs, unsplit32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.to(dtype).requires_grad_(True)
+        kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[fa_ops.kernel_for(dtype, cfg.head_dim)]
+        for stack, xs in inputs.items():
+            names = [n for n, _ in model.named_parameters() if n.startswith(f"{stack}.0.")]
+            leaves = [model.get_parameter(n) for n in names]
+            xs = [x.to(dtype).requires_grad_() for x in xs]
+            keys = ["output", "input", "memory"][:len(xs) + 1] + names
+            positions = torch.arange(xs[0].shape[1], device="cuda")
+            gy = upstream[stack].to(dtype)
+            reset_counts()
+            out = getattr(model, stack)[0](xs[0], positions, *xs[1:])
+            want = dict(zip(keys, [out.detach()] + list(
+                torch.autograd.grad(out, xs + leaves, gy))))
+            want_launches = counts()
+            del out
+            unsplit32.setdefault(stack, want)
+            n_attn = len(xs)  # flash calls a rank: self-attention (and cross-attention)
+            for W in ranks:
+                shares = [tp.share(model, None, r, W) for r in range(W)]
+                reset_counts()
+                out = tp.block_shares(model, stack, 0, shares, xs[0], positions,
+                                      xs[1] if len(xs) > 1 else None)
+                got = dict(zip(keys, [out.detach()] + list(
+                    torch.autograd.grad(out, xs + leaves, gy))))
+                torch.cuda.synchronize()
+                launches = counts()
+                del out
+                view = shares[0][0].layer(0, stack)
+                need(view.attn_sum and view.mlp_sum and (view.xattn_sum or n_attn == 1),
+                     f"whisper {stack} at {W}: no split")
+                err = whisper_grad_errs(got, want)
+                outputs = keys[:len(xs) + 1]
+                worst = max(names, key=err.get)
+                tol = WHISPER_TP_FP32_TOL if dtype == torch.float32 else WHISPER_TP_BF16_TOL
+                rec = {"case": f"{cfg.name} {stack}.0 ({cfg.n_heads} heads, d_ff {cfg.d_ff})",
+                       "model_ranks": W, "dtype": str(dtype)[6:],
+                       "rows": list(xs[0].shape[:2]), "memory_frames":
+                           WHISPER_T if len(xs) > 1 else None, "terms_added_in": "float32",
+                       "rank_heads": cfg.n_heads // W, "rank_d_ff": cfg.d_ff // W,
+                       "summed_gradients": sorted(n for n in names
+                                                  if shares[0][0].sums_gradient(n)),
+                       "rel_err": {k: err[k] for k in outputs}, "worst_leaf": worst,
+                       "worst_leaf_rel_err": err[worst], "leaves": len(names), "tol": tol,
+                       "launches_shares": launches, "launches_unsplit": want_launches}
+                if dtype == torch.bfloat16:
+                    for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                        e = whisper_grad_errs(side, unsplit32[stack])
+                        leaf = max(names, key=e.get)
+                        rec[tag] = {**{k: e[k] for k in outputs}, "worst_leaf": e[leaf],
+                                    "worst_leaf_name": leaf}
+                print("whisper_tp_shares", json.dumps(rec), flush=True)
+                need(want_launches == launch_counts(**{kernel: n_attn})
+                     and launches == launch_counts(**{kernel: n_attn * W}),
+                     f"whisper tp shares {stack} at {W} ({dtype}): launches {launches}, "
+                     f"unsplit {want_launches}")
+                need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                     f"whisper tp shares {stack} at {W}: non-finite")
+                need(max(err.values()) <= tol,
+                     f"whisper tp shares {stack} at {W} ({dtype}): {rec['rel_err']}, "
+                     f"{worst} {err[worst]}")
+                recs.append(rec)
+                del shares, got
+            del want
+    del model, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def whisper_tp_path():
+    """(b) whisper-medium at 1 + 1 layers, bf16 over fp32 masters, remat
+    "nothing", B 4 x 1500 frames x 448 tokens: ``train_loop`` unsharded, then
+    ``launch/steps.build_train_step`` (``ShardedModel``) on a 1-rank NCCL mesh
+    from the same seeded weights and batch, its optimizer settings; the
+    losses, step ms under CUDA events and the flash launches a step (the
+    encoder's self-attention and the decoder's two, forward and recompute:
+    6)."""
+    cfg = whisper_cfg(1)
+    cell = shapes.ShapeCell("whisper_tp", WHISPER_T, WHISPER_B, "train")
+
+    def timed(step_fn):
+        events, losses, launches = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WHISPER_TP_STEPS):
+            reset_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            metrics = step_fn()
+            ev[1].record()
+            events.append(ev)
+            losses.append(float(metrics["loss"]))
+            launches.append(counts())
+        torch.cuda.synchronize()
+        return {"losses": losses, "launches": launches[-1],
+                "step_ms": [a.elapsed_time(b) for a, b in events],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        step = steps.build_train_step(cfg, cell, mesh, device="cuda", seed=SEED)
+        need(step.sharded, "whisper: the train step is not sharded")
+        batch = step.args[2]
+        run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+                             remat_policy="nothing", compute_dtype=torch.bfloat16)
+        model = build_model(cfg)
+        lm = model.init(SEED, torch.float32)
+        train_step, opt_init = make_train_step(model, run)
+        state = [lm, opt_init(lm)]
+
+        def unsharded_step():
+            state[0], state[1], metrics = train_step(state[0], state[1], batch)
+            return metrics
+
+        unsharded = timed(unsharded_step)
+        n_params = sum(p.numel() for p in lm.parameters())
+        del state, lm, train_step
+        torch.cuda.empty_cache()
+        args = list(step.args)
+
+        def sharded_step():
+            args[0], args[1], metrics = step.fn(*args)
+            return metrics
+
+        sharded = timed(sharded_step)
+        del args, step
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"], unsharded["losses"])]
+    per_step = launch_counts(flash_wgmma=2 * 3)
+    rec = {"arch": cfg.name, "layers": [1, 1], "params": n_params, "batch": WHISPER_B,
+           "frames": WHISPER_T, "tokens": WHISPER_S, "steps": WHISPER_TP_STEPS,
+           "compute_dtype": "bfloat16", "master_dtype": "float32", "remat_policy": "nothing",
+           "mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp", "unsharded": unsharded,
+           "sharded": sharded, "loss_max_rel_err": max(rel), "loss_tol": WHISPER_TP_LOSS_RTOL,
+           "losses_bit_equal": sharded["losses"] == unsharded["losses"],
+           "launches_per_step_expected": per_step,
+           "step_ms_median_warm": {k: float(np.median(r["step_ms"][1:]))
+                                   for k, r in (("unsharded", unsharded),
+                                                ("sharded", sharded))}}
+    print("whisper_tp_path", json.dumps(rec), flush=True)
+    need(unsharded["launches"] == per_step and sharded["launches"] == per_step,
+         f"whisper tp path launches {unsharded['launches']}, {sharded['launches']}; "
+         f"expected {per_step}")
+    need(all(np.isfinite(sharded["losses"])) and max(rel) <= WHISPER_TP_LOSS_RTOL,
+         f"whisper tp path: sharded losses {sharded['losses']} against "
+         f"{unsharded['losses']}")
+    return rec
+
+
+def whisper_tp_train_phase():
+    return {"shares": whisper_tp_shares(WHISPER_TP_RANKS), "path": whisper_tp_path()}
 
 
 # ---------------------------------------------------------------------------
@@ -3201,6 +3412,7 @@ def print_rings():
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -3284,12 +3496,14 @@ def main():
     whisper_train_check = phase("whisper_train_check", whisper_train_check_phase, 1e-4, 2e-3)
     whisper_train = phase("whisper_train", whisper_train_phase)
     torch.cuda.empty_cache()
+    whisper_tp_train = phase("whisper_tp_train", whisper_tp_train_phase)
     train_lm_rec = phase("train_lm", train_lm_phase)
     dispatch = phase("dispatch", dispatch_phase)
     elastic = phase("elastic", elastic_phase)
     torch.cuda.empty_cache()
     dryrun_rec = phase("dryrun_check", dryrun_check_phase)
     print("phase_seconds", json.dumps(phase_s), flush=True)
+    print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
     elastic_launches = lambda name: {  # noqa: E731
         run: elastic[key][name] for run, key in (("a", "launches_a"), ("b", "launches_b"))}
 
@@ -3349,7 +3563,13 @@ def main():
                       launches_ep_decode_16_steps=ep["path"]["launches_decode"][
                           "flash_attention_wgmma"],
                       launches_ep_train_3_steps=ep["train"]["sharded"]["launches"][
-                          "flash_attention_wgmma"]),
+                          "flash_attention_wgmma"],
+                      launches_whisper_tp_train_step_1_rank=whisper_tp_train["path"][
+                          "sharded"]["launches"]["flash_attention_wgmma"],
+                      launches_whisper_tp_shares_bf16=[
+                          [r["case"], r["model_ranks"],
+                           r["launches_shares"]["flash_attention_wgmma"]]
+                          for r in whisper_tp_train["shares"] if r["dtype"] == "bfloat16"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -3373,7 +3593,10 @@ def main():
                                                      if r["dtype"] == "float32"],
                       launches_sp_train_shares_fp32=[r["launches_shares"]["flash_attention"]
                                                      for r in sp_train["shares"]
-                                                     if r["dtype"] == "float32"]),
+                                                     if r["dtype"] == "float32"],
+                      launches_whisper_tp_shares_fp32=[
+                          [r["case"], r["model_ranks"], r["launches_shares"]["flash_attention"]]
+                          for r in whisper_tp_train["shares"] if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",
@@ -3406,6 +3629,7 @@ def main():
                "moe_serve": moe_serve, "moe_check": moe_check,
                "whisper_serve": whisper_serve, "whisper_check": whisper_check,
                "whisper_train_check": whisper_train_check, "whisper_train": whisper_train,
+               "whisper_tp_train": whisper_tp_train,
                "train": train, "train_check": train_check,
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,

@@ -19,9 +19,13 @@ train step with the vocab-parallel cross-entropy, the gradient sums over
 ``model`` where the rules say so, the decode step with attention over the
 cache where it lies and the RG-LRU state where it lies. The RWKV-6 mixer
 and channel mix still compute whole on every rank along ``model``
-(ROADMAP.md). The
-encoder-decoder is not sharded (``ShardedModel`` refuses it): its steps run
-the whole global batch on one rank, and the Step says so.
+(ROADMAP.md). The encoder-decoder's train step is sharded too: its frames
+and tokens split by rows, each block's self-attention, cross-attention and
+MLP along ``model``, its streams whole along ``model`` (the reference's
+``seq`` constraint on them, and the gather of the sequence-split memory it
+needs, are not ported yet). Sharded encoder-decoder serving is not ported
+yet (``ShardedModel`` refuses it): its prefill and serve steps run the
+whole global batch on one rank, and the Step says so.
 """
 
 from __future__ import annotations
@@ -60,15 +64,16 @@ class Step:
         return self.fn(*self.args)
 
 
-UNSHARDED_NOTE = ("encoder-decoder: ShardedModel refuses it, so this step runs the "
-                  "whole global batch unsharded on one rank")
+UNSHARDED_NOTE = ("encoder-decoder: sharded encoder-decoder serving is not ported yet, "
+                  "so this step runs the whole global batch unsharded on one rank")
 
 
 def _model(cfg: ModelConfig, mesh: DeviceMesh, strategy: str,
-           rules_override: Optional[Dict], device: torch.device):
-    """(the model the step calls, whether it is sharded)."""
+           rules_override: Optional[Dict], device: torch.device, train: bool = False):
+    """(the model the step calls, whether it is sharded): the encoder-decoder
+    is sharded in training only."""
     model = build_model(cfg, device)
-    if cfg.is_encoder_decoder:
+    if cfg.is_encoder_decoder and not train:
         return model, False
     rules = rules_override or shd.STRATEGIES[strategy]()
     return ShardedModel(model, mesh, rules), True
@@ -113,7 +118,7 @@ def build_train_step(
     """AdamW (lr 3e-4, wd 0.1) over fp32 masters, bf16 compute, as the
     reference's step; one call is one optimizer step."""
     device = resolve_device(device)
-    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    model, sharded = _model(cfg, mesh, strategy, rules_override, device, train=True)
     run = TrainRunConfig(
         optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
         remat_policy=remat_policy,

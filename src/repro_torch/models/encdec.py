@@ -22,6 +22,18 @@ The frames must come in the weights' dtype (bf16 frames for bf16 weights, as
 the reference's input specs give them): the reference would promote a bf16
 model with fp32 frames to fp32 throughout, which the port does not do, so it
 raises instead.
+
+Sharded training (``parallel/fsdp.py``) takes the hooks ``LM.forward`` takes:
+``materialize(name, tensor)`` replaces each block's parameters inside the
+block (inside remat's checkpoint, so again in its recompute), and
+``model_axis`` (``parallel/tensor_parallel.py``) splits each block's
+self-attention, cross-attention and MLP along ``model`` by query heads and
+``d_ff`` (each block's ``LayerAxis``), and the lookup, the tied head and the
+cross-entropy by vocabulary where the axis divides it. The cross-attention
+projects K and V from the whole memory onto the rank's heads, so each
+decoder block's memory gradient is the rank's term: the memory goes in
+through ``ModelAxis.to_split``, whose backward sums it over ``model``. The
+streams stay whole along ``model`` (no sequence split).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
+from repro_torch.models.transformer import Materialize, ModelAxis, _split_in, _summed
 
 Cache = Dict[str, Any]  # {"self": [per-decoder-layer KV cache], "pos": int}
 
@@ -68,9 +81,21 @@ class EncBlock(nn.Module):
         common.reset_norm_(self.norm2)
         self.mlp.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(common.apply_norm(self.norm1, x), positions, causal=False)
-        return x + self.mlp(common.apply_norm(self.norm2, x))
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, axis=None) -> torch.Tensor:
+        """``axis``: the block's ``tensor_parallel.LayerAxis`` in sharded
+        training, which splits the attention by query heads and the MLP by
+        ``d_ff`` (each a sum over ``model`` after it, as ``Block.forward``)."""
+        x = x + self.mix(common.apply_norm(self.norm1, x), positions, axis)
+        return x + self.feed_forward(common.apply_norm(self.norm2, x), axis)
+
+    def mix(self, h: torch.Tensor, positions: torch.Tensor, axis=None) -> torch.Tensor:
+        """The non-causal self-attention on the ``norm1``-normed stream."""
+        h = _split_in(h, axis, "attn_sum")
+        return _summed(self.attn(h, positions, causal=False, axis=axis), axis, "attn_sum")
+
+    def feed_forward(self, h: torch.Tensor, axis=None) -> torch.Tensor:
+        """The MLP on the ``norm2``-normed stream."""
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
 
 
 class DecBlock(nn.Module):
@@ -96,10 +121,30 @@ class DecBlock(nn.Module):
         self.mlp.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                memory: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(common.apply_norm(self.norm1, x), positions)
-        x = x + self.xattn(common.apply_norm(self.norm_x, x), positions, memory=memory)
-        return x + self.mlp(common.apply_norm(self.norm2, x))
+                memory: torch.Tensor, axis=None) -> torch.Tensor:
+        """``axis`` as in ``EncBlock.forward``; the cross-attention splits by
+        its query heads too (``LayerAxis.cross``)."""
+        x = x + self.mix(common.apply_norm(self.norm1, x), positions, axis)
+        x = x + self.cross(common.apply_norm(self.norm_x, x), memory, axis)
+        return x + self.feed_forward(common.apply_norm(self.norm2, x), axis)
+
+    def mix(self, h: torch.Tensor, positions: torch.Tensor, axis=None) -> torch.Tensor:
+        """The causal self-attention on the ``norm1``-normed stream."""
+        h = _split_in(h, axis, "attn_sum")
+        return _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
+
+    def cross(self, h: torch.Tensor, memory: torch.Tensor, axis=None) -> torch.Tensor:
+        """The cross-attention on the ``norm_x``-normed stream. Where it
+        splits, the rank projects K and V from the whole memory onto its own
+        heads, so the memory goes in as the normed stream does: its gradient
+        is summed over ``model``."""
+        h, memory = _split_in(h, axis, "xattn_sum"), _split_in(memory, axis, "xattn_sum")
+        out = self.xattn(h, None, memory=memory, axis=None if axis is None else axis.cross)
+        return _summed(out, axis, "xattn_sum")
+
+    def feed_forward(self, h: torch.Tensor, axis=None) -> torch.Tensor:
+        """The MLP on the ``norm2``-normed stream."""
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
 
     def decode(self, x: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
                memory: torch.Tensor) -> torch.Tensor:
@@ -108,20 +153,31 @@ class DecBlock(nn.Module):
         return x + self.mlp(common.apply_norm(self.norm2, x))
 
 
-def _run_block(block: nn.Module, remat_policy: Optional[str], *args) -> torch.Tensor:
-    """``block(*args)``, under ``torch.utils.checkpoint`` with grad on and a
-    remat policy (the reference's ``_maybe_remat`` around each block). The
-    block's parameters go in as explicit inputs, as in
-    ``transformer._remat_group``: the recompute then sees the tensors the
-    forward saw, also the cast copies ``encdec_loss`` swaps in."""
-    if remat_policy in (None, "none") or not torch.is_grad_enabled():
-        return block(*args)
+def _run_block(stack: nn.ModuleList, name: str, index: int, remat_policy: Optional[str],
+               materialize: Optional[Materialize], model_axis: Optional[ModelAxis],
+               *args) -> torch.Tensor:
+    """Block ``index`` of ``stack`` (state-dict prefix ``name``) on ``args``,
+    under ``torch.utils.checkpoint`` with grad on and a remat policy (the
+    reference's ``_maybe_remat`` around each block). The block's parameters
+    go in as explicit inputs, as in ``transformer._remat_group``: the
+    recompute then sees the tensors the forward saw, also the cast copies
+    ``encdec_loss`` swaps in. ``materialize`` runs inside, so the recompute
+    gathers the block's weights again and no block holds them between its
+    forward and its backward; ``model_axis`` gives the block its
+    ``LayerAxis``."""
+    block = stack[index]
+    axis = None if model_axis is None else model_axis.layer(index, name)
     names, params = zip(*block.named_parameters())
     n = len(names)
 
     def run(*tensors):
-        return functional_call(block, dict(zip(names, tensors[:n])), tensors[n:])
+        weights = dict(zip(names, tensors[:n]))
+        if materialize is not None:
+            weights = {k: materialize(f"{name}.{index}.{k}", t) for k, t in weights.items()}
+        return functional_call(block, weights, tensors[n:] + (axis,))
 
+    if remat_policy in (None, "none") or not torch.is_grad_enabled():
+        return run(*params, *args)
     return checkpoint(run, *params, *args, use_reentrant=False,
                       context_fn=transformer._remat_context(remat_policy))
 
@@ -152,38 +208,68 @@ class EncDec(nn.Module):
         common.reset_norm_(self.enc_norm)
         common.reset_norm_(self.dec_norm)
 
-    def encode(self, frames: torch.Tensor, remat_policy: Optional[str] = None
-               ) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, remat_policy: Optional[str] = None,
+               materialize: Optional[Materialize] = None,
+               model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """frames [B, T_f, d] (the stub frontend's output) -> memory [B, T_f, d].
-        Positions past the table's length tile it, as in the reference."""
+        Positions past the table's length tile it, as in the reference. The
+        hooks as in ``forward``."""
         if frames.dtype != self.enc_pos.dtype:
             raise ValueError(f"frames are {frames.dtype}, the weights "
                              f"{self.enc_pos.dtype}: give the frames in the weights' dtype")
         T = frames.shape[1]
         positions = torch.arange(T, device=frames.device)
         x = frames + self.enc_pos[positions % self.enc_pos.shape[0]][None]
-        for block in self.enc_blocks:
-            x = _run_block(block, remat_policy, x, positions)
+        for i in range(len(self.enc_blocks)):
+            x = _run_block(self.enc_blocks, "enc_blocks", i, remat_policy, materialize,
+                           model_axis, x, positions)
         return common.apply_norm(self.enc_norm, x)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return common.apply_norm(self.dec_norm, x) @ self.embed.T  # tied head
+    def _embed(self, tokens: torch.Tensor, model_axis: Optional[ModelAxis] = None
+               ) -> torch.Tensor:
+        """The token embeddings (no positions). Where ``model_axis`` splits
+        the vocabulary, ``embed`` holds this rank's rows, and the rank's
+        lookup term is summed over ``model`` (``LM._embed``)."""
+        split = None if model_axis is None else model_axis.split("embed")
+        x = transformer.lookup(self.embed, tokens, split)
+        return x if split is None else model_axis.from_split(x)
+
+    def _logits(self, x: torch.Tensor, model_axis: Optional[ModelAxis] = None
+                ) -> torch.Tensor:
+        """The tied head; where ``model_axis`` splits the vocabulary, the
+        rank's vocab block of the logits (``LM._logits``)."""
+        x = common.apply_norm(self.dec_norm, x)
+        if model_axis is not None and model_axis.head is not None:
+            x = model_axis.to_split(x)
+        return x @ self.embed.T
 
     def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor,
-                     remat_policy: Optional[str] = None) -> torch.Tensor:
-        """Teacher-forced decoder forward: tokens [B, S] -> logits [B, S, V]."""
+                     remat_policy: Optional[str] = None,
+                     materialize: Optional[Materialize] = None,
+                     model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
+        """Teacher-forced decoder forward: tokens [B, S] -> logits [B, S, V]
+        (the rank's vocab block where ``model_axis`` splits the head). The
+        hooks as in ``forward``."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
-        x = self.embed[tokens] + self.dec_pos[positions % self.dec_pos.shape[0]][None]
-        for block in self.dec_blocks:
-            x = _run_block(block, remat_policy, x, positions, memory)
-        return self._logits(x)
+        x = self._embed(tokens, model_axis) + self.dec_pos[positions % self.dec_pos.shape[0]][None]
+        for i in range(len(self.dec_blocks)):
+            x = _run_block(self.dec_blocks, "dec_blocks", i, remat_policy, materialize,
+                           model_axis, x, positions, memory)
+        return self._logits(x, model_axis)
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
-                remat_policy: Optional[str] = None) -> torch.Tensor:
-        """Training forward: encode, then ``decode_train``; logits [B, S, V]."""
-        memory = self.encode(frames, remat_policy)
-        return self.decode_train(tokens, memory, remat_policy)
+                remat_policy: Optional[str] = None,
+                materialize: Optional[Materialize] = None,
+                model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
+        """Training forward: encode, then ``decode_train``; logits [B, S, V].
+        ``materialize(name, tensor)``, where given, replaces each block
+        parameter just before its block runs (inside its checkpoint);
+        ``model_axis`` splits the blocks and, where the axis divides the
+        vocabulary, the lookup and the head along ``model`` (the sharded
+        trainer, ``parallel/fsdp.py``)."""
+        memory = self.encode(frames, remat_policy, materialize, model_axis)
+        return self.decode_train(tokens, memory, remat_policy, materialize, model_axis)
 
     def decode_step(self, tokens: torch.Tensor, cache: Cache,
                     memory: torch.Tensor) -> torch.Tensor:
@@ -199,17 +285,40 @@ class EncDec(nn.Module):
 
 def encdec_loss(model: EncDec, batch: Dict[str, Any], *,
                 remat_policy: Optional[str] = None,
-                compute_dtype: Optional[torch.dtype] = None
+                compute_dtype: Optional[torch.dtype] = None,
+                materialize: Optional[Materialize] = None,
+                model_axis: Optional[ModelAxis] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: frames [B, T_f, d], tokens [B, S], labels [B, S], optional mask
     -> (loss, metrics). ``compute_dtype`` casts the fp32/bf16 parameters
-    inside the differentiated function, as ``transformer.lm_loss`` does."""
+    inside the differentiated function, as ``transformer.lm_loss`` does.
+    ``materialize(name, tensor)`` replaces each parameter before that cast:
+    the embedding, positions and final norms at the start, a block's inside
+    it (``EncDec.forward``). ``model_axis`` as in ``EncDec.forward``; where
+    the head splits, the cross-entropy is the vocab-parallel one
+    (``ModelAxis.xent``) on this rank's logits block."""
     args = (batch["frames"], batch["tokens"])
-    if compute_dtype is None:
-        logits = model(*args, remat_policy=remat_policy)
+    kw = {"remat_policy": remat_policy, "model_axis": model_axis}
+
+    def prepare(name: str, p: torch.Tensor) -> torch.Tensor:
+        if materialize is not None:
+            p = materialize(name, p)
+        if compute_dtype is not None and p.dtype in (torch.float32, torch.bfloat16):
+            p = p.to(compute_dtype)
+        return p
+
+    if materialize is not None:
+        outer = {n: prepare(n, p) for n, p in model.named_parameters()
+                 if n.split(".", 1)[0] not in ("enc_blocks", "dec_blocks")}
+        logits = functional_call(model, outer, args, {**kw, "materialize": prepare})
+    elif compute_dtype is None:
+        logits = model(*args, **kw)
     else:
-        params = {n: p.to(compute_dtype) if p.dtype in (torch.float32, torch.bfloat16)
-                  else p for n, p in model.named_parameters()}
-        logits = functional_call(model, params, args, {"remat_policy": remat_policy})
-    xent = common.softmax_xent(logits, batch["labels"], batch.get("mask"))
+        params = {n: prepare(n, p) for n, p in model.named_parameters()}
+        logits = functional_call(model, params, args, kw)
+    labels, mask = batch["labels"], batch.get("mask")
+    if model_axis is not None and model_axis.head is not None:
+        xent = model_axis.xent(logits, labels, mask)
+    else:
+        xent = common.softmax_xent(logits, labels, mask)
     return xent, {"xent": xent, "moe_aux": xent.new_zeros((), dtype=torch.float32)}

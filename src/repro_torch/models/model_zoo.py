@@ -39,7 +39,8 @@ class Model:
     def loss(self, params: Params, batch: Dict[str, Any], **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``transformer.lm_loss`` or ``encdec.encdec_loss``: kw are
-        ``remat_policy``, ``compute_dtype``."""
+        ``remat_policy``, ``compute_dtype``, and the sharded trainer's hooks
+        ``materialize`` and ``model_axis`` (``parallel/fsdp.py``)."""
         if self.cfg.is_encoder_decoder:
             return encdec.encdec_loss(params, batch, **kw)
         return transformer.lm_loss(params, batch, **kw)

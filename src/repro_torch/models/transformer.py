@@ -254,12 +254,7 @@ class LM(nn.Module):
         (the sum adds it once); an unsplit lookup is sliced
         (``ModelAxis.own``)."""
         split = None if model_axis is None else model_axis.split("embed")
-        if split is None:
-            x = self.embed[tokens]
-        else:
-            inside = (tokens >= split.lo) & (tokens < split.hi)
-            rows = self.embed[torch.where(inside, tokens - split.lo, 0)]
-            x = torch.where(inside[..., None], rows, 0)
+        x = lookup(self.embed, tokens, split)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         seq = model_axis is not None and model_axis.seq is not None
@@ -367,6 +362,18 @@ class LM(nn.Module):
                                 _layer_axis(model_axis, i))
         cache["pos"] = pos + 1
         return self._logits(x, model_axis)
+
+
+def lookup(embed: torch.Tensor, tokens: torch.Tensor, split=None) -> torch.Tensor:
+    """``embed[tokens]``; where ``split`` (``sharding.Split``) says that
+    ``embed`` holds the rank's vocab rows ``[lo, hi)``, the rows of the tokens
+    in that range and zeros for the others: the rank's term of the
+    vocab-parallel lookup, to be summed over ``model``."""
+    if split is None:
+        return embed[tokens]
+    inside = (tokens >= split.lo) & (tokens < split.hi)
+    rows = embed[torch.where(inside, tokens - split.lo, 0)]
+    return torch.where(inside[..., None], rows, 0)
 
 
 def _layer_axis(model_axis: Optional[ModelAxis], index: int):

@@ -98,11 +98,26 @@ The sequence split is always the explicit gather (the reference's
 ``REPRO_SP_GATHER=1``); serving splits no sequence of the stream, as the
 reference's ``prefill_block`` constrains none.
 
+The encoder-decoder (whisper) trains on the mesh as the LMs do:
+:meth:`ShardedModel.loss` splits its ``frames``, tokens, labels and mask
+along their first dim by the ``batch`` rule, each encoder and decoder
+block's self-attention, cross-attention and MLP split by query heads and
+``d_ff`` along ``model``, the lookup, tied head and cross-entropy by
+vocabulary where the axis divides it (whisper-medium's 51865 it does not:
+they compute whole on every ``model`` rank), each block's weights
+materialized inside the block. The memory's gradient from each decoder
+block's cross-attention is summed over ``model`` (``ModelAxis.to_split``).
+Its streams stay whole along ``model``: the reference constrains their
+``seq`` dim, and that split, with the gather of the sequence-split memory
+it needs, is not ported yet. Nor is sharded encoder-decoder serving:
+:meth:`ShardedModel.prefill`, :meth:`ShardedModel.decode_step` and
+:meth:`ShardedModel.init_cache` refuse it.
+
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; the RWKV-6 head split;
 ``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
 place of the ``embed`` gather and of the RG-LRU state's gather over
-``data``).
+``data``); the encoder-decoder's sequence split and sharded serving.
 """
 
 from __future__ import annotations
@@ -119,7 +134,7 @@ from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Sh
 from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.transformer import LM, Cache, lm_loss
+from repro_torch.models.transformer import LM, Cache
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor_parallel as tp
 
@@ -207,14 +222,11 @@ def _sum_over_batch(x: torch.Tensor, mesh: DeviceMesh, reduce) -> torch.Tensor:
 
 class ShardedModel:
     """A :class:`~repro_torch.models.model_zoo.Model` trained on a mesh: its
-    ``loss`` takes the global batch and an LM whose parameters are DTensors
-    (:func:`shard_module`), and returns the global batch's mean loss."""
+    ``loss`` takes the global batch and an LM (or an encoder-decoder) whose
+    parameters are DTensors (:func:`shard_module`), and returns the global
+    batch's mean loss."""
 
     def __init__(self, model: Model, mesh: DeviceMesh, rules: Rules):
-        if model.cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{model.cfg.name}: sharded encoder-decoder training is not "
-                "ported yet (ROADMAP.md queue A)")
         self.model, self.mesh, self.rules = model, mesh, rules
         self.cfg, self.device = model.cfg, model.device
         self._memo: Dict = {}  # serving's specs by name and shape
@@ -265,17 +277,20 @@ class ShardedModel:
 
     def loss(self, lm: LM, batch: Dict[str, Any], **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``. The
+        """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``. An LM's
         residual stream [B, P + S, d] splits its sequence over ``model``
-        where the rules say so (``sharding.stream_split``)."""
+        where the rules say so (``sharding.stream_split``); the
+        encoder-decoder's streams stay whole along ``model``."""
         local, axes = self.local_batch(batch)
         reduce = _reduce_placements(self.mesh, axes)
         B, S = batch["tokens"].shape
-        prefix = batch.get("prefix_embeds")
-        stream = (B, S + (0 if prefix is None else prefix.shape[1]), self.cfg.d_model)
+        stream = None
+        if not self.cfg.is_encoder_decoder:
+            prefix = batch.get("prefix_embeds")
+            stream = (B, S + (0 if prefix is None else prefix.shape[1]), self.cfg.d_model)
         axis = self.model_axis(lm, None, axes, B, stream)
-        loss, metrics = lm_loss(lm, local, materialize=self._weights(axis, axes),
-                                model_axis=axis, **kw)
+        loss, metrics = self.model.loss(lm, local, materialize=self._weights(axis, axes),
+                                        model_axis=axis, **kw)
         mask = local.get("mask")
         n_local = (mask.float().sum() if mask is not None
                    else torch.tensor(float(local["tokens"].numel()), device=loss.device))
@@ -286,10 +301,17 @@ class ShardedModel:
 
     # -- serving --------------------------------------------------------------
 
+    def _serving(self) -> None:
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: sharded encoder-decoder serving is not ported yet "
+                "(ROADMAP.md queue A)")
+
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16
                    ) -> Cache:
         """``Model.init_cache``'s zeroed cache, each leaf a DTensor laid out by
         ``sharding.cache_shardings``."""
+        self._serving()
         cache = self.model.init_cache(batch, max_len, dtype)
         shardings = shd.cache_shardings(self.mesh, self.rules, cache)
         layers = [{k: distribute_tensor(t, self.mesh, sh[k].placements,
@@ -354,6 +376,7 @@ class ShardedModel:
 
     def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
                gather_cache: bool) -> DTensor:
+        self._serving()
         local, axes = self.local_batch(batch)
         rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
         axis = self.model_axis(lm, cache, axes, batch["tokens"].shape[0])

@@ -128,22 +128,25 @@ from repro_torch.models import common
 from repro_torch.models.moe import bf16_gates, group_size_for
 from repro_torch.parallel import sharding as shd
 
-# a layer's submodules whose compute splits along ``model``, and the LM's own leaves
-SPLIT_MODULES = ("attn", "mlp", "moe", "rglru")
+# each stack's submodules whose compute splits along ``model`` (the LM's
+# layers, the encoder-decoder's blocks), and the models' own leaves
+SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru"),
+                 "enc_blocks": ("attn", "mlp"),
+                 "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
 
 
 def splits_compute(name: str) -> bool:
-    """Whether a parameter's compute splits along ``model``: attention's, the
-    dense MLP's, the MoE's and the RG-LRU's weights, the embedding and the
-    head. The MoE's router is among them with its spec unsplit: it is read
-    whole, its gradient summed where the experts split
-    (``ModelAxis.sums_gradient``). The RWKV-6 weights, and every norm, are
-    gathered whole."""
+    """Whether a parameter's compute splits along ``model``: attention's
+    (the decoder's cross-attention's too), the dense MLP's, the MoE's and the
+    RG-LRU's weights, the embedding and the head. The MoE's router is among
+    them with its spec unsplit: it is read whole, its gradient summed where
+    the experts split (``ModelAxis.sums_gradient``). The RWKV-6 weights, the
+    encoder-decoder's positions, and every norm, are gathered whole."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
-    return len(parts) == 4 and parts[0] == "layers" and parts[2] in SPLIT_MODULES
+    return len(parts) == 4 and parts[2] in SPLIT_MODULES.get(parts[0], ())
 
 
 def _done(t: torch.Tensor) -> torch.Tensor:
@@ -519,7 +522,7 @@ class ModelAxis:
         parts = name.split(".")
         if len(parts) == 1:  # the embedding and the head split with the vocabulary
             return False
-        return getattr(self.layer(int(parts[1])), parts[2] + "_sum")
+        return getattr(self.layer(int(parts[1]), parts[0]), parts[2] + "_sum")
 
     def xent_terms(self, logits: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -560,8 +563,10 @@ class ModelAxis:
         return (_FromSplit.apply((nll * mask[:, cols]).sum(), self.comm)
                 / torch.clamp(mask.sum(), min=1.0))
 
-    def layer(self, index: int) -> "LayerAxis":
-        return LayerAxis(self, index)
+    def layer(self, index: int, stack: str = "layers") -> "LayerAxis":
+        """Layer ``index`` of the LM, or block ``index`` of the
+        encoder-decoder's ``stack`` (``enc_blocks``, ``dec_blocks``)."""
+        return LayerAxis(self, index, stack)
 
     def _cache_shape(self, index: int):
         if self._layers is None:
@@ -582,24 +587,34 @@ class ModelAxis:
 class LayerAxis:
     """A layer's split: whether attention, the MLP, the RG-LRU and the MoE
     end in a sum over ``model``, the rank's query and KV heads, its
-    recurrent channels, its experts, and its K/V cache's layout."""
+    recurrent channels, its experts, and its K/V cache's layout.
 
-    def __init__(self, axis: ModelAxis, index: int):
+    An encoder-decoder block (``stack`` ``enc_blocks`` or ``dec_blocks``)
+    reads its own leaves: its self-attention's heads and sums, the MLP's,
+    and in the decoder ``xattn_sum`` and ``cross``, the cross-attention's
+    view (``attn`` ``"xattn"``: its query and KV heads, equal in number, and
+    its ``attn_sum``). Training only: such a block has no cache here."""
+
+    def __init__(self, axis: ModelAxis, index: int, stack: str = "layers",
+                 attn: str = "attn"):
         self.axis = axis
-        pre = f"layers.{index}."
-        self.attn_sum = axis.split(pre + "attn.wo") is not None
+        pre = f"{stack}.{index}."
+        self.attn_sum = axis.split(pre + attn + ".wo") is not None
+        self.xattn_sum = axis.split(pre + "xattn.wo") is not None
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
         self.rnn = axis.split(pre + "rglru.lam")  # the rank's channels, or None: all
         self.rglru_sum = self.rnn is not None
         # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
         self.experts = axis.split(pre + "moe.w_up")
         self.moe_sum = self.experts is not None
-        self.q = axis.split(pre + "attn.wq")    # the rank's query heads, or None: all
-        self.kv = axis.split(pre + "attn.wk")   # its KV heads, or None: all
-        if pre + "attn.wq" in axis.shapes:
-            self.n_heads = axis.shapes[pre + "attn.wq"][1]
-            self.n_kv_heads = axis.shapes[pre + "attn.wk"][1]
-        if axis._cache_shape(index) is None:
+        self.q = axis.split(pre + attn + ".wq")    # the rank's query heads, or None: all
+        self.kv = axis.split(pre + attn + ".wk")   # its KV heads, or None: all
+        if pre + attn + ".wq" in axis.shapes:
+            self.n_heads = axis.shapes[pre + attn + ".wq"][1]
+            self.n_kv_heads = axis.shapes[pre + attn + ".wk"][1]
+        if attn == "attn" and pre + "xattn.wq" in axis.shapes:
+            self.cross = LayerAxis(axis, index, stack, "xattn")
+        if stack != "layers" or axis._cache_shape(index) is None:
             return
         self.length = axis._cache_shape(index)[1]
         self.seq = axis.cache_split(index, 1)    # the positions held, or None: all
@@ -825,3 +840,33 @@ def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: to
         ffn = each(lambda h, layer: block.feed_forward(h, layer), "norm2")
         xs, aux = add([o for o, _ in ffn]), [a for _, a in ffn]
     return torch.cat(xs, 1), aux
+
+
+def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tensor,
+                 positions: torch.Tensor, memory: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Block ``index`` of the encoder-decoder's ``stack`` (``EncBlock`` /
+    ``DecBlock.forward``, ``memory`` the decoder's) on every rank's share in
+    turn, the stream whole on every rank (``shares``: each rank's (axis,
+    parameter blocks, _) from :func:`share`), the sums over ``model`` played
+    here: each part's normed input (the memory too) reaches every rank
+    through a cast from fp32, so autograd adds its gradient's terms in fp32,
+    as ``to_split``'s all-reduce adds them; the ranks' output terms are
+    added in fp32 where the part splits, else rank 0's whole term is taken.
+    -> the block's output."""
+    block = getattr(model, stack)[index]
+    wide = None if memory is None else memory.float()
+    parts = [("norm1", "attn_sum", lambda h, layer: block.mix(h, positions, layer))]
+    if memory is not None:
+        parts.append(("norm_x", "xattn_sum",
+                      lambda h, layer: block.cross(h, wide.to(x.dtype), layer)))
+    parts.append(("norm2", "mlp_sum", lambda h, layer: block.feed_forward(h, layer)))
+    for norm, which, fn in parts:
+        h = common.apply_norm(getattr(block, norm), x).float()
+        terms = []
+        for axis, params, _ in shares:
+            with _reparametrize_module(model, params):
+                terms.append(fn(h.to(x.dtype), axis.layer(index, stack)))
+        summed = getattr(shares[0][0].layer(index, stack), which)
+        x = x + (sum(t.float() for t in terms).to(x.dtype) if summed else terms[0])
+    return x

@@ -386,12 +386,17 @@ def test_train_loop_tracks_reference_losses(grad_accum):
     assert hist[-1]["loss"] < hist[0]["loss"]
 
 
-def test_sharded_training_refuses_the_encoder_decoder():
-    """Sharded whisper training is not ported; the mesh trainer says so
-    before it touches a mesh."""
-    model = build_model(ARCHS[NAME].reduced(), device="cpu")
+def test_sharded_serving_refuses_the_encoder_decoder():
+    """Sharded whisper training is ported (``tests/test_torch_tp_train.py``),
+    sharded whisper serving is not: ``ShardedModel`` takes the model, and its
+    prefill, decode step and cache say so before they touch a mesh."""
+    model = ShardedModel(build_model(ARCHS[NAME].reduced(), device="cpu"), mesh=None, rules={})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedModel(model, mesh=None, rules={})
+        model.prefill(None, {"frames": torch.zeros(1, 4, 64)}, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.decode_step(None, {}, torch.zeros(1, 1, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.init_cache(1, 8)
 
 
 def test_bf16_compute_over_fp32_masters_tracks_the_reference():

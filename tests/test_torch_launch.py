@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import get_config as jget_config
@@ -406,6 +407,23 @@ def test_dryrun_cli_runs_a_full_width_cell_without_a_card(tmp_path):
     # the model axis splits the compute: each rank does its 16th of the split
     # layers' work (0.551 of the reference's useful share at this cell)
     assert 0.5 < rec["roofline"]["useful_ratio"] < 0.6
+
+
+def test_whisper_trains_sharded_and_serves_unsharded():
+    """whisper-medium at full width on the meta device: the train step is a
+    ``ShardedModel``'s, its parameters DTensors; the prefill and serve steps
+    run the whole global batch unsharded and say why."""
+    cfg = ARCHS["whisper-medium"]
+    with _mesh((2, 2)) as mesh:
+        train = steps.build_train_step(cfg, shp.SHAPES["train_4k"], mesh)
+        serving = [steps.build_prefill_step(cfg, shp.SHAPES["prefill_32k"], mesh),
+                   steps.build_serve_step(cfg, shp.SHAPES["decode_32k"], mesh)]
+    assert train.sharded and train.note == ""
+    assert all(isinstance(p, DTensor) for p in train.args[0].parameters())
+    for step in serving:
+        assert not step.sharded and step.note == steps.UNSHARDED_NOTE
+        assert "sharded encoder-decoder serving is not ported yet" in step.note
+        assert not any(isinstance(p, DTensor) for p in step.args[0].parameters())
 
 
 def test_dryrun_accounts_for_every_cell():

@@ -84,6 +84,8 @@ from _torch_ranks import run_ranks
 from test_torch_launch import _mesh
 from test_torch_parallel import (LOSS_RTOL, SPLIT_OUTLIERS, TRAIN_LR, TRAIN_STEPS,
                                  assert_params_close)
+from test_torch_encdec import _assert_grads_close_key_bias_apart
+from test_torch_encdec import _numpy_params as _encdec_numpy_params
 from test_torch_train import (GRAD_TOL, LOSS_TOL, _assert_grads_close, _numpy_params,
                               _port_loss_and_grads, _reference_loss_and_grads,
                               _two_threads)  # noqa: F401
@@ -125,8 +127,21 @@ HEAD_CASES = {
     "tied_final_softcap": dict(tie_embeddings=True, final_softcap=3.0, embed_scale=True),
     # 510: divides W 2, not W 4 (the lookup, the head and the loss whole)
     "vocab_does_not_divide": dict(vocab_size=510),
+    # the encoder-decoder's tied head (``EncDec._embed`` / ``_logits``): vocab
+    # 512 splits; 510 splits at W 2 only, as whisper-medium's 51865 at none
+    "whisper_tied": dict(arch="whisper-medium"),
+    "whisper_vocab_does_not_divide": dict(arch="whisper-medium", vocab_size=510),
 }
 B, S = 2, 12
+# the encoder-decoder's memory: 20 frames
+T_MEMORY = 20
+
+
+def _reduced(arch):
+    """``arch`` reduced to one layer (one block a stack)."""
+    cfg = ARCHS[arch].reduced()
+    return dataclasses.replace(cfg, n_layers=1,
+                               n_encoder_layers=1 if cfg.is_encoder_decoder else 0)
 
 
 def _seeded_lm(cfg, seed=0):
@@ -268,18 +283,23 @@ def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
     the loss, the embedding's and head's gradients (a tied embedding's block
     takes the lookup's and the head's terms), the final norm's and the
     input's, against ``softmax_xent`` on the unsplit head."""
-    cfg = dataclasses.replace(_BASE, **HEAD_CASES[case])
+    over = dict(HEAD_CASES[case])
+    arch = over.pop("arch", None)
+    cfg = dataclasses.replace(_BASE if arch is None else _reduced(arch), **over)
     lm = _seeded_lm(cfg)
     g = torch.Generator().manual_seed(2)
     x0 = torch.randn(B, S, cfg.d_model, generator=g, requires_grad=True)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
     labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
     mask = (torch.rand(B, S, generator=g) < 0.7).float()
-    leaves = [p for n, p in lm.named_parameters() if not n.startswith("layers.")]
-    names = [n for n, _ in lm.named_parameters() if not n.startswith("layers.")]
+    # the model's own leaves (the encoder-decoder's positions and encoder
+    # norm among them, which neither side reads: their gradients are 0)
+    names = [n for n, _ in lm.named_parameters() if n.split(".")[0] not in tp.SPLIT_MODULES]
+    leaves = [lm.get_parameter(n) for n in names]
+    unused = {"allow_unused": True, "materialize_grads": True}
 
     want = common.softmax_xent(lm._logits(x0 + lm._embed(tokens)), labels, mask)
-    want_grads = torch.autograd.grad(want, [x0] + leaves)
+    want_grads = torch.autograd.grad(want, [x0] + leaves, **unused)
 
     shares = [tp.share(lm, None, r, W) for r in range(W)]
 
@@ -300,10 +320,64 @@ def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
         got = common.masked_mean(lse - gold, mask)
     else:  # whole on every rank: rank 0's loss is the loss
         got = each(lambda axis: common.softmax_xent(lm._logits(x, axis), labels, mask))[0]
-    got_grads = torch.autograd.grad(got, [x0] + leaves)
+    got_grads = torch.autograd.grad(got, [x0] + leaves, **unused)
     _close(got.detach(), want.detach(), "loss")
     for name, a, b in zip(["input"] + names, got_grads, want_grads):
         _close(a, b, name)
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("stack", ["enc_blocks", "dec_blocks"])
+def test_encdec_block_training_shares_equal_the_unsplit_block(stack, W):
+    """Reduced whisper-medium's encoder block (non-causal self-attention, the
+    MLP) or decoder block (causal self-attention, the cross-attention over a
+    20-frame memory, the MLP): every rank's share in turn
+    (``tensor_parallel.block_shares``: each part's normed input, and the
+    memory, fed to every rank, so autograd adds its gradient's terms as the
+    mesh's sum over ``model`` does; the terms of a split part added), one
+    backward from one upstream gradient. The output, the input's and the
+    memory's gradients and every leaf's gradient against the unsplit block's
+    (a key bias's gradient is 0 exactly, and held to its ``wk``'s largest,
+    as ``tests/test_torch_encdec.py`` holds it). The split: query heads
+    (``wq``, ``bq``, ``wo``) and ``d_ff`` blocks at both W; the
+    self-attention's 2 KV heads blocks at W 2 and read in part at W 4
+    (summed); the cross-attention's 4 KV heads blocks at both; norms whole."""
+    cfg = _reduced("whisper-medium")
+    model = _seeded_lm(cfg)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B, S, cfg.d_model, generator=g, requires_grad=True)
+    memory = (torch.randn(B, T_MEMORY, cfg.d_model, generator=g, requires_grad=True)
+              if stack == "dec_blocks" else None)
+    inputs = [x] + ([] if memory is None else [memory])
+    positions = torch.arange(S)
+    names = [n for n, _ in model.named_parameters() if n.startswith(f"{stack}.0.")]
+    leaves = [model.get_parameter(n) for n in names]
+    block = getattr(model, stack)[0]
+    want = block(*inputs[:1], positions, *inputs[1:])
+    gy = torch.randn(want.shape, generator=g)
+    want_grads = torch.autograd.grad(want, inputs + leaves, gy)
+
+    shares = [tp.share(model, None, r, W) for r in range(W)]
+    got = tp.block_shares(model, stack, 0, shares, x, positions, memory)
+    got_grads = torch.autograd.grad(got, inputs + leaves, gy)
+    _close(got.detach(), want.detach(), "output")
+    for name, a, b in zip(["input", "memory"][:len(inputs)], got_grads, want_grads):
+        _close(a, b, name)
+    _assert_grads_close_key_bias_apart(dict(zip(names, got_grads[len(inputs):])),
+                                       dict(zip(names, want_grads[len(inputs):])), SHARE_TOL)
+
+    axis = shares[0][0]
+    kinds = {n.split(".", 2)[2]: "block" if axis.split(n) is not None
+             else "summed" if axis.sums_gradient(n) else "whole" for n in names}
+    kv = "block" if W == 2 else "summed"
+    parts = ("attn", "mlp") + (("xattn",) if stack == "dec_blocks" else ())
+    want_kinds = {f"{part}.{leaf}": "block" for part in parts for leaf in (
+        ("w_up", "w_down") if part == "mlp" else ("wq", "bq", "wo", "wk", "bk", "wv", "bv"))}
+    want_kinds.update({f"attn.{leaf}": kv for leaf in ("wk", "bk", "wv", "bv")})
+    assert {k: v for k, v in kinds.items() if "norm" not in k} == want_kinds
+    assert {v for k, v in kinds.items() if "norm" in k} == {"whole"}
+    view = axis.layer(0, stack)
+    assert view.attn_sum and view.mlp_sum and view.xattn_sum == (stack == "dec_blocks")
 
 
 def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
@@ -337,7 +411,11 @@ def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
 
 # an arch at S 64, "<arch>/S<n>" at S n, "<arch>/E<n>" with n experts
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
-          "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6"]
+          "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6",
+          "whisper-medium"]
+# the encoder-decoder's frames a row: 24, past its reduced 16-row ``enc_pos``
+# (the positions tile)
+ENCDEC_FRAMES = 24
 MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",))}
 
 _RANKS = """
@@ -361,7 +439,8 @@ for name, cfg, np_params, batch, (data, run) in cases:
     out = {"loss": float(loss), "moe_aux": float(metrics["moe_aux"]),
            "grads": {n: g.full_tensor().numpy() for n, g in zip(names, grads)}}
     lm = model.shard(from_jax_params(cfg, np_params, device="cpu"))
-    lm, state, hist = train_loop(model, lm, data.batches(run.total_steps), run, log_every=1)
+    batches = data if isinstance(data, list) else data.batches(run.total_steps)
+    lm, state, hist = train_loop(model, lm, batches, run, log_every=1)
     out.update(losses=[h["loss"] for h in hist], opt_step=state.step,
                params={n: p.numpy() for n, p in full_state(lm).items()})
     result[name] = out
@@ -391,15 +470,22 @@ def _batch(cfg, S, seed=3):
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
              "mask": (rng.random((4, S)) < [[0.9], [0.9], [0.4], [0.4]]).astype(np.float32)}
-    if cfg.frontend:
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (4, ENCDEC_FRAMES, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend:
         batch["prefix_embeds"] = rng.standard_normal(
             (4, cfg.frontend_seq_len, cfg.d_model)).astype(np.float32)
     return batch
 
 
 def _train_setup(cfg, S):
-    """``tests/test_torch_parallel.py``'s 6 steps in fp32."""
-    data = SyntheticLM(DataConfig(cfg.vocab_size, S, 4, seed=1))
+    """``tests/test_torch_parallel.py``'s 6 steps in fp32; the
+    encoder-decoder's batches (frames, tokens, labels, mask) seeded here."""
+    if cfg.is_encoder_decoder:
+        data = [_batch(cfg, S, seed=10 + i) for i in range(TRAIN_STEPS)]
+    else:
+        data = SyntheticLM(DataConfig(cfg.vocab_size, S, 4, seed=1))
     run = TrainRunConfig(optimizer=AdamWConfig(lr=TRAIN_LR, weight_decay=0.01),
                          total_steps=TRAIN_STEPS, warmup_steps=2, compute_dtype=torch.float32)
     return data, run
@@ -409,7 +495,8 @@ def _train_setup(cfg, S):
 def _case(name):
     S = _arch_and_seq(name)[1]
     cfg, jcfg = _cfgs(name)
-    return name, cfg, _numpy_params(jcfg, seed=1), _batch(cfg, S), _train_setup(cfg, S)
+    draw = _encdec_numpy_params if cfg.is_encoder_decoder else _numpy_params
+    return name, cfg, draw(jcfg, seed=1), _batch(cfg, S), _train_setup(cfg, S)
 
 
 @functools.lru_cache(maxsize=None)
@@ -421,8 +508,8 @@ def _one_process(name):
     want = _reference_loss_and_grads(cfg, jbuild_model(jcfg), np_params, batch)
     one = _port_loss_and_grads(cfg, np_params, batch)
     lm = from_jax_params(cfg, np_params, device="cpu")
-    trained = train_loop(build_model(cfg, device="cpu"), lm, data.batches(run.total_steps),
-                         run, log_every=1)
+    batches = data if isinstance(data, list) else data.batches(run.total_steps)
+    trained = train_loop(build_model(cfg, device="cpu"), lm, batches, run, log_every=1)
     return want, one, trained
 
 
@@ -450,12 +537,16 @@ def test_sharded_loss_and_every_gradient_equal_the_reference(ranks, name):
     """Against the reference and against the one-process port on the same
     batch: the loss (and the MoE aux term) within 1e-5 relative, each
     gradient within GRAD_TOL of its leaf's largest (MOE_GRAD_TOL for
-    qwen3-moe)."""
+    qwen3-moe; the encoder-decoder's key biases, whose gradient is 0
+    exactly, within GRAD_TOL of their ``wk``'s largest, as
+    ``tests/test_torch_encdec.py`` holds them)."""
     strategy, results = ranks
     cfg = _case(name)[1]
     (want_loss, want_grads, _), (one_loss, one_metrics, one_grads), _ = _one_process(name)
     tol = MOE_GRAD_TOL if cfg.is_moe else GRAD_TOL
-    _assert_grads_close(one_grads, want_grads, tol)
+    check = (_assert_grads_close_key_bias_apart if cfg.is_encoder_decoder
+             else _assert_grads_close)
+    check(one_grads, want_grads, tol)
     for res in results:  # every rank holds the whole loss and gradients
         got = res[name]
         assert abs(got["loss"] - want_loss) <= LOSS_TOL * abs(want_loss), (strategy, got["loss"])
@@ -464,22 +555,34 @@ def test_sharded_loss_and_every_gradient_equal_the_reference(ranks, name):
         one_aux = float(one_metrics["moe_aux"])
         assert abs(got["moe_aux"] - one_aux) <= LOSS_TOL * abs(one_aux), (got["moe_aux"], one_aux)
         grads = {n: torch.from_numpy(g) for n, g in got["grads"].items()}
-        _assert_grads_close(grads, want_grads, tol)
-        _assert_grads_close(grads, one_grads, tol)
+        check(grads, want_grads, tol)
+        check(grads, one_grads, tol)
 
 
 @pytest.mark.parametrize("name", MODELS)
 def test_sharded_adamw_steps_equal_the_single_process(ranks, name):
+    """The losses within 1e-5 relative; the parameters by
+    ``assert_params_close``'s fp32 rule. The encoder-decoder's key biases,
+    whose gradient is 0 exactly, take AdamW steps on both sides' rounding
+    noise (a step of up to the lr whatever the noise's size): they are held
+    to FP32_SPLIT_PARAM_ATOL, and the share of the rest beyond 1e-5 is
+    counted without them (seen: 149 of their 256 entries beyond 1e-5; of
+    the other leaves' 191616 one, by 1.6e-5)."""
     strategy, results = ranks
     cfg = _case(name)[1]
     lm, state, hist = _one_process(name)[2]
     losses = [h["loss"] for h in hist]
+    want = {n: p.detach().numpy() for n, p in lm.named_parameters()}
+    noise = {n for n in want if cfg.is_encoder_decoder and n.endswith(".bk")}
     for res in results:
         got = res[name]
         assert got["opt_step"] == state.step == TRAIN_STEPS
         np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL, err_msg=strategy)
-        assert_params_close(got["params"], {n: p.detach().numpy()
-                                            for n, p in lm.named_parameters()}, "fp32",
+        params = got["params"]
+        assert_params_close({n: params[n] for n in noise}, {n: want[n] for n in noise},
+                            "fp32", outliers=None)
+        assert_params_close({n: p for n, p in params.items() if n not in noise},
+                            {n: p for n, p in want.items() if n not in noise}, "fp32",
                             outliers=None if cfg.is_moe else SPLIT_OUTLIERS)
 
 
@@ -494,16 +597,25 @@ def _model_collectives(strategy, seq_len=32):
     layer its own group): the collectives over ``model`` (rank 0's group
     {0, 1}), in order; those over ``data`` are a weight's gather and its
     gradient's reduction alone."""
-    cfg = ARCHS["internvl2-76b"].reduced()
+    return _step_collectives("internvl2-76b", strategy, seq_len)[1]
+
+
+def _step_collectives(arch, strategy, seq_len):
+    """A sharded train step of reduced ``arch`` (B 4, ``seq_len`` the cell's
+    sequence) on a (data 2, model 2) mesh, remat "nothing": rank 0's
+    collectives over ``data`` (group {0, 2}: a weight's gather and its
+    gradient's reduction alone) and over ``model`` ({0, 1}), in order."""
+    cfg = ARCHS[arch].reduced()
     cell = shp.ShapeCell("tiny", seq_len, 4, "train")
     with _mesh((2, 2)) as mesh:
         step = steps.build_train_step(cfg, cell, mesh, strategy=strategy)
         counter = OpCounter()
         with counter:
             step()
-    over_data = {op.kind for op in counter.collectives if op.ranks == (0, 2)}
-    assert over_data == {"all-gather", "reduce-scatter", "all-reduce"}
-    return [op for op in counter.collectives if op.ranks == (0, 1)]
+    assert step.sharded and {op.ranks for op in counter.collectives} == {(0, 1), (0, 2)}
+    over_data = [op for op in counter.collectives if op.ranks == (0, 2)]
+    assert {op.kind for op in over_data} == {"all-gather", "reduce-scatter", "all-reduce"}
+    return over_data, [op for op in counter.collectives if op.ranks == (0, 1)]
 
 
 def test_a_train_step_counts_the_sums_over_model():
@@ -542,3 +654,42 @@ def test_a_sequence_split_train_step_counts_its_gathers_and_scatters():
         "all-gather": 14, "reduce-scatter": 12, "all-reduce": 9}
     assert kinds[:13] == (["reduce-scatter"] + ["all-gather", "reduce-scatter"] * 4
                           + ["all-gather"] + ["all-reduce"] * 3)  # the forward
+
+
+def test_a_whisper_train_step_splits_every_block_along_model():
+    """Reduced whisper-medium (2 + 2 blocks, 4/2 heads and 4 in the
+    cross-attention, d_ff 128, vocab 512: all split on a model axis of 2; B
+    4 x 24 frames x 24 tokens) under ``fsdp_tp``, each block its own
+    checkpoint. Over ``model`` the step only all-reduces: in the forward
+    each encoder block's two row-parallel sums, the lookup's, each decoder
+    block's three (self-attention, cross-attention, MLP) and the
+    cross-entropy's three; in the backward the head's input gradient, for
+    each decoder block the recompute's two attention sums (the checkpoint
+    stops before the MLP's, whose output the backward does not read) and
+    the gradients of its four column-parallel inputs (the three normed
+    streams and the memory), for each encoder block the recompute's
+    attention sum and its two inputs' gradients; and the clip's global
+    norm, one fp32 a leaf: 2 * 2 + 1 + 3 * 2 + 3 + 1 + 6 * 2 + 3 * 2 + 1 =
+    34. The streams stay whole along ``model``: each sum moves a rank's
+    [2, 24, d] in bf16. No weight is gathered over ``model``: the all-gathers
+    over ``data`` bring each split weight (every attention, cross-attention
+    and MLP weight, the embedding) to its ``model`` block and move nothing
+    of the norms and positions, which lie whole on every rank; a block's
+    weights are gathered in its forward and again in its recompute."""
+    cfg = ARCHS["whisper-medium"].reduced()
+    over_data, ops = _step_collectives("whisper-medium", "fsdp_tp", 24)
+    stream, xent = 2 * 24 * cfg.d_model * 2, 2 * 24 * 4
+    meta = shp.param_specs_shapes(cfg, torch.float32)
+    n_leaves = len(list(meta.parameters()))
+    assert [op.kind for op in ops] == ["all-reduce"] * 34
+    assert [op.bytes for op in ops] == ([stream] * 11 + [xent] * 3 + [stream] * 19
+                                        + [4 * n_leaves])
+    specs = shd.param_specs({"data": 2, "model": 2}, shd.STRATEGIES["fsdp_tp"](), meta)
+    want = 0
+    for name, p in meta.named_parameters():
+        axes = {a for e in specs[name] if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        times = 2 if name.split(".")[0] in tp.SPLIT_MODULES else 1
+        assert tp.splits_compute(name) == ("model" in axes), name
+        want += times * p.numel() * 4 // 2 if axes == {"data", "model"} else 0
+    assert sum(op.bytes for op in over_data if op.kind == "all-gather") == want

@@ -117,7 +117,7 @@ def _port_loss_and_grads(cfg, np_params, batch, **kw):
     lm = from_jax_params(cfg, np_params, device="cpu")
     lm.requires_grad_(True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    loss, metrics = lm_loss(lm, tb, **kw)
+    loss, metrics = build_model(cfg, device="cpu").loss(lm, tb, **kw)
     names = [n for n, _ in lm.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in lm.named_parameters()])
     return loss.detach(), metrics, dict(zip(names, grads))
