@@ -181,6 +181,29 @@ calls, and fails (exit code not 0, no result line) on any miss:
               rank's widths: [1, 2560, 256] and [1, 2560, 512] bf16, the
               backward's bf16 a with fp32 b at [1, 2560, 256], and the
               serving [4, 2560, 256];
+ 8h4. rwkv_split the RWKV-6 split on the model axis in serving, in this one
+              process: (a) each rank's share of rwkv6-7b's layer 0 at full
+              width (norm1, the time mix, norm2, the channel mix, both
+              residuals) at 8 and 16 ranks (8 and 4 of the 64 heads, 1792 and
+              896 of the 14336 ``d_ff`` columns), a B 1 x S 2560 prefill and
+              4 decode steps from the carried state
+              (``tensor_parallel.rwkv_shares``: the time mix's terms and the
+              channel mix's value terms added in fp32, each rank's block of
+              the channel mix laid side by side), against the unsplit layer:
+              fp32 within 1e-4 of the largest, bf16 within 5e-2 beside the
+              unsplit bf16 layer's own error against fp32, each rank's WKV
+              state block against that block of the unsplit state, one wkv6
+              launch a rank a call on its heads; (b) rwkv6-7b at full width
+              cut to 4 layers on a 1-rank NCCL mesh under ``fsdp_tp`` (one
+              block of all 64 heads, the WKV state where it lies): a bf16
+              prefill of B 4 x S 2560 and 16 decode steps unsharded and
+              through ``ShardedModel`` fed the same tokens, each call's
+              greedy token equal (a flip only at a near-tie, reported with
+              its margin), logits within 5e-2, whether the prefill's are
+              bit-equal, prefill and step ms of each side, 4 wkv6 launches a
+              prefill and 4 a step. The kernels phase times wkv6 at one
+              rank's heads: B 1 x T 2560 at 4 and 8 heads, and a B 4 decode
+              step at 4;
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -628,6 +651,11 @@ RNN_SCAN_CASES = ("recurrentgemma-9b training, a rank of 16", "recurrentgemma-9b
                   "a rank of 8", "bf16 a, fp32 b: the training backward, a rank of 16",
                   "recurrentgemma-9b prefill, a rank of 16")
 RNN_SCAN_SHAPES = ((1, 256, None), (1, 512, None), (1, 256, torch.float32), (4, 256, None))
+RWKV_WKV_CASES = (("rwkv6-7b prefill, a rank of 16", 1, 2560, 4, False),
+                  ("rwkv6-7b prefill, a rank of 8", 1, 2560, 8, False),
+                  ("rwkv6-7b decode step, a rank of 16", 4, 1, 4, True))
+RWKV_WKV_KEYS = ("case", "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")
 RNN_SCAN_KEYS = ("case", "shape", "dtype", "dtype_b", "route", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
 
@@ -700,7 +728,8 @@ def kernel_phase():
                   torch.bfloat16, timed=False),
         wkv6_case("bf16, B*H 2 below the SM count", 1, 300, 2, False, torch.bfloat16,
                   timed=False),
-    ]
+    ] + [wkv6_case(name, B, T, H, with_s0, torch.bfloat16, timed=True)
+         for name, B, T, H, with_s0 in RWKV_WKV_CASES]
     return (flash, flash_checks, simt_checks, whisper), (lru, lru_checks), (wkv, wkv_checks)
 
 
@@ -2358,6 +2387,166 @@ def rnn_split_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 8h4: the RWKV-6 split on the model axis in serving
+# ---------------------------------------------------------------------------
+
+# (a): B 1 x S 2560 and 4 decode steps; (b): 4 layers, B 4 x S 2560, 16 steps
+RWKV_DECODE, RWKV_LAYERS, RWKV_B = 4, 4, 4
+
+
+def rwkv_shares(cfg, ranks):
+    """(a) rwkv6-7b's layer 0 at full width (``norm1``, the time mix,
+    ``norm2``, the channel mix, both residuals): for each W in ``ranks``
+    every rank's share in turn (``tensor_parallel.share``: the time mix on
+    its 64/W heads and its block of the WKV state, the channel mix on its
+    14336/W ``d_ff`` block), a B 1 x S 2560 prefill and 4 decode steps from
+    the carried state (``tensor_parallel.rwkv_shares``: the time mix's terms
+    and the channel mix's value terms added in fp32), against the unsplit
+    layer (``Block.prefill`` / ``decode``), fp32 then bf16 cast from the
+    same fp32 weights; each rank's WKV block against that block of the
+    unsplit state; in bf16 also each side against the fp32 unsplit layer.
+    wkv6 launches counted over the shares: one a rank a call."""
+    lcfg = dataclasses.replace(cfg, n_layers=1)
+    lm = init_params(lcfg, seed=SEED, device="cuda", dtype=torch.float32)
+    block, model = lm.layers[0], build_model(lcfg)
+    need(block.mixer == "rwkv", f"rwkv shares: layer 0 of {cfg.name} is {block.mixer}")
+    H, K = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    xs = [torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")]
+    xs += [torch.randn(1, 1, cfg.d_model, generator=g, device="cuda") for _ in range(RWKV_DECODE)]
+    n_calls = len(xs)
+
+    def cache(dtype):
+        return model.init_cache(1, TP_S + RWKV_DECODE, dtype)
+
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = {n: p.to(dtype) for n, p in lm.named_parameters()}
+        want_c = cache(dtype)["layers"][0]
+        reset_counts()
+        with torch.no_grad(), _reparametrize_module(lm, whole):
+            want = [block.prefill(xs[0].to(dtype), torch.arange(TP_S, device="cuda"), want_c)]
+            want += [block.decode(x.to(dtype), TP_S + i, want_c) for i, x in enumerate(xs[1:])]
+        torch.cuda.synchronize()
+        want_launches = counts()
+        if unsplit32 is None:
+            unsplit32 = [w.float() for w in want]
+        for W in ranks:
+            shares = []
+            for r in range(W):
+                axis, params, rank_cache = tp.share(lm, cache(dtype), r, W)
+                shares.append((axis, {n: t.to(dtype) for n, t in params.items()}, rank_cache))
+            reset_counts()
+            with torch.no_grad():
+                got = [tp.rwkv_shares(lm, 0, shares, xs[0].to(dtype), carried=False)]
+                got += [tp.rwkv_shares(lm, 0, shares, x.to(dtype), carried=True)
+                        for x in xs[1:]]
+            torch.cuda.synchronize()
+            launches = counts()
+            layer = shares[0][0].layer(0)
+            heads, ff = H // W, cfg.d_ff // W
+            need(layer.tm_sum and layer.tm.hi - layer.tm.lo == heads and layer.cm_sum
+                 and layer.cm.hi - layer.cm.lo == ff,
+                 f"rwkv shares at {W}: the splits {layer.tm}, {layer.cm}")
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            state_err = max(rel_err(rc["layers"][0]["wkv"],
+                                    want_c["wkv"][:, a.layer(0).tm.lo:a.layer(0).tm.hi])
+                            for a, _, rc in shares)
+            tol = TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL
+            rec = {"case": f"{cfg.name} layer 0 (RWKV-6: {H} heads of {K}, d_ff {cfg.d_ff}), "
+                           "prefill + decode", "model_ranks": W, "dtype": str(dtype)[6:],
+                   "B": 1, "S": TP_S, "decode_steps": RWKV_DECODE, "heads_a_rank": heads,
+                   "d_ff_a_rank": ff, "wkv_shape_a_rank": [1, TP_S, heads, K],
+                   "terms_added_in": "float32", "rel_err": err, "wkv_state_rel_err": state_err,
+                   "tol": tol, "launches_shares": launches, "launches_unsplit": want_launches}
+            if dtype == torch.bfloat16:
+                rec["unsplit_vs_fp32"] = max(rel_err(a, b) for a, b in zip(want, unsplit32))
+                rec["shares_vs_fp32"] = max(rel_err(a, b) for a, b in zip(got, unsplit32))
+            print("rwkv_split_shares", json.dumps(rec), flush=True)
+            need(launches == launch_counts(wkv=W * n_calls)
+                 and want_launches == launch_counts(wkv=n_calls),
+                 f"rwkv shares at {W} ({dtype}): launches {launches}, unsplit {want_launches}")
+            need(all(torch.isfinite(t.float()).all() for t in got),
+                 f"rwkv shares at {W}: non-finite")
+            need(err <= tol and state_err <= tol,
+                 f"rwkv shares at {W} ({dtype}): output {err}, state {state_err}")
+            recs.append(rec)
+            del shares, got
+        del want, want_c, whole
+    del lm, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def rwkv_path(cfg):
+    """(b) rwkv6-7b at full width cut to 4 layers, on a 1-rank NCCL mesh
+    under ``fsdp_tp`` (each layer on the split's path with one block of all
+    64 heads and all 14336 ``d_ff`` columns, its WKV state read and written
+    where it lies): a bf16 prefill of B 4 x S 2560 and 16 greedy decode
+    steps, unsharded then through ``ShardedModel`` (the weights sharded in
+    place), the sharded steps fed the unsharded greedy tokens: each call's
+    greedy token equal (a flip is reported with the unsharded top-2 margin,
+    and passes only where that margin is below the logits' difference: a
+    bf16 near-tie), every call's logits within 5e-2 of the largest; ms of
+    each side; 4 wkv6 launches a prefill and 4 a step on each side."""
+    cfg = dataclasses.replace(cfg, n_layers=RWKV_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    toks = torch.randint(0, cfg.vocab_size, (RWKV_B, TP_S), generator=g, device="cuda")
+    params = build_model(cfg).init(SEED, torch.bfloat16)
+    plain = rnn_serve(build_model(cfg), params, toks, lambda t: t)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        model.shard(params)  # in place: each weight a DTensor over the one rank
+        layer = model.model_axis(params, model.init_cache(1, 1), (), 1).layer(0)
+        sharded = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
+                            fed=plain["tokens"].to(toks.device))
+    del params
+    torch.cuda.empty_cache()
+    want, got = plain["logits"], sharded["logits"]
+    top2 = want[:RNN_STEPS, :, 0].topk(2, dim=-1).values  # [steps, B, 2]
+    margin = (top2[..., 0] - top2[..., 1]).T.cpu()
+    diff = (got - want).abs().amax(dim=(1, 2, 3)).cpu()
+    flips = [{"row": r, "step": i, "margin": float(margin[r, i]),
+              "max_abs_dlogit": float(diff[i])}
+             for r, i in torch.nonzero(sharded["tokens"] != plain["tokens"]).tolist()]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
+           "strategy": "fsdp_tp", "batch": RWKV_B, "prompt_len": TP_S, "steps": RNN_STEPS,
+           "time_mix_heads": list(layer.tm), "channel_mix_d_ff": list(layer.cm),
+           "tokens_equal": not flips, "flips": flips,
+           "prefill_logits_equal": bool(torch.equal(got[0], want[0])),
+           "logits_rel_err": max(rel_err(a, b) for a, b in zip(got, want)),
+           "logits_tol": TP_BF16_TOL,
+           **{f"{k}_{side}": r[k] for side, r in (("unsharded", plain), ("sharded", sharded))
+              for k in ("prefill_ms", "decode_ms_per_step", "prefill_launches",
+                        "decode_launches")}}
+    print("rwkv_split_path", json.dumps(rec), flush=True)
+    for side in ("unsharded", "sharded"):
+        need(rec[f"prefill_launches_{side}"] == launch_counts(wkv=RWKV_LAYERS)
+             and rec[f"decode_launches_{side}"] == launch_counts(wkv=RWKV_LAYERS * RNN_STEPS),
+             f"rwkv path {side} launches {rec[f'prefill_launches_{side}']}, "
+             f"{rec[f'decode_launches_{side}']}")
+    need(layer.tm_sum and layer.tm.hi - layer.tm.lo == cfg.d_model // cfg.rwkv_head_dim
+         and layer.cm_sum and layer.cm.hi - layer.cm.lo == cfg.d_ff,
+         f"rwkv path: the splits {layer.tm}, {layer.cm}")
+    need(sharded["pos"] == TP_S + RNN_STEPS, f"rwkv path pos {sharded['pos']}")
+    need(torch.isfinite(got).all() and rec["logits_rel_err"] <= TP_BF16_TOL,
+         f"rwkv path logits {rec['logits_rel_err']}")
+    need(all(f["margin"] <= f["max_abs_dlogit"] for f in flips),
+         f"rwkv path: tokens differ beyond a near-tie: {flips}")
+    return rec
+
+
+def rwkv_split_phase():
+    """(a) the shares of one full-width RWKV-6 layer at 8 and 16 ranks; (b)
+    the 1-rank path's serving."""
+    cfg = get_config("rwkv6-7b")
+    need((cfg.d_model, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.d_ff)
+         == (4096, 64, 64, 14336), "rwkv6-7b width")
+    return {"shares": rwkv_shares(cfg, (8, 16)), "path": rwkv_path(cfg)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8i: expert parallelism on the model axis
 # ---------------------------------------------------------------------------
 
@@ -3480,6 +3669,7 @@ def main():
     tp_train = phase("tp_train", tp_train_phase)
     sp_train = phase("sp_train", sp_train_phase, tp_train)
     rnn_split = phase("rnn_split", rnn_split_phase)
+    rwkv_split = phase("rwkv_split", rwkv_split_phase)
     train = phase("train", train_phase)
     # fp32 over a 256000-way (rwkv6: 65536) softmax and 2176 (256) positions;
     # the loss is near ln(V), the tolerance 1e-4 absolute; each gradient within
@@ -3621,7 +3811,17 @@ def main():
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv6/rwkv6.py:67",
                       rwkv6["launches"]["wkv6"], wkv, wkv_checks,
-                      decode_step_graph_ms=wkv_checks[1]["graph_ms"]),
+                      decode_step_graph_ms=wkv_checks[1]["graph_ms"],
+                      rwkv_split_per_rank=[{key: c[key] for key in RWKV_WKV_KEYS if key in c}
+                                           for c in wkv_checks
+                                           if c["case"] in {n for n, *_ in RWKV_WKV_CASES}],
+                      launches_rwkv_split_shares=[
+                          [r["model_ranks"], r["dtype"], r["launches_shares"]["wkv6"]]
+                          for r in rwkv_split["shares"]],
+                      launches_rwkv_split_prefill_1_rank=rwkv_split["path"][
+                          "prefill_launches_sharded"]["wkv6"],
+                      launches_rwkv_split_decode_16_steps=rwkv_split["path"][
+                          "decode_launches_sharded"]["wkv6"]),
     ]
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,
@@ -3635,7 +3835,7 @@ def main():
                "train_lm": train_lm_rec, "phase_seconds": phase_s,
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
                "tp_serve": tp_serve, "tp_train": tp_train, "sp_train": sp_train,
-               "rnn_split": rnn_split, "ep": ep,
+               "rnn_split": rnn_split, "rwkv_split": rwkv_split, "ep": ep,
                "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

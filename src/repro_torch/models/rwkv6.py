@@ -12,6 +12,18 @@ per-head K x V state in fp32.
 
 The casts are the reference's, including its one to watch: the decay is
 computed in fp32 and cast to the activation dtype before the recurrence.
+
+Both mixers split along the ``model`` axis in sharded serving
+(``parallel/tensor_parallel.py``); the code is the same, each weight's
+shape says the width. The time mix on a rank's contiguous block of heads
+holds that block's columns of ``w_r``/``w_k``/``w_v``/``w_g`` and of
+``decay_b``, its entries of ``decay_base`` and ``out_norm``, its rows of
+``bonus`` and of ``w_o``; WKV and the per-head group norm run on those
+heads against the state's block, and the output is the rank's term of a
+sum over ``model``. The channel mix on a rank's ``d_ff`` block holds
+``w_k``'s columns and ``w_v``'s rows of it, and its block of ``w_r``'s
+columns: :meth:`ChannelMix.parts` gives the rank's value term (a partial
+sum over ``model``) and its block of the receptance.
 """
 
 from __future__ import annotations
@@ -106,9 +118,10 @@ class TimeMix(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x [B,S,d] -> (out, new shift state [B,d], new WKV state [B,H,K,K]).
         The new WKV state is written into ``wkv_out`` when given (it may be
-        ``wkv_state`` itself)."""
-        B, S, d = x.shape
-        H, K = self.H, self.K
+        ``wkv_state`` itself). H is ``bonus``'s: a rank's heads where the
+        weights are its blocks."""
+        B, S, _ = x.shape
+        H, K = self.bonus.shape[0], self.K
         x_prev = _shift(x, shift_state)
         r = _mix(x, x_prev, self.mu_r) @ self.w_r
         k = _mix(x, x_prev, self.mu_k) @ self.w_k
@@ -118,7 +131,7 @@ class TimeMix(nn.Module):
         y, new_state = wkv_ops.wkv(r.reshape(B, S, H, K), k.reshape(B, S, H, K),
                                    v.reshape(B, S, H, K), w.reshape(B, S, H, K),
                                    self.bonus, wkv_state, out=wkv_out)
-        y = _group_norm(self.out_norm, y.reshape(B, S, d), H)
+        y = _group_norm(self.out_norm, y.reshape(B, S, H * K), H)
         return (y * g) @ self.w_o, x[:, -1, :], new_state
 
 
@@ -141,11 +154,20 @@ class ChannelMix(nn.Module):
         for p in (self.w_k, self.w_v, self.w_r):
             common.dense_init_(p, gen)
 
-    def forward(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B,S,d] -> (out, new shift state [B,d])."""
+    def parts(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x [B,S,d] -> (the value term [B,S,d], the receptance
+        ``sigmoid(x_r @ w_r)``, new shift state [B,d]); the output is their
+        product. On a rank's ``d_ff`` block the value term is its term of a
+        sum over ``model`` and the receptance its block of columns."""
         x_prev = _shift(x, shift_state)
         k = _mix(x, x_prev, self.mu_k) @ self.w_k
         v = torch.square(F.relu(k)) @ self.w_v
         r = torch.sigmoid(_mix(x, x_prev, self.mu_r) @ self.w_r)
-        return r * v, x[:, -1, :]
+        return v, r, x[:, -1, :]
+
+    def forward(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B,S,d] -> (out, new shift state [B,d])."""
+        v, r, shift = self.parts(x, shift_state)
+        return r * v, shift

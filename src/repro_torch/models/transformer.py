@@ -107,7 +107,9 @@ class Block(nn.Module):
     def _time_mix(self, h, cache, carried: bool) -> torch.Tensor:
         """The rwkv mixer. Prefill starts from zero states, as the reference
         does whatever the cache holds; decode carries them. The WKV kernel
-        writes the new state straight into the cache."""
+        writes the new state straight into the cache. On a rank's heads
+        (sharded serving: ``cache["wkv"]`` is the state's block on them)
+        the output is the rank's term of a sum over ``model``."""
         h, tm_shift, _ = self.tm(h, cache["tm_shift"] if carried else None,
                                  cache["wkv"] if carried else None, wkv_out=cache["wkv"])
         cache["tm_shift"].copy_(tm_shift)
@@ -117,12 +119,17 @@ class Block(nn.Module):
         """The block's second half; serving drops the MoE aux term. Sharded
         serving (``axis``) routes the MoE's tokens in the global batch's
         groups and computes the rank's experts, their term summed over
-        ``model`` (``LayerAxis.moe``)."""
+        ``model`` (``LayerAxis.moe``), and the channel mix on the rank's
+        ``d_ff`` block where it splits (``LayerAxis.channel_mix``)."""
         if hasattr(self, "moe"):
             return self.moe(h)[0] if axis is None else axis.moe(self.moe, h)
         if self.mixer != "rwkv":
             return self.mlp(h)
-        h, cm_shift = self.cm(h, cache["cm_shift"] if carried else None)
+        shift = cache["cm_shift"] if carried else None
+        if axis is not None and axis.cm_sum:
+            h, cm_shift = axis.channel_mix(self.cm, h, shift)
+        else:
+            h, cm_shift = self.cm(h, shift)
         cache["cm_shift"].copy_(cm_shift)
         return h
 
@@ -168,14 +175,16 @@ class Block(nn.Module):
         """Full sequence; fills ``cache``. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded serving, which splits the
         attention, the dense MLP, the RG-LRU's channels (``cache`` then holds
-        the rank's block of the state) and the MoE's experts along
-        ``model``."""
+        the rank's block of the state), the RWKV-6 time mix's heads (the WKV
+        state's block on them) and channel mix's ``d_ff``, and the MoE's
+        experts along ``model``."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
             h = _summed(self.rglru.prefill(_split_in(h, axis, "rglru_sum"), cache), axis,
                         "rglru_sum")
         elif self.mixer == "rwkv":
-            h = self._time_mix(h, cache, carried=False)
+            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=False),
+                        axis, "tm_sum")
         else:
             h = _summed(self.attn.prefill(h, positions, cache, axis), axis, "attn_sum")
         x = x + h
@@ -188,7 +197,8 @@ class Block(nn.Module):
             h = _summed(self.rglru.decode(_split_in(h, axis, "rglru_sum"), cache), axis,
                         "rglru_sum")
         elif self.mixer == "rwkv":
-            h = self._time_mix(h, cache, carried=True)
+            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=True),
+                        axis, "tm_sum")
         else:
             h = _summed(self.attn.decode(h, pos, cache, axis), axis, "attn_sum")
         x = x + h
@@ -199,8 +209,9 @@ class Block(nn.Module):
 def _summed(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
     """A sub-block's output: a row-parallel product's summed over ``model``
     where the layer's contracted dim was split (``LayerAxis.attn_sum`` /
-    ``mlp_sum`` / ``rglru_sum``: ``ModelAxis.from_split``), else, computed whole, the rank's
-    positions where the stream's sequence splits (``ModelAxis.own``)."""
+    ``mlp_sum`` / ``rglru_sum`` / ``tm_sum``: ``ModelAxis.from_split``),
+    else, computed whole, the rank's positions where the stream's sequence
+    splits (``ModelAxis.own``)."""
     if axis is None:
         return h
     return axis.axis.from_split(h) if which and getattr(axis, which) else axis.axis.own(h)

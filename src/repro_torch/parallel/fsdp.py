@@ -22,7 +22,9 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   head by vocabulary, with a sum over ``model`` after each row-parallel product, the
   MoE's combine and the lookup, a sum of the gradient over ``model`` before
   each column-parallel one, and the vocab-parallel cross-entropy on the
-  rank's logits block;
+  rank's logits block. The RWKV-6 mixers train whole on every rank (their
+  split is serving's, below; the training split is the next RWKV item of
+  ROADMAP.md);
 * sequence parallelism (the ``seq`` rule, ``"model"`` under ``fsdp_tp``,
   ``tp_only`` and ``fsdp_tp_pod_fsdp``): the residual stream [B, P + S, d]
   between the sub-blocks is the rank's contiguous block of positions
@@ -33,9 +35,9 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   backward a reduce-scatter), and each sum over ``model`` after a
   row-parallel product, the MoE's combine or the lookup becomes a
   reduce-scatter along it (its backward an all-gather). A compute that does
-  not split along ``model`` (the RWKV-6 mixer and channel mix, a layer,
-  head or embedding the axis does not divide) runs on the gathered stream
-  and keeps the rank's positions. Remat keeps each group's
+  not split along ``model`` in training (the RWKV-6 mixer and channel mix,
+  a layer, head or embedding the axis does not divide) runs on the gathered
+  stream and keeps the rank's positions. Remat keeps each group's
   input as the rank's block: that is the memory the rule saves;
 * each weight is materialized just before use (:class:`_Gather`): the
   embedding, final norm and head at the start of the forward, a layer
@@ -44,7 +46,10 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   them) is brought to its ``model`` block and gathered over the other axes
   only -- the RG-LRU's gates, whole at rest, by a local slice, and under
   ``serve_2d`` a leaf laid out over ``(data, model)`` to the contiguous
-  block of ``model`` alone --; every other weight is gathered whole (FSDP).
+  block of ``model`` alone; in serving, the RWKV-6 time mix's ``w_v``,
+  rows at rest, by one all-to-all over ``model`` to its columns, and its
+  ``w_o``, ``bonus`` and 1-D leaves, whole at rest, by a local slice --;
+  every other weight is gathered whole (FSDP).
   The flash and scan
   kernels see ordinary tensors: DTensor's sharding propagation cannot see
   through the ctypes-bound kernels;
@@ -57,8 +62,8 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales, the
   MoE router where the experts split) has its gradient summed over
   ``model`` too. Where the stream's sequence splits, that is every
-  replicated weight: the norms' scales, the RWKV-6 leaves, an unsplit
-  layer's, embedding's or head's, since each rank back-propagates only its
+  replicated weight: the norms' scales, the RWKV-6 leaves (whole in
+  training), an unsplit layer's, embedding's or head's, since each rank back-propagates only its
   own positions' term; without the split the rest are computed whole and
   equal on every rank along ``model``, and not summed. The RG-LRU's gates,
   whole at rest and read by blocks, get the blocks' gradients gathered
@@ -79,18 +84,24 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
 Sharded serving (the reference's ``build_prefill_step`` and
 ``build_serve_step``): :meth:`ShardedModel.prefill` and
 :meth:`ShardedModel.decode_step` take the global batch, each rank computes
-its own rows, and the model axis splits the compute as in training, each
-rank's weights its ``model`` block gathered over the other axes only. The
+its own rows, and the model axis splits the compute as in training, and
+the RWKV-6 layers too: the time mix by heads and the channel mix by
+``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
+its ``model`` block gathered over the other axes only. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
 merges partial softmaxes over the sequence's axes). A recurrent state is
 brought to this rank's rows -- gathered in decode, fresh in a prefill,
 which overwrites every entry -- and written back to its layout at rest when
-the layer is done: a split RG-LRU layer's ``h`` and ``conv`` along the
-rank's block of channels, which under ``fsdp_tp`` is where they lie (no
-entry moves) and under ``serve_2d`` the block gathered over ``data``; an
-RWKV-6 or unsplit RG-LRU layer's whole along the other dims. Logits come
+the layer is done, entry by entry: a split RG-LRU layer's ``h`` and
+``conv`` along the rank's block of channels, which under ``fsdp_tp`` is
+where they lie (no entry moves) and under ``serve_2d`` the block gathered
+over ``data``; a split RWKV-6 time mix's ``wkv`` on the rank's heads, which
+under ``fsdp_tp``, ``tp_only`` and ``serve_2d`` is where it lies (the WKV
+kernel writes the new state into the block in place: no entry moves over
+``model``); the RWKV-6 shifts, and an unsplit layer's state, whole along
+the other dims. Logits come
 back as a DTensor: rows on the batch axes, the vocabulary on ``model``
 where it splits.
 
@@ -114,7 +125,7 @@ it needs, is not ported yet. Nor is sharded encoder-decoder serving:
 :meth:`ShardedModel.init_cache` refuse it.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter; the RWKV-6 head split;
+in place of its gather and reduce-scatter; the RWKV-6 split in training;
 ``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
 place of the ``embed`` gather and of the RG-LRU state's gather over
 ``data``); the encoder-decoder's sequence split and sharded serving.
@@ -127,6 +138,7 @@ import weakref
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
@@ -170,6 +182,29 @@ def full_state(module: nn.Module) -> Dict[str, torch.Tensor]:
             for n, p in module.named_parameters()}
 
 
+def _move_block(x: torch.Tensor, src: int, dst: int, group, n: int) -> torch.Tensor:
+    """A rank's block of a tensor split along dim ``src`` over the ``n``
+    ranks of ``group`` -> its block of the split along ``dst``: one
+    all-to-all, chunk j of ``x`` along ``dst`` to rank j, and the chunks
+    received laid along ``src`` in rank order."""
+    send = torch.stack(x.chunk(n, dst))
+    got = funcol.all_to_all_single(send, None, None, group)
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat(got.unbind(0), src)
+
+
+def _block_shape(shape: Tuple[int, ...], placements: Tuple[Placement, ...],
+                 sizes: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A rank's block of a tensor of ``shape`` laid out by ``placements``
+    (every split even)."""
+    out = list(shape)
+    for p, size in zip(placements, sizes):
+        if isinstance(p, Shard):
+            out[p.dim] //= size
+    return tuple(out)
+
+
 def _reduce_placements(mesh: DeviceMesh, axes: Tuple[str, ...]) -> Tuple[Placement, ...]:
     """``Partial`` (a sum pending) on the batch axes, ``Replicate`` on the rest."""
     return tuple(Partial() if name in axes else Replicate() for name in mesh.mesh_dim_names)
@@ -177,7 +212,13 @@ def _reduce_placements(mesh: DeviceMesh, axes: Tuple[str, ...]) -> Tuple[Placeme
 
 class _Gather(torch.autograd.Function):
     """A DTensor's local block -> the tensor laid out by ``keep`` (the whole
-    tensor, or its ``model`` block gathered over the other axes). Backward:
+    tensor, or its ``model`` block gathered over the other axes). A mesh dim
+    whose block moves to another tensor dim (the RWKV-6 time mix's ``w_v``,
+    rows at rest, columns computed with) moves last, once the other dims are
+    in place, by one functional all-to-all of the rank's block
+    (:func:`_move_block`): DTensor's own plan for the whole move gathers the
+    tensor whole, and its all-to-all is not a functional collective, which
+    the dry run's counter would not see. Backward:
     the gradient laid out by ``back`` (``keep`` with a sum pending over the
     batch axes, and over ``model`` for a weight read in part), redistributed
     to the block's placement."""
@@ -188,8 +229,14 @@ class _Gather(torch.autograd.Function):
         ctx.shape, ctx.stride = shape, stride
         if keep == placements:
             return local.view_as(local)
-        return DTensor.from_local(local.detach(), mesh, placements, run_check=False,
-                                  shape=shape, stride=stride).redistribute(mesh, keep).to_local()
+        first = tuple(p if isinstance(p, Shard) and isinstance(k, Shard) else k
+                      for p, k in zip(placements, keep))
+        out = DTensor.from_local(local.detach(), mesh, placements, run_check=False,
+                                 shape=shape, stride=stride).redistribute(mesh, first).to_local()
+        for i, (p, k) in enumerate(zip(first, keep)):
+            if p != k:
+                out = _move_block(out, p.dim, k.dim, (mesh, i), mesh.shape[i])
+        return out
 
     @staticmethod
     def backward(ctx, grad):
@@ -320,41 +367,44 @@ class ShardedModel:
                   for c, sh in zip(cache["layers"], shardings["layers"])]
         return {"layers": layers, "pos": cache["pos"]}
 
-    def _layer_cache(self, axis: tp.ModelAxis, rows: Tuple[Placement, ...], n_rows: int,
-                     gather: bool):
+    def _layer_cache(self, axis: tp.ModelAxis, rows: Tuple[Placement, ...], gather: bool):
         """The ``layer_cache`` hook. An attention layer's K/V: this rank's
         blocks where they lie (the layer's ``LayerAxis`` reads and writes
-        them). A state (RG-LRU, RWKV-6): this rank's ``n_rows`` rows and,
-        along its last dim, the rank's channels where the RG-LRU layer
-        splits them (``LayerAxis.rnn``), else all -- gathered (decode) or
-        fresh (a prefill overwrites every entry) -- written back to its
-        layout at rest when the layer is done. A state that lies so at rest
-        (a split layer's under ``fsdp_tp``) is read and written in place."""
-        names = self.mesh.mesh_dim_names
+        them). A state (RG-LRU, RWKV-6), entry by entry: this rank's rows
+        and, where the layer splits, its block -- the RG-LRU's channels
+        (``LayerAxis.rnn``: ``h`` and ``conv`` along their last dim), the
+        RWKV-6 time mix's heads (``LayerAxis.tm``: ``wkv`` along dim 1) --,
+        else the entry whole along the other dims. An entry that lies so at
+        rest is read and written in place; any other is gathered (decode)
+        or fresh (a prefill overwrites every entry) and written back to its
+        layout at rest when the layer is done (the RWKV-6 shifts, which the
+        next token's mixes read whole: gathered in decode, and written back
+        as the rank's block, a local slice)."""
+        names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
+
+        def place(layer: tp.LayerAxis, key: str, t: DTensor) -> Tuple[Placement, ...]:
+            split, dim = ((layer.rnn, t.ndim - 1) if key in ("h", "conv")
+                          else (layer.tm, 1) if key == "wkv" else (None, None))
+            return rows if split is None else tuple(
+                Shard(dim) if n == "model" else r for n, r in zip(names, rows))
 
         @contextlib.contextmanager
         def hook(index: int, cache: Dict[str, DTensor]) -> Iterator[Dict[str, torch.Tensor]]:
+            local = {k: t.to_local() for k, t in cache.items()}
             if "k" in cache:
-                yield {k: t.to_local() for k, t in cache.items()}
+                yield local
                 return
-            rnn = axis.layer(index).rnn if "h" in cache else None
-            place = {k: rows if rnn is None else tuple(
-                Shard(t.ndim - 1) if n == "model" else r for n, r in zip(names, rows))
-                for k, t in cache.items()}
-            if all(place[k] == t.placements for k, t in cache.items()):
-                yield {k: t.to_local() for k, t in cache.items()}
-                return
-            if gather:
-                local = {k: t.redistribute(self.mesh, place[k]).to_local()
-                         for k, t in cache.items()}
-            else:
-                local = {k: t.to_local().new_empty(
-                    (n_rows,) + tuple(t.shape[1:-1])
-                    + (t.shape[-1] if rnn is None else rnn.hi - rnn.lo,))
-                    for k, t in cache.items()}
+            layer = axis.layer(index)
+            want = {k: place(layer, k, t) for k, t in cache.items()}
+            moved = [k for k, t in cache.items() if want[k] != t.placements]
+            for k in moved:
+                t = cache[k]
+                local[k] = (t.redistribute(self.mesh, want[k]).to_local() if gather
+                            else t.to_local().new_empty(_block_shape(t.shape, want[k], sizes)))
             yield local
-            for k, t in cache.items():
-                back = DTensor.from_local(local[k], self.mesh, place[k], run_check=False,
+            for k in moved:
+                t = cache[k]
+                back = DTensor.from_local(local[k], self.mesh, want[k], run_check=False,
                                           shape=t.shape, stride=t.stride())
                 t.to_local().copy_(back.redistribute(self.mesh, t.placements).to_local())
 
@@ -383,8 +433,7 @@ class ShardedModel:
         weight = self._weights(axis, ())  # under no_grad: the gather alone
         outer = {n: weight(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
         hooks = {"materialize": weight, "model_axis": axis,
-                 "layer_cache": self._layer_cache(axis, rows, local["tokens"].shape[0],
-                                                  gather_cache)}
+                 "layer_cache": self._layer_cache(axis, rows, gather_cache)}
         with _reparametrize_module(lm, outer):
             if method == "prefill":
                 logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)

@@ -1,6 +1,7 @@
 """Tensor-parallel compute on the ``model`` axis: one rank's share of
 attention, the dense MLP, the MoE experts, the RG-LRU's recurrent channels,
-the embedding and the vocab head, in serving and in training.
+the embedding and the vocab head, in serving and in training, and of the
+RWKV-6 time mix's heads and channel mix's ``d_ff``, in serving.
 
 What GSPMD does to the reference's ``build_prefill_step``,
 ``build_serve_step`` and ``train_step`` under the strategies' ``heads``,
@@ -16,14 +17,16 @@ hook (None in one process) and asks it
   ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its block of each
   MoE layer's experts (dim 0 of ``w_up``/``w_gate``/``w_down`` where the
   axis divides E, else every expert's ``d_ff`` columns where it divides
-  ``d_ff``, as the resolver gives the spec), its vocab rows;
+  ``d_ff``, as the resolver gives the spec), its vocab rows; in serving,
+  an RWKV-6 layer's blocks (:meth:`ModelAxis._rwkv_split`);
 * ``from_split(x)``: the sum over ``model`` after a row-parallel product
   (attention's ``wo``, the MLP's ``w_down``, the RG-LRU's ``w_out``, the
-  MoE's combine) and after
+  RWKV-6 time mix's ``w_o``, the MoE's combine) and after
   the vocab-parallel lookup; its backward passes the gradient through
   (a reduce-scatter where the stream's sequence splits, below). A
   layer sums only where the contracted dim was split (:class:`LayerAxis`
-  ``attn_sum``, ``mlp_sum``, ``rglru_sum``, ``moe_sum``): a weight the axis does not divide
+  ``attn_sum``, ``mlp_sum``, ``rglru_sum``, ``tm_sum``, ``moe_sum``): a weight the axis
+  does not divide
   is whole on every rank, and a sum would multiply it by the axis;
 * ``to_split(x)``: the column-parallel input (after ``norm1``, ``norm2`` and
   ``final_norm`` where the layer or the head splits; the RG-LRU's two input
@@ -79,7 +82,8 @@ term, for the caller to combine -- a caller that feeds every rank's share
 the same input and adds their outputs has autograd sum the input's
 gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms; in
 the sequence form the caller feeds each gather the gathered input and
-sums and slices the whole term each reduce-scatter returns).
+sums and slices the whole term each reduce-scatter returns; the RWKV-6
+channel mix's value terms it combines itself, :func:`rwkv_shares`).
 
 A split weight's gradient is the rank's own block. That holds for the
 RG-LRU's gates too, which lie whole on every rank: the rank materializes
@@ -87,10 +91,26 @@ its blocks of them (``parallel/fsdp.py``), and the backward gathers the
 blocks' gradients over ``model`` into the whole one, the sum over the
 ranks' partial terms without its zeros.
 
-Out of this split, computed whole on every rank: the RWKV-6 mixer and
-channel mix, an RG-LRU layer whose gate blocks the axis does not divide,
-the MoE router (its gradient summed where the experts split) and every
-norm.
+The RWKV-6 layer splits in serving only (training computes both mixers
+whole on every rank; its split is the next RWKV item of ROADMAP.md): the
+time mix by heads where the axis divides them -- r, k, v, g and the decay
+on the rank's heads, WKV on them against the state's block on them, which
+lies so at rest and is read and written in place, the per-head group norm
+on the rank's ``out_norm`` block, and ``w_o``'s rows giving the rank's term
+of a sum over ``model`` (one all-reduce, as attention's); ``w_v`` lies on
+its rows at rest (the channel mix's rule, by leaf name), and the weights'
+gather brings it to its columns (one all-to-all over ``model`` of the
+rank's block). The channel mix splits by ``d_ff`` where the resolved specs
+split ``w_k``'s and ``w_v``'s ``ff`` dim and ``w_r``'s columns: the rank's
+value term is reduce-scattered along ``d``, multiplied by the rank's block
+of the receptance, and the product all-gathered along ``d``
+(:meth:`LayerAxis.channel_mix`: the bytes of one all-reduce, and no
+``w_r`` gathered). The two conditions are independent.
+
+Out of this split, computed whole on every rank: the RWKV-6 mixers in
+training (and in serving where the axis does not divide them), an RG-LRU
+layer whose gate blocks the axis does not divide, the MoE router (its
+gradient summed where the experts split) and every norm.
 
 Sequence parallelism in training (``seq``, the rank's positions of the
 residual stream: ``sharding.stream_split``, given the stream's global
@@ -99,8 +119,9 @@ shape): the stream between sub-blocks is the rank's block [B, S'/M, d].
 (:class:`_GatherSeq`, backward a reduce-scatter, which sums the ranks'
 terms as ``_ToSplit``'s all-reduce did) and ``from_split`` reduce-scatters
 the row-parallel term (:class:`_ScatterSeq`, backward an all-gather); a
-compute that does not split (the RWKV-6 mixer and channel mix, a layer,
-head or embedding the axis does not divide) takes the gathered stream
+compute that does not split (the RWKV-6 mixer and channel mix in
+training, a layer, head or embedding the axis does not divide) takes the
+gathered stream
 (``gather``) and keeps the rank's positions (``own``: the slice's backward
 pads with zeros). Each rank then back-propagates only its own positions'
 term through every replicated weight, so ``sums_gradient`` names them all:
@@ -130,19 +151,26 @@ from repro_torch.parallel import sharding as shd
 
 # each stack's submodules whose compute splits along ``model`` (the LM's
 # layers, the encoder-decoder's blocks), and the models' own leaves
-SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru"),
+SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "enc_blocks": ("attn", "mlp"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
+# the RWKV-6 mixers (split in serving only) and the dim of each leaf's block
+_RWKV_MODULES = ("tm", "cm")
+_TM_DIMS = {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "decay_b": 1, "w_o": 0,
+            "decay_base": 0, "out_norm": 0, "bonus": 0}
+_CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 
 
 def splits_compute(name: str) -> bool:
-    """Whether a parameter's compute splits along ``model``: attention's
+    """Whether a parameter's compute may split along ``model``: attention's
     (the decoder's cross-attention's too), the dense MLP's, the MoE's and the
-    RG-LRU's weights, the embedding and the head. The MoE's router is among
-    them with its spec unsplit: it is read whole, its gradient summed where
-    the experts split (``ModelAxis.sums_gradient``). The RWKV-6 weights, the
-    encoder-decoder's positions, and every norm, are gathered whole."""
+    RG-LRU's weights, the RWKV-6 time mix's and channel mix's (in serving
+    only: ``ModelAxis.split`` gives them no block in training), the
+    embedding and the head. The MoE's router is among them with its spec
+    unsplit: it is read whole, its gradient summed where the experts split
+    (``ModelAxis.sums_gradient``). The encoder-decoder's positions, and
+    every norm, are gathered whole."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
@@ -444,9 +472,15 @@ class ModelAxis:
         shape = self.shapes.get(name)
         if shape is None or not splits_compute(name):
             return None
+        parts = name.split(".")
+        rwkv = len(parts) == 4 and parts[2] in _RWKV_MODULES
+        if rwkv and self._layers is None:  # training computes the RWKV-6 mixers whole
+            return None
         key = (name, shape)
         if key not in self._memo and ".rglru." in name:
             self._memo[key] = self._rnn_split(name, shape)
+        if key not in self._memo and rwkv:
+            self._memo[key] = self._rwkv_split(name, shape)
         if key not in self._memo:
             leaf = name.rsplit(".", 1)[-1]
             spec = shd.resolve_spec(self.mesh, self.rules,
@@ -473,6 +507,38 @@ class ModelAxis:
             return None
         logical = shd.logical_for_leaf(name.rsplit(".", 1)[-1], len(shape))
         dim = next(i for i, a in enumerate(logical) if a in ("rnn", "blocks"))
+        step, m = shape[dim] // M, self.coord["model"]
+        return shd.Split(dim, ("model",), m * step, (m + 1) * step)
+
+    def _rwkv_split(self, name: str, shape: Tuple[int, ...]) -> Optional[shd.Split]:
+        """An RWKV-6 leaf's ``model`` block in serving: the rank's
+        contiguous block along its dim in ``_TM_DIMS`` (the time mix's
+        heads: ``d / M`` columns of ``w_r``/``w_k``/``w_v``/``w_g``/
+        ``decay_b``, entries of ``decay_base``/``out_norm``, rows of ``w_o``,
+        and ``H / M`` rows of ``bonus``) where the axis divides the heads, or
+        in ``_CM_DIMS`` (the channel mix's ``d_ff`` block: ``w_k``'s columns,
+        ``w_v``'s rows, and ``d / M`` of ``w_r``'s columns) where the resolved
+        specs split those dims over ``model``; else None (the mixer runs
+        whole). The mixes' ``mu_*`` and ``decay_a`` read the whole input:
+        None. ``tm.w_v`` lies on its rows at rest (its resolved spec reads
+        the leaf name alone); its block here is its columns, and the
+        weights' gather brings it there."""
+        M = self.sizes.get("model")
+        prefix, leaf = name.rsplit(".", 1)
+        dims = _TM_DIMS if prefix.endswith(".tm") else _CM_DIMS
+        if M is None or leaf not in dims:
+            return None
+        if dims is _TM_DIMS and self.shapes[prefix + ".bonus"][0] % M:
+            return None
+        if dims is _CM_DIMS:
+            for other, dim in _CM_DIMS.items():
+                full = self.shapes[f"{prefix}.{other}"]
+                spec = shd.resolve_spec(self.mesh, self.rules,
+                                        shd.logical_for_leaf(other, len(full)), full)
+                split = shd.model_split(self.mesh, spec, full, self.coord)
+                if split is None or split.dim != dim or split.axes != ("model",):
+                    return None
+        dim = dims[leaf]
         step, m = shape[dim] // M, self.coord["model"]
         return shd.Split(dim, ("model",), m * step, (m + 1) * step)
 
@@ -585,9 +651,10 @@ class ModelAxis:
 
 
 class LayerAxis:
-    """A layer's split: whether attention, the MLP, the RG-LRU and the MoE
-    end in a sum over ``model``, the rank's query and KV heads, its
-    recurrent channels, its experts, and its K/V cache's layout.
+    """A layer's split: whether attention, the MLP, the RG-LRU, the RWKV-6
+    time mix and channel mix and the MoE end in a sum over ``model``, the
+    rank's query and KV heads, its recurrent channels, its RWKV-6 heads and
+    ``d_ff`` block, its experts, and its K/V cache's layout.
 
     An encoder-decoder block (``stack`` ``enc_blocks`` or ``dec_blocks``)
     reads its own leaves: its self-attention's heads and sums, the MLP's,
@@ -604,6 +671,10 @@ class LayerAxis:
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
         self.rnn = axis.split(pre + "rglru.lam")  # the rank's channels, or None: all
         self.rglru_sum = self.rnn is not None
+        self.tm = axis.split(pre + "tm.bonus")  # the rank's RWKV-6 heads, or None: all
+        self.tm_sum = self.tm is not None
+        self.cm = axis.split(pre + "cm.w_v")    # its channel mix's d_ff block, or None
+        self.cm_sum = self.cm is not None
         # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
         self.experts = axis.split(pre + "moe.w_up")
         self.moe_sum = self.experts is not None
@@ -674,6 +745,29 @@ class LayerAxis:
         if self.moe_sum or axis.seq is not None:
             aux = _OneShare.apply(aux, M)
         return (out, aux) if with_aux else out
+
+    def channel_mix(self, cm, h: torch.Tensor, shift: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The RWKV-6 channel mix on the rank's ``d_ff`` block (``cm_sum``),
+        h [B, S, d] whole: the rank's value term [B, S, d]
+        (``ChannelMix.parts``) reduce-scattered along ``d`` to its block of
+        the sum, times the rank's receptance block [B, S, d/M], the product
+        all-gathered along ``d``. -> (out [B, S, d], new shift state [B, d]).
+
+        Under :class:`Shares` the reduce-scatter's other side is the
+        caller's, and this raises: a share's term is ``ChannelMix.parts``
+        on its blocks -- its value term, to be summed over the ranks and
+        sliced to each rank's ``d`` block, and its receptance block, which
+        multiplies that slice; the products laid side by side are the
+        output (:func:`rwkv_shares` plays it)."""
+        comm = self.axis.comm
+        if isinstance(comm, Shares):
+            raise NotImplementedError("a share alone holds only its value term of the "
+                                      "channel mix: combine ChannelMix.parts over the "
+                                      "shares (tensor_parallel.rwkv_shares)")
+        v, r, new_shift = cm.parts(h, shift)
+        v = comm.reduce_scatter(v, v.ndim - 1, "model")
+        return comm.all_gather(r * v, v.ndim - 1, "model"), new_shift
 
     def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):
         """The KV heads [B, S, h, D] this rank's query heads read: its own
@@ -766,7 +860,9 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     state-dict name -- a view, so a gradient reaches the whole weight --, its
     block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
     with the cache's sequence whole, so the cache splits its heads as the
-    weights do (an RG-LRU state: the rank's channels) and no collective but
+    weights do (an RG-LRU state: the rank's channels; an RWKV-6 layer's: a
+    copy a rank, the WKV state the block of its heads where the time mix
+    splits, the shifts whole) and no collective but
     the final sums is needed: each output
     that ends in a sum over ``model`` is this rank's term of it, and so is
     the input gradient of each ``to_split``. ``seq_len`` (training): the
@@ -792,10 +888,60 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
             layers.append(c if heads is None else
                           {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
             continue
+        if "wkv" in c:  # a copy a rank, the WKV state the block of the rank's heads
+            heads = axis.layer(i).tm
+            layers.append({k: (t if k != "wkv" or heads is None
+                               else t[:, heads.lo:heads.hi]).clone() for k, t in c.items()})
+            continue
         rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
         layers.append(c if rnn is None else
                       {k: t[..., rnn.lo:rnn.hi].clone() for k, t in c.items()})
     return axis, params, {"layers": layers, "pos": cache["pos"]}
+
+
+def rwkv_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, carried: bool
+                ) -> torch.Tensor:
+    """Layer ``index``'s RWKV-6 ``Block.prefill`` (or, ``carried``, its
+    ``Block.decode``) on every rank's share in turn (``shares``: each
+    rank's (axis, parameter blocks, cache blocks) from :func:`share`; each
+    rank reads and writes its own cache), the collectives played here: the
+    time mix's terms are added in fp32 where it splits (``tm_sum``), else
+    rank 0's whole output is taken; where the channel mix splits
+    (``cm_sum``), the ranks' value terms are added in fp32, each rank's
+    receptance block multiplies its ``d`` block of the sum, and the
+    products are laid side by side, else rank 0's whole output is taken.
+    -> the block's output."""
+    block = lm.layers[index]
+    layer = shares[0][0].layer(index)
+
+    def each(fn, norm):
+        with _reparametrize_module(lm, shares[0][1]):  # the norms are whole on every rank
+            h = common.apply_norm(norm, x)
+        outs = []
+        for _, params, cache in shares:
+            with _reparametrize_module(lm, params):
+                outs.append(fn(h, cache["layers"][index]))
+        return outs
+
+    def added(terms):
+        return sum(t.float() for t in terms).to(x.dtype)
+
+    tm = each(lambda h, c: block._time_mix(h, c, carried), block.norm1)
+    x = x + (added(tm) if layer.tm_sum else tm[0])
+
+    def channel(h, c):
+        if not layer.cm_sum:
+            return block._ffn(h, c, carried), None
+        v, r, new_shift = block.cm.parts(h, c["cm_shift"] if carried else None)
+        c["cm_shift"].copy_(new_shift)
+        return v, r
+
+    cm = each(channel, block.norm2)
+    if not layer.cm_sum:
+        return x + cm[0][0]
+    v = added([t for t, _ in cm])
+    w = v.shape[-1] // len(cm)
+    return x + torch.cat([r * v[..., m * w:(m + 1) * w] for m, (_, r) in enumerate(cm)], -1)
 
 
 def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: torch.Tensor,

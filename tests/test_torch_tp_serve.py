@@ -19,6 +19,15 @@ state), the terms summed against the unsplit layer, each rank's state
 block equal to that block of the unsplit state; at W 8, which does not
 divide the 4 blocks, the layer is whole on every rank (no sum).
 
+The RWKV-6 layer of reduced rwkv6-7b (d 64, 4 heads of 16, ``d_ff`` 128)
+at W 2, 4 and 8: each rank's prefill and 3 decode steps from the carried
+state (``tensor_parallel.rwkv_shares`` over ``share``: the time mix on its
+heads and its block of the WKV state, the channel mix on its ``d_ff``
+block), the time mix's terms summed and the channel mix's blocks laid side
+by side, against the unsplit layer; each rank's WKV block equal to that
+block of the unsplit state; at W 8, which does not divide the 4 heads, the
+time mix is whole on every rank (no sum) and the channel mix splits.
+
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh and
 strategy, five models each): ``ShardedModel.prefill`` and 12 greedy
 ``decode_step`` calls on a (data 2, model 2) mesh under ``fsdp_tp`` and
@@ -26,15 +35,18 @@ strategy, five models each): ``ShardedModel.prefill`` and 12 greedy
 reduced gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b
 (attention, the MLP and the RG-LRU's channels split), qwen3-moe and
 phi3.5-moe (attention split, each rank computing its block of the 8
-experts, their term summed over ``model``),
+experts, their term summed over ``model``), rwkv6-7b (the time mix on the
+rank's heads, the channel mix on its ``d_ff`` block),
 against ``repro.models``' single-process prefill and decode: logits to 2e-4
-in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal; and the
-RG-LRU weight a rank computes with holds its w/M channels.
+in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal; the
+RG-LRU weight a rank computes with holds its w/M channels, and the time
+mix's ``w_v`` its heads' d/M columns, though it lies on its rows at rest.
 
 Part (iii), the dry run's trace: a decode step's collectives do not grow
 with the cache (no cache entry moves), the counter files the new
-collectives, and under ``fsdp_tp`` a decode step moves no RG-LRU state over
-``model`` and sums each RG-LRU layer's term over it once.
+collectives, and under ``fsdp_tp`` a decode step moves no RG-LRU or WKV
+state over ``model`` and sums each RG-LRU layer's term over it once, each
+RWKV-6 time mix's once.
 """
 
 import dataclasses
@@ -227,6 +239,55 @@ def test_rglru_shares_equal_the_unsplit_layer(W):
         _close(sum(s for _, s, _, _ in got), want_step)
 
 
+_RWKV = dataclasses.replace(ARCHS["rwkv6-7b"].reduced(), n_layers=1)
+
+
+def _rel_close(got, want, tol=SHARE_TOL):
+    """Within ``tol`` of the largest value of ``want``."""
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (err, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_rwkv_shares_equal_the_unsplit_layer(W):
+    """Each rank's RWKV-6 prefill and 3 decode steps from the carried state:
+    the time mix on its heads (split at W 2 and 4, whole at W 8, which does
+    not divide 4 heads), the channel mix on its ``d_ff`` block (split at W
+    2, 4 and 8)."""
+    cfg = _RWKV
+    lm = _seeded_lm(cfg)
+    block = lm.layers[0]
+    model = build_model(cfg, device="cpu")
+    B, S = 2, 12
+    H = cfg.d_model // cfg.rwkv_head_dim
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    steps_in = [torch.randn(B, 1, cfg.d_model, generator=g) for _ in range(3)]
+    with torch.no_grad():
+        want_c = model.init_cache(B, S, torch.float32)["layers"][0]
+        want = [block.prefill(x, torch.arange(S), want_c)]
+        want += [block.decode(xi, S + i, want_c) for i, xi in enumerate(steps_in)]
+        shares = [tp.share(lm, model.init_cache(B, S, torch.float32), r, W) for r in range(W)]
+        got = [tp.rwkv_shares(lm, 0, shares, x, carried=False)]
+        got += [tp.rwkv_shares(lm, 0, shares, xi, carried=True) for xi in steps_in]
+    heads, ff = H // W, cfg.d_ff // W
+    assert (H % W == 0) == (W != 8) and cfg.d_ff % W == 0
+    for i, (axis, _, cache) in enumerate(shares):
+        layer = axis.layer(0)
+        assert layer.tm_sum == (H % W == 0) and layer.cm_sum
+        assert layer.tm == (shd.Split(0, ("model",), i * heads, (i + 1) * heads)
+                            if layer.tm_sum else None)
+        assert layer.cm == shd.Split(0, ("model",), i * ff, (i + 1) * ff)
+        c = cache["layers"][0]
+        sel = slice(layer.tm.lo, layer.tm.hi) if layer.tm_sum else slice(None)
+        assert c["wkv"].shape == (B, len(range(H)[sel]), cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+        _rel_close(c["wkv"], want_c["wkv"][:, sel])
+        for key in ("tm_shift", "cm_shift"):
+            _rel_close(c[key], want_c[key])
+    for out, w in zip(got, want):
+        _rel_close(out, w)
+
+
 def test_kv_heads_pair_each_query_head_with_its_group():
     """Query head i reads KV head i // (Hq / Hkv): a slice where a rank's heads
     group evenly, else one KV head per query head."""
@@ -259,7 +320,7 @@ def test_model_split_reads_the_resolved_spec():
 # ---------------------------------------------------------------------------
 
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
-          "phi3.5-moe-42b-a6.6b"]
+          "phi3.5-moe-42b-a6.6b", "rwkv6-7b"]
 # name -> (strategy, mesh shape, axes)
 MESHES = {"fsdp_tp": ("fsdp_tp", (2, 2), ("data", "model")),
           "tp_only": ("tp_only", (4,), ("model",)),
@@ -297,6 +358,16 @@ for name, cfg, np_params, batch in cases:
         with torch.no_grad():
             used = model._weights(axis, ())("layers.0.rglru.w_in_rec", w)
         result[name]["w_in_rec"] = (tuple(w.to_local().shape), tuple(used.shape))
+    if cfg.mixer_pattern[0] == "rwkv":  # layer 0's time-mix w_v at rest and computed with
+        w = lm.layers[0].tm.w_v
+        axis = model.model_axis(lm, cache, (), 4)
+        split = axis.split("layers.0.tm.w_v")
+        with torch.no_grad():
+            used = model._weights(axis, ())("layers.0.tm.w_v", w)
+            whole = w.full_tensor()
+        result[name]["tm.w_v"] = (tuple(w.to_local().shape), tuple(used.shape),
+                                  (split.dim, split.lo, split.hi),
+                                  bool(torch.equal(used, whole[:, split.lo:split.hi])))
 """
 
 
@@ -386,6 +457,23 @@ def test_a_ranks_rglru_weight_holds_its_channels(ranks):
         assert at_rest == (d // sizes.get("data", 1), w)
 
 
+def test_a_ranks_rwkv_value_weight_holds_its_heads_columns(ranks):
+    """rwkv6-7b's time mix splits its 4 heads over model 2 and 4: the ``w_v``
+    a rank computes with is [d, d/M], its heads' columns of the whole
+    weight, while at rest it lies on its ``model`` block of rows (the
+    channel mix's ``w_v`` rule, by leaf name; over ``data`` too where
+    ``embed`` takes its columns)."""
+    mesh, results = ranks
+    _, shape, axes = MESHES[mesh]
+    sizes = dict(zip(axes, shape))
+    d, M = ARCHS["rwkv6-7b"].reduced().d_model, sizes["model"]
+    for rank, res in enumerate(results):
+        at_rest, used, split, equal = res["rwkv6-7b"]["tm.w_v"]
+        m = rank % M  # model is the last mesh axis
+        assert used == (d, d // M) and split == (1, m * d // M, (m + 1) * d // M) and equal
+        assert at_rest == (d // M, d // sizes.get("data", 1))
+
+
 # ---------------------------------------------------------------------------
 # Part (iii): what the dry run's trace sees
 # ---------------------------------------------------------------------------
@@ -447,3 +535,33 @@ def test_prefill_counts_the_all_to_all_and_the_sums():
     kinds = [op.kind for op in counter.collectives]
     assert kinds.count("all-to-all") == 2 * cfg.n_layers
     assert kinds.count("all-reduce") == 2 * cfg.n_layers + 1
+
+
+def test_a_decode_step_moves_no_wkv_state_over_model():
+    """rwkv6-7b reduced with the kernel's head size (d 128: 2 heads of 64, so
+    the dry run's fake kernel takes it; 2 layers) on a (data 2, model 2)
+    mesh under ``fsdp_tp``: over ``model`` a decode step sums the stream
+    once for the lookup; each layer sums its time mix's term once (one
+    all-reduce), reduce-scatters and all-gathers its channel mix's (the
+    bytes of one all-reduce each), gathers its two shift states (the next
+    token's mixes read them whole) and moves its time mix's ``w_v`` block
+    from rows to columns (one all-to-all of the rank's [d, d/M] block). The
+    WKV state lies at rest on the rank's heads, as it computes them: no
+    other collective runs over ``model``."""
+    cfg = dataclasses.replace(ARCHS["rwkv6-7b"].reduced(), d_model=128, rwkv_head_dim=64)
+    assert cfg.n_layers == 2 and cfg.d_model // cfg.rwkv_head_dim == 2
+    cell = shp.ShapeCell("tiny", 64, 4, "decode")
+    with _mesh((2, 2)) as mesh:
+        step = steps.build_serve_step(cfg, cell, mesh, "fsdp_tp")
+        counter = OpCounter()
+        with counter:
+            step()
+    ops = [(op.kind, op.bytes) for op in counter.collectives if op.ranks == (0, 1)]
+    d, L = cfg.d_model, cfg.n_layers
+    stream = 2 * 1 * d * 2  # a rank's 2 rows of one token, bf16; a shift state's too
+    w_v = d * (d // 2) * 2  # the rank's [d, d/2] block of w_v, bf16
+    per_layer = ([("all-gather", stream)] * 2 + [("all-to-all", w_v), ("all-reduce", stream),
+                 ("reduce-scatter", stream), ("all-gather", stream)])
+    assert sorted(ops) == sorted([("all-reduce", stream)] + per_layer * L)
+    wkv = 2 * 1 * 64 * 64 * 4  # a rank's [2, 1, 64, 64] fp32 block of the state
+    assert all(b != wkv for _, b in ops)
