@@ -181,8 +181,9 @@ calls, and fails (exit code not 0, no result line) on any miss:
               rank's widths: [1, 2560, 256] and [1, 2560, 512] bf16, the
               backward's bf16 a with fp32 b at [1, 2560, 256], and the
               serving [4, 2560, 256];
- 8h4. rwkv_split the RWKV-6 split on the model axis in serving, in this one
-              process: (a) each rank's share of rwkv6-7b's layer 0 at full
+ 8h4. rwkv_split the RWKV-6 split on the model axis in serving and in
+              training, in this one process: (a) each rank's share of
+              rwkv6-7b's layer 0 at full
               width (norm1, the time mix, norm2, the channel mix, both
               residuals) at 8 and 16 ranks (8 and 4 of the 64 heads, 1792 and
               896 of the 14336 ``d_ff`` columns), a B 1 x S 2560 prefill and
@@ -201,9 +202,20 @@ calls, and fails (exit code not 0, no result line) on any miss:
               greedy token equal (a flip only at a near-tie, reported with
               its margin), logits within 5e-2, whether the prefill's are
               bit-equal, prefill and step ms of each side, 4 wkv6 launches a
-              prefill and 4 a step. The kernels phase times wkv6 at one
-              rank's heads: B 1 x T 2560 at 4 and 8 heads, and a B 4 decode
-              step at 4;
+              prefill and 4 a step; (c) the layer's training shares at 8
+              and 16 ranks, B 1 x S 256 (the WKV twin trains a Python loop
+              a step), one backward: the plain form
+              (``tensor_parallel.rwkv_shares`` without caches) and the
+              sequence form (``tensor_parallel.seq_shares``), fp32 outputs
+              within 1e-4 and every gradient within 2e-3 of its leaf's
+              largest, bf16 within 5e-2 beside the unsplit bf16 layer's own
+              error, no wkv6 launch; (d) rwkv6-7b at full width cut to 2
+              layers, 2 AdamW steps (bf16 over fp32 masters, remat
+              "nothing", B 2 x S 512) through ``train_loop`` unsharded and
+              on a 1-rank NCCL mesh under ``fsdp_tp``, the losses
+              bit-equal, step ms of both, no wkv6 launch. The kernels phase
+              times wkv6 at one rank's heads: B 1 x T 2560 at 4 and 8
+              heads, and a B 4 decode step at 4;
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -2279,6 +2291,39 @@ def rnn_serve(run_model, params, toks, full, fed=None):
             "pos": cache["pos"]}
 
 
+def train_both_sides(cfg, n_steps, batch, seq):
+    """``n_steps`` AdamW steps of ``cfg`` (bf16 compute over fp32 masters from
+    SEED, remat "nothing", B ``batch`` x S ``seq`` from ``SyntheticLM``)
+    through ``train_loop``, unsharded and then through ``ShardedModel`` on a
+    1-rank NCCL mesh under ``fsdp_tp``: each side's (losses, launches, step
+    ms under CUDA events)."""
+    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+                         total_steps=n_steps, warmup_steps=1, remat_policy="nothing",
+                         compute_dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=SEED))
+    batches = [data.batch(i) for i in range(n_steps)]
+
+    def train(model):
+        lm = model.init(SEED, torch.float32)
+        events = []
+        reset_counts()
+        lm, _, hist = train_loop(model, lm, timed_batches(batches, events), run, log_every=1)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(end)
+        return {"losses": [h["loss"] for h in hist], "launches": counts(),
+                "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])]}
+
+    unsharded = train(build_model(cfg))
+    torch.cuda.empty_cache()
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        sharded = train(ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]()))
+    torch.cuda.empty_cache()
+    return unsharded, sharded
+
+
 def rnn_path():
     """(b) recurrentgemma-9b at full width, one (rglru, rglru, attn_local)
     group, on a 1-rank NCCL mesh under ``fsdp_tp`` (each RG-LRU layer on the
@@ -2322,30 +2367,7 @@ def rnn_path():
                 for k in ("prefill_ms", "decode_ms_per_step", "prefill_launches",
                           "decode_launches")}}
 
-    run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
-                         total_steps=RNN_TRAIN_STEPS, warmup_steps=1, remat_policy="nothing",
-                         compute_dtype=torch.bfloat16)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, RNN_TRAIN_S, 1, seed=SEED))
-    batches = [data.batch(i) for i in range(RNN_TRAIN_STEPS)]
-
-    def train(model):
-        lm = model.init(SEED, torch.float32)
-        events = []
-        reset_counts()
-        lm, _, hist = train_loop(model, lm, timed_batches(batches, events), run, log_every=1)
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        torch.cuda.synchronize()
-        events.append(end)
-        return {"losses": [h["loss"] for h in hist], "launches": counts(),
-                "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])]}
-
-    unsharded = train(build_model(cfg))
-    torch.cuda.empty_cache()
-    with process_group("cuda"):
-        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
-        sharded_train = train(ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]()))
-    torch.cuda.empty_cache()
+    unsharded, sharded_train = train_both_sides(cfg, RNN_TRAIN_STEPS, 1, RNN_TRAIN_S)
     per_step = launch_counts(flash_wgmma=2, rglru=6)
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
            "strategy": "fsdp_tp", "serve": serve,
@@ -2387,7 +2409,7 @@ def rnn_split_phase():
 
 
 # ---------------------------------------------------------------------------
-# Phase 8h4: the RWKV-6 split on the model axis in serving
+# Phase 8h4: the RWKV-6 split on the model axis in serving and in training
 # ---------------------------------------------------------------------------
 
 # (a): B 1 x S 2560 and 4 decode steps; (b): 4 layers, B 4 x S 2560, 16 steps
@@ -2537,13 +2559,156 @@ def rwkv_path(cfg):
     return rec
 
 
+# (c): one layer, B 1 x S 256 (the WKV twin trains a Python loop a step);
+# (d): 2 layers, B 2 x S 512, 2 AdamW steps
+RWKV_TRAIN_S, RWKV_TRAIN_LAYERS, RWKV_TRAIN_B, RWKV_TRAIN_SEQ = 256, 2, 2, 512
+
+
+def rwkv_train_shares(cfg, ranks):
+    """(c) rwkv6-7b's layer 0 at full width in training (``norm1``, the time
+    mix, ``norm2``, the channel mix, both residuals), B 1 x S 256, fp32 then
+    bf16 cast from the same fp32 masters: for each W in ``ranks`` every
+    rank's share in turn on its 64/W heads and 14336/W ``d_ff`` columns, in
+    the plain form (``tensor_parallel.rwkv_shares`` without caches: every
+    rank on the whole normed stream, the time mix's terms and the channel
+    mix's value terms added in fp32) and in the sequence form
+    (``tensor_parallel.seq_shares``: each rank normalizes its 256/W
+    positions, the time mix's whole terms summed and sliced, the channel
+    mix's products laid side by side and each rank's positions kept), one
+    backward of <out, gy>: the output and the input's and every leaf's
+    gradient (the whole-at-rest leaves' from their blocks, ``mu_*`` and
+    ``decay_a``'s summed) against the unsplit ``Block.forward``'s; in bf16
+    also each side against the fp32 unsplit layer. The WKV op trains
+    through its chunked twin, on each rank's heads: no wkv6 launch."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    block = lm.layers[0]
+    need(block.mixer == "rwkv", f"rwkv train shares: layer 0 of {cfg.name} is {block.mixer}")
+    names = [n for n, _ in lm.named_parameters() if n.startswith("layers.0.")]
+    masters = [lm.get_parameter(n).requires_grad_(True) for n in names]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x32 = torch.randn(1, RWKV_TRAIN_S, cfg.d_model, generator=g, device="cuda")
+    gy = torch.randn(1, RWKV_TRAIN_S, cfg.d_model, generator=g, device="cuda")
+    positions = torch.arange(RWKV_TRAIN_S, device="cuda")
+    H = cfg.d_model // cfg.rwkv_head_dim
+
+    def grads(out, x):
+        got = torch.autograd.grad((out.float() * gy).sum(), [x] + masters)
+        return {"output": out.detach().float(), "input": got[0],
+                **{n[len("layers.0."):]: gr for n, gr in zip(names, got[1:])}}
+
+    recs, unsplit32 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.clone().requires_grad_()
+        reset_counts()
+        with _reparametrize_module(lm, {n: t.to(dtype) for n, t in zip(names, masters)}):
+            want = grads(block(x.to(dtype), positions)[0], x)
+        want_launches = counts()
+        if unsplit32 is None:
+            unsplit32 = want
+        for W, form in [(W, f) for W in ranks for f in ("plain", "sequence")]:
+            shares = []
+            for r in range(W):
+                axis, params, _ = tp.share(lm, None, r, W,
+                                           seq_len=RWKV_TRAIN_S if form == "sequence" else None)
+                shares.append((axis, {n: params[n].to(dtype) for n in names}, None))
+            x = x32.clone().requires_grad_()
+            reset_counts()
+            if form == "sequence":
+                out, _ = tp.seq_shares(lm, 0, shares, x.to(dtype), positions)
+            else:
+                out = tp.rwkv_shares(lm, 0, shares, x.to(dtype))
+            got = grads(out, x)
+            torch.cuda.synchronize()
+            launches = counts()
+            axis, layer = shares[0][0], shares[0][0].layer(0)
+            heads, ff = H // W, cfg.d_ff // W
+            need(layer.tm_sum and layer.tm.hi - layer.tm.lo == heads and layer.cm_sum
+                 and layer.cm.hi - layer.cm.lo == ff
+                 and (axis.seq is not None) == (form == "sequence"),
+                 f"rwkv train shares at {W} ({form}): the splits {layer.tm}, {layer.cm}, "
+                 f"sequence {axis.seq}")
+            err = {k: rel_err(got[k], want[k]) for k in want}
+            worst = max((k for k in err if k != "output"), key=err.get)
+            tol = (TP_FP32_TOL, TP_TRAIN_GRAD_TOL) if dtype == torch.float32 else \
+                (TP_BF16_TOL, TP_BF16_TOL)
+            rec = {"case": f"{cfg.name} layer 0 (RWKV-6: {H} heads of {cfg.rwkv_head_dim}, "
+                           f"d_ff {cfg.d_ff}), training", "model_ranks": W, "form": form,
+                   "dtype": str(dtype)[6:], "B": 1, "S": RWKV_TRAIN_S, "heads_a_rank": heads,
+                   "d_ff_a_rank": ff, "terms_added_in": "float32",
+                   "block_gradients": sorted(n[len("layers.0."):] for n in names
+                                             if axis.split(n) is not None),
+                   "summed_gradients": sorted(n[len("layers.0."):] for n in names
+                                              if axis.sums_gradient(n)),
+                   "rel_err": {"output": err["output"], "input": err["input"]},
+                   "worst_gradient": worst, "worst_gradient_rel_err": err[worst],
+                   "leaves": len(names), "tol": {"output": tol[0], "gradients": tol[1]},
+                   "launches_shares": launches, "launches_unsplit": want_launches}
+            if dtype == torch.bfloat16:
+                for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                    e = {k: rel_err(side[k], unsplit32[k]) for k in unsplit32}
+                    leaf = max((k for k in e if k != "output"), key=e.get)
+                    rec[tag] = {"output": e["output"], "worst_gradient": e[leaf],
+                                "worst_gradient_name": leaf}
+            print("rwkv_split_train_shares", json.dumps(rec), flush=True)
+            need(launches == launch_counts() and want_launches == launch_counts(),
+                 f"rwkv train shares at {W} ({form}, {dtype}): launches {launches}")
+            need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                 f"rwkv train shares at {W} ({form}): non-finite")
+            need(err["output"] <= tol[0] and err[worst] <= tol[1],
+                 f"rwkv train shares at {W} ({form}, {dtype}): output {err['output']}, "
+                 f"{worst} {err[worst]}")
+            recs.append(rec)
+            del shares, got, out
+        del want
+    del lm, masters, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
+def rwkv_train_path(cfg):
+    """(d) rwkv6-7b at full width cut to 2 layers: 2 AdamW steps (bf16 over
+    fp32 masters, remat "nothing", B 2 x S 512) through ``train_loop``,
+    unsharded and on a 1-rank NCCL mesh under ``fsdp_tp`` (each layer on
+    the training split's path with one block of all 64 heads and all 14336
+    ``d_ff`` columns: the channel mix's reduce-scatter and gather, the sums
+    into and out of the time mix, each the identity over one rank); the
+    losses bit-equal, step ms of both sides, no wkv6 launch on either (the
+    chunked twin trains)."""
+    cfg = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
+    meta = shapes.param_specs_shapes(cfg, torch.float32)
+    layer = tp.ModelAxis({"data": 1, "model": 1}, shd.STRATEGIES["fsdp_tp"](),
+                         tp.param_shapes(meta), None, tp.Shares(),
+                         coord={"data": 0, "model": 0},
+                         stream=(RWKV_TRAIN_B, RWKV_TRAIN_SEQ, cfg.d_model)).layer(0)
+    unsharded, sharded = train_both_sides(cfg, RNN_TRAIN_STEPS, RWKV_TRAIN_B, RWKV_TRAIN_SEQ)
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
+           "strategy": "fsdp_tp", "batch": RWKV_TRAIN_B, "seq": RWKV_TRAIN_SEQ,
+           "steps": RNN_TRAIN_STEPS, "compute_dtype": "bfloat16", "master_dtype": "float32",
+           "remat_policy": "nothing", "time_mix_heads": list(layer.tm),
+           "channel_mix_d_ff": list(layer.cm), "unsharded": unsharded, "sharded": sharded,
+           "bit_equal": sharded["losses"] == unsharded["losses"]}
+    print("rwkv_split_train_path", json.dumps(rec), flush=True)
+    need(layer.tm_sum and layer.tm.hi - layer.tm.lo == cfg.d_model // cfg.rwkv_head_dim
+         and layer.cm_sum and layer.cm.hi - layer.cm.lo == cfg.d_ff,
+         f"rwkv train path: the splits {layer.tm}, {layer.cm}")
+    need(unsharded["launches"] == launch_counts() and sharded["launches"] == launch_counts(),
+         f"rwkv train path launches {unsharded['launches']}, {sharded['launches']}")
+    need(all(np.isfinite(unsharded["losses"])) and rec["bit_equal"],
+         f"rwkv train path: sharded losses {sharded['losses']}, train_loop's "
+         f"{unsharded['losses']}")
+    return rec
+
+
 def rwkv_split_phase():
     """(a) the shares of one full-width RWKV-6 layer at 8 and 16 ranks; (b)
-    the 1-rank path's serving."""
+    the 1-rank path's serving; (c) the layer's training shares at 8 and 16
+    ranks; (d) the 1-rank path's training."""
     cfg = get_config("rwkv6-7b")
     need((cfg.d_model, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.d_ff)
          == (4096, 64, 64, 14336), "rwkv6-7b width")
-    return {"shares": rwkv_shares(cfg, (8, 16)), "path": rwkv_path(cfg)}
+    return {"shares": rwkv_shares(cfg, (8, 16)), "path": rwkv_path(cfg),
+            "train_shares": rwkv_train_shares(cfg, (8, 16)), "train_path": rwkv_train_path(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -3821,7 +3986,9 @@ def main():
                       launches_rwkv_split_prefill_1_rank=rwkv_split["path"][
                           "prefill_launches_sharded"]["wkv6"],
                       launches_rwkv_split_decode_16_steps=rwkv_split["path"][
-                          "decode_launches_sharded"]["wkv6"]),
+                          "decode_launches_sharded"]["wkv6"],
+                      launches_rwkv_split_train_2_steps=rwkv_split["train_path"]["sharded"][
+                          "launches"]["wkv6"]),
     ]
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,

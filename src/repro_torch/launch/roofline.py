@@ -17,10 +17,11 @@ rank 0's):
 
 plus MODEL_FLOPS = 6 N D (train) or 2 N D (forward only) per rank (MoE:
 active N), and the usefulness ratio MODEL_FLOPS / op FLOPs, which shows
-remat's recompute and the compute the ``model`` split leaves whole (the
-RWKV-6 mixer and channel mix, an RG-LRU layer whose gate blocks the axis
-does not divide, the MoE router), the ranks along it repeating each
-other's work there.
+remat's recompute and the compute the ``model`` split leaves whole (an
+RG-LRU layer whose gate blocks the axis does not divide, an RWKV-6 mixer
+it does not divide, the RWKV-6 mixes' ``mu_*`` passes over the whole
+input, the MoE router), the ranks along it repeating each other's work
+there.
 """
 
 from __future__ import annotations

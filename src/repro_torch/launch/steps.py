@@ -17,10 +17,10 @@ channels, the embedding and the head by vocabulary, the MoE by experts; the
 train step with the vocab-parallel cross-entropy, the gradient sums over
 ``model`` of its backward and the residual stream's sequence split over
 ``model`` where the rules say so, the decode step with attention over the
-cache where it lies and the RG-LRU state where it lies; the prefill and
-decode steps split the RWKV-6 time mix by heads (its WKV state read and
-written where it lies) and the channel mix by ``d_ff``, which the train
-step still computes whole on every rank along ``model`` (ROADMAP.md). The
+cache where it lies and the RG-LRU state where it lies; every step splits
+the RWKV-6 time mix by heads (in decode and prefill its WKV state read and
+written where it lies; in training the chunked twin on the rank's heads)
+and the channel mix by ``d_ff``. The
 encoder-decoder's train step is sharded too: its frames
 and tokens split by rows, each block's self-attention, cross-attention and
 MLP along ``model``, its streams whole along ``model`` (the reference's

@@ -13,17 +13,22 @@ per-head K x V state in fp32.
 The casts are the reference's, including its one to watch: the decay is
 computed in fp32 and cast to the activation dtype before the recurrence.
 
-Both mixers split along the ``model`` axis in sharded serving
-(``parallel/tensor_parallel.py``); the code is the same, each weight's
-shape says the width. The time mix on a rank's contiguous block of heads
+Both mixers split along the ``model`` axis in sharded serving and
+training (``parallel/tensor_parallel.py``); the code is the same, each
+weight's shape says the width. The time mix on a rank's contiguous block of heads
 holds that block's columns of ``w_r``/``w_k``/``w_v``/``w_g`` and of
 ``decay_b``, its entries of ``decay_base`` and ``out_norm``, its rows of
 ``bonus`` and of ``w_o``; WKV and the per-head group norm run on those
-heads against the state's block, and the output is the rank's term of a
+heads (in serving against the state's block), and the output is the rank's term of a
 sum over ``model``. The channel mix on a rank's ``d_ff`` block holds
 ``w_k``'s columns and ``w_v``'s rows of it, and its block of ``w_r``'s
 columns: :meth:`ChannelMix.parts` gives the rank's value term (a partial
-sum over ``model``) and its block of the receptance.
+sum over ``model``) and its block of the receptance. In training the
+gradients come back the same way: each block's gradient is the rank's own
+(gathered over ``model`` into a weight that lies whole at rest), and the
+``mu_*`` and ``decay_a`` gradients, from the whole input on every rank,
+are partial terms summed over ``model``; the WKV op trains through its
+chunked twin on the rank's heads, the reference's training path.
 """
 
 from __future__ import annotations

@@ -140,13 +140,15 @@ class Block(nn.Module):
         ``tensor_parallel.LayerAxis`` in sharded training, which splits the
         attention, the dense MLP, the RG-LRU's channels and the MoE's
         experts along ``model`` and routes the MoE's tokens in the global
-        batch's groups (``LayerAxis.moe``). Where it splits the stream's
-        sequence, x is the rank's block of positions [B, S'/M, d]
+        batch's groups (``LayerAxis.moe``), and the RWKV-6 time mix's heads
+        and channel mix's ``d_ff``, as serving splits them. Where it splits
+        the stream's sequence, x is the rank's block of positions [B, S'/M, d]
         (``positions`` the whole stream's): the norms and residual adds run
         on it, and each sub-block's normed input is gathered along the
-        sequence, its output reduce-scattered (a split product) or sliced to
-        the rank's block (the RWKV-6 mixer and channel mix, a layer the axis
-        does not divide)."""
+        sequence, its output reduce-scattered (a split product), moved to
+        the rank's positions by one all-to-all (the RWKV-6 channel mix's
+        column blocks) or sliced to the rank's block (a layer the axis does
+        not divide)."""
         x = x + self.mix(common.apply_norm(self.norm1, x), positions, axis)
         h, aux = self.feed_forward(common.apply_norm(self.norm2, x), axis)
         return x + h, aux
@@ -157,15 +159,19 @@ class Block(nn.Module):
         if self.mixer == "rglru":
             return _summed(self.rglru(_split_in(h, axis, "rglru_sum")), axis, "rglru_sum")
         if self.mixer == "rwkv":
-            return _summed(self.tm(_split_in(h, axis))[0], axis)
+            return _summed(self.tm(_split_in(h, axis, "tm_sum"))[0], axis, "tm_sum")
         h = _split_in(h, axis, "attn_sum")
         return _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
 
     def feed_forward(self, h: torch.Tensor, axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``forward``'s second half on the ``norm2``-normed stream: (output,
-        MoE aux term)."""
+        MoE aux term). The RWKV-6 channel mix on the rank's ``d_ff`` block
+        ends in its own collectives (``LayerAxis.channel_mix``): its output
+        is the rank's block of positions where the sequence splits."""
         aux = h.new_zeros((), dtype=torch.float32)
         if self.mixer == "rwkv":
+            if axis is not None and axis.cm_sum:
+                return axis.channel_mix(self.cm, _split_in(h, axis, "cm_sum"))[0], aux
             return _summed(self.cm(_split_in(h, axis))[0], axis), aux
         if hasattr(self, "moe"):
             return self.moe(h) if axis is None else axis.moe(self.moe, h, with_aux=True)

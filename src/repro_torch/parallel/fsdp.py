@@ -22,9 +22,11 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   head by vocabulary, with a sum over ``model`` after each row-parallel product, the
   MoE's combine and the lookup, a sum of the gradient over ``model`` before
   each column-parallel one, and the vocab-parallel cross-entropy on the
-  rank's logits block. The RWKV-6 mixers train whole on every rank (their
-  split is serving's, below; the training split is the next RWKV item of
-  ROADMAP.md);
+  rank's logits block. Each RWKV-6 layer splits as in serving: the time
+  mix by heads, its term summed over ``model``, and the channel mix by
+  ``d_ff``, its value term reduce-scattered along ``d`` and its product
+  all-gathered (``tensor_parallel.LayerAxis.channel_mix``, each collective
+  with its autograd);
 * sequence parallelism (the ``seq`` rule, ``"model"`` under ``fsdp_tp``,
   ``tp_only`` and ``fsdp_tp_pod_fsdp``): the residual stream [B, P + S, d]
   between the sub-blocks is the rank's contiguous block of positions
@@ -34,9 +36,10 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   each sub-block's normed input is all-gathered along the sequence (its
   backward a reduce-scatter), and each sum over ``model`` after a
   row-parallel product, the MoE's combine or the lookup becomes a
-  reduce-scatter along it (its backward an all-gather). A compute that does
-  not split along ``model`` in training (the RWKV-6 mixer and channel mix,
-  a layer, head or embedding the axis does not divide) runs on the gathered
+  reduce-scatter along it (its backward an all-gather); the RWKV-6 channel
+  mix's product goes to the rank's positions by one all-to-all (backward
+  the inverse one). A compute that does not split along ``model`` (a
+  layer, head or embedding the axis does not divide) runs on the gathered
   stream and keeps the rank's positions. Remat keeps each group's
   input as the rank's block: that is the memory the rule saves;
 * each weight is materialized just before use (:class:`_Gather`): the
@@ -46,9 +49,10 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   them) is brought to its ``model`` block and gathered over the other axes
   only -- the RG-LRU's gates, whole at rest, by a local slice, and under
   ``serve_2d`` a leaf laid out over ``(data, model)`` to the contiguous
-  block of ``model`` alone; in serving, the RWKV-6 time mix's ``w_v``,
-  rows at rest, by one all-to-all over ``model`` to its columns, and its
-  ``w_o``, ``bonus`` and 1-D leaves, whole at rest, by a local slice --;
+  block of ``model`` alone; the RWKV-6 time mix's ``w_v``, rows at rest,
+  by one all-to-all over ``model`` to its columns, and its ``w_o``,
+  ``bonus``, ``decay_b`` and 1-D leaves, whole at rest, by a local
+  slice --;
   every other weight is gathered whole (FSDP).
   The flash and scan
   kernels see ordinary tensors: DTensor's sharding propagation cannot see
@@ -60,14 +64,17 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   split weight's block gradient is the rank's own. A weight that ``model``
   replicates but the rank reads only in part (``ModelAxis.sums_gradient``:
   K/V where ``n_kv_heads`` does not divide the axis, QK-norm's scales, the
-  MoE router where the experts split) has its gradient summed over
-  ``model`` too. Where the stream's sequence splits, that is every
-  replicated weight: the norms' scales, the RWKV-6 leaves (whole in
-  training), an unsplit layer's, embedding's or head's, since each rank back-propagates only its
-  own positions' term; without the split the rest are computed whole and
-  equal on every rank along ``model``, and not summed. The RG-LRU's gates,
-  whole at rest and read by blocks, get the blocks' gradients gathered
-  over ``model``.
+  MoE router where the experts split, an RWKV-6 mix's ``mu_*`` and the
+  time mix's ``decay_a`` where the mixer splits) has its gradient summed
+  over ``model`` too. Where the stream's sequence splits, that is every
+  replicated weight: the norms' scales, an unsplit layer's, embedding's or
+  head's, since each rank back-propagates only its own positions' term;
+  without the split the rest are computed whole and equal on every rank
+  along ``model``, and not summed. A weight whole at rest and read by
+  blocks (the RG-LRU's gates; the RWKV-6 time mix's ``w_o``, ``bonus``,
+  ``decay_b`` and 1-D leaves) gets the blocks' gradients gathered over
+  ``model``; ``tm.w_v``'s column block goes back to its row block by the
+  inverse all-to-all before the sum over the batch axes.
   ``REPRO_GRAD_SYNC_BF16=1`` (``train_loop``) round-trips the reduced
   gradient through bf16, as the reference's step states it: a round trip
   of each rank's gradient before the reduction was tried and parts from the
@@ -125,10 +132,10 @@ it needs, is not ported yet. Nor is sharded encoder-decoder serving:
 :meth:`ShardedModel.init_cache` refuse it.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter; the RWKV-6 split in training;
-``serve_2d``'s weight-stationary decode (partial sums over ``data`` in
-place of the ``embed`` gather and of the RG-LRU state's gather over
-``data``); the encoder-decoder's sequence split and sharded serving.
+in place of its gather and reduce-scatter; ``serve_2d``'s
+weight-stationary decode (partial sums over ``data`` in place of the
+``embed`` gather and of the RG-LRU state's gather over ``data``); the
+encoder-decoder's sequence split and sharded serving.
 """
 
 from __future__ import annotations
@@ -138,7 +145,6 @@ import weakref
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
-import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
@@ -182,18 +188,6 @@ def full_state(module: nn.Module) -> Dict[str, torch.Tensor]:
             for n, p in module.named_parameters()}
 
 
-def _move_block(x: torch.Tensor, src: int, dst: int, group, n: int) -> torch.Tensor:
-    """A rank's block of a tensor split along dim ``src`` over the ``n``
-    ranks of ``group`` -> its block of the split along ``dst``: one
-    all-to-all, chunk j of ``x`` along ``dst`` to rank j, and the chunks
-    received laid along ``src`` in rank order."""
-    send = torch.stack(x.chunk(n, dst))
-    got = funcol.all_to_all_single(send, None, None, group)
-    if isinstance(got, funcol.AsyncCollectiveTensor):
-        got = got.wait()
-    return torch.cat(got.unbind(0), src)
-
-
 def _block_shape(shape: Tuple[int, ...], placements: Tuple[Placement, ...],
                  sizes: Tuple[int, ...]) -> Tuple[int, ...]:
     """A rank's block of a tensor of ``shape`` laid out by ``placements``
@@ -216,33 +210,42 @@ class _Gather(torch.autograd.Function):
     whose block moves to another tensor dim (the RWKV-6 time mix's ``w_v``,
     rows at rest, columns computed with) moves last, once the other dims are
     in place, by one functional all-to-all of the rank's block
-    (:func:`_move_block`): DTensor's own plan for the whole move gathers the
+    (``MeshCollectives.move``): DTensor's own plan for the whole move gathers the
     tensor whole, and its all-to-all is not a functional collective, which
-    the dry run's counter would not see. Backward:
-    the gradient laid out by ``back`` (``keep`` with a sum pending over the
-    batch axes, and over ``model`` for a weight read in part), redistributed
-    to the block's placement."""
+    the dry run's counter would not see. Backward: the gradient laid out by
+    ``back`` (``keep`` with a sum pending over the batch axes, and over
+    ``model`` for a weight read in part); a moved block first goes back to
+    the dim it lies on at rest by the inverse all-to-all, then DTensor
+    redistributes the rest to the block's placement (the sums over the
+    batch axes, the gathers of a whole-at-rest weight's blocks)."""
 
     @staticmethod
     def forward(ctx, local, mesh, placements, shape, stride, keep, back):
         ctx.mesh, ctx.placements, ctx.back = mesh, placements, back
         ctx.shape, ctx.stride = shape, stride
         if keep == placements:
+            ctx.moved = ()
             return local.view_as(local)
         first = tuple(p if isinstance(p, Shard) and isinstance(k, Shard) else k
                       for p, k in zip(placements, keep))
+        ctx.moved = tuple((i, p, k) for i, (p, k) in enumerate(zip(first, keep)) if p != k)
         out = DTensor.from_local(local.detach(), mesh, placements, run_check=False,
                                  shape=shape, stride=stride).redistribute(mesh, first).to_local()
-        for i, (p, k) in enumerate(zip(first, keep)):
-            if p != k:
-                out = _move_block(out, p.dim, k.dim, (mesh, i), mesh.shape[i])
+        for i, p, k in ctx.moved:
+            out = tp.MeshCollectives(mesh).move(out, p.dim, k.dim, mesh.mesh_dim_names[i])
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.back == ctx.placements:
+        back = list(ctx.back)
+        for i, p, k in reversed(ctx.moved):
+            grad = tp.MeshCollectives(ctx.mesh).move(grad, k.dim, p.dim,
+                                                     ctx.mesh.mesh_dim_names[i])
+            back[i] = p
+        back = tuple(back)
+        if back == ctx.placements:
             return grad, None, None, None, None, None, None
-        pending = DTensor.from_local(grad.contiguous(), ctx.mesh, ctx.back, run_check=False,
+        pending = DTensor.from_local(grad.contiguous(), ctx.mesh, back, run_check=False,
                                      shape=ctx.shape, stride=ctx.stride)
         local = pending.redistribute(ctx.mesh, ctx.placements).to_local()
         return local, None, None, None, None, None, None

@@ -1,7 +1,7 @@
 """Tensor-parallel compute on the ``model`` axis: one rank's share of
 attention, the dense MLP, the MoE experts, the RG-LRU's recurrent channels,
-the embedding and the vocab head, in serving and in training, and of the
-RWKV-6 time mix's heads and channel mix's ``d_ff``, in serving.
+the embedding and the vocab head, and of the RWKV-6 time mix's heads and
+channel mix's ``d_ff``, in serving and in training.
 
 What GSPMD does to the reference's ``build_prefill_step``,
 ``build_serve_step`` and ``train_step`` under the strategies' ``heads``,
@@ -17,8 +17,8 @@ hook (None in one process) and asks it
   ``n_kv_heads`` divides the axis, its ``d_ff`` columns, its block of each
   MoE layer's experts (dim 0 of ``w_up``/``w_gate``/``w_down`` where the
   axis divides E, else every expert's ``d_ff`` columns where it divides
-  ``d_ff``, as the resolver gives the spec), its vocab rows; in serving,
-  an RWKV-6 layer's blocks (:meth:`ModelAxis._rwkv_split`);
+  ``d_ff``, as the resolver gives the spec), its vocab rows, an RWKV-6
+  layer's blocks (:meth:`ModelAxis._rwkv_split`);
 * ``from_split(x)``: the sum over ``model`` after a row-parallel product
   (attention's ``wo``, the MLP's ``w_down``, the RG-LRU's ``w_out``, the
   RWKV-6 time mix's ``w_o``, the MoE's combine) and after
@@ -38,9 +38,11 @@ hook (None in one process) and asks it
   part by the rank (``wk``/``wv``/``bk``/``bv`` where ``n_kv_heads`` does not
   divide the axis, QK-norm's scales: the rank's query heads read some of
   them; the router where the experts split: each gate's gradient comes
-  from the rank's own experts' term), so its gradient is a partial term to
-  be summed over ``model``; without the sequence split every other
-  replicated weight is computed whole and equal on every rank;
+  from the rank's own experts' term; an RWKV-6 mix's ``mu_*`` and the time
+  mix's ``decay_a`` where the mixer splits: they read the whole input), so
+  its gradient is a partial term to be summed over ``model``; without the
+  sequence split every other replicated weight is computed whole and equal
+  on every rank;
 * ``xent(logits, labels, mask)``: the vocab-parallel cross-entropy on the
   rank's [B, S, V/M] logits block: the row max over ``model`` (no
   gradient), the sum of ``exp`` over ``model``, the label's logit from the
@@ -83,34 +85,41 @@ the same input and adds their outputs has autograd sum the input's
 gradient; :meth:`Shares.merge_xent` combines the cross-entropy's terms; in
 the sequence form the caller feeds each gather the gathered input and
 sums and slices the whole term each reduce-scatter returns; the RWKV-6
-channel mix's value terms it combines itself, :func:`rwkv_shares`).
+channel mix's value terms it combines itself, :func:`rwkv_shares` and
+:func:`seq_shares`).
 
 A split weight's gradient is the rank's own block. That holds for the
-RG-LRU's gates too, which lie whole on every rank: the rank materializes
+RG-LRU's gates and the RWKV-6 time mix's ``w_o``, ``bonus``, ``decay_b``
+and 1-D leaves too, which lie whole on every rank: the rank materializes
 its blocks of them (``parallel/fsdp.py``), and the backward gathers the
 blocks' gradients over ``model`` into the whole one, the sum over the
 ranks' partial terms without its zeros.
 
-The RWKV-6 layer splits in serving only (training computes both mixers
-whole on every rank; its split is the next RWKV item of ROADMAP.md): the
-time mix by heads where the axis divides them -- r, k, v, g and the decay
-on the rank's heads, WKV on them against the state's block on them, which
-lies so at rest and is read and written in place, the per-head group norm
-on the rank's ``out_norm`` block, and ``w_o``'s rows giving the rank's term
-of a sum over ``model`` (one all-reduce, as attention's); ``w_v`` lies on
-its rows at rest (the channel mix's rule, by leaf name), and the weights'
-gather brings it to its columns (one all-to-all over ``model`` of the
-rank's block). The channel mix splits by ``d_ff`` where the resolved specs
-split ``w_k``'s and ``w_v``'s ``ff`` dim and ``w_r``'s columns: the rank's
-value term is reduce-scattered along ``d``, multiplied by the rank's block
-of the receptance, and the product all-gathered along ``d``
-(:meth:`LayerAxis.channel_mix`: the bytes of one all-reduce, and no
-``w_r`` gathered). The two conditions are independent.
+The RWKV-6 layer splits in serving and in training alike: the time mix by
+heads where the axis divides them -- r, k, v, g and the decay on the
+rank's heads, WKV on them (in serving against the state's block on them,
+which lies so at rest and is read and written in place; in training
+through the chunked twin, the reference's training path), the per-head
+group norm on the rank's ``out_norm`` block, and ``w_o``'s rows giving the
+rank's term of a sum over ``model`` (one all-reduce, as attention's, or a
+reduce-scatter along the sequence); ``w_v`` lies on its rows at rest (the
+channel mix's rule, by leaf name), and the weights' gather brings it to
+its columns (one all-to-all over ``model`` of the rank's block; in
+training its gradient goes back to the rows by the inverse one). The
+channel mix splits by ``d_ff`` where the resolved specs split ``w_k``'s
+and ``w_v``'s ``ff`` dim and ``w_r``'s columns: the rank's value term is
+reduce-scattered along ``d``, multiplied by the rank's block of the
+receptance, and the product all-gathered along ``d``, or taken to the
+rank's positions by one all-to-all where the stream's sequence splits
+(:meth:`LayerAxis.channel_mix`, each collective with its autograd; no
+``w_r`` gathered). The two conditions are independent. The mixes' ``mu_*``
+and ``decay_a`` read the whole input: their gradients are partial terms,
+summed over ``model``.
 
-Out of this split, computed whole on every rank: the RWKV-6 mixers in
-training (and in serving where the axis does not divide them), an RG-LRU
-layer whose gate blocks the axis does not divide, the MoE router (its
-gradient summed where the experts split) and every norm.
+Out of this split, computed whole on every rank: an RWKV-6 mixer the axis
+does not divide, an RG-LRU layer whose gate blocks the axis does not
+divide, the MoE router (its gradient summed where the experts split) and
+every norm.
 
 Sequence parallelism in training (``seq``, the rank's positions of the
 residual stream: ``sharding.stream_split``, given the stream's global
@@ -118,10 +127,9 @@ shape): the stream between sub-blocks is the rank's block [B, S'/M, d].
 ``to_split`` then all-gathers the normed block along the sequence
 (:class:`_GatherSeq`, backward a reduce-scatter, which sums the ranks'
 terms as ``_ToSplit``'s all-reduce did) and ``from_split`` reduce-scatters
-the row-parallel term (:class:`_ScatterSeq`, backward an all-gather); a
-compute that does not split (the RWKV-6 mixer and channel mix in
-training, a layer, head or embedding the axis does not divide) takes the
-gathered stream
+the row-parallel term (:class:`_ReduceScatter`, backward an all-gather); a
+compute that does not split (a layer, head or embedding the axis does not
+divide) takes the gathered stream
 (``gather``) and keeps the rank's positions (``own``: the slice's backward
 pads with zeros). Each rank then back-propagates only its own positions'
 term through every replicated weight, so ``sums_gradient`` names them all:
@@ -155,7 +163,7 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "enc_blocks": ("attn", "mlp"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
-# the RWKV-6 mixers (split in serving only) and the dim of each leaf's block
+# the RWKV-6 mixers and the dim of each leaf's block
 _RWKV_MODULES = ("tm", "cm")
 _TM_DIMS = {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "decay_b": 1, "w_o": 0,
             "decay_base": 0, "out_norm": 0, "bonus": 0}
@@ -165,8 +173,7 @@ _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 def splits_compute(name: str) -> bool:
     """Whether a parameter's compute may split along ``model``: attention's
     (the decoder's cross-attention's too), the dense MLP's, the MoE's and the
-    RG-LRU's weights, the RWKV-6 time mix's and channel mix's (in serving
-    only: ``ModelAxis.split`` gives them no block in training), the
+    RG-LRU's weights, the RWKV-6 time mix's and channel mix's, the
     embedding and the head. The MoE's router is among them with its spec
     unsplit: it is read whole, its gradient summed where the experts split
     (``ModelAxis.sums_gradient``). The encoder-decoder's positions, and
@@ -205,10 +212,20 @@ class MeshCollectives:
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Equal blocks of dim 0: block j goes to the axis's rank j, and the
-        result's block i came from rank i."""
+        result's block i came from rank i. A caller lays the blocks it sends
+        along a new dim 0 (``torch.stack`` of its chunks, as :meth:`move`
+        and the prefill's cache fill do) and unbinds what it receives."""
         if self.sizes[axis] == 1:
             return x
         return _done(funcol.all_to_all_single(x.contiguous(), None, None, self._group(axis)))
+
+    def move(self, x: torch.Tensor, src: int, dst: int, axis: str) -> torch.Tensor:
+        """A rank's block of a tensor split along dim ``src`` over ``axis``
+        -> its block of the split along ``dst``: one all-to-all, chunk j of
+        ``x`` along ``dst`` to rank j, the chunks received laid along
+        ``src`` in rank order."""
+        got = self.all_to_all(torch.stack(x.chunk(self.sizes[axis], dst)), axis)
+        return torch.cat(got.unbind(0), src)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
         """The sum over the axis, split along ``dim``: rank i keeps block i."""
@@ -364,20 +381,57 @@ class _GatherSeq(torch.autograd.Function):
         return ctx.comm.reduce_scatter(grad, 1, "model"), None
 
 
-class _ScatterSeq(torch.autograd.Function):
-    """A row-parallel term [B, S', ...] reduce-scattered over ``model`` along
-    the sequence: the sum, the rank's block of it; backward, the gradient
-    all-gathered (every rank's term reads every position)."""
+class _ReduceScatter(torch.autograd.Function):
+    """A term reduce-scattered over ``model`` along ``dim``: the sum, the
+    rank's block of it (a row-parallel term [B, S', ...] along the sequence;
+    the RWKV-6 channel mix's value term along ``d``); backward, the gradient
+    all-gathered along ``dim`` (every rank's term reads every position or
+    column)."""
 
     @staticmethod
-    def forward(ctx, x, comm):
-        ctx.comm = comm
-        out = comm.reduce_scatter(x, 1, "model")
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        out = comm.reduce_scatter(x, dim, "model")
         return x.view_as(x) if out is x else out
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.comm.all_gather(grad, 1, "model"), None
+        return ctx.comm.all_gather(grad, ctx.dim, "model"), None, None
+
+
+class _GatherWidth(torch.autograd.Function):
+    """The rank's column block [..., d/M] of a tensor that is then whole and
+    equal on every rank, all-gathered over ``model`` along its last dim;
+    backward, the rank's block of the gradient, which is whole and equal on
+    every rank too. ``index``: the rank's coordinate on ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, comm, index):
+        ctx.lo, ctx.n = index * x.shape[-1], x.shape[-1]
+        out = comm.all_gather(x, x.ndim - 1, "model")
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.lo:ctx.lo + ctx.n], None, None
+
+
+class _ToPositions(torch.autograd.Function):
+    """The rank's column block [B, S', d/M] of a term whole along the
+    sequence -> the rank's positions [B, S'/M, d] of it: one all-to-all over
+    ``model`` (:meth:`MeshCollectives.move`); backward, the inverse one. Each rank
+    back-propagates only its own positions, so the move carries 1/M of the
+    stream each way, where an all-gather along ``d`` and a slice would take
+    a whole-stream reduce-scatter in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.move(x, x.ndim - 1, 1, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.move(grad, 1, grad.ndim - 1, "model"), None
 
 
 def _sum_over(x: torch.Tensor, comm: Comm, axes: Tuple[str, ...]) -> torch.Tensor:
@@ -474,8 +528,6 @@ class ModelAxis:
             return None
         parts = name.split(".")
         rwkv = len(parts) == 4 and parts[2] in _RWKV_MODULES
-        if rwkv and self._layers is None:  # training computes the RWKV-6 mixers whole
-            return None
         key = (name, shape)
         if key not in self._memo and ".rglru." in name:
             self._memo[key] = self._rnn_split(name, shape)
@@ -511,8 +563,8 @@ class ModelAxis:
         return shd.Split(dim, ("model",), m * step, (m + 1) * step)
 
     def _rwkv_split(self, name: str, shape: Tuple[int, ...]) -> Optional[shd.Split]:
-        """An RWKV-6 leaf's ``model`` block in serving: the rank's
-        contiguous block along its dim in ``_TM_DIMS`` (the time mix's
+        """An RWKV-6 leaf's ``model`` block, in serving and in training: the
+        rank's contiguous block along its dim in ``_TM_DIMS`` (the time mix's
         heads: ``d / M`` columns of ``w_r``/``w_k``/``w_v``/``w_g``/
         ``decay_b``, entries of ``decay_base``/``out_norm``, rows of ``w_o``,
         and ``H / M`` rows of ``bonus``) where the axis divides the heads, or
@@ -520,9 +572,11 @@ class ModelAxis:
         ``w_v``'s rows, and ``d / M`` of ``w_r``'s columns) where the resolved
         specs split those dims over ``model``; else None (the mixer runs
         whole). The mixes' ``mu_*`` and ``decay_a`` read the whole input:
-        None. ``tm.w_v`` lies on its rows at rest (its resolved spec reads
-        the leaf name alone); its block here is its columns, and the
-        weights' gather brings it there."""
+        None, their gradients summed over ``model`` where the mixer splits
+        (:meth:`sums_gradient`). ``tm.w_v`` lies on its rows at rest (its
+        resolved spec reads the leaf name alone); its block here is its
+        columns, and the weights' gather brings it there (and its gradient
+        back)."""
         M = self.sizes.get("model")
         prefix, leaf = name.rsplit(".", 1)
         dims = _TM_DIMS if prefix.endswith(".tm") else _CM_DIMS
@@ -548,7 +602,7 @@ class ModelAxis:
         reduce-scattered along it (the rank's block), its backward an
         all-gather."""
         if self.seq is not None:
-            return _ScatterSeq.apply(x, self.comm)
+            return _ReduceScatter.apply(x, self.comm, 1)
         return _FromSplit.apply(x, self.comm)
 
     def to_split(self, x: torch.Tensor) -> torch.Tensor:
@@ -748,26 +802,33 @@ class LayerAxis:
 
     def channel_mix(self, cm, h: torch.Tensor, shift: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The RWKV-6 channel mix on the rank's ``d_ff`` block (``cm_sum``),
-        h [B, S, d] whole: the rank's value term [B, S, d]
-        (``ChannelMix.parts``) reduce-scattered along ``d`` to its block of
-        the sum, times the rank's receptance block [B, S, d/M], the product
-        all-gathered along ``d``. -> (out [B, S, d], new shift state [B, d]).
+        """The RWKV-6 channel mix on the rank's ``d_ff`` block (``cm_sum``) of
+        h [B, S, d], the whole stream (the caller's ``to_split``, which
+        gathers the sequence where it splits): the rank's value term [B, S,
+        d] (``ChannelMix.parts``) reduce-scattered along ``d`` to its block
+        of the sum (backward an all-gather along ``d``), times the rank's
+        receptance block [B, S, d/M]. The product goes out whole, all-gathered
+        along ``d`` (backward the rank's block of the gradient, whole and
+        equal on every rank); or, where the stream's sequence splits, as the
+        rank's positions [B, S/M, d], by one all-to-all (backward the inverse
+        one). -> (out, new shift state [B, d]).
 
         Under :class:`Shares` the reduce-scatter's other side is the
         caller's, and this raises: a share's term is ``ChannelMix.parts``
         on its blocks -- its value term, to be summed over the ranks and
         sliced to each rank's ``d`` block, and its receptance block, which
         multiplies that slice; the products laid side by side are the
-        output (:func:`rwkv_shares` plays it)."""
-        comm = self.axis.comm
-        if isinstance(comm, Shares):
+        output (:func:`rwkv_shares` and :func:`seq_shares` play it)."""
+        axis = self.axis
+        if isinstance(axis.comm, Shares):
             raise NotImplementedError("a share alone holds only its value term of the "
                                       "channel mix: combine ChannelMix.parts over the "
                                       "shares (tensor_parallel.rwkv_shares)")
         v, r, new_shift = cm.parts(h, shift)
-        v = comm.reduce_scatter(v, v.ndim - 1, "model")
-        return comm.all_gather(r * v, v.ndim - 1, "model"), new_shift
+        out = r * _ReduceScatter.apply(v, axis.comm, v.ndim - 1)
+        if axis.seq is not None:
+            return _ToPositions.apply(out, axis.comm), new_shift
+        return _GatherWidth.apply(out, axis.comm, axis.coord["model"]), new_shift
 
     def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):
         """The KV heads [B, S, h, D] this rank's query heads read: its own
@@ -899,7 +960,18 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     return axis, params, {"layers": layers, "pos": cache["pos"]}
 
 
-def rwkv_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, carried: bool
+def _played_channel_mix(terms, dtype: torch.dtype) -> torch.Tensor:
+    """The RWKV-6 channel mix's output from every rank's (value term,
+    receptance block) (``ChannelMix.parts`` on its ``d_ff`` block), as
+    :meth:`LayerAxis.channel_mix` combines them over ``model``: the value
+    terms added in fp32, each rank's receptance block times its ``d`` block
+    of the sum, the products laid side by side."""
+    v = sum(t.float() for t, _ in terms).to(dtype)
+    w = v.shape[-1] // len(terms)
+    return torch.cat([r * v[..., m * w:(m + 1) * w] for m, (_, r) in enumerate(terms)], -1)
+
+
+def rwkv_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, carried: bool = False
                 ) -> torch.Tensor:
     """Layer ``index``'s RWKV-6 ``Block.prefill`` (or, ``carried``, its
     ``Block.decode``) on every rank's share in turn (``shares``: each
@@ -910,38 +982,45 @@ def rwkv_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, carried: boo
     (``cm_sum``), the ranks' value terms are added in fp32, each rank's
     receptance block multiplies its ``d`` block of the sum, and the
     products are laid side by side, else rank 0's whole output is taken.
+    Without caches (training: :func:`share` given none), ``Block.forward``'s
+    two halves, ``Block.mix`` and the channel mix, on the whole stream:
+    each half's normed input reaches every rank through a cast from fp32, so
+    autograd adds its gradient's terms in fp32, as ``to_split``'s all-reduce
+    adds them, and a gradient reaches each weight through its rank's block.
     -> the block's output."""
     block = lm.layers[index]
     layer = shares[0][0].layer(index)
+    train = shares[0][2] is None
 
     def each(fn, norm):
         with _reparametrize_module(lm, shares[0][1]):  # the norms are whole on every rank
-            h = common.apply_norm(norm, x)
+            h = common.apply_norm(norm, x).float()
         outs = []
-        for _, params, cache in shares:
+        for axis, params, cache in shares:
             with _reparametrize_module(lm, params):
-                outs.append(fn(h, cache["layers"][index]))
+                outs.append(fn(h.to(x.dtype), axis.layer(index),
+                               None if train else cache["layers"][index]))
         return outs
 
     def added(terms):
         return sum(t.float() for t in terms).to(x.dtype)
 
-    tm = each(lambda h, c: block._time_mix(h, c, carried), block.norm1)
+    def time_mix(h, layer, c):
+        return block.mix(h, None, layer) if train else block._time_mix(h, c, carried)
+
+    tm = each(time_mix, block.norm1)
     x = x + (added(tm) if layer.tm_sum else tm[0])
 
-    def channel(h, c):
+    def channel(h, layer, c):
         if not layer.cm_sum:
-            return block._ffn(h, c, carried), None
+            return block.feed_forward(h, layer)[0] if train else block._ffn(h, c, carried), None
         v, r, new_shift = block.cm.parts(h, c["cm_shift"] if carried else None)
-        c["cm_shift"].copy_(new_shift)
+        if not train:
+            c["cm_shift"].copy_(new_shift)
         return v, r
 
     cm = each(channel, block.norm2)
-    if not layer.cm_sum:
-        return x + cm[0][0]
-    v = added([t for t, _ in cm])
-    w = v.shape[-1] // len(cm)
-    return x + torch.cat([r * v[..., m * w:(m + 1) * w] for m, (_, r) in enumerate(cm)], -1)
+    return x + (_played_channel_mix(cm, x.dtype) if layer.cm_sum else cm[0][0])
 
 
 def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: torch.Tensor,
@@ -982,7 +1061,12 @@ def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: to
     aux = []
     if "mix" in parts:
         xs = add(each(lambda h, layer: block.mix(h, positions, layer), "norm1"))
-    if "feed_forward" in parts:
+    if "feed_forward" in parts and block.mixer == "rwkv" and shares[0][0].layer(index).cm_sum:
+        out = _played_channel_mix(each(lambda h, layer: block.cm.parts(h)[:2], "norm2"),
+                                  x.dtype)
+        xs = [xr + out[:, lo:hi] for xr, (lo, hi) in zip(xs, bounds)]
+        aux = [x.new_zeros((), dtype=torch.float32) for _ in shares]
+    elif "feed_forward" in parts:
         ffn = each(lambda h, layer: block.feed_forward(h, layer), "norm2")
         xs, aux = add([o for o, _ in ffn]), [a for _, a in ffn]
     return torch.cat(xs, 1), aux

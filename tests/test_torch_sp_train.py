@@ -15,7 +15,11 @@ dense MLP, attention whose heads and an MLP whose ``d_ff`` W 4 does not
 divide (computed whole, each rank's positions kept), RG-LRU (the rank's
 channels of the gathered stream, the term reduce-scattered; with 2 gate
 blocks, which W 4 does not divide, whole, each rank's positions kept),
-RWKV-6 (gathered, each rank's positions kept), and the MoE (qwen3-moe: the rows
+RWKV-6 (the time mix on the rank's heads of the gathered stream, its term
+reduce-scattered; the channel mix on its ``d_ff`` block, its value terms
+summed and sliced by ``d``, each rank's receptance block multiplied in, the
+blocks laid side by side and each rank's positions kept, as the all-to-all
+takes them), and the MoE (qwen3-moe: the rows
 gathered, the experts split, the combine reduce-scattered; with 6 experts
 and a ``d_ff`` of 130 at W 4, whole, its aux term's gradient at 1/W a
 rank). For RWKV-6 and
@@ -41,8 +45,11 @@ the same runs: the input each remat group keeps for the backward, seen by
 ``torch.autograd.graph.saved_tensors_hooks``, is the rank's [B, S'/M, d]
 block; and internvl2-76b at S 57 (S' 73, which no axis divides: the
 resolver replicates the sequence) gives ``fsdp_tp_noseq``'s loss and
-gradients bit for bit. Part (iii): that undivided stream's train step counts
-the 16 all-reduces over ``model`` of the path without the split.
+gradients bit for bit; rwkv6-7b at S 57, which splits on neither mesh,
+runs the RWKV-6 split without the sequence split on real ranks (the
+channel mix's product all-gathered along ``d``). Part (iii): that
+undivided stream's train step counts the 16 all-reduces over ``model`` of
+the path without the split.
 """
 
 import dataclasses
@@ -135,8 +142,11 @@ def test_sequence_shares_equal_the_unsplit_layer(case, W):
     layer = axis.layer(index)
     for name in names:
         assert axis.sums_gradient(name) == (axis.split(name) is None), name
-    if case == "rwkv":
-        assert axis.sums_gradient(f"layers.{index}.tm.decay_base")
+    if case == "rwkv":  # the time mix's heads and the channel mix's d_ff split
+        assert layer.tm_sum and layer.cm_sum
+        assert not axis.sums_gradient(f"layers.{index}.tm.decay_base")
+        assert axis.sums_gradient(f"layers.{index}.tm.mu_r")
+        assert axis.sums_gradient(f"layers.{index}.cm.mu_k")
     if case.startswith("rglru"):  # the rank's channels and their gates' blocks, or whole
         split = block.rglru.gate_a.shape[0] % W == 0
         assert layer.rglru_sum == split
@@ -152,11 +162,11 @@ def test_sequence_shares_equal_the_unsplit_layer(case, W):
 @pytest.mark.parametrize("case", ["rglru", "rwkv"])
 def test_a_rank_alone_parts_at_its_shard_boundary(case):
     """Rank 1 of 4 (positions 6..11): the mixer run on the gathered stream
-    gives the unsplit mixer's output there (RWKV-6: the rank's positions of
-    its whole output; RG-LRU: every rank's channels, their terms summed and
-    the rank's positions kept, as the reduce-scatter keeps them); run on its
-    own block alone, its first position reads zeros where the token shift
-    and the conv read positions 5, 4 and 3, and the output parts."""
+    gives the unsplit mixer's output there (every rank's heads of the RWKV-6
+    time mix, or channels of the RG-LRU, their terms summed and the rank's
+    positions kept, as the reduce-scatter keeps them); run on its own block
+    alone, its first position reads zeros where the token shift and the
+    conv read positions 5, 4 and 3, and the output parts."""
     lm, index, x, _, positions = _layer_case(case)
     block = lm.layers[index]
     with torch.no_grad():
@@ -168,9 +178,9 @@ def test_a_rank_alone_parts_at_its_shard_boundary(case):
         for axis, params, _ in shares:  # the gather played here: h whole
             with _reparametrize_module(lm, params):
                 terms.append(block.mix(h, positions, axis.layer(index)))
-        summed = shares[1][0].layer(index).rglru_sum
-        assert summed == (case == "rglru")
-        got = sum(terms)[:, lo:hi] if summed else terms[1]
+        layer = shares[1][0].layer(index)
+        assert (layer.rglru_sum, layer.tm_sum) == (case == "rglru", case == "rwkv")
+        got = sum(terms)[:, lo:hi]
         alone = block.mix(h[:, lo:hi], positions[lo:hi])
     assert got.shape[1] == hi - lo == 6
     _close(got, want[:, lo:hi], "gathered")
@@ -197,7 +207,7 @@ def test_an_undivided_or_one_rank_stream_does_not_split():
 
 # an arch at S 56; "<arch>/S<n>" at S n; "gemma2-9b/odd": vocab 510, d_ff 130
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "rwkv6-7b",
-          "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "gemma2-9b/odd"]
+          "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "gemma2-9b/odd", "rwkv6-7b/S57"]
 UNDIVIDED = "internvl2-76b/S57"
 MESHES = {"fsdp_tp": ((2, 2), ("data", "model")), "tp_only": ((4,), ("model",))}
 
@@ -244,7 +254,7 @@ for name, cfg, np_params, batch in cases:
     kept = []
     result[name] = loss_and_grads(cfg, np_params, batch, rules)
     result[name]["kept"] = kept
-    if name.endswith("S57"):
+    if name == "internvl2-76b/S57":
         kept = []
         result[name + ":noseq"] = loss_and_grads(cfg, np_params, batch, {**rules, "seq": None})
 """
@@ -322,14 +332,17 @@ def test_sequence_split_loss_and_every_gradient_equal_the_reference(ranks, name)
 @pytest.mark.parametrize("name", MODELS)
 def test_each_remat_group_keeps_the_ranks_block(ranks, name):
     """remat "nothing": one group a pattern (the tail outside any), each
-    keeping its input; on a rank that is [B / data, S' / model, d]."""
+    keeping its input; on a rank that is [B / data, S' / model, d], or
+    [B / data, S', d] where ``model`` does not divide S' (rwkv6-7b at S
+    57: the stream is whole)."""
     strategy, results = ranks
     cfg = _case(name)[1]
     shape, axes = MESHES[strategy]
     sizes = dict(zip(axes, shape))
     S = _cfgs(name)[2] + cfg.frontend_seq_len
     n_groups, _ = cfg.n_groups_and_tail()
-    block = (4 // sizes.get("data", 1), S // sizes["model"], cfg.d_model)
+    block = (4 // sizes.get("data", 1), S // sizes["model"] if S % sizes["model"] == 0 else S,
+             cfg.d_model)
     for res in results:
         assert res[name]["kept"] == [block] * n_groups, (strategy, res[name]["kept"])
 

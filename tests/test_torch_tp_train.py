@@ -16,16 +16,21 @@ MQA, QK-norm, a local window with the score softcap, the three MLPs and a
 ``d_ff`` W does not divide. The RG-LRU layer of reduced recurrentgemma-9b
 (4 gate blocks) at W 2, 4 and 8: the rank's channels (every leaf a block,
 the gates' blocks among them) where W divides the blocks, the layer whole
-at W 8. The embedding, the head and the vocab-parallel
-cross-entropy (with a mask, tied and untied, with the final softcap): every
+at W 8. The RWKV-6 layer of reduced rwkv6-7b (4 heads, ``d_ff`` 128) at
+W 2, 4 and 8 through ``tensor_parallel.rwkv_shares``' training form: the
+time mix's heads (whole at W 8) and the channel mix's ``d_ff`` blocks,
+the mixes' ``mu_*`` and ``decay_a`` summed. The embedding, the head and
+the vocab-parallel cross-entropy (with a mask, tied and untied, with the
+final softcap): every
 rank's lookup summed, its logits block's terms combined as the mesh
 combines them (``Shares.merge_xent``), one backward. Everything within 1e-5
 of the largest value of the unsplit output or gradient, in fp32.
 
 Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh): reduced
-gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b, qwen3-moe and
+gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b, qwen3-moe,
 phi3.5-moe (8 experts: each rank computes its block of them, the expert
-split), and phi3.5-moe with 6 experts (3 a rank on (data 2, model 2); on
+split), rwkv6-7b (both mixers split, the stream's sequence too), and
+phi3.5-moe with 6 experts (3 a rank on (data 2, model 2); on
 (model 4), which does not divide 6, every expert's ff columns: the ff
 split) on (data 2, model 2) under ``fsdp_tp`` and on (model 4) under
 ``tp_only``:
@@ -54,7 +59,8 @@ share of the masked tokens.
 
 Part (iii), the dry run's trace of a train step on a (data 2, model 2)
 mesh: the collectives over ``model`` the op counter files, counted one by
-one, and no weight gathered over ``model``.
+one, and no weight gathered over ``model`` in the forward (rwkv6-7b's
+time-mix ``w_v`` block moved by all-to-alls, its gradient back by one).
 """
 
 import dataclasses
@@ -275,6 +281,81 @@ def test_rglru_training_shares_equal_the_unsplit_layer(W):
     assert len(kinds) == 10 and set(kinds.values()) == {"block" if split else "whole"}
 
 
+# the time mix's leaves that read the whole input: their gradient is a
+# partial term a rank where the time mix splits
+_RWKV_WHOLE_INPUT = ("tm.mu_r", "tm.mu_k", "tm.mu_v", "tm.mu_w", "tm.mu_g", "tm.decay_a")
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_rwkv_training_shares_equal_the_unsplit_layer(W):
+    """Reduced rwkv6-7b's layer 0 (d 64, 4 heads of 16, ``d_ff`` 128) in
+    ``tensor_parallel.rwkv_shares``' training form (no cache: ``Block.mix``
+    and the channel mix on each rank's blocks, the sums over ``model``
+    played there), one backward from one upstream gradient: the output, the
+    input's gradient and every leaf's against the unsplit ``Block.forward``.
+    Each rank's blocks are leaves of their own, so each gradient is checked
+    by its kind: a split leaf's block (the time mix's heads at W 2 and 4,
+    ``w_o``, ``bonus``, ``decay_b`` and the 1-D leaves, whole at rest,
+    among them; the channel mix's ``d_ff`` block at all three W) equal to
+    that block of the unsplit gradient; the mixes' ``mu_*`` and
+    ``decay_a``, which read the whole input, summed over the ranks where
+    their mixer splits; the rest (the time mix at W 8, which does not
+    divide 4 heads; the norms) whole on rank 0, whose whole output
+    ``rwkv_shares`` takes."""
+    cfg = dataclasses.replace(ARCHS["rwkv6-7b"].reduced(), n_layers=1)
+    lm = _seeded_lm(cfg)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    gy = torch.randn(B, S, cfg.d_model, generator=g)
+    names = [n for n, _ in lm.named_parameters() if n.startswith("layers.0.")]
+    xw = x.clone().requires_grad_()
+    out, _ = lm.layers[0](xw, torch.arange(S))
+    want = torch.autograd.grad(out, [xw] + [lm.get_parameter(n) for n in names], gy)
+    shares = []
+    for r in range(W):
+        axis, params, _ = tp.share(lm, None, r, W)
+        shares.append((axis, {n: p.detach().clone().requires_grad_() for n, p in params.items()},
+                       None))
+    xr = x.clone().requires_grad_()
+    got = tp.rwkv_shares(lm, 0, shares, xr)
+    leaves = [params[n] for _, params, _ in shares for n in names]
+    grads = torch.autograd.grad(got, [xr] + leaves, gy, allow_unused=True,
+                                materialize_grads=True)
+    _close(got.detach(), out.detach(), "output")
+    _close(grads[0], want[0], "input gradient")
+    per_rank = [dict(zip(names, grads[1 + r * len(names):1 + (r + 1) * len(names)]))
+                for r in range(W)]
+    layer = shares[0][0].layer(0)
+    assert (layer.tm_sum, layer.cm_sum) == (W != 8, True)
+    kinds = {}
+    for name, whole in zip(names, want[1:]):
+        splits = [axis.split(name) for axis, _, _ in shares]
+        sums = {axis.sums_gradient(name) for axis, _, _ in shares}
+        assert len(sums) == 1, name
+        summed = sums.pop()
+        assert not (summed and splits[0] is not None), name  # never both
+        leaf = name[len("layers.0."):]
+        if splits[0] is not None:
+            kinds[leaf] = "block"
+            for s, got_r in zip(splits, per_rank):
+                _close(got_r[name], whole.narrow(s.dim, s.lo, s.hi - s.lo), name)
+        elif summed:
+            kinds[leaf] = "summed"
+            _close(sum(got_r[name] for got_r in per_rank), whole, name)
+        else:
+            kinds[leaf] = "whole"
+            _close(per_rank[0][name], whole, name)
+    tm = "block" if layer.tm_sum else "whole"
+    want_kinds = {f"tm.{leaf}": tm for leaf in tp._TM_DIMS}
+    want_kinds.update({leaf: "summed" if layer.tm_sum else "whole"
+                       for leaf in _RWKV_WHOLE_INPUT})
+    want_kinds.update({"cm.w_k": "block", "cm.w_v": "block", "cm.w_r": "block",
+                       "cm.mu_k": "summed", "cm.mu_r": "summed"})
+    want_kinds.update({f"{norm}.{leaf}": "whole" for norm in ("norm1", "norm2")
+                       for leaf in ("g", "b")})  # layernorm's scale and bias
+    assert kinds == want_kinds
+
+
 @pytest.mark.parametrize("W", [2, 4])
 @pytest.mark.parametrize("case", sorted(HEAD_CASES))
 def test_vocab_parallel_lookup_head_and_cross_entropy(case, W):
@@ -412,7 +493,7 @@ def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
 # an arch at S 64, "<arch>/S<n>" at S n, "<arch>/E<n>" with n experts
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
           "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6",
-          "whisper-medium"]
+          "whisper-medium", "rwkv6-7b"]
 # the encoder-decoder's frames a row: 24, past its reduced 16-row ``enc_pos``
 # (the positions tile)
 ENCDEC_FRAMES = 24
@@ -693,3 +774,57 @@ def test_a_whisper_train_step_splits_every_block_along_model():
         assert tp.splits_compute(name) == ("model" in axes), name
         want += times * p.numel() * 4 // 2 if axes == {"data", "model"} else 0
     assert sum(op.bytes for op in over_data if op.kind == "all-gather") == want
+
+
+def test_an_rwkv_train_step_splits_both_mixers_along_model():
+    """Reduced rwkv6-7b (2 layers, d 64, 4 heads of 16, ``d_ff`` 128, vocab
+    512; B 4 x 32 tokens, so a rank's stream is [2, 16, d] and its gathered
+    stream [2, 32, d]) under ``fsdp_tp`` on (data 2, model 2), each layer its
+    own checkpoint. Over ``model``, counted by kind and bytes (a gather's
+    output, a reduce-scatter's or all-to-all's input):
+
+    * the stream, [2, 32, d] in bf16: each layer's time-mix and channel-mix
+      inputs gathered along the sequence and the time mix's term and the
+      channel mix's value term reduce-scattered (along the sequence and
+      along ``d``): 2 all-gathers and 2 reduce-scatters in the forward, 2
+      and 2 in the recompute, and their 4 gradients' inverses: 6 and 6 a
+      layer; plus the lookup's reduce-scatter, the head's gather and their
+      gradients' inverses;
+    * each channel mix's product [2, 32, d/2] to the rank's positions by one
+      all-to-all, and its gradient back by one (the recompute stops before
+      it: nothing after it is saved): 2 a layer;
+    * ``tm.w_v``'s fp32 block [d, d/2], rows at rest, to its columns: one
+      all-to-all in the forward, one in the recompute and one taking its
+      gradient back to the rows: 3 a layer. No other weight moves over
+      ``model`` in the forward: every ``tm.`` / ``cm.`` block is where it
+      lies or a local slice;
+    * the gradients of the time mix's leaves that lie whole at rest and are
+      read in blocks (``bonus``, ``decay_b``, ``w_o``, ``out_norm``,
+      ``decay_base``), all-gathered from the blocks: 5 a layer;
+    * the gradients read in part, all-reduced: the time mix's five
+      ``mu_*`` and ``decay_a`` (its ``data`` half, [d/2, 32]), the channel
+      mix's two ``mu_*`` and the two norms' scale and bias (each rank
+      normalizes its own positions): 12 a layer; plus the cross-entropy's
+      three, ``final_norm``'s two and the clip's global norm.
+
+    4 + 2 * 34 + 6 = 78 collectives; nothing else moves over ``model``."""
+    cfg = ARCHS["rwkv6-7b"].reduced()
+    d, L = cfg.d_model, cfg.n_layers
+    assert (L, d, d // cfg.rwkv_head_dim, cfg.d_ff) == (2, 64, 4, 128)
+    ops = [(op.kind, op.bytes) for op in _step_collectives("rwkv6-7b", "fsdp_tp", 32)[1]]
+    stream, vec = 2 * 32 * d * 2, d * 4
+    w_v = d * (d // 2) * 4
+    per_layer = ([("all-gather", stream), ("reduce-scatter", stream)] * 6
+                 + [("all-to-all", stream // 2)] * 2 + [("all-to-all", w_v)] * 3
+                 + [("all-gather", b) for b in (vec, 32 * d * 4, d * d * 4, vec, vec)]
+                 + [("all-reduce", vec)] * 11 + [("all-reduce", (d // 2) * 32 * 4)])
+    xent = 2 * 32 * 4
+    whole = ([("reduce-scatter", stream), ("all-gather", stream)] * 2
+             + [("all-reduce", xent)] * 3 + [("all-reduce", vec)] * 2
+             + [("all-reduce", 4 * (4 + 24 * L))])  # the clip: one fp32 a leaf
+    assert sorted(ops) == sorted(per_layer * L + whole)
+    layer_forward = [("all-to-all", w_v), ("all-gather", stream), ("reduce-scatter", stream),
+                     ("all-gather", stream), ("reduce-scatter", stream),
+                     ("all-to-all", stream // 2)]
+    assert ops[:17] == ([("reduce-scatter", stream)] + layer_forward * L
+                        + [("all-gather", stream)] + [("all-reduce", xent)] * 3)
