@@ -59,8 +59,9 @@ calls, and fails (exit code not 0, no result line) on any miss:
               1-rank NCCL mesh, ``ShardedModel.prefill`` of its padded
               prompts and 16 ``decode_step`` calls fed 8a's greedy tokens
               (each MoE layer on the expert split's path, one block of all
-              128 experts; decode attention merging the partial softmax of
-              the cache's one sequence shard), against the same calls on
+              128 experts; decode attention over the cache's one sequence
+              shard, which holds every position: the plain path, as one
+              process's), against the same calls on
               the unsharded model, whose greedy choices must be 8a's: every
               call's logits within 5e-2 of the largest, the tokens that
               differ reported with their top-2 margin (a bf16 near-tie), 8
@@ -112,10 +113,10 @@ calls, and fails (exit code not 0, no result line) on any miss:
               ranks on one device, and gloo's collectives on CUDA tensors
               crash): (c) phase 8e's weights sharded in place on a 1-rank
               NCCL mesh, ``ShardedModel.prefill`` and 16 greedy
-              ``decode_step`` calls (every split whole, each merge over one
-              shard): 24 tensor-core flash launches a prefill, none in
-              decode, tokens equal to phase 8e's, prefill and step ms beside
-              its; (a) each rank's share of a split computed in turn through
+              ``decode_step`` calls (every split whole, the cache's one
+              sequence shard read on the plain path): 24 tensor-core flash
+              launches a prefill, none in decode, tokens equal to phase
+              8e's, prefill and step ms beside its; (a) each rank's share of a split computed in turn through
               the functions the ranks call (``tensor_parallel.share``), the
               sum over ``model`` applied here: one full-width internvl2-76b
               layer (64/8 heads, SwiGLU) at 8 and 16 ranks, one gemma2-9b
@@ -257,6 +258,29 @@ calls, and fails (exit code not 0, no result line) on any miss:
               seeded weights and batch, losses within 1e-6 (bit-equality
               printed), step ms of both under CUDA events, 6 tensor-core
               flash launches a step;
+ 10c. whisper_tp_serve sharded whisper-medium serving on the ``model``
+              axis, in this one process: (a) each rank's share of one
+              full-width decoder block's decode at 4 and 16 ranks (4 heads
+              and 1 head of 16, d_ff blocks of 1024 and 256;
+              ``tensor_parallel.share`` on the card: the rank's heads' block
+              of a 448-slot self cache, its cross-attention heads over a
+              1500-frame memory), B 4, 16 steps from an empty cache
+              (``block_shares(..., pos=t)``, the split parts' terms added in
+              fp32): every step's output and each rank's cache block against
+              the unsplit ``DecBlock.decode``'s, fp32 within 1e-5 of the
+              largest, bf16 within 5e-2 beside the unsplit bf16 block's own
+              error, no kernel launch (decode is the plain path); (b)
+              whisper-medium at full width (24 + 24 layers, bf16), B 4 x 1500
+              frames: the encode and 65 decode calls (the start token, then
+              64 greedy) unsharded, then the same weights on a 1-rank NCCL
+              mesh through ``ShardedModel.prefill`` and ``decode_step`` fed
+              the unsharded tokens: the memory and every call's logits
+              within 1e-3 of the largest (bit-equality printed), greedy
+              tokens equal (a flip reported with its top-2 margin), 24
+              tensor-core flash launches an encode and none a decode step
+              on both sides, encode ms and decode ms a step (wall and CUDA
+              events) of both. The kernels phase times flash at one rank's
+              encode shape: B 4 x 1500 frames, 4/4 and 1/1 heads, D 64, bf16;
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
  12. dispatch the BandPilot dispatcher (``repro_torch.core``) on the paper's
@@ -320,6 +344,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -698,14 +723,14 @@ def kernel_phase():
         flash_case("whisper-medium cross", 4, 448, 16, 16, 64, None, None,
                    torch.bfloat16, 2e-2, timed=True, previous=True, causal=False, S_k=1500,
                    graph=True),
-    ]
+    ] + whisper_tp_flash_cases()
     simt_checks = [
         flash_case("recurrentgemma-9b heads, fp32", 1, 2560, 16, 1, 256, 2048, None,
                    torch.float32, 1e-5, timed=False),
         flash_case("bf16 at head_dim 32", 2, 300, 8, 2, 32, None, None,
                    torch.bfloat16, 2e-2, timed=False),
     ]
-    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 14
+    need([c["kernel"] for c in [flash] + flash_checks + whisper] == ["wgmma"] * 16
          and [c["kernel"] for c in simt_checks] == ["simt"] * 2,
          "flash cases took the wrong kernel")
     lru = rglru_case("recurrentgemma-9b prefill", 4, 2560, 4096, False, torch.bfloat16,
@@ -1412,7 +1437,8 @@ def whisper_tp_path():
     with process_group("cuda"):
         mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
         step = steps.build_train_step(cfg, cell, mesh, device="cuda", seed=SEED)
-        need(step.sharded, "whisper: the train step is not sharded")
+        need(all(isinstance(p, DTensor) for p in step.args[0].parameters()),
+             "whisper: the train step is not sharded")
         batch = step.args[2]
         run = TrainRunConfig(optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
                              remat_policy="nothing", compute_dtype=torch.bfloat16)
@@ -1462,6 +1488,293 @@ def whisper_tp_path():
 
 def whisper_tp_train_phase():
     return {"shares": whisper_tp_shares(WHISPER_TP_RANKS), "path": whisper_tp_path()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10c: sharded whisper-medium serving on the model axis
+# ---------------------------------------------------------------------------
+
+# (a) shares: 16 decode steps of one decoder block over a 448-slot self cache;
+# (b) the 1-rank path: the memory and every call's logits within 1e-3 of the
+# unsharded ones' largest, 64 decode steps
+WHISPER_SERVE_SHARE_STEPS, WHISPER_SERVE_PATH_TOL = 16, 1e-3
+# one rank's flash call in the sharded encode: B 4 x 1500 frames on 4 and 1
+# of the 16 heads, D 64, bf16, non-causal (kernels phase)
+WHISPER_TP_FLASH_CASES = ("whisper-medium encode, a rank of 4", "whisper-medium encode, "
+                          "a rank of 16")
+
+
+def whisper_tp_flash_cases():
+    return [flash_case(name, WHISPER_B, WHISPER_T, h, h, 64, None, None, torch.bfloat16, 2e-2,
+                       timed=True, causal=False, graph=True)
+            for name, h in zip(WHISPER_TP_FLASH_CASES, (4, 1))]
+
+
+SEQ_DECODE_STEPS = 16
+
+
+def seeded_cache(api, batch, length, dtype, seed):
+    """``api.init_cache(batch, length)`` with every K/V leaf drawn from
+    ``seed`` (in fp32, then cast): a cache as earlier steps left it."""
+    cache = api.init_cache(batch, length, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for c in cache[tp.cache_key(cache)]:
+        for leaf in c.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda"))
+    return cache
+
+
+def seq_decode_form(case, model, stack, cache, steps_in, extra, W, dtype, tol, unsplit32):
+    """Block 0 of ``model``'s ``stack`` decoding ``steps_in`` over the whole
+    seeded ``cache``, unsplit and then on all W ranks at once, one thread a
+    rank on the card (``tensor_parallel.thread_shares`` under ``fsdp_tp``,
+    whose cache layout is kept: the cache split by positions over
+    ``model``, the new K/V row and every head's queries all-gathered, the
+    ranks' partial softmaxes merged by the threads' all-reduces). The steps
+    start 8 positions before the last rank's block, so the new rows land
+    in two blocks and every block holds valid positions. Every rank's
+    output against the unsplit one (within ``tol`` of its largest; ranks
+    equal), each rank's cache block against those positions of the unsplit
+    cache; ``unsplit32``: the fp32 unsplit outputs by W, filled in fp32 and
+    read in bf16. Decode takes the plain path: no kernel launches."""
+    key = tp.cache_key(cache)
+    L, n = cache[key][0]["k"].shape[1], len(steps_in)
+    start = L - L // W - n // 2
+
+    def decode(block, layer, c):
+        return torch.stack([block.decode(x, start + t, c[key][0], *extra, axis=layer)
+                            for t, x in enumerate(steps_in)]), None if layer is None else layer.seq
+
+    with torch.no_grad():
+        want_cache = copy.deepcopy(cache)
+        want, _ = decode(getattr(model, stack)[0], None, want_cache)
+        torch.cuda.synchronize()
+        reset_counts()
+        got, caches = tp.thread_shares(model, stack, 0, W, cache, decode)
+        torch.cuda.synchronize()
+    launches = counts()
+    seqs = [seq for _, seq in got]
+    got = [out for out, _ in got]
+    unsplit32.setdefault(W, want.float())
+    cache_err = max(rel_err(c[key][0][k], want_cache[key][0][k][:, seq.lo:seq.hi])
+                    for c, seq in zip(caches, seqs) for k in ("k", "v"))
+    rec = {"case": case, "form": "sequence-split cache, ranks run together (threads)",
+           "model_ranks": W, "dtype": str(dtype)[6:], "batch": int(steps_in[0].shape[0]),
+           "cache_len": L, "start": start, "steps": n,
+           "rank_positions": [[s.lo, s.hi] for s in seqs],
+           "ranks_equal": all(torch.equal(o, got[0]) for o in got),
+           "rel_err_per_step": [rel_err(a, b) for a, b in zip(got[0], want)],
+           "cache_rel_err": cache_err, "tol": tol, "launches": launches}
+    rec["rel_err"] = max(rec["rel_err_per_step"])
+    if dtype == torch.bfloat16:
+        rec["unsplit_vs_fp32"] = rel_err(want, unsplit32[W])
+        rec["shares_vs_fp32"] = rel_err(got[0], unsplit32[W])
+    print("seq_decode_form", json.dumps(rec), flush=True)
+    need(all(s is not None and s.hi - s.lo == L // W for s in seqs),
+         f"{case} at {W}: the cache does not split by positions: {rec['rank_positions']}")
+    need(launches == launch_counts(), f"{case} at {W}: launches {launches}")
+    need(rec["ranks_equal"] and bool(torch.isfinite(got[0].float()).all())
+         and rec["rel_err"] <= tol and cache_err <= tol,
+         f"{case} at {W} ({dtype}): {rec['rel_err']}, cache {cache_err}, ranks equal "
+         f"{rec['ranks_equal']}")
+    return rec
+
+
+def whisper_serve_shares(ranks):
+    """(a) one full-width decoder block's decode, B 4, 16 steps from an empty
+    448-slot self cache over a 1500-frame memory, fp32 then the same weights
+    in bf16: the unsplit ``DecBlock.decode``, then for each W in ``ranks``
+    every rank's share in turn (``tensor_parallel.share`` on the card: its
+    heads' block of the self cache, its cross-attention heads, its ``d_ff``
+    block; ``block_shares(..., pos=t)``, the split parts' terms added in
+    fp32); every step's output against the unsplit block's, each rank's
+    cache block against that block of the unsplit cache. Then the sequence
+    form at each W (``seq_decode_form``: a seeded 448-slot self cache split
+    by positions, the ranks run together, their partial softmaxes merged).
+    Decode takes the plain path: no kernel launches on either side."""
+    cfg = whisper_cfg(1)
+    model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    api = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    d, B, L = cfg.d_model, WHISPER_B, WHISPER_S
+    memory = torch.randn(B, WHISPER_T, d, generator=g, device="cuda")
+    xs = [torch.randn(B, 1, d, generator=g, device="cuda")
+          for _ in range(WHISPER_SERVE_SHARE_STEPS)]
+    block = model.dec_blocks[0]
+    recs, unsplit32, seq32 = [], None, {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype)
+            mem, steps_in = memory.to(dtype), [x.to(dtype) for x in xs]
+            want_cache = api.init_cache(B, L, dtype)
+            reset_counts()
+            want = torch.stack([block.decode(x, t, want_cache["self"][0], mem)
+                                for t, x in enumerate(steps_in)])
+            torch.cuda.synchronize()
+            want_launches = counts()
+            unsplit32 = want if unsplit32 is None else unsplit32
+            for W in ranks:
+                shares = [tp.share(model, api.init_cache(B, L, dtype), r, W) for r in range(W)]
+                reset_counts()
+                got = torch.stack([tp.block_shares(model, "dec_blocks", 0, shares, x, None,
+                                                   mem, pos=t)
+                                   for t, x in enumerate(steps_in)])
+                torch.cuda.synchronize()
+                launches = counts()
+                layers = [axis.layer(0, "dec_blocks") for axis, _, _ in shares]
+                need(all(v.attn_sum and v.xattn_sum and v.mlp_sum and v.kv is not None
+                         and v.cross.kv is not None for v in layers),
+                     f"whisper serve shares at {W}: no split")
+                cache_err = max(rel_err(c["self"][0][k],
+                                        want_cache["self"][0][k][:, :, v.kv.lo:v.kv.hi])
+                                for v, (_, _, c) in zip(layers, shares) for k in ("k", "v"))
+                tol = WHISPER_TP_FP32_TOL if dtype == torch.float32 else WHISPER_TP_BF16_TOL
+                rec = {"case": f"{cfg.name} dec_blocks.0 decode ({cfg.n_heads} heads, "
+                               f"d_ff {cfg.d_ff})",
+                       "model_ranks": W, "dtype": str(dtype)[6:], "batch": B,
+                       "cache_len": L, "steps": WHISPER_SERVE_SHARE_STEPS,
+                       "memory_frames": WHISPER_T, "terms_added_in": "float32",
+                       "rank_heads": cfg.n_heads // W, "rank_d_ff": cfg.d_ff // W,
+                       "rel_err_per_step": [rel_err(a, b) for a, b in zip(got, want)],
+                       "cache_rel_err": cache_err, "tol": tol,
+                       "launches_shares": launches, "launches_unsplit": want_launches}
+                rec["rel_err"] = max(rec["rel_err_per_step"])
+                if dtype == torch.bfloat16:
+                    rec["unsplit_vs_fp32"] = rel_err(want, unsplit32)
+                    rec["shares_vs_fp32"] = rel_err(got, unsplit32)
+                print("whisper_serve_shares", json.dumps(rec), flush=True)
+                need(launches == launch_counts() and want_launches == launch_counts(),
+                     f"whisper serve shares at {W}: launches {launches}, {want_launches}")
+                need(bool(torch.isfinite(got.float()).all()) and rec["rel_err"] <= tol
+                     and cache_err <= tol,
+                     f"whisper serve shares at {W} ({dtype}): {rec['rel_err']}, cache "
+                     f"{cache_err}")
+                recs.append(rec)
+                del shares, got
+                recs.append(seq_decode_form(
+                    rec["case"], model, "dec_blocks", seeded_cache(api, B, L, dtype, SEED + 5),
+                    steps_in, (mem,), W, dtype, tol, seq32))
+    del model
+    torch.cuda.empty_cache()
+    return recs
+
+
+def whisper_serve_replay(model, params, frames, first, fed, full):
+    """An encode of ``frames`` (cold, then warm), then one decode step from
+    ``first`` and one on each column of ``fed`` (None: greedy, each step's
+    argmax): the memory, every call's logits in fp32 [1 + steps, B, 1, V],
+    the tokens fed, encode ms, decode wall and device ms a step, launches."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    encode_ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            cache = model.init_cache(frames.shape[0], WHISPER_S, torch.bfloat16)
+            reset_counts()
+            start.record()
+            memory, cache = model.prefill(params, {"frames": frames}, cache)
+            end.record()
+            torch.cuda.synchronize()
+            encode_ms.append(start.elapsed_time(end))
+            encode_launches = counts()
+        tok, out, toks = first, [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(WHISPER_DECODE_STEPS + 1):
+            logits, cache = model.decode_step(params, cache, tok, memory)
+            out.append(full(logits).float())
+            if i < WHISPER_DECODE_STEPS:
+                tok = out[-1].argmax(-1) if fed is None else fed[:, i:i + 1]
+                toks.append(tok)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = WHISPER_DECODE_STEPS + 1
+    return {"memory": full(memory), "logits": torch.stack(out), "tokens": torch.cat(toks, 1),
+            "encode_ms": encode_ms, "encode_launches": encode_launches,
+            "decode_launches": counts(), "decode_ms_per_step": wall * 1e3 / n,
+            "decode_device_ms_per_step": start.elapsed_time(end) / n, "pos": cache["pos"]}
+
+
+def whisper_serve_path():
+    """(b) whisper-medium at full width (24 + 24 layers, bf16, seeded
+    weights), B 4 x 1500 frames: the encode and 65 decode calls (from the
+    start token, then 64 greedy) unsharded; then the same weights sharded in
+    place on a 1-rank NCCL mesh under ``fsdp_tp``, ``ShardedModel.prefill``
+    and 65 ``decode_step`` calls fed the unsharded run's tokens (each decoder
+    block's self-attention over its cache's one sequence shard, which holds
+    every position: the plain path, as one process's). The memory and each
+    call's logits against the
+    unsharded ones (within 1e-3 of the largest; bit-equality printed), the
+    sharded argmax against the unsharded tokens (each flip reported with the
+    unsharded top-2 margin there), 24 tensor-core flash launches an encode
+    and none a decode step on both sides, encode and decode ms of both."""
+    cfg = whisper_cfg()
+    model = build_model(cfg)
+    params = model.init(SEED, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    frames = torch.randn(WHISPER_B, WHISPER_T, cfg.d_model, generator=g,
+                         device="cuda").bfloat16()
+    first = torch.full((WHISPER_B, 1), WHISPER_START, device="cuda")
+    plain = whisper_serve_replay(model, params, frames, first, None, lambda t: t)
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        sharded_model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
+        sharded_model.shard(params)  # in place: each weight a DTensor over the one rank
+        cache = sharded_model.init_cache(WHISPER_B, WHISPER_S, torch.bfloat16)
+        layer = sharded_model.model_axis(params, cache, (), WHISPER_B).layer(0, "dec_blocks")
+        sharded = whisper_serve_replay(sharded_model, params, frames, first, plain["tokens"],
+                                       lambda t: t.full_tensor())
+    del params, cache
+    torch.cuda.empty_cache()
+    want, got = plain["logits"], sharded["logits"]
+    want_toks = plain["tokens"].cpu()
+    got_toks = got[:-1, :, 0].argmax(-1).T.cpu()
+    top2 = want[:-1, :, 0].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).T.cpu()
+    diff = (got - want).abs().amax(dim=(1, 2, 3)).cpu()
+    flips = [{"row": r, "step": i, "margin": float(margin[r, i]), "max_abs_dlogit": float(diff[i])}
+             for r, i in torch.nonzero(got_toks != want_toks).tolist()]
+    per_encode = launch_counts(flash_wgmma=cfg.n_encoder_layers)
+    rec = {"arch": cfg.name, "layers": [cfg.n_encoder_layers, cfg.n_layers], "dtype": "bfloat16",
+           "mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp", "batch": WHISPER_B,
+           "frames": WHISPER_T, "cache_len": WHISPER_S, "decode_calls": len(want),
+           "cache_seq_split": None if layer.seq is None else list(layer.seq),
+           "memory_rel_err": rel_err(sharded["memory"], plain["memory"]),
+           "memory_bit_equal": bool(torch.equal(sharded["memory"], plain["memory"])),
+           "logits_rel_err": [rel_err(a, b) for a, b in zip(got, want)],
+           "logits_bit_equal": bool(torch.equal(got, want)),
+           "logits_max_abs": float(want.abs().max()), "tol": WHISPER_SERVE_PATH_TOL,
+           "tokens_equal": int((got_toks == want_toks).sum()), "tokens": want_toks.numel(),
+           "flips": flips, "first_tokens": want_toks[:, :8].tolist(),
+           "encode_ms": {"unsharded": plain["encode_ms"], "sharded": sharded["encode_ms"]},
+           "decode_ms_per_step": {"unsharded": plain["decode_ms_per_step"],
+                                  "sharded": sharded["decode_ms_per_step"]},
+           "decode_device_ms_per_step": {"unsharded": plain["decode_device_ms_per_step"],
+                                         "sharded": sharded["decode_device_ms_per_step"]},
+           "launches_per_encode": {"unsharded": plain["encode_launches"],
+                                   "sharded": sharded["encode_launches"]},
+           "launches_decode": {"unsharded": plain["decode_launches"],
+                               "sharded": sharded["decode_launches"]}}
+    print("whisper_serve_path", json.dumps(rec), flush=True)
+    for side in (plain, sharded):
+        need(side["encode_launches"] == per_encode and side["decode_launches"] == launch_counts(),
+             f"whisper serve path launches {side['encode_launches']}, {side['decode_launches']}")
+        need(side["pos"] == WHISPER_DECODE_STEPS + 1, f"whisper serve path pos {side['pos']}")
+    need(layer.seq is not None, "whisper serve path: the self cache's sequence does not lie "
+                                "over model")
+    need(bool(torch.isfinite(got).all()) and bool(torch.isfinite(sharded["memory"]).all()),
+         "whisper serve path: non-finite memory or logits")
+    need(rec["memory_rel_err"] <= WHISPER_SERVE_PATH_TOL
+         and max(rec["logits_rel_err"]) <= WHISPER_SERVE_PATH_TOL,
+         f"whisper serve path: memory {rec['memory_rel_err']}, logits "
+         f"{max(rec['logits_rel_err'])}")
+    need(not flips, f"whisper serve path: greedy tokens differ: {flips}")
+    return rec
+
+
+def whisper_tp_serve_phase():
+    return {"shares": whisper_serve_shares(WHISPER_TP_RANKS), "path": whisper_serve_path()}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,10 +2035,13 @@ def rank_heads(layer, cfg):
             else len(kv)]
 
 
-def tp_shares(cfg, ranks):
+def tp_shares(cfg, ranks, seq_recs):
     """(a) one full-width layer of ``cfg`` and its head, fp32 then the same
     weights in bf16: for each W in ``ranks`` every rank's share in turn, the
-    sums over ``model`` applied here, against the unsplit layer."""
+    sums over ``model`` applied here, against the unsplit layer. Then, into
+    ``seq_recs``, the layer's decode at B 4 over a seeded 2560-slot cache
+    split by positions (``seq_decode_form``: the ranks run together, their
+    partial softmaxes merged)."""
     lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
                      dtype=torch.float32)
     model = build_model(lm.cfg)
@@ -1734,7 +2050,9 @@ def tp_shares(cfg, ranks):
     x32 = torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (1, TP_S), generator=g, device="cuda")
     positions = torch.arange(TP_S, device="cuda")
-    recs, unsplit32 = [], None
+    decode32 = [torch.randn(4, 1, cfg.d_model, generator=g, device="cuda")
+                for _ in range(SEQ_DECODE_STEPS)]
+    recs, unsplit32, seq32 = [], None, {}
     for dtype in (torch.float32, torch.bfloat16):
         lm.to(dtype)
         x = x32.to(dtype)
@@ -1791,6 +2109,10 @@ def tp_shares(cfg, ranks):
                      f"tp shares {cfg.name} at {W} ({dtype}): {rec['rel_err']}")
                 recs.append(rec)
                 del shares, parts, got
+                seq_recs.append(seq_decode_form(
+                    f"{cfg.name} layer 0 decode ({cfg.n_heads}/{cfg.n_kv_heads} heads)", lm,
+                    "layers", seeded_cache(model, 4, TP_S, dtype, SEED + 6),
+                    [t.to(dtype) for t in decode32], (), W, dtype, rec["tol"], seq32))
     del lm
     torch.cuda.empty_cache()
     return recs
@@ -1804,7 +2126,9 @@ def tp_serve_phase(vlm, state):
     need((gemma2.n_heads, gemma2.n_kv_heads, gemma2.head_dim, gemma2.window,
           gemma2.attn_softcap, gemma2.mixer_pattern[0]) == (16, 8, 256, 4096, 50.0,
                                                            "attn_local"), "gemma2-9b width")
-    rec["shares"] = tp_shares(vlm_cfg(1), (8, 16)) + tp_shares(gemma2, (16,))
+    rec["seq_decode"] = []
+    rec["shares"] = (tp_shares(vlm_cfg(1), (8, 16), rec["seq_decode"])
+                     + tp_shares(gemma2, (16,), rec["seq_decode"]))
     return rec
 
 
@@ -2755,8 +3079,9 @@ def ep_replay(model, params, toks, fed, full, prefills):
 def ep_path(state, moe):
     """(b) moe_serve's weights sharded in place on a 1-rank NCCL mesh,
     through ``ShardedModel`` (each MoE layer on the expert split's path, one
-    block of all 128 experts; decode attention merging the partial softmax
-    of the cache's one sequence shard): a prefill of moe_serve's padded
+    block of all 128 experts; decode attention over the cache's one
+    sequence shard, which holds every position: the plain path, as one
+    process's): a prefill of moe_serve's padded
     prompts cold then warm, then 16 decode steps fed moe_serve's greedy
     tokens, first through the unsharded model (whose greedy choices must be
     moe_serve's), then sharded. Each call's logits are held to the
@@ -2805,7 +3130,7 @@ def ep_path(state, moe):
     print("ep_serve_path", json.dumps(rec), flush=True)
     need(layer.experts is not None and layer.experts.dim == 0,
          f"ep: experts not split ({layer.experts})")
-    need(layer.seq is not None, "ep: the cache's sequence not split: no merge ran")
+    need(layer.seq is not None, "ep: the cache's sequence does not lie over model")
     need(sharded["prefill_launches"] == launch_counts(flash_wgmma=cfg.n_layers),
          f"ep prefill launches {sharded['prefill_launches']}")
     need(sharded["decode_launches"] == launch_counts(), f"ep decode launched "
@@ -3852,6 +4177,7 @@ def main():
     whisper_train = phase("whisper_train", whisper_train_phase)
     torch.cuda.empty_cache()
     whisper_tp_train = phase("whisper_tp_train", whisper_tp_train_phase)
+    whisper_tp_serve = phase("whisper_tp_serve", whisper_tp_serve_phase)
     train_lm_rec = phase("train_lm", train_lm_phase)
     dispatch = phase("dispatch", dispatch_phase)
     elastic = phase("elastic", elastic_phase)
@@ -3876,7 +4202,8 @@ def main():
                       serve["launches"]["flash_attention_wgmma"], flash,
                       flash_checks + whisper_flash, previous_ms=flash["previous_ms"],
                       whisper_head_dim_64=[{key: c[key] for key in WHISPER_FLASH_KEYS}
-                                           for c in whisper_flash],
+                                           for c in whisper_flash
+                                           if c["case"] not in WHISPER_TP_FLASH_CASES],
                       launches_whisper_encode=whisper_serve["launches_per_encode"][
                           "flash_attention_wgmma"],
                       launches_whisper_decode_64_steps=whisper_serve["launches_decode"][
@@ -3924,7 +4251,14 @@ def main():
                       launches_whisper_tp_shares_bf16=[
                           [r["case"], r["model_ranks"],
                            r["launches_shares"]["flash_attention_wgmma"]]
-                          for r in whisper_tp_train["shares"] if r["dtype"] == "bfloat16"]),
+                          for r in whisper_tp_train["shares"] if r["dtype"] == "bfloat16"],
+                      whisper_tp_encode_per_rank=[
+                          {key: c[key] for key in WHISPER_FLASH_KEYS if key in c}
+                          for c in whisper_flash if c["case"] in WHISPER_TP_FLASH_CASES],
+                      launches_whisper_tp_encode_1_rank=whisper_tp_serve["path"][
+                          "launches_per_encode"]["sharded"]["flash_attention_wgmma"],
+                      launches_whisper_tp_decode_65_calls_1_rank=whisper_tp_serve["path"][
+                          "launches_decode"]["sharded"]["flash_attention_wgmma"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -3996,7 +4330,7 @@ def main():
                "moe_serve": moe_serve, "moe_check": moe_check,
                "whisper_serve": whisper_serve, "whisper_check": whisper_check,
                "whisper_train_check": whisper_train_check, "whisper_train": whisper_train,
-               "whisper_tp_train": whisper_tp_train,
+               "whisper_tp_train": whisper_tp_train, "whisper_tp_serve": whisper_tp_serve,
                "train": train, "train_check": train_check,
                "rwkv6_train_check": rwkv6_train_check, "moe_train_check": moe_train_check,
                "train_lm": train_lm_rec, "phase_seconds": phase_s,

@@ -103,7 +103,6 @@ def run_cell(
     record = {
         "arch": arch, "shape": shape, "mesh": mesh_name,
         "strategy": strategy, "remat": remat_policy, "status": "ok",
-        "sharded": step.sharded, "note": step.note,
         "build_s": round(t_build, 1), "trace_s": round(t_trace, 1),
         "n_ops": costs["n_ops"],
         "memory_per_rank_gb": {k: v / 2**30 for k, v in costs["peak_by_category"].items()},
@@ -118,8 +117,7 @@ def run_cell(
     if verbose:
         mem = record["memory_per_rank_gb"]
         print(f"[{arch} x {shape} x {mesh_name}] {strategy} build={t_build:.1f}s "
-              f"trace={t_trace:.1f}s ops={costs['n_ops']}"
-              + ("" if step.sharded else f" ({step.note})"))
+              f"trace={t_trace:.1f}s ops={costs['n_ops']}")
         print(f"  memory/rank: peak {record['peak_memory_gb']:.2f}G = "
               + " + ".join(f"{k} {v:.2f}G" for k, v in mem.items()))
         print(f"  cost: {rep.op_flops/1e12:.2f} TFLOP, "

@@ -21,13 +21,12 @@ cache where it lies and the RG-LRU state where it lies; every step splits
 the RWKV-6 time mix by heads (in decode and prefill its WKV state read and
 written where it lies; in training the chunked twin on the rank's heads)
 and the channel mix by ``d_ff``. The
-encoder-decoder's train step is sharded too: its frames
-and tokens split by rows, each block's self-attention, cross-attention and
-MLP along ``model``, its streams whole along ``model`` (the reference's
-``seq`` constraint on them, and the gather of the sequence-split memory it
-needs, are not ported yet). Sharded encoder-decoder serving is not ported
-yet (``ShardedModel`` refuses it): its prefill and serve steps run the
-whole global batch on one rank, and the Step says so.
+encoder-decoder's steps are sharded too: its frames and tokens split by
+rows, each block's self-attention, cross-attention and MLP along ``model``,
+its streams whole along ``model`` (the reference's ``seq`` constraint on
+them, and the gather of the sequence-split memory it needs, are not ported
+yet); its prefill is the encode, and its serve step reads the self caches
+where they lie and the memory laid out by rows (``ShardedModel.rows``).
 """
 
 from __future__ import annotations
@@ -59,34 +58,23 @@ class Step:
     mesh: DeviceMesh
     # category -> the tensors (any nesting) that exist before the step runs
     state: Dict[str, Any]
-    sharded: bool = True
-    note: str = ""
 
     def __call__(self):
         return self.fn(*self.args)
 
 
-UNSHARDED_NOTE = ("encoder-decoder: sharded encoder-decoder serving is not ported yet, "
-                  "so this step runs the whole global batch unsharded on one rank")
-
-
 def _model(cfg: ModelConfig, mesh: DeviceMesh, strategy: str,
-           rules_override: Optional[Dict], device: torch.device, train: bool = False):
-    """(the model the step calls, whether it is sharded): the encoder-decoder
-    is sharded in training only."""
-    model = build_model(cfg, device)
-    if cfg.is_encoder_decoder and not train:
-        return model, False
+           rules_override: Optional[Dict], device: torch.device) -> ShardedModel:
     rules = rules_override or shd.STRATEGIES[strategy]()
-    return ShardedModel(model, mesh, rules), True
+    return ShardedModel(build_model(cfg, device), mesh, rules)
 
 
-def _params(model, cfg: ModelConfig, dtype: torch.dtype, device: torch.device, seed: int):
-    """Seeded weights (shapes only on meta), sharded where the model is."""
-    base = model.model if isinstance(model, ShardedModel) else model
+def _params(model: ShardedModel, cfg: ModelConfig, dtype: torch.dtype, device: torch.device,
+            seed: int):
+    """Seeded weights (shapes only on meta), sharded."""
     params = (shp.param_specs_shapes(cfg, dtype) if device.type == "meta"
-              else base.init(seed, dtype))
-    return model.shard(params) if isinstance(model, ShardedModel) else params
+              else model.model.init(seed, dtype))
+    return model.shard(params)
 
 
 def _fill(specs: Dict[str, torch.Tensor], cfg: ModelConfig, device: torch.device,
@@ -120,7 +108,7 @@ def build_train_step(
     """AdamW (lr 3e-4, wd 0.1) over fp32 masters, bf16 compute, as the
     reference's step; one call is one optimizer step."""
     device = resolve_device(device)
-    model, sharded = _model(cfg, mesh, strategy, rules_override, device, train=True)
+    model = _model(cfg, mesh, strategy, rules_override, device)
     run = TrainRunConfig(
         optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
         remat_policy=remat_policy,
@@ -134,8 +122,7 @@ def build_train_step(
     return Step("train", cfg.name, cell.name, strategy, train_step,
                 (params, opt_state, batch), mesh,
                 {"parameters": list(params.parameters()),
-                 "optimizer": [opt_state.mu, opt_state.nu], "inputs": batch},
-                sharded, "" if sharded else UNSHARDED_NOTE)
+                 "optimizer": [opt_state.mu, opt_state.nu], "inputs": batch})
 
 
 def build_prefill_step(
@@ -152,7 +139,7 @@ def build_prefill_step(
     (the encoder pass for the encoder-decoder). ``cache_len`` defaults to
     the cell's sequence length, as in the reference."""
     device = resolve_device(device)
-    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    model = _model(cfg, mesh, strategy, rules_override, device)
     params = _params(model, cfg, torch.bfloat16, device, seed)
     batch = _fill(shp.prefill_input_specs(cfg, cell), cfg, device, seed)
     cache = model.init_cache(cell.global_batch, cache_len or cell.seq_len, torch.bfloat16)
@@ -162,8 +149,7 @@ def build_prefill_step(
         return model.prefill(params, batch, cache)
 
     return Step("prefill", cfg.name, cell.name, strategy, prefill, (params, batch, cache), mesh,
-                {"parameters": list(params.parameters()), "inputs": [batch, cache]},
-                sharded, "" if sharded else UNSHARDED_NOTE)
+                {"parameters": list(params.parameters()), "inputs": [batch, cache]})
 
 
 def build_serve_step(
@@ -177,7 +163,7 @@ def build_serve_step(
 ) -> Step:
     """One-token decode against a seq_len cache (and the encoder's memory)."""
     device = resolve_device(device)
-    model, sharded = _model(cfg, mesh, strategy, rules_override, device)
+    model = _model(cfg, mesh, strategy, rules_override, device)
     params = _params(model, cfg, torch.bfloat16, device, seed)
     cache = model.init_cache(cell.global_batch, cell.seq_len, torch.bfloat16)
     tokens = _fill({"tokens": shp._spec((cell.global_batch, 1), torch.int32)}, cfg, device,
@@ -185,15 +171,14 @@ def build_serve_step(
     args: Tuple = (params, cache, tokens)
     if cfg.is_encoder_decoder:
         memory = _fill({"memory": shp.memory_specs(cfg, cell)}, cfg, device, seed)["memory"]
-        args = args + (memory,)
+        args = args + (model.rows(memory),)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, *memory):
         return model.decode_step(params, cache, tokens, *memory)
 
     return Step("decode", cfg.name, cell.name, strategy, serve_step, args, mesh,
-                {"parameters": list(params.parameters()), "inputs": list(args[1:])},
-                sharded, "" if sharded else UNSHARDED_NOTE)
+                {"parameters": list(params.parameters()), "inputs": list(args[1:])})
 
 
 def build_step(

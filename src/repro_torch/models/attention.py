@@ -15,7 +15,8 @@ Counterpart of ``repro/models/attention.py``.
     permutation-invariant, so a validity mask is all decode needs. Decode
     attention stays on the plain path, as in the reference; so does the
     decode cross-attention (``decode_cross``), which projects K and V from
-    the memory again at every step, as the reference does.
+    the memory again at every step, as the reference does (on the rank's
+    heads in sharded serving).
 
 RoPE is applied only when ``cfg.use_rope`` and only in self-attention.
 
@@ -179,7 +180,10 @@ class Attention(nn.Module):
     def decode_cross(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         """One decode step's cross-attention: K and V projected from
         ``memory`` again, the plain path without softcap (the reference's
-        ``backend="reference"`` call), no cache."""
+        ``backend="reference"`` call), no cache. In sharded serving the
+        weights are the rank's query heads and their KV heads (equal in
+        number, ``LayerAxis.cross``), so K and V are projected onto those
+        heads and the output is the rank's term of the sum over ``model``."""
         q, k, v = self._qkv(x, None, memory)
         out = fa_ref.attention_plain(q, k, v, causal=False)
         return self._out(out)

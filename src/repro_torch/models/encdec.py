@@ -34,6 +34,18 @@ projects K and V from the whole memory onto the rank's heads, so each
 decoder block's memory gradient is the rank's term: the memory goes in
 through ``ModelAxis.to_split``, whose backward sums it over ``model``. The
 streams stay whole along ``model`` (no sequence split).
+
+Sharded serving takes the same hooks: ``encode`` under ``no_grad`` is the
+sharded prefill, every encoder block split by heads and ``d_ff`` (flash on
+the rank's heads); ``decode_step`` takes ``LM.decode_step``'s hooks
+(``materialize``, ``layer_cache``, ``model_axis``): the lookup and the tied
+head by vocabulary where the axis divides it, each decoder block's weights
+materialized inside the block, its self-attention over the rank's block of
+its self cache where it lies (``LayerAxis.decode_attention``: partial
+softmaxes merged over the cache's sequence axes), its cross-attention on the
+rank's heads with K and V projected from the rank's rows of the whole
+memory, and its MLP on the rank's ``d_ff`` block, each summed over
+``model``.
 """
 
 from __future__ import annotations
@@ -49,7 +61,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
-from repro_torch.models.transformer import Materialize, ModelAxis, _split_in, _summed
+from repro_torch.models.transformer import (LayerCache, Materialize, ModelAxis, _split_in,
+                                            _summed)
 
 Cache = Dict[str, Any]  # {"self": [per-decoder-layer KV cache], "pos": int}
 
@@ -133,13 +146,18 @@ class DecBlock(nn.Module):
         h = _split_in(h, axis, "attn_sum")
         return _summed(self.attn(h, positions, axis=axis), axis, "attn_sum")
 
-    def cross(self, h: torch.Tensor, memory: torch.Tensor, axis=None) -> torch.Tensor:
-        """The cross-attention on the ``norm_x``-normed stream. Where it
+    def cross(self, h: torch.Tensor, memory: torch.Tensor, axis=None,
+              decode: bool = False) -> torch.Tensor:
+        """The cross-attention on the ``norm_x``-normed stream (``decode``:
+        one decode step's token, ``Attention.decode_cross``). Where it
         splits, the rank projects K and V from the whole memory onto its own
         heads, so the memory goes in as the normed stream does: its gradient
         is summed over ``model``."""
         h, memory = _split_in(h, axis, "xattn_sum"), _split_in(memory, axis, "xattn_sum")
-        out = self.xattn(h, None, memory=memory, axis=None if axis is None else axis.cross)
+        if decode:
+            out = self.xattn.decode_cross(h, memory)
+        else:
+            out = self.xattn(h, None, memory=memory, axis=None if axis is None else axis.cross)
         return _summed(out, axis, "xattn_sum")
 
     def feed_forward(self, h: torch.Tensor, axis=None) -> torch.Tensor:
@@ -147,10 +165,23 @@ class DecBlock(nn.Module):
         return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
 
     def decode(self, x: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
-               memory: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn.decode(common.apply_norm(self.norm1, x), pos, cache)
-        x = x + self.xattn.decode_cross(common.apply_norm(self.norm_x, x), memory)
-        return x + self.mlp(common.apply_norm(self.norm2, x))
+               memory: torch.Tensor, axis=None) -> torch.Tensor:
+        """One token a row at position ``pos`` against the block's self cache
+        (updated in place) and the memory. ``axis`` as in ``forward``, in
+        sharded serving: the self-attention over the rank's block of the
+        cache where it lies (``LayerAxis.decode_attention``), the
+        cross-attention on the rank's heads, the MLP on its ``d_ff`` block,
+        each summed over ``model``."""
+        x = x + self.mix_step(common.apply_norm(self.norm1, x), pos, cache, axis)
+        x = x + self.cross(common.apply_norm(self.norm_x, x), memory, axis, decode=True)
+        return x + self.feed_forward(common.apply_norm(self.norm2, x), axis)
+
+    def mix_step(self, h: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
+                 axis=None) -> torch.Tensor:
+        """One decode step's causal self-attention on the ``norm1``-normed
+        token, over the self cache."""
+        h = _split_in(h, axis, "attn_sum")
+        return _summed(self.attn.decode(h, pos, cache, axis), axis, "attn_sum")
 
 
 def _run_block(stack: nn.ModuleList, name: str, index: int, remat_policy: Optional[str],
@@ -271,16 +302,27 @@ class EncDec(nn.Module):
         memory = self.encode(frames, remat_policy, materialize, model_axis)
         return self.decode_train(tokens, memory, remat_policy, materialize, model_axis)
 
-    def decode_step(self, tokens: torch.Tensor, cache: Cache,
-                    memory: torch.Tensor) -> torch.Tensor:
+    def decode_step(self, tokens: torch.Tensor, cache: Cache, memory: torch.Tensor,
+                    materialize: Optional[Materialize] = None,
+                    layer_cache: Optional[LayerCache] = None,
+                    model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """One token per row (tokens [B, 1]) against the self caches (updated
-        in place) and the memory; logits [B, 1, V]."""
+        in place) and the memory; logits [B, 1, V] (the rank's vocab block
+        where ``model_axis`` splits the head). A position past ``dec_pos``
+        tiles it, as in the reference. The hooks as in ``LM.decode_step``
+        (sharded serving, ``parallel/fsdp.py``): ``materialize`` gives each
+        decoder block's weights inside the block, ``layer_cache(i, c)`` block
+        i's self cache, ``model_axis`` splits the lookup, each block and the
+        head along ``model``."""
         pos = cache["pos"]
-        x = self.embed[tokens] + self.dec_pos[pos % self.dec_pos.shape[0]]
-        for block, c in zip(self.dec_blocks, cache["self"]):
-            x = block.decode(x, pos, c, memory)
+        x = self._embed(tokens, model_axis) + self.dec_pos[pos % self.dec_pos.shape[0]]
+        for i, c in enumerate(cache["self"]):
+            axis = None if model_axis is None else model_axis.layer(i, "dec_blocks")
+            with transformer._cache_for(layer_cache, i, c) as c:
+                x = transformer._run_method(self.dec_blocks, i, "decode", materialize, x, pos,
+                                            c, memory, axis, stack="dec_blocks")
         cache["pos"] = pos + 1
-        return self._logits(x)
+        return self._logits(x, model_axis)
 
 
 def encdec_loss(model: EncDec, batch: Dict[str, Any], *,

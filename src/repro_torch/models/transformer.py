@@ -402,12 +402,13 @@ def _cache_for(layer_cache: Optional[LayerCache], index: int, cache: Dict[str, t
 
 
 def _run_method(layers: nn.ModuleList, index: int, method: str,
-                materialize: Optional[Materialize], *args):
-    """``layers[index].<method>(*args)``, on materialized weights where given."""
+                materialize: Optional[Materialize], *args, stack: str = "layers"):
+    """``layers[index].<method>(*args)``, on materialized weights where given
+    (``stack``: the list's state-dict name)."""
     layer = layers[index]
     if materialize is None:
         return getattr(layer, method)(*args)
-    params = {n: materialize(f"layers.{index}.{n}", t) for n, t in layer.named_parameters()}
+    params = {n: materialize(f"{stack}.{index}.{n}", t) for n, t in layer.named_parameters()}
     with _reparametrize_module(layer, params):
         return getattr(layer, method)(*args)
 

@@ -127,15 +127,31 @@ materialized inside the block. The memory's gradient from each decoder
 block's cross-attention is summed over ``model`` (``ModelAxis.to_split``).
 Its streams stay whole along ``model``: the reference constrains their
 ``seq`` dim, and that split, with the gather of the sequence-split memory
-it needs, is not ported yet. Nor is sharded encoder-decoder serving:
-:meth:`ShardedModel.prefill`, :meth:`ShardedModel.decode_step` and
-:meth:`ShardedModel.init_cache` refuse it.
+it needs, is not ported yet.
+
+The encoder-decoder serves on the mesh too (the reference's
+``build_prefill_step`` jits ``encode``, ``build_serve_step``
+``encdec_decode_step``): :meth:`ShardedModel.prefill` takes the global
+``frames`` and encodes the rank's rows, every encoder block split by heads
+and ``d_ff`` as in training, and returns the memory as a DTensor, rows on
+the batch axes and ``Replicate`` along ``model``: every rank's
+cross-attention reads every frame on its heads, and the encoder's stream is
+whole along ``model``, so nothing moves. Under ``fsdp_tp`` this departs from
+the reference's ``("batch", "seq", None)`` for the memory, whose ``seq`` is
+``model`` there (the sequence split above); under ``serve_2d`` ``seq`` is
+None and the two agree. :meth:`ShardedModel.decode_step` takes that memory
+(or a global tensor: each rank keeps its rows) and runs each decoder block's
+self-attention over the rank's block of its self cache
+(:meth:`ShardedModel.init_cache` lays ``cache["self"]`` out as an LM's K/V),
+its cross-attention on the rank's heads, K and V projected from the memory
+again at every step as in the reference, and its MLP on the rank's ``d_ff``
+block. Logits come back as an LM's.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; ``serve_2d``'s
 weight-stationary decode (partial sums over ``data`` in place of the
 ``embed`` gather and of the RG-LRU state's gather over ``data``); the
-encoder-decoder's sequence split and sharded serving.
+encoder-decoder's sequence split.
 """
 
 from __future__ import annotations
@@ -294,12 +310,25 @@ class ShardedModel:
         The batch specs' ``seq`` entry is not taken here: every position
         stays on every ``model`` rank, and the residual stream splits it
         (``model_axis``'s ``stream``)."""
-        specs = shd.batch_specs(self.mesh, self.rules, batch)
-        axes = specs["tokens"][0]
-        axes = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = self._row_axes(next(iter(batch.values())))
         place = shd.placements(self.mesh, (axes or None,))
         return {k: distribute_tensor(v, self.mesh, place, src_data_rank=None).to_local()
                 for k, v in batch.items()}, axes
+
+    def _row_axes(self, x: torch.Tensor) -> Tuple[str, ...]:
+        """The mesh axes a batch leaf's rows (its first dim) split over, by
+        the ``batch`` rule (``sharding.batch_specs``); every leaf of a batch
+        has the same rows."""
+        axes = shd.batch_specs(self.mesh, self.rules, {"x": x})["x"][0]
+        return () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def rows(self, x: torch.Tensor) -> DTensor:
+        """A global tensor [B, ...] (the encoder's memory) laid out as the
+        served rows: split along dim 0 over the batch rule's axes, whole
+        along the others and on ``model``; each rank keeps its rows, no
+        communication."""
+        place = shd.placements(self.mesh, (self._row_axes(x) or None,))
+        return distribute_tensor(x, self.mesh, place, src_data_rank=None)
 
     def _weights(self, axis: tp.ModelAxis, row_axes: Tuple[str, ...]):
         """The ``materialize`` hook of training (and, with no gradient, of
@@ -351,24 +380,19 @@ class ShardedModel:
 
     # -- serving --------------------------------------------------------------
 
-    def _serving(self) -> None:
-        if self.cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{self.cfg.name}: sharded encoder-decoder serving is not ported yet "
-                "(ROADMAP.md queue A)")
-
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16
                    ) -> Cache:
         """``Model.init_cache``'s zeroed cache, each leaf a DTensor laid out by
-        ``sharding.cache_shardings``."""
-        self._serving()
+        ``sharding.cache_shardings``: an LM's ``layers``, or the
+        encoder-decoder's decoder self caches ``self`` (K/V as an LM's)."""
         cache = self.model.init_cache(batch, max_len, dtype)
+        key = tp.cache_key(cache)
         shardings = shd.cache_shardings(self.mesh, self.rules, cache)
         layers = [{k: distribute_tensor(t, self.mesh, sh[k].placements,
                                         src_data_rank=None)
                    for k, t in c.items()}
-                  for c, sh in zip(cache["layers"], shardings["layers"])]
-        return {"layers": layers, "pos": cache["pos"]}
+                  for c, sh in zip(cache[key], shardings[key])]
+        return {key: layers, "pos": cache["pos"]}
 
     def _layer_cache(self, axis: tp.ModelAxis, rows: Tuple[Placement, ...], gather: bool):
         """The ``layer_cache`` hook. An attention layer's K/V: this rank's
@@ -428,35 +452,49 @@ class ShardedModel:
                             rows=(row_axes, n_rows), stream=stream)
 
     def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
-               gather_cache: bool) -> DTensor:
-        self._serving()
+               memory: Optional[torch.Tensor] = None) -> DTensor:
         local, axes = self.local_batch(batch)
         rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
-        axis = self.model_axis(lm, cache, axes, batch["tokens"].shape[0])
+        axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0])
         weight = self._weights(axis, ())  # under no_grad: the gather alone
-        outer = {n: weight(n, p) for n, p in lm.named_parameters() if not n.startswith("layers.")}
+        # every weight outside the stacks of blocks, which gather their own
+        outer = {n: weight(n, p) for n, p in lm.named_parameters()
+                 if n.split(".", 1)[0] not in tp.SPLIT_MODULES}
         hooks = {"materialize": weight, "model_axis": axis,
-                 "layer_cache": self._layer_cache(axis, rows, gather_cache)}
+                 "layer_cache": self._layer_cache(axis, rows, gather=method == "decode")}
         with _reparametrize_module(lm, outer):
+            if method == "encode":  # the memory: rows on the batch axes, whole on model
+                out = lm.encode(local["frames"], materialize=weight, model_axis=axis)
+                return DTensor.from_local(out, self.mesh, rows, run_check=False)
             if method == "prefill":
-                logits = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
-            else:
-                logits = lm.decode_step(local["tokens"], cache, **hooks)
+                out = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
+            elif memory is None:
+                out = lm.decode_step(local["tokens"], cache, **hooks)
+            else:  # the encoder-decoder: the rank's rows of the memory
+                mem = memory if isinstance(memory, DTensor) else self.rows(memory)
+                out = lm.decode_step(local["tokens"], cache,
+                                     mem.redistribute(self.mesh, rows).to_local(), **hooks)
         if axis.head is not None:  # this rank's vocab block
             names = self.mesh.mesh_dim_names
-            rows = tuple(Shard(logits.ndim - 1) if n == "model" else r
+            rows = tuple(Shard(out.ndim - 1) if n == "model" else r
                          for n, r in zip(names, rows))
-        return DTensor.from_local(logits, self.mesh, rows, run_check=False)
+        return DTensor.from_local(out, self.mesh, rows, run_check=False)
 
     def prefill(self, lm: LM, batch: Dict[str, torch.Tensor], cache: Cache
                 ) -> Tuple[DTensor, Cache]:
         """``Model.prefill`` on the mesh: batch holds the global ``tokens`` (and
         ``prefix_embeds``); returns (last-token logits [B, 1, V], rows on the
         batch axes and the vocabulary on ``model`` where it splits; ``cache``
-        filled)."""
-        return self._serve(lm, "prefill", batch, cache, gather_cache=False), cache
+        filled). For the encoder-decoder, batch holds the global ``frames``
+        [B, T_f, d] and the prefill is the encode: returns (the memory
+        [B, T_f, d], rows on the batch axes and ``Replicate`` along
+        ``model``; ``cache`` as given)."""
+        method = "encode" if self.cfg.is_encoder_decoder else "prefill"
+        return self._serve(lm, method, batch, cache), cache
 
-    def decode_step(self, lm: LM, cache: Cache, tokens: torch.Tensor
-                    ) -> Tuple[DTensor, Cache]:
-        """``Model.decode_step`` on the mesh: tokens [B, 1], the global batch."""
-        return self._serve(lm, "decode", {"tokens": tokens}, cache, gather_cache=True), cache
+    def decode_step(self, lm: LM, cache: Cache, tokens: torch.Tensor,
+                    memory: Optional[torch.Tensor] = None) -> Tuple[DTensor, Cache]:
+        """``Model.decode_step`` on the mesh: tokens [B, 1], the global batch;
+        for the encoder-decoder, ``memory`` [B, T_f, d] as :meth:`prefill`
+        returns it, or a global tensor (each rank keeps its rows)."""
+        return self._serve(lm, "decode", {"tokens": tokens}, cache, memory), cache

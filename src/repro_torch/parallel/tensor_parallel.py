@@ -74,7 +74,9 @@ its sequence over the ``seq_cache`` axes (``model``, or ``data`` and
   rows for the row-parallel ``wo``. The new token's K/V row is written only
   where slot ``pos % L`` lies (gathered over ``model`` first where the
   weights split the KV heads). No cache entry moves;
-* decode, heads split or whole: the plain path on the rank's heads.
+* decode, heads split or whole, or a sequence split over axes of one rank
+  (its one shard holds every position, as one process's cache does): the
+  plain path on the rank's heads.
 
 Collectives come from a ``comm`` object: :class:`MeshCollectives` (the
 functional collectives on a ``DeviceMesh``, which the dry run's counter
@@ -139,11 +141,19 @@ its rows along the sequence before the batch axes and reduce-scatters its
 combine, so each rank still routes every token of the global groups and
 no token all-to-all is taken; :class:`Shares` plays the sequence form for
 one rank at a time (:func:`seq_shares`).
+
+A layout whose collectives fall inside a layer, such as decode over a K/V
+cache split by sequence (each rank's partial softmax merged over
+``model``), cannot be played one rank at a time: :class:`ThreadRanks` runs
+every rank at once, one thread each, in one process (:func:`thread_shares`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+import copy
+import functools
+import threading
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -275,7 +285,76 @@ class Shares:
                                   "without a sequence-split cache")
 
 
-Comm = Union[MeshCollectives, Shares]
+class ThreadRanks:
+    """A ``model`` axis of ``size`` ranks played by ``size`` threads of one
+    process, on one device. Each rank's collective meets the others' at a
+    barrier and returns what the mesh's would, the ranks' terms reduced in
+    rank order in their own dtype. :meth:`rank` is rank r's comm,
+    :meth:`run` runs a function on every rank at once."""
+
+    def __init__(self, size: int):
+        self.size = size
+        # a rank left waiting (one that skipped a collective the others
+        # took) raises instead of hanging the process
+        self._barrier = threading.Barrier(size, timeout=600.0)
+        self._slots: List[Optional[torch.Tensor]] = [None] * size
+
+    def rank(self, r: int) -> "_ThreadRank":
+        return _ThreadRank(self, r)
+
+    def exchange(self, r: int, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x``, in rank order, once all have given theirs."""
+        self._slots[r] = x
+        self._barrier.wait()
+        got = list(self._slots)
+        self._barrier.wait()  # no rank overwrites its slot before all have read
+        return got
+
+    def run(self, fn: Callable[[int], Any]) -> List[Any]:
+        """``fn(r)`` for every rank r, each in its own thread -> the results in
+        rank order. A rank that raises breaks the barrier, so the others stop
+        too, and its error is raised here."""
+        out: List[Any] = [None] * self.size
+        errors: List[BaseException] = []
+
+        def one(r: int) -> None:
+            try:
+                out[r] = fn(r)
+            except BaseException as e:  # re-raised below, in the caller's thread
+                errors.append(e)
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        return out
+
+
+class _ThreadRank:
+    """Rank ``r``'s collectives over a :class:`ThreadRanks` axis."""
+
+    def __init__(self, ranks: ThreadRanks, r: int):
+        self.ranks, self.r = ranks, r
+
+    def _over(self, x: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        if axis != "model":
+            raise NotImplementedError(f"threads play only the model axis, not {axis}")
+        return self.ranks.exchange(self.r, x)
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        reduce = {"sum": torch.add, "max": torch.maximum}[op]
+        return functools.reduce(reduce, self._over(x, axis))
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        return torch.cat(self._over(x, axis), dim)
+
+
+Comm = Union[MeshCollectives, Shares, _ThreadRank]
 
 
 class _ToSplit(torch.autograd.Function):
@@ -473,6 +552,12 @@ class _GatherRows(torch.autograd.Function):
         return _sum_over(grad, ctx.comm, ctx.axes)[ctx.rows], None, None, None
 
 
+def cache_key(cache: Mapping[str, Any]) -> str:
+    """The key of a decode cache's per-layer list: an LM's ``layers``, or
+    the encoder-decoder's decoder self caches, ``self``."""
+    return "layers" if "layers" in cache else "self"
+
+
 def param_shapes(lm: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """Each parameter's global shape (a DTensor's too), by state-dict name."""
     return {n: tuple(p.shape) for n, p in lm.named_parameters()}
@@ -516,7 +601,7 @@ class ModelAxis:
         self.sizes = shd.axis_sizes(mesh)
         self.coord = shd.coordinate(mesh, coord)
         self.seq = None if stream is None else shd.stream_split(mesh, rules, stream, self.coord)
-        self._layers = None if cache is None else cache["layers"]
+        self._layers = None if cache is None else cache[cache_key(cache)]
         self._memo = {} if memo is None else memo
         self.head = self.split("unembed" if "unembed" in shapes else "embed")
 
@@ -714,7 +799,9 @@ class LayerAxis:
     reads its own leaves: its self-attention's heads and sums, the MLP's,
     and in the decoder ``xattn_sum`` and ``cross``, the cross-attention's
     view (``attn`` ``"xattn"``: its query and KV heads, equal in number, and
-    its ``attn_sum``). Training only: such a block has no cache here."""
+    its ``attn_sum``). In serving a decoder block's self-attention has its
+    self cache's layout (``cache["self"]``), as an LM's attention layer;
+    the cross-attention and the encoder blocks have no cache."""
 
     def __init__(self, axis: ModelAxis, index: int, stack: str = "layers",
                  attn: str = "attn"):
@@ -739,7 +826,8 @@ class LayerAxis:
             self.n_kv_heads = axis.shapes[pre + attn + ".wk"][1]
         if attn == "attn" and pre + "xattn.wq" in axis.shapes:
             self.cross = LayerAxis(axis, index, stack, "xattn")
-        if stack != "layers" or axis._cache_shape(index) is None:
+        if (stack not in ("layers", "dec_blocks") or attn != "attn"
+                or axis._cache_shape(index) is None):
             return
         self.length = axis._cache_shape(index)[1]
         self.seq = axis.cache_split(index, 1)    # the positions held, or None: all
@@ -877,7 +965,9 @@ class LayerAxis:
             cache["k"][:, slot - lo] = rows[0]
             cache["v"][:, slot - lo] = rows[1]
         n_valid = min(pos + 1, L)
-        if self.seq is None:  # every position is here: the plain path
+        # every position is here (no split, or a split over axes of one rank,
+        # whose one shard is the whole cache): the plain path, as one process
+        if self.seq is None or all(self.axis.sizes[a] == 1 for a in self.seq.axes):
             k, v = self.kv_for_queries(cache["k"], cache["v"])
             kv_len = torch.full((q.shape[0],), n_valid, device=q.device)
             return fa_ops.attention(q, k, v, causal=False, kv_len=kv_len, softcap=softcap)
@@ -914,9 +1004,11 @@ def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> Non
 
 
 def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: int,
-          rules: Optional[Dict[str, shd.MeshAxes]] = None, seq_len: Optional[int] = None):
+          rules: Optional[Dict[str, shd.MeshAxes]] = None, seq_len: Optional[int] = None,
+          comm: Optional[_ThreadRank] = None):
     """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
-    process (whole weights and cache given; no cache in training): (its
+    process (whole weights and cache given -- an LM's ``layers`` or the
+    encoder-decoder's ``self`` caches --; no cache in training): (its
     :class:`ModelAxis` over :class:`Shares`, its block of each parameter by
     state-dict name -- a view, so a gradient reaches the whole weight --, its
     block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
@@ -930,24 +1022,34 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     stream's S', whose sequence then splits as the rules say (the
     sequence form: the caller feeds each gather the gathered input, and
     sums and slices the terms each reduce-scatter returns whole;
-    :meth:`ModelAxis.own` gives the rank's positions)."""
-    rules = {**(rules or shd.STRATEGIES["fsdp_tp"]()), "seq_cache": None}
+    :meth:`ModelAxis.own` gives the rank's positions). ``comm``: rank
+    ``rank`` of a :class:`ThreadRanks` axis, whose ranks run together, so
+    the rules' cache layout is kept: a K/V cache split by sequence gives the
+    rank its positions' block."""
+    rules = rules or shd.STRATEGIES["fsdp_tp"]()
+    if comm is None:
+        rules = {**rules, "seq_cache": None}
     mesh = {"model": size}
     stream = None if seq_len is None else (1, seq_len, lm.cfg.d_model)
-    axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares(), coord={"model": rank},
-                     stream=stream)
+    axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares() if comm is None else comm,
+                     coord={"model": rank}, stream=stream)
     params = {}
     for name, p in lm.named_parameters():
         split = axis.split(name)
         params[name] = p if split is None else p.narrow(split.dim, split.lo, split.hi - split.lo)
     if cache is None:
         return axis, params, None
+    key = cache_key(cache)
     layers = []
-    for i, c in enumerate(cache["layers"]):
-        if "k" in c:
-            heads = axis.cache_split(i, 2)
-            layers.append(c if heads is None else
-                          {k: t[:, :, heads.lo:heads.hi].clone() for k, t in c.items()})
+    for i, c in enumerate(cache[key]):
+        if "k" in c:  # the rank's positions and heads
+            block = c
+            for dim in (1, 2):
+                split = axis.cache_split(i, dim)
+                if split is not None:
+                    block = {k: t.narrow(dim, split.lo, split.hi - split.lo)
+                             for k, t in block.items()}
+            layers.append(c if block is c else {k: t.clone() for k, t in block.items()})
             continue
         if "wkv" in c:  # a copy a rank, the WKV state the block of the rank's heads
             heads = axis.layer(i).tm
@@ -957,7 +1059,7 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
         rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
         layers.append(c if rnn is None else
                       {k: t[..., rnn.lo:rnn.hi].clone() for k, t in c.items()})
-    return axis, params, {"layers": layers, "pos": cache["pos"]}
+    return axis, params, {key: layers, "pos": cache["pos"]}
 
 
 def _played_channel_mix(terms, dtype: torch.dtype) -> torch.Tensor:
@@ -1073,30 +1175,74 @@ def seq_shares(lm: nn.Module, index: int, shares, x: torch.Tensor, positions: to
 
 
 def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tensor,
-                 positions: torch.Tensor, memory: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 positions: Optional[torch.Tensor], memory: Optional[torch.Tensor] = None,
+                 pos: Optional[int] = None) -> torch.Tensor:
     """Block ``index`` of the encoder-decoder's ``stack`` (``EncBlock`` /
     ``DecBlock.forward``, ``memory`` the decoder's) on every rank's share in
     turn, the stream whole on every rank (``shares``: each rank's (axis,
-    parameter blocks, _) from :func:`share`), the sums over ``model`` played
-    here: each part's normed input (the memory too) reaches every rank
-    through a cast from fp32, so autograd adds its gradient's terms in fp32,
-    as ``to_split``'s all-reduce adds them; the ranks' output terms are
-    added in fp32 where the part splits, else rank 0's whole term is taken.
-    -> the block's output."""
+    parameter blocks, cache blocks) from :func:`share`), the sums over
+    ``model`` played here: each part's normed input (the memory too) reaches
+    every rank through a cast from fp32, so autograd adds its gradient's
+    terms in fp32, as ``to_split``'s all-reduce adds them; the ranks' output
+    terms are added in fp32 where the part splits, else rank 0's whole term
+    is taken. With ``pos``, one ``DecBlock.decode`` step at position ``pos``
+    (x [B, 1, d]; ``positions`` unused): the self-attention over each rank's
+    block of its self cache, which it writes, and the cross-attention's
+    decode path. -> the block's output."""
     block = getattr(model, stack)[index]
     wide = None if memory is None else memory.float()
-    parts = [("norm1", "attn_sum", lambda h, layer: block.mix(h, positions, layer))]
+
+    def mix(h, layer, cache):
+        if pos is None:
+            return block.mix(h, positions, layer)
+        return block.mix_step(h, pos, cache["self"][index], layer)
+
+    def cross(h, layer, _):
+        return block.cross(h, wide.to(x.dtype), layer, decode=pos is not None)
+
+    parts = [("norm1", "attn_sum", mix)]
     if memory is not None:
-        parts.append(("norm_x", "xattn_sum",
-                      lambda h, layer: block.cross(h, wide.to(x.dtype), layer)))
-    parts.append(("norm2", "mlp_sum", lambda h, layer: block.feed_forward(h, layer)))
+        parts.append(("norm_x", "xattn_sum", cross))
+    parts.append(("norm2", "mlp_sum", lambda h, layer, _: block.feed_forward(h, layer)))
     for norm, which, fn in parts:
         h = common.apply_norm(getattr(block, norm), x).float()
         terms = []
-        for axis, params, _ in shares:
+        for axis, params, cache in shares:
             with _reparametrize_module(model, params):
-                terms.append(fn(h.to(x.dtype), axis.layer(index, stack)))
+                terms.append(fn(h.to(x.dtype), axis.layer(index, stack), cache))
         summed = getattr(shares[0][0].layer(index, stack), which)
         x = x + (sum(t.float() for t in terms).to(x.dtype) if summed else terms[0])
     return x
+
+
+def thread_shares(model: nn.Module, stack: str, index: int, size: int,
+                  cache: Mapping[str, Any], run: Callable[[nn.Module, "LayerAxis", Any], Any],
+                  rules: Optional[Dict[str, shd.MeshAxes]] = None):
+    """Block ``index`` of ``model``'s ``stack`` (``layers``, ``dec_blocks``)
+    on every rank of a ``size``-way ``model`` axis at once, one thread a
+    rank (:class:`ThreadRanks`), under ``rules`` (default ``fsdp_tp``'s)
+    with their cache layout kept: ``run(block, layer_axis, cache)`` on the
+    rank's own copy of the block, which holds its parameter blocks, with
+    its :class:`LayerAxis` and its block of the whole ``cache``
+    (:func:`share`) -> (each rank's result, each rank's cache block), in
+    rank order. The sums over ``model`` are the threads' all-reduces, so
+    every rank's stream is the whole one, as on a mesh."""
+    ranks = ThreadRanks(size)
+    block = getattr(model, stack)[index]
+    prefix = f"{stack}.{index}."
+    made = []
+    for r in range(size):
+        axis, params, rank_cache = share(model, cache, r, size, rules, comm=ranks.rank(r))
+        own = {n[len(prefix):]: p for n, p in params.items() if n.startswith(prefix)}
+        # the rank's module: the block's structure, its weights left on meta
+        # (the rank's blocks are put in when it runs)
+        empty = {id(p): nn.Parameter(torch.empty_like(p, device="meta"), p.requires_grad)
+                 for p in block.parameters()}
+        made.append((copy.deepcopy(block, empty), own, axis.layer(index, stack), rank_cache))
+
+    def one(r: int):
+        rank_block, own, layer, rank_cache = made[r]
+        with _reparametrize_module(rank_block, own):
+            return run(rank_block, layer, rank_cache)
+
+    return ranks.run(one), [m[3] for m in made]

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro.configs import ARCHS as JARCHS
 from repro.models import attention as jattention
@@ -39,10 +40,12 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.model_zoo import build_model
 from repro_torch.parallel.fsdp import ShardedModel
+from repro_torch.parallel.sharding import STRATEGIES
 from repro_torch.train import optimizer
 from repro_torch.train.train_loop import TrainRunConfig, train_loop
 from repro_torch.weights import from_jax_params, init_params, jax_params_to_state_dict
 
+from test_torch_launch import _mesh
 from test_torch_train import GRAD_TOL, LOSS_TOL, _assert_grads_close
 
 NAME = "whisper-medium"
@@ -386,17 +389,27 @@ def test_train_loop_tracks_reference_losses(grad_accum):
     assert hist[-1]["loss"] < hist[0]["loss"]
 
 
-def test_sharded_serving_refuses_the_encoder_decoder():
-    """Sharded whisper training is ported (``tests/test_torch_tp_train.py``),
-    sharded whisper serving is not: ``ShardedModel`` takes the model, and its
-    prefill, decode step and cache say so before they touch a mesh."""
-    model = ShardedModel(build_model(ARCHS[NAME].reduced(), device="cpu"), mesh=None, rules={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prefill(None, {"frames": torch.zeros(1, 4, 64)}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decode_step(None, {}, torch.zeros(1, 1, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(1, 8)
+def test_sharded_init_cache_lays_out_the_self_caches():
+    """``ShardedModel`` serves the encoder-decoder
+    (``tests/test_torch_whisper_tp_serve.py``), and its ``init_cache`` lays
+    out the decoder's ``"self"`` caches, one a
+    block, each K/V leaf a DTensor as an LM's: rows over ``data`` under
+    ``fsdp_tp`` and the 64 slots over ``model`` (over ``data`` and ``model``
+    under ``serve_2d``), on a fake (data 2, model 2) world, shapes on meta."""
+    cfg = ARCHS[NAME].reduced()
+    layouts = {"fsdp_tp": ((Shard(0), Shard(1)), (2, 32, 2, 16)),
+               "serve_2d": ((Shard(1), Shard(1)), (4, 16, 2, 16))}
+    for strategy, want in layouts.items():
+        with _mesh((2, 2)) as mesh:
+            model = ShardedModel(build_model(cfg, device="meta"), mesh, STRATEGIES[strategy]())
+            cache = model.init_cache(4, 64)
+        assert sorted(cache) == ["pos", "self"] and cache["pos"] == 0
+        assert len(cache["self"]) == cfg.n_layers
+        for c in cache["self"]:
+            assert sorted(c) == ["k", "v"]
+            for t in c.values():
+                assert isinstance(t, DTensor) and t.shape == (4, 64, 2, 16)
+                assert (t.placements, tuple(t.to_local().shape)) == want, strategy
 
 
 def test_bf16_compute_over_fp32_masters_tracks_the_reference():

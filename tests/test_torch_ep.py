@@ -336,7 +336,8 @@ result = {"experts": experts, "prefill_equal": bool(torch.equal(got[0], want[0])
 def test_a_one_rank_mesh_serves_as_one_process(tmp_path):
     """On a (data 1, model 1) mesh every split is one block: the MoE's one
     block of all its experts, and the cache's sequence split over one rank,
-    whose decode merges the partial softmax of its one shard. The prefill
+    whose one shard holds every position (decode takes the plain path over
+    it, as the one process does). The prefill
     gives the one process's logits bit for bit; 6 decode steps fed the one
     process's greedy tokens give its logits within 2e-4 of the largest and
     its tokens."""

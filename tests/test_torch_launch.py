@@ -400,7 +400,7 @@ def test_dryrun_cli_runs_a_full_width_cell_without_a_card(tmp_path):
     rec = records[0]
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["status"]) == (
         "internvl2-76b", "train_4k", "16x16", "ok")
-    assert rec["strategy"] == "fsdp_tp" and rec["sharded"]
+    assert rec["strategy"] == "fsdp_tp"
     assert rec["cost"]["flops"] > 0 and rec["collectives"]["by_kind"]["all-gather"] > 0
     assert rec["roofline"]["bottleneck"] in ("compute", "memory", "collective")
     assert "internvl2-76b          train_4k     16x16" in proc.stdout  # the table row
@@ -409,21 +409,20 @@ def test_dryrun_cli_runs_a_full_width_cell_without_a_card(tmp_path):
     assert 0.5 < rec["roofline"]["useful_ratio"] < 0.6
 
 
-def test_whisper_trains_sharded_and_serves_unsharded():
-    """whisper-medium at full width on the meta device: the train step is a
-    ``ShardedModel``'s, its parameters DTensors; the prefill and serve steps
-    run the whole global batch unsharded and say why."""
+def test_whisper_steps_are_all_sharded():
+    """whisper-medium at full width on the meta device: the train, prefill
+    and serve steps are all a ``ShardedModel``'s, their parameters DTensors,
+    the serve step's self caches and memory too."""
     cfg = ARCHS["whisper-medium"]
     with _mesh((2, 2)) as mesh:
-        train = steps.build_train_step(cfg, shp.SHAPES["train_4k"], mesh)
-        serving = [steps.build_prefill_step(cfg, shp.SHAPES["prefill_32k"], mesh),
-                   steps.build_serve_step(cfg, shp.SHAPES["decode_32k"], mesh)]
-    assert train.sharded and train.note == ""
-    assert all(isinstance(p, DTensor) for p in train.args[0].parameters())
-    for step in serving:
-        assert not step.sharded and step.note == steps.UNSHARDED_NOTE
-        assert "sharded encoder-decoder serving is not ported yet" in step.note
-        assert not any(isinstance(p, DTensor) for p in step.args[0].parameters())
+        built = [steps.build_train_step(cfg, shp.SHAPES["train_4k"], mesh),
+                 steps.build_prefill_step(cfg, shp.SHAPES["prefill_32k"], mesh),
+                 steps.build_serve_step(cfg, shp.SHAPES["decode_32k"], mesh)]
+    for step in built:
+        assert all(isinstance(p, DTensor) for p in step.args[0].parameters()), step.kind
+    _, cache, _, memory = built[2].args
+    assert all(isinstance(t, DTensor) for c in cache["self"] for t in c.values())
+    assert isinstance(memory, DTensor) and memory.shape == (128, 1500, 1024)
 
 
 def test_dryrun_accounts_for_every_cell():
