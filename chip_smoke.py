@@ -257,7 +257,16 @@ calls, and fails (exit code not 0, no result line) on any miss:
               sharded step) against ``train_loop`` unsharded from the same
               seeded weights and batch, losses within 1e-6 (bit-equality
               printed), step ms of both under CUDA events, 6 tensor-core
-              flash launches a step;
+              flash launches a step (a 1-rank axis splits no stream); (c)
+              the sequence form of (a) (``share(..., seq_len=)`` with both
+              streams' lengths: each rank normalizes its own positions, the
+              normed blocks concatenated are every rank's gathered input,
+              the summed terms sliced to each rank's positions, the memory
+              whole) at 4 ranks over 1500 frames (both streams split), 16
+              over 1500 (the encoder's 1500 frames do not split: it runs
+              whole; the decoder's 448 tokens do) and 16 over 4096 (both),
+              the same tolerances and launches (``whisper_tp_seq_shares``
+              lines);
  10c. whisper_tp_serve sharded whisper-medium serving on the ``model``
               axis, in this one process: (a) each rank's share of one
               full-width decoder block's decode at 4 and 16 ranks (4 heads
@@ -1307,6 +1316,10 @@ WHISPER_TP_RANKS = (4, 16)
 # in bf16; the 1-rank path's losses within 1e-6 of train_loop's
 WHISPER_TP_FP32_TOL, WHISPER_TP_BF16_TOL, WHISPER_TP_LOSS_RTOL = 1e-5, 5e-2, 1e-6
 WHISPER_TP_STEPS = 3
+# (c) the sequence form: (W, frames, form); 448 tokens split at 4 and 16
+# ranks, 1500 frames (30 s of audio) at 4 and not at 16, train_4k's 4096 at 16
+WHISPER_TP_SEQ_SETTINGS = ((4, WHISPER_T, "sequence"), (16, WHISPER_T, "sequence"),
+                           (16, 4096, "sequence"))
 
 
 def whisper_grad_errs(got, want):
@@ -1317,92 +1330,109 @@ def whisper_grad_errs(got, want):
             else rel_err(got[k], want[k]) for k in want}
 
 
-def whisper_tp_shares(ranks):
-    """(a) one full-width encoder block (B 1 x 1500 frames) and one decoder
-    block (B 1 x 448 tokens, a 1500-frame memory), fp32 then the same
-    weights in bf16: the unsplit block's output and gradients from one
-    upstream gradient, then for each W in ``ranks`` every rank's share in
-    turn (``tensor_parallel.block_shares``: its weight blocks, the split
+def whisper_tp_shares(settings, line="whisper_tp_shares"):
+    """One full-width encoder block (B 1 x T frames) and one decoder block
+    (B 1 x 448 tokens, a T-frame memory), fp32 then the same weights in
+    bf16: the unsplit block's output and gradients from one upstream
+    gradient, then for each (W, T, form) in ``settings`` every rank's share
+    in turn (``tensor_parallel.block_shares``: its weight blocks, the split
     parts' terms added in fp32, each part's normed input and the memory
     reaching every rank through a cast from fp32), one backward; the output,
     the input's and the memory's gradients and every leaf's against the
-    unsplit block's."""
+    unsplit block's. (a) the plain form: every rank holds the whole stream.
+    (c) the sequence form (``share(..., seq_len=)`` with both streams'
+    lengths): where the axis divides a block's stream, each rank
+    normalizes its own positions, the normed blocks concatenated are every
+    rank's gathered input and the summed terms are sliced to each rank's
+    positions; a stream it does not divide (1500 frames at 16 ranks) stays
+    whole, the plain form."""
     cfg = whisper_cfg(1)
-    model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     d = cfg.d_model
-    inputs = {"enc_blocks": [torch.randn(1, WHISPER_T, d, generator=g, device="cuda")],
-              "dec_blocks": [torch.randn(1, WHISPER_S, d, generator=g, device="cuda"),
-                             torch.randn(1, WHISPER_T, d, generator=g, device="cuda")]}
-    upstream = {k: torch.randn(v[0].shape, generator=g, device="cuda")
-                for k, v in inputs.items()}
-    recs, unsplit32 = [], {}
-    for dtype in (torch.float32, torch.bfloat16):
-        model.to(dtype).requires_grad_(True)
-        kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[fa_ops.kernel_for(dtype, cfg.head_dim)]
-        for stack, xs in inputs.items():
-            names = [n for n, _ in model.named_parameters() if n.startswith(f"{stack}.0.")]
-            leaves = [model.get_parameter(n) for n in names]
-            xs = [x.to(dtype).requires_grad_() for x in xs]
-            keys = ["output", "input", "memory"][:len(xs) + 1] + names
-            positions = torch.arange(xs[0].shape[1], device="cuda")
-            gy = upstream[stack].to(dtype)
-            reset_counts()
-            out = getattr(model, stack)[0](xs[0], positions, *xs[1:])
-            want = dict(zip(keys, [out.detach()] + list(
-                torch.autograd.grad(out, xs + leaves, gy))))
-            want_launches = counts()
-            del out
-            unsplit32.setdefault(stack, want)
-            n_attn = len(xs)  # flash calls a rank: self-attention (and cross-attention)
-            for W in ranks:
-                shares = [tp.share(model, None, r, W) for r in range(W)]
+    recs = []
+    for T in dict.fromkeys(t for _, t, _ in settings):
+        model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        inputs = {"enc_blocks": [torch.randn(1, T, d, generator=g, device="cuda")],
+                  "dec_blocks": [torch.randn(1, WHISPER_S, d, generator=g, device="cuda"),
+                                 torch.randn(1, T, d, generator=g, device="cuda")]}
+        upstream = {k: torch.randn(v[0].shape, generator=g, device="cuda")
+                    for k, v in inputs.items()}
+        lengths = {"enc_blocks": T, "dec_blocks": WHISPER_S}
+        unsplit32 = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype).requires_grad_(True)
+            kernel = {"wgmma": "flash_wgmma",
+                      "simt": "flash"}[fa_ops.kernel_for(dtype, cfg.head_dim)]
+            for stack, xs in inputs.items():
+                names = [n for n, _ in model.named_parameters() if n.startswith(f"{stack}.0.")]
+                leaves = [model.get_parameter(n) for n in names]
+                xs = [x.to(dtype).requires_grad_() for x in xs]
+                keys = ["output", "input", "memory"][:len(xs) + 1] + names
+                positions = torch.arange(xs[0].shape[1], device="cuda")
+                gy = upstream[stack].to(dtype)
                 reset_counts()
-                out = tp.block_shares(model, stack, 0, shares, xs[0], positions,
-                                      xs[1] if len(xs) > 1 else None)
-                got = dict(zip(keys, [out.detach()] + list(
+                out = getattr(model, stack)[0](xs[0], positions, *xs[1:])
+                want = dict(zip(keys, [out.detach()] + list(
                     torch.autograd.grad(out, xs + leaves, gy))))
-                torch.cuda.synchronize()
-                launches = counts()
+                want_launches = counts()
                 del out
-                view = shares[0][0].layer(0, stack)
-                need(view.attn_sum and view.mlp_sum and (view.xattn_sum or n_attn == 1),
-                     f"whisper {stack} at {W}: no split")
-                err = whisper_grad_errs(got, want)
-                outputs = keys[:len(xs) + 1]
-                worst = max(names, key=err.get)
-                tol = WHISPER_TP_FP32_TOL if dtype == torch.float32 else WHISPER_TP_BF16_TOL
-                rec = {"case": f"{cfg.name} {stack}.0 ({cfg.n_heads} heads, d_ff {cfg.d_ff})",
-                       "model_ranks": W, "dtype": str(dtype)[6:],
-                       "rows": list(xs[0].shape[:2]), "memory_frames":
-                           WHISPER_T if len(xs) > 1 else None, "terms_added_in": "float32",
-                       "rank_heads": cfg.n_heads // W, "rank_d_ff": cfg.d_ff // W,
-                       "summed_gradients": sorted(n for n in names
-                                                  if shares[0][0].sums_gradient(n)),
-                       "rel_err": {k: err[k] for k in outputs}, "worst_leaf": worst,
-                       "worst_leaf_rel_err": err[worst], "leaves": len(names), "tol": tol,
-                       "launches_shares": launches, "launches_unsplit": want_launches}
-                if dtype == torch.bfloat16:
-                    for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
-                        e = whisper_grad_errs(side, unsplit32[stack])
-                        leaf = max(names, key=e.get)
-                        rec[tag] = {**{k: e[k] for k in outputs}, "worst_leaf": e[leaf],
-                                    "worst_leaf_name": leaf}
-                print("whisper_tp_shares", json.dumps(rec), flush=True)
-                need(want_launches == launch_counts(**{kernel: n_attn})
-                     and launches == launch_counts(**{kernel: n_attn * W}),
-                     f"whisper tp shares {stack} at {W} ({dtype}): launches {launches}, "
-                     f"unsplit {want_launches}")
-                need(all(torch.isfinite(v.float()).all() for v in got.values()),
-                     f"whisper tp shares {stack} at {W}: non-finite")
-                need(max(err.values()) <= tol,
-                     f"whisper tp shares {stack} at {W} ({dtype}): {rec['rel_err']}, "
-                     f"{worst} {err[worst]}")
-                recs.append(rec)
-                del shares, got
-            del want
-    del model, unsplit32
-    torch.cuda.empty_cache()
+                unsplit32.setdefault(stack, want)
+                n_attn = len(xs)  # flash calls a rank: self-attention (and cross-attention)
+                for W, _, form in (s for s in settings if s[1] == T):
+                    seq_len = lengths if form == "sequence" else None
+                    shares = [tp.share(model, None, r, W, seq_len=seq_len) for r in range(W)]
+                    split = shares[0][0].on(stack).seq
+                    need((split is not None) == (form == "sequence"
+                                                 and xs[0].shape[1] % W == 0),
+                         f"whisper {stack} at {W} ({form}, {T} frames): the stream's split "
+                         f"{split}")
+                    reset_counts()
+                    out = tp.block_shares(model, stack, 0, shares, xs[0], positions,
+                                          xs[1] if len(xs) > 1 else None)
+                    got = dict(zip(keys, [out.detach()] + list(
+                        torch.autograd.grad(out, xs + leaves, gy))))
+                    torch.cuda.synchronize()
+                    launches = counts()
+                    del out
+                    view = shares[0][0].layer(0, stack)
+                    need(view.attn_sum and view.mlp_sum and (view.xattn_sum or n_attn == 1),
+                         f"whisper {stack} at {W}: no split")
+                    err = whisper_grad_errs(got, want)
+                    outputs = keys[:len(xs) + 1]
+                    worst = max(names, key=err.get)
+                    tol = WHISPER_TP_FP32_TOL if dtype == torch.float32 else WHISPER_TP_BF16_TOL
+                    rec = {"case": f"{cfg.name} {stack}.0 ({cfg.n_heads} heads, d_ff {cfg.d_ff})",
+                           "model_ranks": W, "form": form, "dtype": str(dtype)[6:],
+                           "rows": list(xs[0].shape[:2]), "memory_frames":
+                               T if len(xs) > 1 else None, "terms_added_in": "float32",
+                           "stream_split": None if split is None else [split.lo, split.hi],
+                           "rank_heads": cfg.n_heads // W, "rank_d_ff": cfg.d_ff // W,
+                           "summed_gradients": sorted(n for n in names
+                                                      if shares[0][0].sums_gradient(n)),
+                           "rel_err": {k: err[k] for k in outputs}, "worst_leaf": worst,
+                           "worst_leaf_rel_err": err[worst], "leaves": len(names), "tol": tol,
+                           "launches_shares": launches, "launches_unsplit": want_launches}
+                    if dtype == torch.bfloat16:
+                        for tag, side in (("unsplit_vs_fp32", want), ("shares_vs_fp32", got)):
+                            e = whisper_grad_errs(side, unsplit32[stack])
+                            leaf = max(names, key=e.get)
+                            rec[tag] = {**{k: e[k] for k in outputs}, "worst_leaf": e[leaf],
+                                        "worst_leaf_name": leaf}
+                    print(line, json.dumps(rec), flush=True)
+                    need(want_launches == launch_counts(**{kernel: n_attn})
+                         and launches == launch_counts(**{kernel: n_attn * W}),
+                         f"whisper tp shares {stack} at {W} ({form}, {dtype}): launches "
+                         f"{launches}, unsplit {want_launches}")
+                    need(all(torch.isfinite(v.float()).all() for v in got.values()),
+                         f"whisper tp shares {stack} at {W} ({form}): non-finite")
+                    need(max(err.values()) <= tol,
+                         f"whisper tp shares {stack} at {W} ({form}, {T} frames, {dtype}): "
+                         f"{rec['rel_err']}, {worst} {err[worst]}")
+                    recs.append(rec)
+                    del shares, got
+                del want
+        del model, unsplit32, inputs
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -1487,7 +1517,9 @@ def whisper_tp_path():
 
 
 def whisper_tp_train_phase():
-    return {"shares": whisper_tp_shares(WHISPER_TP_RANKS), "path": whisper_tp_path()}
+    plain = [(W, WHISPER_T, "plain") for W in WHISPER_TP_RANKS]
+    return {"shares": whisper_tp_shares(plain), "path": whisper_tp_path(),
+            "seq_shares": whisper_tp_shares(WHISPER_TP_SEQ_SETTINGS, "whisper_tp_seq_shares")}
 
 
 # ---------------------------------------------------------------------------
@@ -4252,6 +4284,10 @@ def main():
                           [r["case"], r["model_ranks"],
                            r["launches_shares"]["flash_attention_wgmma"]]
                           for r in whisper_tp_train["shares"] if r["dtype"] == "bfloat16"],
+                      launches_whisper_tp_seq_shares_bf16=[
+                          [r["case"], r["model_ranks"], r["memory_frames"] or r["rows"][1],
+                           r["launches_shares"]["flash_attention_wgmma"]]
+                          for r in whisper_tp_train["seq_shares"] if r["dtype"] == "bfloat16"],
                       whisper_tp_encode_per_rank=[
                           {key: c[key] for key in WHISPER_FLASH_KEYS if key in c}
                           for c in whisper_flash if c["case"] in WHISPER_TP_FLASH_CASES],
@@ -4285,7 +4321,11 @@ def main():
                                                      if r["dtype"] == "float32"],
                       launches_whisper_tp_shares_fp32=[
                           [r["case"], r["model_ranks"], r["launches_shares"]["flash_attention"]]
-                          for r in whisper_tp_train["shares"] if r["dtype"] == "float32"]),
+                          for r in whisper_tp_train["shares"] if r["dtype"] == "float32"],
+                      launches_whisper_tp_seq_shares_fp32=[
+                          [r["case"], r["model_ranks"], r["memory_frames"] or r["rows"][1],
+                           r["launches_shares"]["flash_attention"]]
+                          for r in whisper_tp_train["seq_shares"] if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",

@@ -29,11 +29,21 @@ block (inside remat's checkpoint, so again in its recompute), and
 ``model_axis`` (``parallel/tensor_parallel.py``) splits each block's
 self-attention, cross-attention and MLP along ``model`` by query heads and
 ``d_ff`` (each block's ``LayerAxis``), and the lookup, the tied head and the
-cross-entropy by vocabulary where the axis divides it. The cross-attention
-projects K and V from the whole memory onto the rank's heads, so each
-decoder block's memory gradient is the rank's term: the memory goes in
-through ``ModelAxis.to_split``, whose backward sums it over ``model``. The
-streams stay whole along ``model`` (no sequence split).
+cross-entropy by vocabulary where the axis divides it. Where the rules put
+the streams' ``seq`` on ``model`` and the axis divides a stream's length,
+that stream holds the rank's block of positions between blocks (the
+encoder's [B, T_f/M, d], the decoder's [B, S/M, d], each split on its own
+length; ``ModelAxis.on`` gives the encoder's view): each block's normed
+input is gathered along the sequence and each sum over ``model`` is a
+reduce-scatter, the positions are added to the rank's positions, an
+unsplit lookup or head reads them alone (``ModelAxis.seq_xent``), and the
+memory comes out of the encoder as the rank's block. The cross-attention
+projects K and V from the whole memory onto the rank's heads, so a rank's
+gradient of the memory may be a partial term: the memory enters the
+decoder once (``ModelAxis.memory_in``: gathered along its sequence where
+the encoder's stream splits, its backward a reduce-scatter; else its
+backward an all-reduce), and every block's cross-attention takes it whole,
+with no collective of its own.
 
 Sharded serving takes the same hooks: ``encode`` under ``no_grad`` is the
 sharded prefill, every encoder block split by heads and ``d_ff`` (flash on
@@ -151,9 +161,10 @@ class DecBlock(nn.Module):
         """The cross-attention on the ``norm_x``-normed stream (``decode``:
         one decode step's token, ``Attention.decode_cross``). Where it
         splits, the rank projects K and V from the whole memory onto its own
-        heads, so the memory goes in as the normed stream does: its gradient
-        is summed over ``model``."""
-        h, memory = _split_in(h, axis, "xattn_sum"), _split_in(memory, axis, "xattn_sum")
+        heads. The memory comes in whole, with no collective of its own: its
+        gradient's terms are summed over ``model`` once for every block
+        (``ModelAxis.memory_in``, in ``EncDec.decode_train``)."""
+        h = _split_in(h, axis, "xattn_sum")
         if decode:
             out = self.xattn.decode_cross(h, memory)
         else:
@@ -182,6 +193,12 @@ class DecBlock(nn.Module):
         token, over the self cache."""
         h = _split_in(h, axis, "attn_sum")
         return _summed(self.attn.decode(h, pos, cache, axis), axis, "attn_sum")
+
+
+def _own(axis: Optional[ModelAxis], positions: torch.Tensor) -> torch.Tensor:
+    """The rank's positions where ``axis`` splits its stream's sequence,
+    else all of them."""
+    return positions if axis is None or axis.seq is None else positions[axis.seq.lo:axis.seq.hi]
 
 
 def _run_block(stack: nn.ModuleList, name: str, index: int, remat_policy: Optional[str],
@@ -244,13 +261,17 @@ class EncDec(nn.Module):
                model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """frames [B, T_f, d] (the stub frontend's output) -> memory [B, T_f, d].
         Positions past the table's length tile it, as in the reference. The
-        hooks as in ``forward``."""
+        hooks as in ``forward``; where ``model_axis`` splits the encoder's
+        stream, the stream and the memory are the rank's block of positions
+        [B, T_f/M, d], the positions added to the rank's frames alone."""
         if frames.dtype != self.enc_pos.dtype:
             raise ValueError(f"frames are {frames.dtype}, the weights "
                              f"{self.enc_pos.dtype}: give the frames in the weights' dtype")
         T = frames.shape[1]
         positions = torch.arange(T, device=frames.device)
-        x = frames + self.enc_pos[positions % self.enc_pos.shape[0]][None]
+        axis = None if model_axis is None else model_axis.on("enc_blocks")
+        x = frames if axis is None else axis.own(frames)
+        x = x + self.enc_pos[_own(axis, positions) % self.enc_pos.shape[0]][None]
         for i in range(len(self.enc_blocks)):
             x = _run_block(self.enc_blocks, "enc_blocks", i, remat_policy, materialize,
                            model_axis, x, positions)
@@ -260,15 +281,21 @@ class EncDec(nn.Module):
                ) -> torch.Tensor:
         """The token embeddings (no positions). Where ``model_axis`` splits
         the vocabulary, ``embed`` holds this rank's rows, and the rank's
-        lookup term is summed over ``model`` (``LM._embed``)."""
+        lookup term is summed over ``model`` (``LM._embed``): reduce-scattered
+        to the rank's positions where the decoder's stream splits, where an
+        unsplit lookup is sliced to them (``ModelAxis.own``)."""
         split = None if model_axis is None else model_axis.split("embed")
         x = transformer.lookup(self.embed, tokens, split)
-        return x if split is None else model_axis.from_split(x)
+        if model_axis is None:
+            return x
+        return model_axis.own(x) if split is None else model_axis.from_split(x)
 
     def _logits(self, x: torch.Tensor, model_axis: Optional[ModelAxis] = None
                 ) -> torch.Tensor:
         """The tied head; where ``model_axis`` splits the vocabulary, the
-        rank's vocab block of the logits (``LM._logits``)."""
+        rank's vocab block of the logits over the whole stream (the
+        final-normed blocks gathered where the decoder's stream splits);
+        an unsplit head there reads the rank's positions (``LM._logits``)."""
         x = common.apply_norm(self.dec_norm, x)
         if model_axis is not None and model_axis.head is not None:
             x = model_axis.to_split(x)
@@ -279,11 +306,17 @@ class EncDec(nn.Module):
                      materialize: Optional[Materialize] = None,
                      model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """Teacher-forced decoder forward: tokens [B, S] -> logits [B, S, V]
-        (the rank's vocab block where ``model_axis`` splits the head). The
-        hooks as in ``forward``."""
+        (the rank's vocab block where ``model_axis`` splits the head, its
+        positions [B, S/M, V] where the decoder's stream splits and the head
+        does not). The hooks as in ``forward``; the memory enters the
+        decoder once (``ModelAxis.memory_in``: whole, its gradient's terms
+        summed over ``model`` by one collective)."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
-        x = self._embed(tokens, model_axis) + self.dec_pos[positions % self.dec_pos.shape[0]][None]
+        x = self._embed(tokens, model_axis) + self.dec_pos[
+            _own(model_axis, positions) % self.dec_pos.shape[0]][None]
+        if model_axis is not None:
+            memory = model_axis.memory_in(memory)
         for i in range(len(self.dec_blocks)):
             x = _run_block(self.dec_blocks, "dec_blocks", i, remat_policy, materialize,
                            model_axis, x, positions, memory)
@@ -338,7 +371,9 @@ def encdec_loss(model: EncDec, batch: Dict[str, Any], *,
     the embedding, positions and final norms at the start, a block's inside
     it (``EncDec.forward``). ``model_axis`` as in ``EncDec.forward``; where
     the head splits, the cross-entropy is the vocab-parallel one
-    (``ModelAxis.xent``) on this rank's logits block."""
+    (``ModelAxis.xent``) on this rank's logits block; where the decoder's
+    stream splits and the head does not, it reads the rank's positions'
+    logits (``ModelAxis.seq_xent``)."""
     args = (batch["frames"], batch["tokens"])
     kw = {"remat_policy": remat_policy, "model_axis": model_axis}
 
@@ -361,6 +396,8 @@ def encdec_loss(model: EncDec, batch: Dict[str, Any], *,
     labels, mask = batch["labels"], batch.get("mask")
     if model_axis is not None and model_axis.head is not None:
         xent = model_axis.xent(logits, labels, mask)
+    elif model_axis is not None and model_axis.seq is not None:
+        xent = model_axis.seq_xent(logits, labels, mask, 0)
     else:
         xent = common.softmax_xent(logits, labels, mask)
     return xent, {"xent": xent, "moe_aux": xent.new_zeros((), dtype=torch.float32)}

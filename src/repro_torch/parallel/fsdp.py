@@ -122,12 +122,17 @@ along their first dim by the ``batch`` rule, each encoder and decoder
 block's self-attention, cross-attention and MLP split by query heads and
 ``d_ff`` along ``model``, the lookup, tied head and cross-entropy by
 vocabulary where the axis divides it (whisper-medium's 51865 it does not:
-they compute whole on every ``model`` rank), each block's weights
-materialized inside the block. The memory's gradient from each decoder
-block's cross-attention is summed over ``model`` (``ModelAxis.to_split``).
-Its streams stay whole along ``model``: the reference constrains their
-``seq`` dim, and that split, with the gather of the sequence-split memory
-it needs, is not ported yet.
+they compute on every ``model`` rank, the rank's positions where the
+decoder's stream splits), each block's weights materialized inside the
+block. Its two streams split their sequence over ``model`` as an LM's does,
+each on its own length: the encoder's [B, T_f, d] (the positions after it
+and every block, as the reference constrains them) and the decoder's [B,
+S, d] (``tensor_parallel.ModelAxis``'s ``stream`` by stack). The memory
+leaves the encoder as the rank's block and enters the decoder once,
+gathered along its sequence (``ModelAxis.memory_in``: the backward's
+reduce-scatter sums every decoder block's term of its gradient at once);
+where the encoder's stream is whole, its gradient is summed over
+``model`` by one all-reduce, where some rank's term is partial.
 
 The encoder-decoder serves on the mesh too (the reference's
 ``build_prefill_step`` jits ``encode``, ``build_serve_step``
@@ -138,8 +143,8 @@ the batch axes and ``Replicate`` along ``model``: every rank's
 cross-attention reads every frame on its heads, and the encoder's stream is
 whole along ``model``, so nothing moves. Under ``fsdp_tp`` this departs from
 the reference's ``("batch", "seq", None)`` for the memory, whose ``seq`` is
-``model`` there (the sequence split above); under ``serve_2d`` ``seq`` is
-None and the two agree. :meth:`ShardedModel.decode_step` takes that memory
+``model`` there (the sequence split, which training takes and serving does
+not yet); under ``serve_2d`` ``seq`` is None and the two agree. :meth:`ShardedModel.decode_step` takes that memory
 (or a global tensor: each rank keeps its rows) and runs each decoder block's
 self-attention over the rank's block of its self cache
 (:meth:`ShardedModel.init_cache` lays ``cache["self"]`` out as an LM's K/V),
@@ -151,7 +156,8 @@ Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; ``serve_2d``'s
 weight-stationary decode (partial sums over ``data`` in place of the
 ``embed`` gather and of the RG-LRU state's gather over ``data``); the
-encoder-decoder's sequence split.
+encoder-decoder's sequence split in serving (the memory split along
+``model`` in the encode).
 """
 
 from __future__ import annotations
@@ -358,15 +364,18 @@ class ShardedModel:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """kw as ``Model.loss``: ``remat_policy``, ``compute_dtype``. An LM's
         residual stream [B, P + S, d] splits its sequence over ``model``
-        where the rules say so (``sharding.stream_split``); the
-        encoder-decoder's streams stay whole along ``model``."""
+        where the rules say so (``sharding.stream_split``); so do the
+        encoder-decoder's two streams, the encoder's [B, T_f, d] and the
+        decoder's [B, S, d], each on its own length."""
         local, axes = self.local_batch(batch)
         reduce = _reduce_placements(self.mesh, axes)
         B, S = batch["tokens"].shape
-        stream = None
-        if not self.cfg.is_encoder_decoder:
+        d = self.cfg.d_model
+        if self.cfg.is_encoder_decoder:
+            stream = {"enc_blocks": (B, batch["frames"].shape[1], d), "dec_blocks": (B, S, d)}
+        else:
             prefix = batch.get("prefix_embeds")
-            stream = (B, S + (0 if prefix is None else prefix.shape[1]), self.cfg.d_model)
+            stream = (B, S + (0 if prefix is None else prefix.shape[1]), d)
         axis = self.model_axis(lm, None, axes, B, stream)
         loss, metrics = self.model.loss(lm, local, materialize=self._weights(axis, axes),
                                         model_axis=axis, **kw)
@@ -438,12 +447,11 @@ class ShardedModel:
         return hook
 
     def model_axis(self, lm: LM, cache: Optional[Cache], row_axes: Tuple[str, ...],
-                   n_rows: int, stream: Optional[Tuple[int, int, int]] = None
-                   ) -> tp.ModelAxis:
+                   n_rows: int, stream=None) -> tp.ModelAxis:
         """This rank's view of the ``model`` split for serving ``lm`` over
         ``cache`` (training: None, and the residual stream's global shape
-        ``stream``), the global batch's ``n_rows`` rows split over
-        ``row_axes``."""
+        ``stream``, or the encoder-decoder's two by stack), the global
+        batch's ``n_rows`` rows split over ``row_axes``."""
         shapes = self._shapes.get(lm)
         if shapes is None:
             shapes = self._shapes[lm] = tp.param_shapes(lm)

@@ -140,7 +140,12 @@ sequence splits, and not otherwise (equal on every rank). The MoE gathers
 its rows along the sequence before the batch axes and reduce-scatters its
 combine, so each rank still routes every token of the global groups and
 no token all-to-all is taken; :class:`Shares` plays the sequence form for
-one rank at a time (:func:`seq_shares`).
+one rank at a time (:func:`seq_shares`; an encoder-decoder block,
+:func:`block_shares`). The encoder-decoder has two streams, the encoder's
+and the decoder's, each split on its own length (:meth:`ModelAxis.on`);
+the encoder's memory enters the decoder once, gathered whole
+(:meth:`ModelAxis.memory_in`), and each block's cross-attention reads it
+with no collective of its own.
 
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
@@ -478,21 +483,23 @@ class _ReduceScatter(torch.autograd.Function):
         return ctx.comm.all_gather(grad, ctx.dim, "model"), None, None
 
 
-class _GatherWidth(torch.autograd.Function):
-    """The rank's column block [..., d/M] of a tensor that is then whole and
-    equal on every rank, all-gathered over ``model`` along its last dim;
-    backward, the rank's block of the gradient, which is whole and equal on
-    every rank too. ``index``: the rank's coordinate on ``model``."""
+class _GatherWhole(torch.autograd.Function):
+    """The rank's block of a tensor that is then whole and equal on every
+    rank, all-gathered over ``model`` along ``dim`` (the RWKV-6 channel
+    mix's column block [..., d/M]; the encoder's memory [B, T_f/M, d] where
+    no rank's gradient of it is a partial term); backward, the rank's block
+    of the gradient, which is whole and equal on every rank too. ``index``:
+    the rank's coordinate on ``model``."""
 
     @staticmethod
-    def forward(ctx, x, comm, index):
-        ctx.lo, ctx.n = index * x.shape[-1], x.shape[-1]
-        out = comm.all_gather(x, x.ndim - 1, "model")
+    def forward(ctx, x, comm, index, dim):
+        ctx.dim, ctx.lo, ctx.n = dim, index * x.shape[dim], x.shape[dim]
+        out = comm.all_gather(x, dim, "model")
         return x.view_as(x) if out is x else out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad[..., ctx.lo:ctx.lo + ctx.n], None, None
+        return grad.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None
 
 
 class _ToPositions(torch.autograd.Function):
@@ -588,22 +595,45 @@ class ModelAxis:
     split over and the global batch (none: the rows are whole); ``stream``:
     in training, the residual stream's global shape (B, S', d), whose
     sequence splits over ``model`` where the rules say so
-    (``sharding.stream_split``: ``seq``, the rank's positions, or None)."""
+    (``sharding.stream_split``: ``seq``, the rank's positions, or None); for
+    the encoder-decoder, each stream's by stack, ``{"enc_blocks": (B, T_f,
+    d), "dec_blocks": (B, S, d)}``, which split independently. ``seq`` is
+    then the decoder's, the stream the lookup and the head read;
+    :meth:`on` gives the encoder's view."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
                  shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
                  comm: Comm,
                  coord: Optional[Mapping[str, int]] = None, memo: Optional[Dict] = None,
                  rows: Tuple[Tuple[str, ...], int] = ((), 0),
-                 stream: Optional[Tuple[int, int, int]] = None):
+                 stream: Union[None, Tuple[int, int, int],
+                               Mapping[str, Tuple[int, int, int]]] = None):
         self.mesh, self.rules, self.shapes, self.comm = mesh, rules, shapes, comm
         self.row_axes, self.n_rows = rows
         self.sizes = shd.axis_sizes(mesh)
         self.coord = shd.coordinate(mesh, coord)
-        self.seq = None if stream is None else shd.stream_split(mesh, rules, stream, self.coord)
+        streams = (stream if isinstance(stream, Mapping)
+                   else {} if stream is None else {"layers": stream})
+        self._seqs = {k: shd.stream_split(mesh, rules, s, self.coord)
+                      for k, s in streams.items()}
+        self.seq = self._seqs.get("dec_blocks", self._seqs.get("layers"))
+        self._root, self._encoder = self, None
         self._layers = None if cache is None else cache[cache_key(cache)]
         self._memo = {} if memo is None else memo
         self.head = self.split("unembed" if "unembed" in shapes else "embed")
+
+    def on(self, name: str) -> "ModelAxis":
+        """This axis as the stream that stack or parameter ``name`` works on
+        splits it: the encoder's (``enc_blocks``, ``enc_pos``, ``enc_norm``:
+        a view whose ``seq`` is the encoder stream's split), else the one
+        stream of an LM or the decoder's, the root axis itself."""
+        root = self._root
+        if not name.startswith("enc_"):
+            return root
+        if root._encoder is None:
+            root._encoder = copy.copy(root)
+            root._encoder.seq = root._seqs.get("enc_blocks")
+        return root._encoder
 
     def split(self, name: str) -> Optional[shd.Split]:
         """The model split of parameter ``name`` where its compute splits,
@@ -714,13 +744,15 @@ class ModelAxis:
         """Whether parameter ``name`` is replicated over ``model`` (its
         resolved spec does not split it) and yet read in part by this rank,
         so that its gradient is this rank's term of a sum over ``model``:
-        where its module's compute splits; and, where the sequence splits,
+        where its module's compute splits; and, where the sequence of the
+        stream it works on splits (:meth:`on`: the encoder's for its
+        positions, final norm and blocks, else the decoder's or the LM's),
         every replicated weight, since each rank back-propagates only its
         own positions' term (the norms on its block, a mixer or an unsplit
         layer, embedding or head through :meth:`own`)."""
         if self.split(name) is not None:
             return False
-        if self.seq is not None:
+        if self.on(name).seq is not None:
             return True
         if not splits_compute(name):
             return False
@@ -770,8 +802,32 @@ class ModelAxis:
 
     def layer(self, index: int, stack: str = "layers") -> "LayerAxis":
         """Layer ``index`` of the LM, or block ``index`` of the
-        encoder-decoder's ``stack`` (``enc_blocks``, ``dec_blocks``)."""
-        return LayerAxis(self, index, stack)
+        encoder-decoder's ``stack`` (``enc_blocks``, ``dec_blocks``), on its
+        stream's view (:meth:`on`)."""
+        return LayerAxis(self.on(stack), index, stack)
+
+    def memory_in(self, memory: torch.Tensor) -> torch.Tensor:
+        """The encoder's memory into the decoder, once for every block's
+        cross-attention: the rank's positions [B, T_f/M, d] where the
+        encoder's stream splits, else the whole [B, T_f, d] -> the whole
+        memory. A rank's gradient of it is a partial term where some
+        cross-attention splits by heads (each rank's K and V from its own
+        heads) or the decoder's stream splits (each rank back-propagates its
+        own positions): there it is all-gathered along the sequence
+        (backward a reduce-scatter: every rank's term summed, the rank's
+        block kept), or, whole, goes in through ``_ToSplit`` (backward an
+        all-reduce). Else every rank's gradient is whole and equal: the
+        gather's backward keeps the rank's block, and a whole memory goes in
+        as it is. The decoder's blocks add their terms on the rank, so one
+        collective sums them all."""
+        partial = self.seq is not None or any(  # some block's xattn_sum
+            self.split(n) is not None for n in self.shapes
+            if n.startswith("dec_blocks.") and n.endswith(".xattn.wo"))
+        if self.on("enc_blocks").seq is not None:
+            if partial:
+                return _GatherSeq.apply(memory, self.comm)
+            return _GatherWhole.apply(memory, self.comm, self.coord["model"], 1)
+        return _ToSplit.apply(memory, self.comm) if partial else memory
 
     def _cache_shape(self, index: int):
         if self._layers is None:
@@ -916,7 +972,7 @@ class LayerAxis:
         out = r * _ReduceScatter.apply(v, axis.comm, v.ndim - 1)
         if axis.seq is not None:
             return _ToPositions.apply(out, axis.comm), new_shift
-        return _GatherWidth.apply(out, axis.comm, axis.coord["model"]), new_shift
+        return _GatherWhole.apply(out, axis.comm, axis.coord["model"], out.ndim - 1), new_shift
 
     def kv_for_queries(self, k: torch.Tensor, v: torch.Tensor):
         """The KV heads [B, S, h, D] this rank's query heads read: its own
@@ -1004,7 +1060,8 @@ def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> Non
 
 
 def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: int,
-          rules: Optional[Dict[str, shd.MeshAxes]] = None, seq_len: Optional[int] = None,
+          rules: Optional[Dict[str, shd.MeshAxes]] = None,
+          seq_len: Union[None, int, Mapping[str, int]] = None,
           comm: Optional[_ThreadRank] = None):
     """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
     process (whole weights and cache given -- an LM's ``layers`` or the
@@ -1022,7 +1079,9 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     stream's S', whose sequence then splits as the rules say (the
     sequence form: the caller feeds each gather the gathered input, and
     sums and slices the terms each reduce-scatter returns whole;
-    :meth:`ModelAxis.own` gives the rank's positions). ``comm``: rank
+    :meth:`ModelAxis.own` gives the rank's positions); for the
+    encoder-decoder, each stream's by stack (``{"enc_blocks": T_f,
+    "dec_blocks": S}``, :func:`block_shares`). ``comm``: rank
     ``rank`` of a :class:`ThreadRanks` axis, whose ranks run together, so
     the rules' cache layout is kept: a K/V cache split by sequence gives the
     rank its positions' block."""
@@ -1030,7 +1089,10 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     if comm is None:
         rules = {**rules, "seq_cache": None}
     mesh = {"model": size}
-    stream = None if seq_len is None else (1, seq_len, lm.cfg.d_model)
+    d = lm.cfg.d_model
+    stream = (None if seq_len is None
+              else {k: (1, n, d) for k, n in seq_len.items()} if isinstance(seq_len, Mapping)
+              else (1, seq_len, d))
     axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares() if comm is None else comm,
                      coord={"model": rank}, stream=stream)
     params = {}
@@ -1185,12 +1247,23 @@ def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tens
     every rank through a cast from fp32, so autograd adds its gradient's
     terms in fp32, as ``to_split``'s all-reduce adds them; the ranks' output
     terms are added in fp32 where the part splits, else rank 0's whole term
-    is taken. With ``pos``, one ``DecBlock.decode`` step at position ``pos``
-    (x [B, 1, d]; ``positions`` unused): the self-attention over each rank's
-    block of its self cache, which it writes, and the cross-attention's
-    decode path. -> the block's output."""
+    is taken. The sequence form, where the shares' axes split the stack's
+    stream (:func:`share` with ``seq_len``), as :func:`seq_shares` plays an
+    LM layer: each rank normalizes its own block of x [B, S', d]; the
+    normed blocks, concatenated, are every rank's gathered input; the whole
+    terms of a split part are summed in fp32 and sliced to each rank's
+    block, and an unsplit part's ranks each give their own positions. The
+    memory reaches every rank whole in both forms, as
+    ``ModelAxis.memory_in`` gives it. With ``pos``, one ``DecBlock.decode``
+    step at position ``pos`` (x [B, 1, d]; ``positions`` unused): the
+    self-attention over each rank's block of its self cache, which it
+    writes, and the cross-attention's decode path. -> the block's output."""
     block = getattr(model, stack)[index]
     wide = None if memory is None else memory.float()
+    views = [axis.on(stack) for axis, _, _ in shares]
+    seq = pos is None and views[0].seq is not None
+    bounds = [(v.seq.lo, v.seq.hi) if seq else (0, x.shape[1]) for v in views]
+    xs = [x[:, lo:hi] for lo, hi in bounds] if seq else [x]
 
     def mix(h, layer, cache):
         if pos is None:
@@ -1205,14 +1278,16 @@ def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tens
         parts.append(("norm_x", "xattn_sum", cross))
     parts.append(("norm2", "mlp_sum", lambda h, layer, _: block.feed_forward(h, layer)))
     for norm, which, fn in parts:
-        h = common.apply_norm(getattr(block, norm), x).float()
+        h = torch.cat([common.apply_norm(getattr(block, norm), xr) for xr in xs], 1).float()
         terms = []
         for axis, params, cache in shares:
             with _reparametrize_module(model, params):
                 terms.append(fn(h.to(x.dtype), axis.layer(index, stack), cache))
-        summed = getattr(shares[0][0].layer(index, stack), which)
-        x = x + (sum(t.float() for t in terms).to(x.dtype) if summed else terms[0])
-    return x
+        if getattr(shares[0][0].layer(index, stack), which):
+            total = sum(t.float() for t in terms).to(x.dtype)
+            terms = [total[:, lo:hi] for lo, hi in bounds]
+        xs = [xr + t for xr, t in zip(xs, terms)]
+    return torch.cat(xs, 1)
 
 
 def thread_shares(model: nn.Module, stack: str, index: int, size: int,

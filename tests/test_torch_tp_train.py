@@ -32,8 +32,13 @@ phi3.5-moe (8 experts: each rank computes its block of them, the expert
 split), rwkv6-7b (both mixers split, the stream's sequence too), and
 phi3.5-moe with 6 experts (3 a rank on (data 2, model 2); on
 (model 4), which does not divide 6, every expert's ff columns: the ff
-split) on (data 2, model 2) under ``fsdp_tp`` and on (model 4) under
-``tp_only``:
+split), whisper-medium (its encoder's and decoder's streams split their
+positions over ``model``, each where the axis divides its own length: at
+24 frames and 64 tokens both, and on (model 4) three variants split one:
+24 frames and 22 tokens, the encoder's alone, also with 6 heads, where
+every attention is whole and no rank's gradient of the memory is a partial
+term; 26 frames and 24 tokens, the decoder's alone) on (data 2, model 2)
+under ``fsdp_tp`` and on (model 4) under ``tp_only``:
 ``ShardedModel.loss`` and every gradient (``full_tensor``) against the
 reference's ``jax.value_and_grad`` of its loss on the same weights (the loss
 within 1e-5 relative, each gradient within 2e-5 of its leaf's largest, as
@@ -65,6 +70,7 @@ time-mix ``w_v`` block moved by all-to-alls, its gradient back by one).
 
 import dataclasses
 import functools
+import re
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -490,10 +496,16 @@ def test_sums_gradient_reads_the_resolved_spec_and_the_layer_split():
 # Part (ii): gloo ranks against the JAX reference and the single process
 # ---------------------------------------------------------------------------
 
-# an arch at S 64, "<arch>/S<n>" at S n, "<arch>/E<n>" with n experts
+# an arch at S 64; "<arch>/<var>", var a run of S<n> (n tokens), E<n> (n
+# experts), F<n> (n frames), H<n> (n heads). whisper-medium's two streams
+# split independently: at 24 frames and 64 tokens both split on either mesh;
+# on (model 4) F24S22 splits only the encoder's, F26S24 only the decoder's,
+# and F24S22H6 only the encoder's with every attention whole (6 heads), so
+# that no rank's gradient of the memory is a partial term
 MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
           "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6",
-          "whisper-medium", "rwkv6-7b"]
+          "whisper-medium", "whisper-medium/F24S22", "whisper-medium/F26S24",
+          "whisper-medium/F24S22H6", "rwkv6-7b"]
 # the encoder-decoder's frames a row: 24, past its reduced 16-row ``enc_pos``
 # (the positions tile)
 ENCDEC_FRAMES = 24
@@ -529,42 +541,41 @@ for name, cfg, np_params, batch, (data, run) in cases:
 
 
 def _arch_and_seq(name):
-    """(arch, S, the config's fields replaced)."""
+    """(arch, S, the config's fields replaced, the encoder-decoder's frames)."""
     arch, _, var = name.partition("/")
-    if var.startswith("E"):
-        return arch, 64, {"n_experts": int(var[1:])}
-    return arch, int(var[1:] or 64), {}
+    got = {k: int(n) for k, n in re.findall(r"([A-Z])(\d+)", var)}
+    over = {field: got[k] for k, field in (("E", "n_experts"), ("H", "n_heads")) if k in got}
+    return arch, got.get("S", 64), over, got.get("F", ENCDEC_FRAMES)
 
 
 def _cfgs(name):
     """(the port's reduced config, the reference's)."""
-    arch, _, over = _arch_and_seq(name)
+    arch, _, over, _ = _arch_and_seq(name)
     return (dataclasses.replace(ARCHS[arch].reduced(), **over),
             dataclasses.replace(JARCHS[arch].reduced(), **over))
 
 
-def _batch(cfg, S, seed=3):
+def _batch(cfg, S, seed=3, frames=ENCDEC_FRAMES):
     """B 4 x S tokens and labels, a mask (denser in the first two rows, so
     the (data 2) mesh's ranks hold unequal shares of the loss's tokens), and
-    internvl2's prefix."""
+    internvl2's prefix or the encoder-decoder's frames."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab_size, (4, S)).astype(np.int32),
              "mask": (rng.random((4, S)) < [[0.9], [0.9], [0.4], [0.4]]).astype(np.float32)}
     if cfg.is_encoder_decoder:
-        batch["frames"] = rng.standard_normal(
-            (4, ENCDEC_FRAMES, cfg.d_model)).astype(np.float32)
+        batch["frames"] = rng.standard_normal((4, frames, cfg.d_model)).astype(np.float32)
     elif cfg.frontend:
         batch["prefix_embeds"] = rng.standard_normal(
             (4, cfg.frontend_seq_len, cfg.d_model)).astype(np.float32)
     return batch
 
 
-def _train_setup(cfg, S):
+def _train_setup(cfg, S, frames):
     """``tests/test_torch_parallel.py``'s 6 steps in fp32; the
     encoder-decoder's batches (frames, tokens, labels, mask) seeded here."""
     if cfg.is_encoder_decoder:
-        data = [_batch(cfg, S, seed=10 + i) for i in range(TRAIN_STEPS)]
+        data = [_batch(cfg, S, seed=10 + i, frames=frames) for i in range(TRAIN_STEPS)]
     else:
         data = SyntheticLM(DataConfig(cfg.vocab_size, S, 4, seed=1))
     run = TrainRunConfig(optimizer=AdamWConfig(lr=TRAIN_LR, weight_decay=0.01),
@@ -574,10 +585,11 @@ def _train_setup(cfg, S):
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
-    S = _arch_and_seq(name)[1]
+    _, S, _, frames = _arch_and_seq(name)
     cfg, jcfg = _cfgs(name)
     draw = _encdec_numpy_params if cfg.is_encoder_decoder else _numpy_params
-    return name, cfg, draw(jcfg, seed=1), _batch(cfg, S), _train_setup(cfg, S)
+    return (name, cfg, draw(jcfg, seed=1), _batch(cfg, S, frames=frames),
+            _train_setup(cfg, S, frames))
 
 
 @functools.lru_cache(maxsize=None)
@@ -740,30 +752,31 @@ def test_a_sequence_split_train_step_counts_its_gathers_and_scatters():
 def test_a_whisper_train_step_splits_every_block_along_model():
     """Reduced whisper-medium (2 + 2 blocks, 4/2 heads and 4 in the
     cross-attention, d_ff 128, vocab 512: all split on a model axis of 2; B
-    4 x 24 frames x 24 tokens) under ``fsdp_tp``, each block its own
-    checkpoint. Over ``model`` the step only all-reduces: in the forward
-    each encoder block's two row-parallel sums, the lookup's, each decoder
-    block's three (self-attention, cross-attention, MLP) and the
-    cross-entropy's three; in the backward the head's input gradient, for
-    each decoder block the recompute's two attention sums (the checkpoint
-    stops before the MLP's, whose output the backward does not read) and
-    the gradients of its four column-parallel inputs (the three normed
-    streams and the memory), for each encoder block the recompute's
-    attention sum and its two inputs' gradients; and the clip's global
-    norm, one fp32 a leaf: 2 * 2 + 1 + 3 * 2 + 3 + 1 + 6 * 2 + 3 * 2 + 1 =
-    34. The streams stay whole along ``model``: each sum moves a rank's
-    [2, 24, d] in bf16. No weight is gathered over ``model``: the all-gathers
-    over ``data`` bring each split weight (every attention, cross-attention
-    and MLP weight, the embedding) to its ``model`` block and move nothing
-    of the norms and positions, which lie whole on every rank; a block's
-    weights are gathered in its forward and again in its recompute."""
+    4 x 24 frames x 24 tokens) under ``fsdp_tp_noseq`` (the streams whole
+    along ``model``), each block its own checkpoint. Over ``model`` the step
+    only all-reduces: in the forward each encoder block's two row-parallel
+    sums, the lookup's, each decoder block's three (self-attention,
+    cross-attention, MLP) and the cross-entropy's three; in the backward the
+    head's input gradient, for each decoder block the recompute's two
+    attention sums (the checkpoint stops before the MLP's, whose output the
+    backward does not read) and the gradients of its three column-parallel
+    inputs (the normed streams), the memory's gradient once for both
+    decoder blocks (``ModelAxis.memory_in``), for each encoder block the
+    recompute's attention sum and its two inputs' gradients; and the clip's
+    global norm, one fp32 a leaf: 2 * 2 + 1 + 3 * 2 + 3 + 1 + 5 * 2 + 1 + 3 *
+    2 + 1 = 33. Each sum moves a rank's [2, 24, d] in bf16. No weight is
+    gathered over ``model``: the all-gathers over ``data`` bring each split
+    weight (every attention, cross-attention and MLP weight, the embedding)
+    to its ``model`` block and move nothing of the norms and positions,
+    which lie whole on every rank; a block's weights are gathered in its
+    forward and again in its recompute."""
     cfg = ARCHS["whisper-medium"].reduced()
-    over_data, ops = _step_collectives("whisper-medium", "fsdp_tp", 24)
+    over_data, ops = _step_collectives("whisper-medium", "fsdp_tp_noseq", 24)
     stream, xent = 2 * 24 * cfg.d_model * 2, 2 * 24 * 4
     meta = shp.param_specs_shapes(cfg, torch.float32)
     n_leaves = len(list(meta.parameters()))
-    assert [op.kind for op in ops] == ["all-reduce"] * 34
-    assert [op.bytes for op in ops] == ([stream] * 11 + [xent] * 3 + [stream] * 19
+    assert [op.kind for op in ops] == ["all-reduce"] * 33
+    assert [op.bytes for op in ops] == ([stream] * 11 + [xent] * 3 + [stream] * 18
                                         + [4 * n_leaves])
     specs = shd.param_specs({"data": 2, "model": 2}, shd.STRATEGIES["fsdp_tp"](), meta)
     want = 0
@@ -774,6 +787,48 @@ def test_a_whisper_train_step_splits_every_block_along_model():
         assert tp.splits_compute(name) == ("model" in axes), name
         want += times * p.numel() * 4 // 2 if axes == {"data", "model"} else 0
     assert sum(op.bytes for op in over_data if op.kind == "all-gather") == want
+
+
+def test_a_whisper_sequence_split_train_step_counts_its_gathers_and_scatters():
+    """The same step under ``fsdp_tp``: both streams, 24 frames and 24
+    tokens, split into blocks of 12 over ``model``, and so does nothing
+    else. All-gathers: in the forward each encoder block's two normed
+    inputs, the memory into the decoder, each decoder block's three and the
+    head's; in the backward each decoder block's recompute (three gathers;
+    it stops before the MLP's reduce-scatter) and its three reduce-scatters'
+    gradients, the lookup's reduce-scatter's gradient, and each encoder
+    block's recompute (two) and its two reduce-scatters' gradients:
+    2 * 2 + 1 + 3 * 2 + 1 + 6 * 2 + 1 + 4 * 2 = 33. Reduce-scatters: each
+    encoder block's two row-parallel sums, the lookup and each decoder
+    block's three in the forward; the head's gather's gradient, each decoder
+    block's recompute (two) and its three gathers' gradients, the memory's
+    gradient (every rank's term, from both decoder blocks, summed once) and
+    each encoder block's recompute (one) and its two gathers' gradients:
+    2 * 2 + 1 + 3 * 2 + 1 + 5 * 2 + 1 + 3 * 2 = 29. Every gather and
+    reduce-scatter moves a rank's gathered stream (or memory), [2, 24, d]
+    in bf16. All-reduces move no stream: the cross-entropy's three terms,
+    and the gradients of the replicated weights each rank reads for its
+    own positions only: every norm's scale and bias (two for each of a
+    decoder block's three norms, an encoder block's two, ``enc_norm`` and
+    ``dec_norm``), ``dec_pos`` and ``enc_pos`` (the vocabulary splits, so
+    ``embed`` is a block); and the clip's global norm:
+    3 + (3 * 2 * 2 + 2 * 2 * 2 + 2 + 2) + 2 + 1 = 30."""
+    cfg = ARCHS["whisper-medium"].reduced()
+    ops = _step_collectives("whisper-medium", "fsdp_tp", 24)[1]
+    kinds = [op.kind for op in ops]
+    d = cfg.d_model
+    stream = 2 * 24 * d * 2
+    assert {k: kinds.count(k) for k in set(kinds)} == {
+        "all-gather": 33, "reduce-scatter": 29, "all-reduce": 30}
+    assert {op.bytes for op in ops if op.kind != "all-reduce"} == {stream}
+    n_leaves = len(list(shp.param_specs_shapes(cfg, torch.float32).parameters()))
+    reduced = sorted(op.bytes for op in ops if op.kind == "all-reduce")
+    assert reduced == sorted([2 * 24 * 4] * 3 + [d * 4] * (12 + 8 + 4)
+                             + [cfg.max_seq_len * d * 4, cfg.frontend_seq_len * d * 4]
+                             + [4 * n_leaves])
+    pair = ["all-gather", "reduce-scatter"]
+    assert kinds[:26] == (pair * 4 + ["reduce-scatter", "all-gather"] + pair * 6
+                          + ["all-gather"] + ["all-reduce"] * 3)  # the forward
 
 
 def test_an_rwkv_train_step_splits_both_mixers_along_model():
