@@ -278,7 +278,17 @@ calls, and fails (exit code not 0, no result line) on any miss:
               fp32): every step's output and each rank's cache block against
               the unsplit ``DecBlock.decode``'s, fp32 within 1e-5 of the
               largest, bf16 within 5e-2 beside the unsplit bf16 block's own
-              error, no kernel launch (decode is the plain path); (b)
+              error, no kernel launch (decode is the plain path); then,
+              all ranks at once in threads over a self cache split by
+              positions, and at 4 ranks with the 1500-frame memory split
+              along ``model`` (``Shard(1)``, as the sharded encode returns
+              it) and gathered once a step (``ModelAxis.memory_in``,
+              counted), ranks bit-equal, the same tolerances; then the
+              encode's block in the sequence form, forward only: one
+              full-width encoder block, B 4, at 4 ranks over 1500 frames,
+              16 over 1500 (the stream whole) and 16 over 4096, each rank
+              on its own positions with the gathers and reduce-scatters
+              played, fp32 1e-5 and bf16 5e-2, W flash launches; (b)
               whisper-medium at full width (24 + 24 layers, bf16), B 4 x 1500
               frames: the encode and 65 decode calls (the start token, then
               64 greedy) unsharded, then the same weights on a 1-rank NCCL
@@ -1530,6 +1540,11 @@ def whisper_tp_train_phase():
 # (b) the 1-rank path: the memory and every call's logits within 1e-3 of the
 # unsharded ones' largest, 64 decode steps
 WHISPER_SERVE_SHARE_STEPS, WHISPER_SERVE_PATH_TOL = 16, 1e-3
+# (a) the encode in the sequence form: (W, frames); 1500 frames (30 s of
+# audio) split at 4 ranks and stay whole at 16, train_4k's 4096 split at 16
+WHISPER_ENCODE_SEQ_SETTINGS = ((4, WHISPER_T), (16, WHISPER_T), (16, 4096))
+# (c) a decoder block's decode fed a memory split along model over 4 ranks
+WHISPER_SPLIT_MEMORY_RANKS = 4
 # one rank's flash call in the sharded encode: B 4 x 1500 frames on 4 and 1
 # of the 16 heads, D 64, bf16, non-causal (kernels phase)
 WHISPER_TP_FLASH_CASES = ("whisper-medium encode, a rank of 4", "whisper-medium encode, "
@@ -1633,7 +1648,7 @@ def whisper_serve_shares(ranks):
     xs = [torch.randn(B, 1, d, generator=g, device="cuda")
           for _ in range(WHISPER_SERVE_SHARE_STEPS)]
     block = model.dec_blocks[0]
-    recs, unsplit32, seq32 = [], None, {}
+    recs, unsplit32, seq32, split32 = [], None, {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             model.to(dtype)
@@ -1686,9 +1701,104 @@ def whisper_serve_shares(ranks):
                 recs.append(seq_decode_form(
                     rec["case"], model, "dec_blocks", seeded_cache(api, B, L, dtype, SEED + 5),
                     steps_in, (mem,), W, dtype, tol, seq32))
+                if W == WHISPER_SPLIT_MEMORY_RANKS:
+                    recs.append(split_memory_decode(
+                        rec["case"], model, seeded_cache(api, B, L, dtype, SEED + 7), steps_in,
+                        mem, W, dtype, tol, split32))
     del model
     torch.cuda.empty_cache()
     return recs
+
+
+class CountingComm:
+    """A rank's comm that counts the all-gathers of tensors of ``shape``."""
+
+    def __init__(self, comm, shape):
+        self.comm, self.shape, self.n = comm, tuple(shape), 0
+
+    def __getattr__(self, name):
+        return getattr(self.comm, name)
+
+    def all_gather(self, x, dim, axis):
+        self.n += tuple(x.shape) == self.shape
+        return self.comm.all_gather(x, dim, axis)
+
+
+def split_memory_decode(case, model, cache, steps_in, memory, W, dtype, tol, unsplit32):
+    """(c) Decoder block 0 decoding ``steps_in`` on all W ranks at once, one
+    thread a rank (``tensor_parallel.thread_shares`` under ``fsdp_tp`` with
+    ``seq_len={"enc_blocks": T_f}``): each rank holds its block of the
+    memory's frames, as the sharded encode leaves it (``Shard(1)`` on
+    ``model``), and gathers it once a step before the block
+    (``ModelAxis.memory_in``: one all-gather, counted), then decodes over its
+    block of the seeded self cache, split by positions as ``seq_decode_form``
+    splits it, its cross-attention on its heads over the whole gathered
+    memory. Every rank's output against the unsplit block fed the whole
+    memory (within ``tol`` of its largest; ranks bit-equal), each gathered
+    memory bit-equal to the whole one, each rank's cache block against
+    those positions of the unsplit cache; ``unsplit32``: the fp32 unsplit
+    outputs, read in bf16. Decode takes the plain path: no kernel launches."""
+    L, n, T = cache["self"][0]["k"].shape[1], len(steps_in), memory.shape[1]
+    start = L - L // W - n // 2
+
+    def decode(block, layer, c):
+        if layer is None:
+            return torch.stack([block.decode(x, start + t, c["self"][0], memory)
+                                for t, x in enumerate(steps_in)]), None
+        axis = layer.axis
+        split = axis.on("enc_blocks").seq
+        own = memory[:, split.lo:split.hi].clone()  # the rank's frames
+        axis.comm = CountingComm(axis.comm, own.shape)
+        outs, exact = [], True
+        for t, x in enumerate(steps_in):
+            whole = axis.memory_in(own)
+            exact = exact and torch.equal(whole, memory)
+            outs.append(block.decode(x, start + t, c["self"][0], whole, axis=layer))
+        return torch.stack(outs), {"frames": [split.lo, split.hi], "gathers": axis.comm.n,
+                                   "gathered_exact": exact, "positions": layer.seq}
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want_cache = copy.deepcopy(cache)
+        want, _ = decode(model.dec_blocks[0], None, want_cache)
+        torch.cuda.synchronize()
+        reset_counts()
+        got, caches = tp.thread_shares(model, "dec_blocks", 0, W, cache, decode,
+                                       seq_len={"enc_blocks": T})
+        torch.cuda.synchronize()
+    launches = counts()
+    info = [i for _, i in got]
+    got = [out for out, _ in got]
+    unsplit32.setdefault(W, want.float())
+    cache_err = max(rel_err(c["self"][0][k], want_cache["self"][0][k][:, i["positions"].lo:
+                                                                      i["positions"].hi])
+                    for c, i in zip(caches, info) for k in ("k", "v"))
+    rec = {"case": case, "form": "memory split along model (Shard(1)), gathered once a step; "
+                                 "ranks run together (threads)",
+           "model_ranks": W, "dtype": str(dtype)[6:], "batch": int(steps_in[0].shape[0]),
+           "memory_frames": T, "rank_frames": [i["frames"] for i in info], "cache_len": L,
+           "start": start, "steps": n, "memory_gathers": [i["gathers"] for i in info],
+           "gathered_memory_exact": all(i["gathered_exact"] for i in info),
+           "ranks_equal": all(torch.equal(o, got[0]) for o in got),
+           "rel_err_per_step": [rel_err(a, b) for a, b in zip(got[0], want)],
+           "cache_rel_err": cache_err, "tol": tol, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    rec["rel_err"] = max(rec["rel_err_per_step"])
+    if dtype == torch.bfloat16:
+        rec["unsplit_vs_fp32"] = rel_err(want, unsplit32[W])
+        rec["shares_vs_fp32"] = rel_err(got[0], unsplit32[W])
+    print("whisper_serve_split_memory", json.dumps(rec), flush=True)
+    need(all(f[1] - f[0] == T // W for f in rec["rank_frames"]) and T % W == 0,
+         f"{case} at {W}: the memory does not split by frames: {rec['rank_frames']}")
+    need(rec["memory_gathers"] == [n] * W and rec["gathered_memory_exact"],
+         f"{case} at {W}: memory gathers {rec['memory_gathers']} in {n} steps, exact "
+         f"{rec['gathered_memory_exact']}")
+    need(launches == launch_counts(), f"{case} split memory at {W}: launches {launches}")
+    need(rec["ranks_equal"] and bool(torch.isfinite(got[0].float()).all())
+         and rec["rel_err"] <= tol and cache_err <= tol,
+         f"{case} split memory at {W} ({dtype}): {rec['rel_err']}, cache {cache_err}, ranks "
+         f"equal {rec['ranks_equal']}")
+    return rec
 
 
 def whisper_serve_replay(model, params, frames, first, fed, full):
@@ -1805,8 +1915,91 @@ def whisper_serve_path():
     return rec
 
 
+def whisper_encode_seq_shares():
+    """(a) The sharded encode's blocks in the sequence form, forward only
+    under ``no_grad``: one full-width encoder block, B 4 x T frames, fp32
+    then the same weights in bf16: the unsplit ``EncBlock``, then for each
+    (W, T) of ``WHISPER_ENCODE_SEQ_SETTINGS`` every rank's share in turn
+    (``tensor_parallel.share(..., seq_len={"enc_blocks": T})`` and
+    ``block_shares``: each rank normalizes its own positions, the normed
+    blocks concatenated are every rank's gathered input, the split parts'
+    terms added in fp32 and sliced to each rank's positions, as the encode's
+    gathers and reduce-scatters give them); where the axis does not divide
+    T (1500 frames at 16 ranks) the stream stays whole, the plain form. The
+    ranks' blocks side by side against the unsplit block's output, fp32
+    within 1e-5 of its largest, bf16 within 5e-2 beside the unsplit bf16
+    block's own error; W flash launches (one a rank, on its heads over the
+    gathered frames), one for the unsplit block."""
+    cfg = whisper_cfg(1)
+    model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    inputs = {T: torch.randn(WHISPER_B, T, cfg.d_model, generator=g, device="cuda")
+              for T in dict.fromkeys(t for _, t in WHISPER_ENCODE_SEQ_SETTINGS)}
+    recs, unsplit32 = [], {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype)
+            kernel = {"wgmma": "flash_wgmma",
+                      "simt": "flash"}[fa_ops.kernel_for(dtype, cfg.head_dim)]
+            tol = WHISPER_TP_FP32_TOL if dtype == torch.float32 else WHISPER_TP_BF16_TOL
+            for T, x32 in inputs.items():
+                x, positions = x32.to(dtype), torch.arange(T, device="cuda")
+                reset_counts()
+                want = model.enc_blocks[0](x, positions)
+                torch.cuda.synchronize()
+                want_launches = counts()
+                unsplit32.setdefault(T, want.float())
+                for W in (w for w, t in WHISPER_ENCODE_SEQ_SETTINGS if t == T):
+                    shares = [tp.share(model, None, r, W, seq_len={"enc_blocks": T})
+                              for r in range(W)]
+                    splits = [axis.on("enc_blocks").seq for axis, _, _ in shares]
+                    reset_counts()
+                    got = tp.block_shares(model, "enc_blocks", 0, shares, x, positions)
+                    torch.cuda.synchronize()
+                    launches = counts()
+                    view = shares[0][0].layer(0, "enc_blocks")
+                    rec = {"case": f"{cfg.name} enc_blocks.0 encode ({cfg.n_heads} heads, "
+                                   f"d_ff {cfg.d_ff}), forward under no_grad",
+                           "model_ranks": W, "dtype": str(dtype)[6:], "rows": [WHISPER_B, T],
+                           "form": "sequence" if splits[0] is not None else "plain",
+                           "rank_positions": [None if sp is None else [sp.lo, sp.hi]
+                                              for sp in splits],
+                           "rank_heads": cfg.n_heads // W, "rank_d_ff": cfg.d_ff // W,
+                           "terms_added_in": "float32", "rel_err": rel_err(got, want),
+                           "tol": tol, "launches_shares": launches,
+                           "launches_unsplit": want_launches}
+                    if dtype == torch.bfloat16:
+                        rec["unsplit_vs_fp32"] = rel_err(want, unsplit32[T])
+                        rec["shares_vs_fp32"] = rel_err(got, unsplit32[T])
+                    print("whisper_serve_encode_seq_shares", json.dumps(rec), flush=True)
+                    need(all((sp is not None) == (T % W == 0) for sp in splits)
+                         and view.attn_sum and view.mlp_sum,
+                         f"whisper encode at {W} over {T} frames: stream split {splits}, "
+                         f"sums {view.attn_sum} {view.mlp_sum}")
+                    need(want_launches == launch_counts(**{kernel: 1})
+                         and launches == launch_counts(**{kernel: W}),
+                         f"whisper encode shares at {W} over {T} ({dtype}): launches "
+                         f"{launches}, unsplit {want_launches}")
+                    need(bool(torch.isfinite(got.float()).all()) and rec["rel_err"] <= tol,
+                         f"whisper encode shares at {W} over {T} ({dtype}): {rec['rel_err']}")
+                    recs.append(rec)
+                    del shares, got
+                del want
+    del model, inputs
+    torch.cuda.empty_cache()
+    return recs
+
+
 def whisper_tp_serve_phase():
-    return {"shares": whisper_serve_shares(WHISPER_TP_RANKS), "path": whisper_serve_path()}
+    out, seconds = {}, {}
+    for name, fn in (("shares", lambda: whisper_serve_shares(WHISPER_TP_RANKS)),
+                     ("encode_seq_shares", whisper_encode_seq_shares),
+                     ("path", whisper_serve_path)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    print("whisper_tp_serve_seconds", json.dumps(seconds), flush=True)
+    return {**out, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,13 @@ written where it lies; in training the chunked twin on the rank's heads)
 and the channel mix by ``d_ff``. The
 encoder-decoder's steps are sharded too: its frames and tokens split by
 rows, each block's self-attention, cross-attention and MLP along ``model``,
-its streams whole along ``model`` (the reference's ``seq`` constraint on
-them, and the gather of the sequence-split memory it needs, are not ported
-yet); its prefill is the encode, and its serve step reads the self caches
-where they lie and the memory laid out by rows (``ShardedModel.rows``).
+its streams along their sequence over ``model`` where the rules say so (the
+reference's ``seq`` constraint): the train step's encoder and decoder
+streams, the prefill's encoder stream. The prefill is the encode; it
+returns the memory laid out as the reference's ``build_serve_step`` takes
+it, ``("batch", "seq", None)``. The serve step reads the self caches where
+they lie and takes the memory in that layout (``ShardedModel.memory``),
+gathered along ``model`` once a step where its frames split.
 """
 
 from __future__ import annotations
@@ -171,7 +174,7 @@ def build_serve_step(
     args: Tuple = (params, cache, tokens)
     if cfg.is_encoder_decoder:
         memory = _fill({"memory": shp.memory_specs(cfg, cell)}, cfg, device, seed)["memory"]
-        args = args + (model.rows(memory),)
+        args = args + (model.memory(memory),)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, *memory):

@@ -47,15 +47,18 @@ with no collective of its own.
 
 Sharded serving takes the same hooks: ``encode`` under ``no_grad`` is the
 sharded prefill, every encoder block split by heads and ``d_ff`` (flash on
-the rank's heads); ``decode_step`` takes ``LM.decode_step``'s hooks
+the rank's heads over the gathered stream) and, where the axis splits the
+encoder's stream, on the rank's block of positions as in training, the
+memory out as that block; ``decode_step`` takes ``LM.decode_step``'s hooks
 (``materialize``, ``layer_cache``, ``model_axis``): the lookup and the tied
-head by vocabulary where the axis divides it, each decoder block's weights
-materialized inside the block, its self-attention over the rank's block of
-its self cache where it lies (``LayerAxis.decode_attention``: partial
-softmaxes merged over the cache's sequence axes), its cross-attention on the
-rank's heads with K and V projected from the rank's rows of the whole
-memory, and its MLP on the rank's ``d_ff`` block, each summed over
-``model``.
+head by vocabulary where the axis divides it, the memory gathered along its
+frames once before the first block where it comes split
+(``ModelAxis.memory_in``), each decoder block's weights materialized inside
+the block, its self-attention over the rank's block of its self cache where
+it lies (``LayerAxis.decode_attention``: partial softmaxes merged over the
+cache's sequence axes), its cross-attention on the rank's heads with K and V
+projected from the rank's rows of the whole memory, and its MLP on the
+rank's ``d_ff`` block, each summed over ``model``.
 """
 
 from __future__ import annotations
@@ -346,9 +349,14 @@ class EncDec(nn.Module):
         (sharded serving, ``parallel/fsdp.py``): ``materialize`` gives each
         decoder block's weights inside the block, ``layer_cache(i, c)`` block
         i's self cache, ``model_axis`` splits the lookup, each block and the
-        head along ``model``."""
+        head along ``model``; the memory enters the decoder once
+        (``ModelAxis.memory_in``: all-gathered along its frames where they
+        split over ``model``, else as it is), and every block's
+        cross-attention reads it whole."""
         pos = cache["pos"]
         x = self._embed(tokens, model_axis) + self.dec_pos[pos % self.dec_pos.shape[0]]
+        if model_axis is not None:
+            memory = model_axis.memory_in(memory)
         for i, c in enumerate(cache["self"]):
             axis = None if model_axis is None else model_axis.layer(i, "dec_blocks")
             with transformer._cache_for(layer_cache, i, c) as c:

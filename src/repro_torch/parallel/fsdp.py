@@ -113,8 +113,9 @@ back as a DTensor: rows on the batch axes, the vocabulary on ``model``
 where it splits.
 
 The sequence split is always the explicit gather (the reference's
-``REPRO_SP_GATHER=1``); serving splits no sequence of the stream, as the
-reference's ``prefill_block`` constrains none.
+``REPRO_SP_GATHER=1``); an LM's serving splits no sequence of the stream, as
+the reference's ``prefill_block`` constrains none (the encoder-decoder's
+encode does, below).
 
 The encoder-decoder (whisper) trains on the mesh as the LMs do:
 :meth:`ShardedModel.loss` splits its ``frames``, tokens, labels and mask
@@ -138,26 +139,29 @@ The encoder-decoder serves on the mesh too (the reference's
 ``build_prefill_step`` jits ``encode``, ``build_serve_step``
 ``encdec_decode_step``): :meth:`ShardedModel.prefill` takes the global
 ``frames`` and encodes the rank's rows, every encoder block split by heads
-and ``d_ff`` as in training, and returns the memory as a DTensor, rows on
-the batch axes and ``Replicate`` along ``model``: every rank's
-cross-attention reads every frame on its heads, and the encoder's stream is
-whole along ``model``, so nothing moves. Under ``fsdp_tp`` this departs from
-the reference's ``("batch", "seq", None)`` for the memory, whose ``seq`` is
-``model`` there (the sequence split, which training takes and serving does
-not yet); under ``serve_2d`` ``seq`` is None and the two agree. :meth:`ShardedModel.decode_step` takes that memory
-(or a global tensor: each rank keeps its rows) and runs each decoder block's
-self-attention over the rank's block of its self cache
-(:meth:`ShardedModel.init_cache` lays ``cache["self"]`` out as an LM's K/V),
-its cross-attention on the rank's heads, K and V projected from the memory
-again at every step as in the reference, and its MLP on the rank's ``d_ff``
-block. Logits come back as an LM's.
+and ``d_ff`` as in training, and its stream split along its sequence over
+``model`` as training splits it (the reference constrains it to
+``("batch", "seq", "act_embed")``): each block's normed input gathered,
+each sum a reduce-scatter. It returns the memory as a DTensor laid out as
+the reference's ``build_serve_step`` takes it, ``("batch", "seq", None)``
+(:meth:`ShardedModel.memory_placements`): rows on the batch axes and
+``Shard(1)`` on ``model`` where the frames split, ``Replicate`` where they
+do not (``serve_2d``, whose ``seq`` is None; a T_f the axis does not
+divide; an axis of one rank). :meth:`ShardedModel.decode_step` takes that
+memory, a memory whole along ``model`` or a global tensor (each laid out
+the same way, the rank's block of frames a local slice), and brings it
+into the decoder once a step (``ModelAxis.memory_in``: one all-gather
+along ``model`` where the frames split, nothing where they are whole); it
+runs each decoder block's self-attention over the rank's block of its self
+cache (:meth:`ShardedModel.init_cache` lays ``cache["self"]`` out as an
+LM's K/V), its cross-attention on the rank's heads over the whole memory,
+K and V projected from it again at every step as in the reference, and its
+MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; ``serve_2d``'s
 weight-stationary decode (partial sums over ``data`` in place of the
-``embed`` gather and of the RG-LRU state's gather over ``data``); the
-encoder-decoder's sequence split in serving (the memory split along
-``model`` in the encode).
+``embed`` gather and of the RG-LRU state's gather over ``data``).
 """
 
 from __future__ import annotations
@@ -316,25 +320,38 @@ class ShardedModel:
         The batch specs' ``seq`` entry is not taken here: every position
         stays on every ``model`` rank, and the residual stream splits it
         (``model_axis``'s ``stream``)."""
-        axes = self._row_axes(next(iter(batch.values())))
+        axes = self._row_axes(tuple(next(iter(batch.values())).shape))
         place = shd.placements(self.mesh, (axes or None,))
         return {k: distribute_tensor(v, self.mesh, place, src_data_rank=None).to_local()
                 for k, v in batch.items()}, axes
 
-    def _row_axes(self, x: torch.Tensor) -> Tuple[str, ...]:
-        """The mesh axes a batch leaf's rows (its first dim) split over, by
-        the ``batch`` rule (``sharding.batch_specs``); every leaf of a batch
-        has the same rows."""
-        axes = shd.batch_specs(self.mesh, self.rules, {"x": x})["x"][0]
+    def _row_axes(self, shape: Tuple[int, ...]) -> Tuple[str, ...]:
+        """The mesh axes the rows (the first dim) of a batch leaf of
+        ``shape`` split over, by the ``batch`` rule (``sharding.batch_specs``);
+        every leaf of a batch has the same rows."""
+        leaf = torch.empty(shape, device="meta")
+        axes = shd.batch_specs(self.mesh, self.rules, {"x": leaf})["x"][0]
         return () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
 
-    def rows(self, x: torch.Tensor) -> DTensor:
-        """A global tensor [B, ...] (the encoder's memory) laid out as the
-        served rows: split along dim 0 over the batch rule's axes, whole
-        along the others and on ``model``; each rank keeps its rows, no
-        communication."""
-        place = shd.placements(self.mesh, (self._row_axes(x) or None,))
-        return distribute_tensor(x, self.mesh, place, src_data_rank=None)
+    def memory_placements(self, shape: Tuple[int, ...]) -> Tuple[Placement, ...]:
+        """The encoder's memory [B, T_f, d] laid out as the reference's serve
+        step takes it, ``("batch", "seq", None)``: its rows on the batch
+        rule's axes, and its frames ``Shard(1)`` on ``model`` exactly where
+        ``sharding.stream_split`` splits the encoder's stream of that shape
+        (the encode keeps the rank's block of it); else whole along
+        ``model`` (``serve_2d``, a T_f the axis does not divide, an axis of
+        one rank)."""
+        place = list(shd.placements(self.mesh, (self._row_axes(shape) or None,)))
+        if shd.stream_split(self.mesh, self.rules, shape) is not None:
+            place[self.mesh.mesh_dim_names.index("model")] = Shard(1)
+        return tuple(place)
+
+    def memory(self, x: torch.Tensor) -> DTensor:
+        """A global memory [B, T_f, d] laid out by :meth:`memory_placements`:
+        each rank keeps its rows and, where the frames split, its block of
+        them; no communication."""
+        return distribute_tensor(x, self.mesh, self.memory_placements(tuple(x.shape)),
+                                 src_data_rank=None)
 
     def _weights(self, axis: tp.ModelAxis, row_axes: Tuple[str, ...]):
         """The ``materialize`` hook of training (and, with no gradient, of
@@ -463,7 +480,16 @@ class ShardedModel:
                memory: Optional[torch.Tensor] = None) -> DTensor:
         local, axes = self.local_batch(batch)
         rows = shd.placements(self.mesh, (axes or None,))  # this rank's rows
-        axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0])
+        place = stream = None
+        if method == "encode" or memory is not None:  # the memory as the reference lays it out
+            shape = tuple((batch["frames"] if method == "encode" else memory).shape)
+            place = self.memory_placements(shape)
+            if Shard(1) in place:  # the frames split along model
+                stream = {"enc_blocks": shape}
+            if memory is not None:  # a memory whole along model: the rank's block, no move
+                mem = memory if isinstance(memory, DTensor) else self.memory(memory)
+                memory = mem.redistribute(self.mesh, place).to_local()
+        axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0], stream)
         weight = self._weights(axis, ())  # under no_grad: the gather alone
         # every weight outside the stacks of blocks, which gather their own
         outer = {n: weight(n, p) for n, p in lm.named_parameters()
@@ -471,17 +497,15 @@ class ShardedModel:
         hooks = {"materialize": weight, "model_axis": axis,
                  "layer_cache": self._layer_cache(axis, rows, gather=method == "decode")}
         with _reparametrize_module(lm, outer):
-            if method == "encode":  # the memory: rows on the batch axes, whole on model
+            if method == "encode":  # the rank's rows, and its block of the frames where they split
                 out = lm.encode(local["frames"], materialize=weight, model_axis=axis)
-                return DTensor.from_local(out, self.mesh, rows, run_check=False)
+                return DTensor.from_local(out, self.mesh, place, run_check=False)
             if method == "prefill":
                 out = lm.prefill(local["tokens"], cache, local.get("prefix_embeds"), **hooks)
             elif memory is None:
                 out = lm.decode_step(local["tokens"], cache, **hooks)
-            else:  # the encoder-decoder: the rank's rows of the memory
-                mem = memory if isinstance(memory, DTensor) else self.rows(memory)
-                out = lm.decode_step(local["tokens"], cache,
-                                     mem.redistribute(self.mesh, rows).to_local(), **hooks)
+            else:  # the encoder-decoder: the memory gathered once, before the first block
+                out = lm.decode_step(local["tokens"], cache, memory, **hooks)
         if axis.head is not None:  # this rank's vocab block
             names = self.mesh.mesh_dim_names
             rows = tuple(Shard(out.ndim - 1) if n == "model" else r
@@ -495,8 +519,9 @@ class ShardedModel:
         batch axes and the vocabulary on ``model`` where it splits; ``cache``
         filled). For the encoder-decoder, batch holds the global ``frames``
         [B, T_f, d] and the prefill is the encode: returns (the memory
-        [B, T_f, d], rows on the batch axes and ``Replicate`` along
-        ``model``; ``cache`` as given)."""
+        [B, T_f, d] laid out by :meth:`memory_placements`: rows on the batch
+        axes, ``Shard(1)`` on ``model`` where the frames split, else
+        ``Replicate``; ``cache`` as given)."""
         method = "encode" if self.cfg.is_encoder_decoder else "prefill"
         return self._serve(lm, method, batch, cache), cache
 
@@ -504,5 +529,9 @@ class ShardedModel:
                     memory: Optional[torch.Tensor] = None) -> Tuple[DTensor, Cache]:
         """``Model.decode_step`` on the mesh: tokens [B, 1], the global batch;
         for the encoder-decoder, ``memory`` [B, T_f, d] as :meth:`prefill`
-        returns it, or a global tensor (each rank keeps its rows)."""
+        returns it, a DTensor of its rows whole along ``model``, or a global
+        tensor; each is laid out by :meth:`memory_placements` (a memory whole
+        along ``model`` gives the rank its block of frames, a local slice).
+        Where the frames split, the memory is gathered once a step, before
+        the first decoder block (``ModelAxis.memory_in``)."""
         return self._serve(lm, "decode", {"tokens": tokens}, cache, memory), cache

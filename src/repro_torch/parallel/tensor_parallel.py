@@ -819,7 +819,10 @@ class ModelAxis:
         all-reduce). Else every rank's gradient is whole and equal: the
         gather's backward keeps the rank's block, and a whole memory goes in
         as it is. The decoder's blocks add their terms on the rank, so one
-        collective sums them all."""
+        collective sums them all. A decode step (no gradient; ``stream``
+        gives the encoder's shape where the memory comes split) takes the
+        forward alone: one all-gather where the frames split, else
+        nothing."""
         partial = self.seq is not None or any(  # some block's xattn_sum
             self.split(n) is not None for n in self.shapes
             if n.startswith("dec_blocks.") and n.endswith(".xattn.wo"))
@@ -1292,7 +1295,8 @@ def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tens
 
 def thread_shares(model: nn.Module, stack: str, index: int, size: int,
                   cache: Mapping[str, Any], run: Callable[[nn.Module, "LayerAxis", Any], Any],
-                  rules: Optional[Dict[str, shd.MeshAxes]] = None):
+                  rules: Optional[Dict[str, shd.MeshAxes]] = None,
+                  seq_len: Optional[Mapping[str, int]] = None):
     """Block ``index`` of ``model``'s ``stack`` (``layers``, ``dec_blocks``)
     on every rank of a ``size``-way ``model`` axis at once, one thread a
     rank (:class:`ThreadRanks`), under ``rules`` (default ``fsdp_tp``'s)
@@ -1301,13 +1305,17 @@ def thread_shares(model: nn.Module, stack: str, index: int, size: int,
     its :class:`LayerAxis` and its block of the whole ``cache``
     (:func:`share`) -> (each rank's result, each rank's cache block), in
     rank order. The sums over ``model`` are the threads' all-reduces, so
-    every rank's stream is the whole one, as on a mesh."""
+    every rank's stream is the whole one, as on a mesh. ``seq_len``: the
+    streams' lengths by stack, as :func:`share` takes them (a decode step's
+    ``{"enc_blocks": T_f}``: the memory's frames split where the rules split
+    the encoder's stream, ``ModelAxis.memory_in`` then gathering them)."""
     ranks = ThreadRanks(size)
     block = getattr(model, stack)[index]
     prefix = f"{stack}.{index}."
     made = []
     for r in range(size):
-        axis, params, rank_cache = share(model, cache, r, size, rules, comm=ranks.rank(r))
+        axis, params, rank_cache = share(model, cache, r, size, rules, seq_len,
+                                         comm=ranks.rank(r))
         own = {n[len(prefix):]: p for n, p in params.items() if n.startswith(prefix)}
         # the rank's module: the block's structure, its weights left on meta
         # (the rank's blocks are put in when it runs)

@@ -606,12 +606,20 @@ for name, (cfg, data, run, dtype) in inputs.items():
 
 @pytest.fixture(scope="module", params=["fp32", "bf16_sync", "fp64"])
 def sharded_runs(request, tmp_path_factory):
-    """Both archs trained on 4 ranks, once a mode."""
-    env = {"REPRO_GRAD_SYNC_BF16": "1" if request.param == "bf16_sync" else "0"}
-    inputs = {name: _train_setup(name, request.param) for name in TRAIN_ARCHS}
-    ranks = run_ranks(_SHARDED_TRAIN, 4, tmp_path_factory.mktemp(request.param),
-                      inputs=inputs, env=env)
-    return request.param, env, ranks
+    """Each arch trained on 4 ranks once a mode, one run an arch (so that no
+    run nears its time limit), started when a test first reads it."""
+    mode = request.param
+    env = {"REPRO_GRAD_SYNC_BF16": "1" if mode == "bf16_sync" else "0"}
+    runs = {}
+
+    def ranks(name):
+        if name not in runs:
+            runs[name] = run_ranks(_SHARDED_TRAIN, 4, tmp_path_factory.mktemp(mode),
+                                   inputs={name: _train_setup(name, mode)}, env=env,
+                                   timeout=180)
+        return runs[name]
+
+    return mode, env, ranks
 
 
 @pytest.mark.parametrize("name", TRAIN_ARCHS)
@@ -625,7 +633,7 @@ def test_sharded_training_on_2x2_equals_the_single_process(sharded_runs, name, m
                                  log_every=1)
     losses = [h["loss"] for h in hist]
     want = {n: p.detach().numpy() for n, p in lm.named_parameters()}
-    for res in ranks:
+    for res in ranks(name):
         got = res[name]
         assert got["opt_step"] == state.step == TRAIN_STEPS
         np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL)

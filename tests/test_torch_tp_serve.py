@@ -416,7 +416,7 @@ def ranks(request, tmp_path_factory):
         cases.append((name, cfg, np_params, _batch(cfg)))
     return request.param, run_ranks(_RANKS, 4, tmp_path_factory.mktemp(request.param),
                                     inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS),
-                                    timeout=120)
+                                    timeout=180)
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -26,7 +26,8 @@ rank's lookup summed, its logits block's terms combined as the mesh
 combines them (``Shares.merge_xent``), one backward. Everything within 1e-5
 of the largest value of the unsplit output or gradient, in fp32.
 
-Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh): reduced
+Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh and a
+group of models, ``GROUPS``): reduced
 gemma2-9b, internvl2-76b with its prefix, recurrentgemma-9b, qwen3-moe,
 phi3.5-moe (8 experts: each rank computes its block of them, the expert
 split), rwkv6-7b (both mixers split, the stream's sequence too), and
@@ -506,6 +507,14 @@ MODELS = ["gemma2-9b", "internvl2-76b", "recurrentgemma-9b", "qwen3-moe-235b-a22
           "qwen3-moe-235b-a22b/S128", "phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6",
           "whisper-medium", "whisper-medium/F24S22", "whisper-medium/F26S24",
           "whisper-medium/F24S22H6", "rwkv6-7b"]
+# the models a rank run takes, a few each, so that no run nears its time
+# limit; the runs start two at a time, in the order the tests read them
+GROUPS = (("gemma2-9b", "internvl2-76b"), ("recurrentgemma-9b",),
+          ("rwkv6-7b", "qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b/S128"),
+          ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b/E6"),
+          ("whisper-medium", "whisper-medium/F24S22"),
+          ("whisper-medium/F26S24", "whisper-medium/F24S22H6"))
+assert sorted(sum(GROUPS, ())) == sorted(MODELS)
 # the encoder-decoder's frames a row: 24, past its reduced 16-row ``enc_pos``
 # (the positions tile)
 ENCDEC_FRAMES = 24
@@ -608,21 +617,31 @@ def _one_process(name):
 
 @pytest.fixture(scope="module")
 def _runs(tmp_path_factory):
-    """Both meshes' rank runs, started at once; the one-process side is
-    computed while they run."""
-    cases = [_case(name) for name in MODELS]
-    with ThreadPoolExecutor(len(MESHES)) as pool:
-        runs = {strategy: pool.submit(run_ranks, _RANKS, 4, tmp_path_factory.mktemp(strategy),
-                                      inputs=(strategy, *MESHES[strategy], cases), timeout=180)
-                for strategy in MESHES}
+    """Every (mesh, group) rank run, started two at a time in the order the
+    tests read them; the one-process side is computed while they run."""
+    cases = {name: _case(name) for name in MODELS}
+    with ThreadPoolExecutor(2) as pool:
+        runs = {(strategy, group): pool.submit(
+                    run_ranks, _RANKS, 4, tmp_path_factory.mktemp(strategy),
+                    inputs=(strategy, *MESHES[strategy], [cases[n] for n in group]),
+                    timeout=180)
+                for strategy in sorted(MESHES) for group in GROUPS}
         for name in MODELS:
             _one_process(name)
-        return {strategy: run.result() for strategy, run in runs.items()}
+        yield runs
 
 
 @pytest.fixture(scope="module", params=sorted(MESHES))
 def ranks(request, _runs):
-    return request.param, _runs[request.param]
+    """(the mesh, name -> every rank's result for that model), each group's
+    run waited for when a test first reads it."""
+    strategy = request.param
+
+    def results(name):
+        group = next(g for g in GROUPS if name in g)
+        return [res[name] for res in _runs[strategy, group].result()]
+
+    return strategy, results
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -640,8 +659,7 @@ def test_sharded_loss_and_every_gradient_equal_the_reference(ranks, name):
     check = (_assert_grads_close_key_bias_apart if cfg.is_encoder_decoder
              else _assert_grads_close)
     check(one_grads, want_grads, tol)
-    for res in results:  # every rank holds the whole loss and gradients
-        got = res[name]
+    for got in results(name):  # every rank holds the whole loss and gradients
         assert abs(got["loss"] - want_loss) <= LOSS_TOL * abs(want_loss), (strategy, got["loss"])
         assert abs(got["loss"] - float(one_loss)) <= LOSS_TOL * abs(want_loss)
         # the aux term is the global batch's mean over its groups
@@ -667,8 +685,7 @@ def test_sharded_adamw_steps_equal_the_single_process(ranks, name):
     losses = [h["loss"] for h in hist]
     want = {n: p.detach().numpy() for n, p in lm.named_parameters()}
     noise = {n for n in want if cfg.is_encoder_decoder and n.endswith(".bk")}
-    for res in results:
-        got = res[name]
+    for got in results(name):
         assert got["opt_step"] == state.step == TRAIN_STEPS
         np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL, err_msg=strategy)
         params = got["params"]

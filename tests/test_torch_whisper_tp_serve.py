@@ -22,17 +22,23 @@ Part (ii), gloo ranks (``tests/_torch_ranks.py``, one run a mesh of
 B 4 x 24 frames, past the reduced 16-row ``enc_pos``), then 13
 ``decode_step`` calls, the first from seeded tokens and 12 greedy ones, for
 reduced whisper-medium at vocab 512 (the tied head splits) and 510 (it does
-not on ``model`` 4), against the reference's ``encode`` and jitted
+not on ``model`` 4), and at vocab 512 over 26 frames (which ``model`` 4
+does not divide), against the reference's ``encode`` and jitted
 ``encdec_decode_step`` from the same numpy weights (``from_jax_params``):
 the memory and every call's logits to 2e-4 in fp32
 (``test_torch_models.LOGIT_TOL``), greedy tokens equal, every rank the same
-global memory and logits.
+global memory and logits. The memory comes back as the reference's serve
+step lays it out, ``("batch", "seq", None)``: its frames split along
+``model`` under ``fsdp_tp`` and ``tp_only`` where the axis divides them,
+whole under ``serve_2d``; the encode's stream split with them.
 
 Part (iii), the dry run's trace on ``meta``: a whisper decode step's
-collectives do not grow with the cache nor with the memory (no cache entry
-and no memory frame moves), and over ``model`` each decoder block sums its
-self-attention, cross-attention and MLP once each; the encode sums each
-encoder block's attention and MLP once each.
+collectives do not grow with the cache (no cache entry moves); under
+``fsdp_tp`` it gathers the split memory once along ``model``, and under
+``serve_2d`` moves no frame. Over ``model`` each decoder block sums its
+self-attention, cross-attention and MLP once each; the encode gathers each
+encoder block's two normed inputs along the sequence and reduce-scatters
+its attention's and MLP's sums.
 """
 
 import copy
@@ -67,7 +73,15 @@ SHARE_STEPS = 8
 STEPS = 12      # greedy decode steps after the first call
 FRAMES = 24     # past the reduced 16-row enc_pos: the positions tile
 CACHE_LEN = 64
-VOCABS = (512, 510)
+D = 64          # reduced whisper-medium's d_model
+# "<vocab>" over FRAMES frames, "<vocab>/F<n>" over n: 26 frames split over
+# fsdp_tp's model 2 and stay whole over a model axis of 4
+CASES = ("512", "510", "512/F26")
+
+
+def _vocab_and_frames(case):
+    vocab, _, frames = case.partition("/F")
+    return int(vocab), int(frames or FRAMES)
 
 
 def _cfgs(vocab=512):
@@ -196,7 +210,7 @@ from repro_torch.weights import from_jax_params, init_params
 strategy, shape, axes, cases, cache_len, steps = inputs
 mesh = make_mesh_from_devices(range(world), shape, axes, "cpu")
 result = {}
-for vocab, cfg, np_params, frames, first in cases:
+for name, cfg, np_params, frames, first in cases:
     model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES[strategy]())
     lm = model.shard(from_jax_params(cfg, np_params, device="cpu"))
     cache = model.init_cache(frames.shape[0], cache_len, torch.float32)
@@ -208,32 +222,34 @@ for vocab, cfg, np_params, frames, first in cases:
             out.append(logits.full_tensor().numpy())
             tok = logits.full_tensor().argmax(-1)
     place = lambda t: [(type(p).__name__, getattr(p, "dim", None)) for p in t.placements]
-    result[vocab] = {"memory": memory.full_tensor().numpy(), "logits": out,
-                     "pos": cache["pos"], "memory_placements": place(memory),
-                     "logits_placements": place(logits),
-                     "cache_placements": place(cache["self"][0]["k"]),
-                     "cache_local": tuple(cache["self"][0]["k"].to_local().shape)}
+    result[name] = {"memory": memory.full_tensor().numpy(), "logits": out,
+                    "pos": cache["pos"], "memory_placements": place(memory),
+                    "memory_local": memory.to_local().numpy(),
+                    "logits_placements": place(logits),
+                    "cache_placements": place(cache["self"][0]["k"]),
+                    "cache_local": tuple(cache["self"][0]["k"].to_local().shape)}
 """
 
 
-def _inputs(cfg, seed=4):
-    """B 4 x ``FRAMES`` frames and the first call's tokens."""
+def _inputs(cfg, seed=4, frames=FRAMES):
+    """B 4 x ``frames`` frames and the first call's tokens."""
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((4, FRAMES, cfg.d_model)).astype(np.float32),
+    return (rng.standard_normal((4, frames, cfg.d_model)).astype(np.float32),
             rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32))
 
 
-def _case(vocab):
+def _case(case):
+    vocab, frames = _vocab_and_frames(case)
     cfg, jcfg = _cfgs(vocab)
-    return (vocab, cfg, _numpy_params(jcfg, seed=1), *_inputs(cfg))
+    return (case, cfg, _numpy_params(jcfg, seed=1), *_inputs(cfg, frames=frames))
 
 
-def _reference(vocab):
+def _reference(case):
     """The reference's encode (``Model.prefill``) and 13 decode calls of
     ``jax.jit(decode_step)``, the first from the seeded tokens, then greedy:
     (memory, logits of each call, the greedy tokens fed)."""
-    _, _, np_params, frames, first = _case(vocab)
-    jcfg = _cfgs(vocab)[1]
+    _, _, np_params, frames, first = _case(case)
+    jcfg = _cfgs(_vocab_and_frames(case)[0])[1]
     jmodel = jbuild_model(jcfg)
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     jcache = jmodel.init_cache(frames.shape[0], CACHE_LEN, jnp.float32)
@@ -252,50 +268,80 @@ def _reference(vocab):
 def _runs(tmp_path_factory):
     """Every mesh's rank run, two at a time; the reference is computed while
     they run."""
-    cases = [_case(v) for v in VOCABS]
+    cases = [_case(c) for c in CASES]
     with ThreadPoolExecutor(2) as pool:
         runs = {mesh: pool.submit(run_ranks, _RANKS, 4, tmp_path_factory.mktemp(mesh),
                                   inputs=(*MESHES[mesh], cases, CACHE_LEN, STEPS),
                                   timeout=120)
                 for mesh in sorted(MESHES)}
-        want = {v: _reference(v) for v in VOCABS}
+        want = {c: _reference(c) for c in CASES}
         return want, {mesh: run.result() for mesh, run in runs.items()}
 
 
-@pytest.mark.parametrize("vocab", VOCABS)
+def _frames_split(mesh, case):
+    """The model axis's size and whether it splits the case's frames: the
+    reference's ``seq`` is ``model`` under ``fsdp_tp`` and ``tp_only`` (None
+    under ``serve_2d``), where the axis divides the frames."""
+    strategy, shape, axes = MESHES[mesh]
+    M = dict(zip(axes, shape))["model"]
+    return M, strategy != "serve_2d" and _vocab_and_frames(case)[1] % M == 0
+
+
+@pytest.mark.parametrize("vocab", CASES)
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_sharded_encode_and_decode_equal_the_reference(_runs, mesh, vocab):
     want, runs = _runs
     want_memory, want_logits, want_tokens = want[vocab]
-    _, shape, axes = MESHES[mesh]
-    M = dict(zip(axes, shape))["model"]
+    V, T = _vocab_and_frames(vocab)
+    M, split = _frames_split(mesh, vocab)
     results = runs[mesh]
     for res in results:
         got = res[vocab]
         np.testing.assert_allclose(got["memory"], want_memory, atol=LOGIT_TOL, rtol=LOGIT_TOL,
-                                   err_msg=f"{mesh} vocab {vocab}: memory")
+                                   err_msg=f"{mesh} {vocab}: memory")
         assert got["pos"] == STEPS + 1 and len(got["logits"]) == STEPS + 1
         for i, (lo, w) in enumerate(zip(got["logits"], want_logits)):
-            assert lo.shape == (4, 1, vocab)
+            assert lo.shape == (4, 1, V)
             np.testing.assert_allclose(lo, w, atol=LOGIT_TOL, rtol=LOGIT_TOL,
-                                       err_msg=f"{mesh} vocab {vocab}: call {i}")
+                                       err_msg=f"{mesh} {vocab}: call {i}")
         for t, w in zip([lo.argmax(-1) for lo in got["logits"][:-1]], want_tokens):
             np.testing.assert_array_equal(t, w)
-        # the memory: rows on the batch axes (data under fsdp_tp), whole on model
-        assert got["memory_placements"][-1] == ("Replicate", None)
-        assert got["memory_placements"][0] == (("Shard", 0) if mesh == "fsdp_tp"
-                                               else ("Replicate", None))
+        # the memory as the reference lays it out, ("batch", "seq", None):
+        # rows on the batch axes (data under fsdp_tp), the frames on model
+        # where the reference's seq is model and the axis divides them
+        on_data = {"fsdp_tp": [("Shard", 0)], "serve_2d_data_model": [("Replicate", None)]}
+        assert got["memory_placements"] == on_data.get(mesh, []) + [
+            ("Shard", 1) if split else ("Replicate", None)]
+        rows = 2 if mesh == "fsdp_tp" else 4
+        assert got["memory_local"].shape == (rows, T // M if split else T, D)
         # the vocabulary splits over model (the last mesh axis) where it divides it
-        assert got["logits_placements"][-1] == (("Shard", 2) if vocab % M == 0
+        assert got["logits_placements"][-1] == (("Shard", 2) if V % M == 0
                                                 else ("Replicate", None))
         # the self cache's sequence lies over model (and data under serve_2d)
         n_seq = M * (2 if mesh == "serve_2d_data_model" else 1)
-        rows = 2 if mesh == "fsdp_tp" else 4
         assert got["cache_local"] == (rows, CACHE_LEN // n_seq, 2, 16)
     for res in results[1:]:  # every rank sees the same global memory and logits
         np.testing.assert_array_equal(res[vocab]["memory"], results[0][vocab]["memory"])
         for a, b in zip(res[vocab]["logits"], results[0][vocab]["logits"]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["512", "512/F26"])
+def test_a_four_rank_fsdp_tp_encode_keeps_half_the_frames_a_rank(_runs, case):
+    """On (data 2, model 2) under ``fsdp_tp`` the memory at rest shrinks by
+    the ``model`` axis: each rank holds its 2 rows of its half of the frames
+    (24 or 26), [2, T_f/2, d], and its two ``model`` neighbours hold the two
+    halves of the same rows."""
+    T = _vocab_and_frames(case)[1]
+    want_memory = _runs[0][case][0]
+    for r, res in enumerate(_runs[1]["fsdp_tp"]):  # rank r = 2 * data + model
+        got = res[case]
+        assert got["memory_local"].shape == (2, T // 2, D)
+        assert got["memory_placements"] == [("Shard", 0), ("Shard", 1)]
+        data, model = divmod(r, 2)
+        np.testing.assert_allclose(
+            got["memory_local"], want_memory[2 * data:2 * data + 2, model * T // 2:(model + 1) * T // 2],
+            atol=LOGIT_TOL, rtol=LOGIT_TOL, err_msg=f"rank {r}")
 
 
 _ONE_RANK = """
@@ -338,7 +384,7 @@ def test_a_one_rank_mesh_serves_whisper_as_one_process(tmp_path):
     position, and decode takes the plain path over it, as one process does.
     The memory and all 13 calls' logits (fed the one process's greedy
     tokens) are the one process's bit for bit."""
-    _, cfg, np_params, frames, first = _case(512)
+    _, cfg, np_params, frames, first = _case("512")
     (res,) = run_ranks(_ONE_RANK, 1, tmp_path, inputs=(cfg, np_params, frames, first, STEPS),
                        timeout=120)
     assert res["seq"] == shd.Split(1, ("model",), 0, 64)
@@ -364,22 +410,33 @@ def _collectives(cfg, kind, seq_len, strategy="fsdp_tp"):
 
 
 @pytest.mark.parametrize("strategy", ["fsdp_tp", "serve_2d"])
-def test_a_whisper_decode_step_moves_no_cache_entry_and_no_memory(strategy):
-    """Collective bytes do not depend on the self cache's length (64 or 256
-    slots) nor on the memory's (16 or 48 frames): a step moves the new
-    token's K/V row at most, never a cache entry, and never a frame."""
+def test_a_whisper_decode_step_moves_no_cache_entry_and_gathers_a_split_memory_once(strategy):
+    """No self-cache entry moves: a step's collectives are the same at a
+    64- and a 256-slot self cache (the new token's K/V row at most). The
+    memory lies as the reference's serve step lays it out. Under ``fsdp_tp``
+    its frames split over ``model`` (16 and 48 frames, both even), and the
+    step gathers them once along ``model``, right after the lookup's sum and
+    before the first decoder block: one all-gather of the rank's 2 rows of
+    every frame, in bf16, whose bytes grow with the frames; nothing else
+    changes with them. Under ``serve_2d`` the memory is whole along
+    ``model``, and no frame moves."""
     cfg = ARCHS[NAME].reduced()
-    costs = {}
+    ops = {}
     for cache_len, frames in ((64, 16), (256, 16), (64, 48)):
         c = dataclasses.replace(cfg, frontend_seq_len=frames)
-        cell = shp.ShapeCell("tiny", cache_len, 4, "decode")
-        with _mesh((2, 2)) as mesh:
-            costs[cache_len, frames] = dryrun.trace(
-                steps.build_serve_step(c, cell, mesh, strategy))
-    base = costs[64, 16]
-    assert base["n_collectives"] > 0
-    for other in costs.values():
-        assert other["by_kind"] == base["by_kind"]
+        ops[cache_len, frames] = [[(op.kind, op.bytes) for op in side]
+                                  for side in _collectives(c, "decode", cache_len, strategy)]
+    base = ops[64, 16]
+    assert base[0] and ops[256, 16] == base
+    if strategy == "serve_2d":
+        assert ops[64, 48] == base
+        return
+    for frames in (16, 48):
+        over_model, others = ops[64, frames]
+        gather = ("all-gather", 2 * frames * cfg.d_model * 2)
+        assert over_model[1] == gather and over_model.count(gather) == 1
+        assert over_model[:1] + over_model[2:] == base[0][:1] + base[0][2:]
+        assert others == base[1]
 
 
 def test_each_decoder_block_sums_its_three_parts_over_model_once():
@@ -388,20 +445,28 @@ def test_each_decoder_block_sums_its_three_parts_over_model_once():
     model 2) mesh under ``fsdp_tp``, a 64-slot self cache over ``model``.
     Over ``model`` a decode step sums the stream once for the lookup and, in
     each block, once each for the self-attention, the cross-attention and
-    the MLP (1 + 3 * 2 = 7); each block's self-attention also gathers the
-    new token's K/V row and its query heads and merges the partial
-    softmaxes (a max and a sum): nothing else runs over ``model``. The
-    encode sums each encoder block's attention and MLP once each (4)."""
+    the MLP (1 + 3 * 2 = 7); it gathers the memory's 16 frames once, split
+    over ``model`` as the reference lays them out; each block's
+    self-attention also gathers the new token's K/V row and its query heads
+    and merges the partial softmaxes (a max and a sum): nothing else runs
+    over ``model``. The encode's stream splits along its 24 frames as
+    training's does: each encoder block gathers its two normed inputs along
+    the sequence and reduce-scatters its attention's and its MLP's sums,
+    each a rank's 2 rows of all 24 frames in bf16 (8), and sums nothing
+    whole."""
     cfg = ARCHS[NAME].reduced()
     L = cfg.n_layers
     stream = 2 * 1 * cfg.d_model * 2  # a rank's 2 rows of one token, bf16
     ops, others = _collectives(cfg, "decode", 64)
     sums = [op for op in ops if op.kind == "all-reduce" and op.bytes == stream]
     assert len(sums) == 1 + 3 * L
-    rest = sorted(op.kind for op in ops if op not in sums)
+    memory = [op for op in ops if op.bytes == 2 * cfg.frontend_seq_len * cfg.d_model * 2]
+    assert [op.kind for op in memory] == ["all-gather"]
+    rest = sorted(op.kind for op in ops if op not in sums + memory)
     assert rest == ["all-gather"] * 2 * L + ["all-reduce"] * 2 * L
     assert {op.kind for op in others} == {"all-gather"}  # over data: the weights' gathers
 
     ops, _ = _collectives(cfg, "prefill", 24)
     frames = 2 * 24 * cfg.d_model * 2  # a rank's 2 rows of 24 frames, bf16
-    assert [(op.kind, op.bytes) for op in ops] == [("all-reduce", frames)] * 2 * cfg.n_encoder_layers
+    assert [(op.kind, op.bytes) for op in ops] == (
+        [("all-gather", frames), ("reduce-scatter", frames)] * 2 * cfg.n_encoder_layers)
