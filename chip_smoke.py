@@ -125,7 +125,19 @@ calls, and fails (exit code not 0, no result line) on any miss:
               (1e-4 of the largest) and bf16 (5e-2), the unsplit bf16
               layer's own error against fp32 beside it. Phase 3 times flash
               at the per-rank shapes (8/1 and 4/1 heads at D 128, 1/1 at D
-              256);
+              256); (c) again under ``serve_2d``'s rules (a 1-rank mesh has
+              no ``data`` block: the same path), tokens equal to 8e's, decode
+              ms a step beside ``fsdp_tp``'s; (d) ``serve_2d``'s
+              weight-stationary grid: the full-width internvl2-76b layer with
+              its embedding and head on every rank of a (data 2 x model 8)
+              and a (data 4 x model 4) grid at once, a thread a rank
+              (``tensor_parallel.thread_shares``): each weight's (embed
+              block x model block), the column products summed over
+              ``data``, the row products' and the lookup's blocks gathered
+              over it; B 1 x S 2560 and one decode step over the cache split
+              by positions over (data, model), fp32 and bf16 with (a)'s
+              tolerances, one tensor-core (or, in fp32, CUDA-core) flash
+              launch a rank in the prefill and none in the step;
  8h. tp_train tensor-parallel training on the ``model`` axis, in this one
               process: (c) internvl2-76b at full width, 1 layer, bf16 over
               fp32 masters, remat "nothing", B 1 x (256 + 2048), 3 AdamW
@@ -2195,60 +2207,69 @@ def rel_err(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def tp_path(state, vlm):
+def tp_path(state, vlm, strategies=("fsdp_tp", "serve_2d")):
     """(c) phase 8e's weights sharded in place on a 1-rank NCCL mesh, through
-    ``ShardedModel``: a prefill cold then warm, 16 greedy steps."""
+    ``ShardedModel`` under each of ``strategies``' rules: a prefill cold then
+    warm, 16 greedy steps. -> the records by strategy."""
     cfg, params, batch = state["cfg"], state["params"], state["batch"]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    recs = {}
     with process_group("cuda"):
         mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
-        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
-        model.shard(params)  # in place: each weight a DTensor over the one rank
-        prefill_ms = []
-        with torch.no_grad():
-            for _ in range(2):  # cold, then warm
-                cache = model.init_cache(VLM_B, VLM_MAX_LEN, torch.bfloat16)
+        # in place: each weight a DTensor over the one rank, its whole tensor
+        ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategies[0]]()).shard(params)
+        for strategy in strategies:
+            model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategy]())
+            prefill_ms = []
+            with torch.no_grad():
+                for _ in range(2):  # cold, then warm
+                    cache = model.init_cache(VLM_B, VLM_MAX_LEN, torch.bfloat16)
+                    reset_counts()
+                    start.record()
+                    logits, cache = model.prefill(params, batch, cache)
+                    end.record()
+                    torch.cuda.synchronize()
+                    prefill_ms.append(start.elapsed_time(end))
+                    prefill_launches = counts()
+                placements = [str(p) for p in logits.placements]
                 reset_counts()
+                tok, out = logits.full_tensor().argmax(-1), []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 start.record()
-                logits, cache = model.prefill(params, batch, cache)
+                for _ in range(VLM_STEPS):
+                    logits, cache = model.decode_step(params, cache, tok)
+                    tok = logits.full_tensor().argmax(-1)
+                    out.append(tok)
                 end.record()
                 torch.cuda.synchronize()
-                prefill_ms.append(start.elapsed_time(end))
-                prefill_launches = counts()
-            placements = [str(p) for p in logits.placements]
-            reset_counts()
-            tok, out = logits.full_tensor().argmax(-1), []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(VLM_STEPS):
-                logits, cache = model.decode_step(params, cache, tok)
-                tok = logits.full_tensor().argmax(-1)
-                out.append(tok)
-            end.record()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        decode_launches = counts()
-        pos = cache["pos"]
-    toks = torch.cat(out, dim=1).cpu()
-    rec = {"mesh": {"data": 1, "model": 1}, "strategy": "fsdp_tp", "layers": cfg.n_layers,
-           "batch": VLM_B, "prefix_rows": VLM_P, "prompt_len": VLM_S,
-           "prefill_ms_cold": prefill_ms[0], "prefill_ms": prefill_ms[1],
-           "vlm_serve_prefill_ms": vlm["prefill_ms"],
-           "decode_ms_per_step": wall * 1e3 / VLM_STEPS,
-           "decode_device_ms_per_step": start.elapsed_time(end) / VLM_STEPS,
-           "vlm_serve_decode_ms_per_step": vlm["decode_ms_per_step"],
-           "logits_placements": placements, "tokens_equal": bool(torch.equal(toks,
-                                                                           state["tokens"])),
-           "launches_per_prefill": prefill_launches, "launches_decode": decode_launches}
-    print("tp_serve_path", json.dumps(rec), flush=True)
-    need(prefill_launches == launch_counts(flash_wgmma=VLM_LAYERS),
-         f"tp prefill launches {prefill_launches}")
-    need(decode_launches == launch_counts(), f"tp decode launched {decode_launches}")
-    need(pos == VLM_P + VLM_S + VLM_STEPS, f"tp pos {pos}")
-    need(rec["tokens_equal"], f"tp tokens {toks[:, :8].tolist()} differ from vlm_serve's "
-                              f"{state['tokens'][:, :8].tolist()}")
-    return rec
+                wall = time.perf_counter() - t0
+            decode_launches = counts()
+            pos = cache["pos"]
+            toks = torch.cat(out, dim=1).cpu()
+            rec = {"mesh": {"data": 1, "model": 1}, "strategy": strategy,
+                   "layers": cfg.n_layers, "batch": VLM_B, "prefix_rows": VLM_P,
+                   "prompt_len": VLM_S, "prefill_ms_cold": prefill_ms[0],
+                   "prefill_ms": prefill_ms[1], "vlm_serve_prefill_ms": vlm["prefill_ms"],
+                   "decode_ms_per_step": wall * 1e3 / VLM_STEPS,
+                   "decode_device_ms_per_step": start.elapsed_time(end) / VLM_STEPS,
+                   "vlm_serve_decode_ms_per_step": vlm["decode_ms_per_step"],
+                   "logits_placements": placements,
+                   "tokens_equal": bool(torch.equal(toks, state["tokens"])),
+                   "launches_per_prefill": prefill_launches, "launches_decode": decode_launches}
+            if strategy != strategies[0]:
+                rec[f"{strategies[0]}_decode_ms_per_step"] = recs[strategies[0]][
+                    "decode_ms_per_step"]
+            print("tp_serve_path", json.dumps(rec), flush=True)
+            need(prefill_launches == launch_counts(flash_wgmma=VLM_LAYERS),
+                 f"tp prefill launches {prefill_launches} ({strategy})")
+            need(decode_launches == launch_counts(),
+                 f"tp decode launched {decode_launches} ({strategy})")
+            need(pos == VLM_P + VLM_S + VLM_STEPS, f"tp pos {pos} ({strategy})")
+            need(rec["tokens_equal"], f"tp tokens {toks[:, :8].tolist()} ({strategy}) differ "
+                                      f"from vlm_serve's {state['tokens'][:, :8].tolist()}")
+            recs[strategy] = rec
+    return recs
 
 
 def rank_heads(layer, cfg):
@@ -2343,8 +2364,119 @@ def tp_shares(cfg, ranks, seq_recs):
     return recs
 
 
+# serve_2d's (data x model) grids for one full-width internvl2-76b layer: 16 ranks each
+TP_GRIDS = ({"data": 2, "model": 8}, {"data": 4, "model": 4})
+
+
+def tp_grid_shares(cfg, grids):
+    """(d) one full-width layer of ``cfg`` with its embedding and head, fp32
+    then the same weights in bf16, under ``serve_2d`` on each grid of
+    ``grids``: every rank at once, a thread a rank
+    (``tensor_parallel.thread_shares`` on the whole LM), each computing from
+    its weights' (embed block x model block): the lookup, the layer's
+    prefill of B 1 x S 2560 into its block of the cache (positions split
+    over (data, model)) and the head on the last rows; then, in a second
+    run over the cache the ranks filled, one decode step. Every rank's
+    stream against the unsplit one's, the logits' blocks laid side by side
+    against the unsplit logits, the ranks' cache blocks against the
+    unsplit cache; the launches of each run."""
+    lm = init_params(dataclasses.replace(cfg, n_layers=1), seed=SEED, device="cuda",
+                     dtype=torch.float32)
+    model = build_model(lm.cfg)
+    rules = shd.STRATEGIES["serve_2d"]()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TP_S), generator=g, device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, device="cuda")
+    positions = torch.arange(TP_S, device="cuda")
+    length = TP_S + 16  # the step's slot past the prompt; 16 ranks divide it
+
+    def prefill(m, axis, cache):
+        layer = None if axis is None else axis.layer(0)
+        x = m._embed(tokens, model_axis=axis)
+        h = m.layers[0].prefill(x, positions, cache["layers"][0], layer)
+        return {"embed": x, "layer": h, "logits": m._logits(h[:, -TP_HEAD_ROWS:], axis)}
+
+    def decode(m, axis, cache):
+        layer = None if axis is None else axis.layer(0)
+        x = m._embed(fed, model_axis=axis)
+        h = m.layers[0].decode(x, TP_S, cache["layers"][0], layer)
+        return {"embed": x, "layer": h, "logits": m._logits(h, axis)}
+
+    recs, unsplit32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lm.to(dtype)
+        with torch.no_grad():
+            want_cache = model.init_cache(1, length, dtype)
+            want = {"prefill": prefill(lm, None, want_cache),
+                    "decode": decode(lm, None, want_cache)}
+            for grid in grids:
+                M = grid["model"]
+                torch.cuda.synchronize()
+                reset_counts()
+                got, caches = tp.thread_shares(lm, None, 0, grid,
+                                               model.init_cache(1, length, dtype), prefill,
+                                               rules)
+                torch.cuda.synchronize()
+                launches = {"prefill": counts()}
+                # the cache the ranks filled, whole: rank r holds chunk r of its positions
+                filled = model.init_cache(1, length, dtype)
+                for k in ("k", "v"):
+                    filled["layers"][0][k].copy_(
+                        torch.cat([c["layers"][0][k] for c in caches], 1))
+                reset_counts()
+                stepped, caches = tp.thread_shares(lm, None, 0, grid, filled, decode, rules)
+                torch.cuda.synchronize()
+                launches["decode"] = counts()
+                stepped_cache = {k: torch.cat([c["layers"][0][k] for c in caches], 1)
+                                 for k in ("k", "v")}
+                rec = {"case": f"{cfg.name} layer ({cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                               f"{cfg.mlp_type}), embedding and {cfg.vocab_size}-way head",
+                       "strategy": "serve_2d", "grid": grid, "dtype": str(dtype)[6:],
+                       "B": 1, "S": TP_S, "cache_len": length, "rel_err": {},
+                       "tol": TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL,
+                       "launches": launches}
+                for when, outs in (("prefill", got), ("decode", stepped)):
+                    joined = {"embed": outs[0]["embed"], "layer": outs[0]["layer"],
+                              "logits": torch.cat([o["logits"] for o in outs[:M]], -1)}
+                    rec["ranks_equal_" + when] = all(
+                        torch.equal(o[k], outs[0][k]) for o in outs for k in ("embed", "layer"))
+                    for k, v in joined.items():
+                        rec["rel_err"][f"{when}_{k}"] = rel_err(v, want[when][k])
+                        key = (grid["model"], when, k)
+                        if dtype == torch.float32:
+                            unsplit32[key] = (want[when][k].float(), v.float())
+                        else:
+                            rec.setdefault("unsplit_vs_fp32", {})[f"{when}_{k}"] = rel_err(
+                                want[when][k], unsplit32[key][0])
+                            rec.setdefault("shares_vs_fp32", {})[f"{when}_{k}"] = rel_err(
+                                v, unsplit32[key][0])
+                rec["cache_rel_err"] = max(rel_err(stepped_cache[k], want_cache["layers"][0][k])
+                                           for k in ("k", "v"))
+                print("tp_grid_shares", json.dumps(rec), flush=True)
+                kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[
+                    fa_ops.kernel_for(dtype, cfg.head_dim)]
+                n_ranks = grid["data"] * grid["model"]
+                need(launches == {"prefill": launch_counts(**{kernel: n_ranks}),
+                                  "decode": launch_counts()},
+                     f"tp grid {grid} ({dtype}): launches {launches}")
+                need(rec["ranks_equal_prefill"] and rec["ranks_equal_decode"],
+                     f"tp grid {grid} ({dtype}): the ranks' streams differ")
+                need(all(torch.isfinite(o[k].float()).all() for outs in (got, stepped)
+                         for o in outs for k in o), f"tp grid {grid} ({dtype}): non-finite")
+                need(max(rec["rel_err"].values()) <= rec["tol"]
+                     and rec["cache_rel_err"] <= rec["tol"],
+                     f"tp grid {grid} ({dtype}): {rec['rel_err']}, cache "
+                     f"{rec['cache_rel_err']}")
+                recs.append(rec)
+                del got, stepped, caches, filled
+    del lm
+    torch.cuda.empty_cache()
+    return recs
+
+
 def tp_serve_phase(vlm, state):
-    rec = {"path": tp_path(state, vlm)}
+    paths = tp_path(state, vlm)
+    rec = {"path": paths["fsdp_tp"], "path_serve_2d": paths["serve_2d"]}
     state.clear()  # phase 8e's weights
     torch.cuda.empty_cache()
     gemma2 = get_config("gemma2-9b")
@@ -2354,6 +2486,7 @@ def tp_serve_phase(vlm, state):
     rec["seq_decode"] = []
     rec["shares"] = (tp_shares(vlm_cfg(1), (8, 16), rec["seq_decode"])
                      + tp_shares(gemma2, (16,), rec["seq_decode"]))
+    rec["grid_shares"] = tp_grid_shares(vlm_cfg(1), TP_GRIDS)
     return rec
 
 
@@ -4454,6 +4587,14 @@ def main():
                       launches_tp_shares_bf16=[r["launches_shares"]["flash_attention_wgmma"]
                                                for r in tp_serve["shares"]
                                                if r["dtype"] == "bfloat16"],
+                      launches_tp_serve_2d_prefill_1_rank=tp_serve["path_serve_2d"][
+                          "launches_per_prefill"]["flash_attention_wgmma"],
+                      launches_tp_serve_2d_decode_16_steps=tp_serve["path_serve_2d"][
+                          "launches_decode"]["flash_attention_wgmma"],
+                      launches_tp_grid_bf16=[
+                          [r["grid"], r["launches"]["prefill"]["flash_attention_wgmma"],
+                           r["launches"]["decode"]["flash_attention_wgmma"]]
+                          for r in tp_serve["grid_shares"] if r["dtype"] == "bfloat16"],
                       tp_train_per_rank=[{key: c[key] for key in TP_TRAIN_FLASH_KEYS}
                                          for c in flash_checks
                                          if c["case"] in TP_TRAIN_FLASH_CASES],
@@ -4506,6 +4647,10 @@ def main():
                       launches_tp_shares_fp32=[r["launches_shares"]["flash_attention"]
                                                for r in tp_serve["shares"]
                                                if r["dtype"] == "float32"],
+                      launches_tp_grid_fp32=[
+                          [r["grid"], r["launches"]["prefill"]["flash_attention"],
+                           r["launches"]["decode"]["flash_attention"]]
+                          for r in tp_serve["grid_shares"] if r["dtype"] == "float32"],
                       launches_tp_train_shares_fp32=[r["launches_shares"]["flash_attention"]
                                                      for r in tp_train["shares"]
                                                      if r["dtype"] == "float32"],

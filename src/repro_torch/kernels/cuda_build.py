@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Iterable, List, Optional, Sequence
@@ -53,6 +54,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
+        self._count_lock = threading.Lock()
         self.build_log = ""
         self._fn = None
         self._errstr = None
@@ -108,7 +110,8 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: launch failed: {self._errstr(err).decode()} ({err})"
             )
-        self.launches += 1
+        with self._count_lock:  # ranks played by threads launch at once
+            self.launches += 1
 
 
 def build(kernels: Iterable[CudaKernel]) -> float:

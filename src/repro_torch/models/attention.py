@@ -82,24 +82,30 @@ class Attention(nn.Module):
             self.q_norm.zero_()
             self.k_norm.zero_()
 
-    def _project(self, x: torch.Tensor, w: torch.Tensor,
-                 bias_name: str) -> torch.Tensor:
-        """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    def _project(self, x: torch.Tensor, w: torch.Tensor, name: str,
+                 axis=None) -> torch.Tensor:
+        """einsum("bsd,dhk->bshk") as one matmul over the flattened heads;
+        ``axis`` (a ``LayerAxis``) takes the product where sharded: in
+        serving, where ``w`` keeps its ``embed`` block, x's columns of the
+        block times it, summed over the block's axes. The bias after."""
         B, S, _ = x.shape
         d, h, hd = w.shape
-        out = (x @ w.reshape(d, h * hd)).view(B, S, h, hd)
+        w = w.reshape(d, h * hd)
+        out = (x @ w if axis is None else axis.column(x, w, name)).view(B, S, h, hd)
         if self.cfg.qkv_bias:
-            out = out + getattr(self, bias_name)
+            out = out + getattr(self, "b" + name[1])
         return out
 
     def _qkv(self, x: torch.Tensor, positions: Optional[torch.Tensor],
-             kv_x: Optional[torch.Tensor] = None):
+             kv_x: Optional[torch.Tensor] = None, axis=None):
         """q from x; k and v from ``kv_x`` (the memory) or x. RoPE at
-        ``positions`` on self-attention's q and k when the config uses it."""
+        ``positions`` on self-attention's q and k when the config uses it.
+        ``axis``: the layer's ``LayerAxis`` where sharded (``_project``);
+        QK-norm and RoPE come after the products' sums."""
         kv_x = x if kv_x is None else kv_x
-        q = self._project(x, self.wq, "bq")
-        k = self._project(kv_x, self.wk, "bk")
-        v = self._project(kv_x, self.wv, "bv")
+        q = self._project(x, self.wq, "wq", axis)
+        k = self._project(kv_x, self.wk, "wk", axis)
+        v = self._project(kv_x, self.wv, "wv", axis)
         if self.cfg.qk_norm:  # after the bias, before RoPE, as the reference
             q = common.rms_norm(self.q_norm, q)
             k = common.rms_norm(self.k_norm, k)
@@ -110,7 +116,8 @@ class Attention(nn.Module):
         return common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos), v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
-        """einsum("bshk,hkd->bsd")."""
+        """einsum("bshk,hkd->bsd"); where ``wo`` keeps its ``embed`` block in
+        serving, the rank's block of the output's columns."""
         B, S, h, hd = o.shape
         return o.reshape(B, S, h * hd) @ self.wo.reshape(h * hd, -1)
 
@@ -125,7 +132,7 @@ class Attention(nn.Module):
         output is its term of the sum over ``model``)."""
         if self.cross != (memory is not None):
             raise ValueError("memory is given to the cross-attention, and only to it")
-        q, k, v = self._qkv(x, positions, memory)
+        q, k, v = self._qkv(x, positions, memory, axis)
         if axis is not None:
             k, v = axis.kv_for_queries(k, v)
         if self.cross:
@@ -142,7 +149,7 @@ class Attention(nn.Module):
         serving (the weights are this rank's heads; the output is its term of
         the sum over ``model``)."""
         S = x.shape[1]
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, axis=axis)
         kq, vq = (k, v) if axis is None else axis.kv_for_queries(k, v)
         out = fa_ops.attention(q, kq, vq, causal=True, window=self.window,
                                softcap=self.cfg.attn_softcap)
@@ -164,7 +171,7 @@ class Attention(nn.Module):
         """One token at position ``pos`` against the cache (updated in place);
         ``axis`` as in ``prefill``: this rank's block of the cache."""
         positions = torch.arange(pos, pos + 1, device=x.device)  # no host copy
-        q, k_new, v_new = self._qkv(x, positions)
+        q, k_new, v_new = self._qkv(x, positions, axis=axis)
         if axis is not None:
             return self._out(axis.decode_attention(q, k_new, v_new, pos, cache,
                                                    self.cfg.attn_softcap))

@@ -24,11 +24,20 @@ class MLP(nn.Module):
         for p in self.parameters():
             common.dense_init_(p, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """``axis``: the layer's ``tensor_parallel.LayerAxis`` where sharded.
+        Its ``column`` takes the input products: in serving, where the
+        weights keep their ``embed`` block, the rank's columns of x times it,
+        summed over the block's axes. The output is then the rank's block
+        of the stream's columns (``LayerAxis.out`` gathers it)."""
+        def up(name: str) -> torch.Tensor:
+            w = getattr(self, name)
+            return x @ w if axis is None else axis.column(x, w, name)
+
         if self.mlp_type == "swiglu":
-            h = F.silu(x @ self.w_gate) * (x @ self.w_up)
+            h = F.silu(up("w_gate")) * up("w_up")
         elif self.mlp_type == "geglu":
-            h = F.gelu(x @ self.w_gate, approximate="tanh") * (x @ self.w_up)
+            h = F.gelu(up("w_gate"), approximate="tanh") * up("w_up")
         else:
-            h = F.gelu(x @ self.w_up, approximate="tanh")
+            h = F.gelu(up("w_up"), approximate="tanh")
         return h @ self.w_down

@@ -124,7 +124,7 @@ class Block(nn.Module):
         if hasattr(self, "moe"):
             return self.moe(h)[0] if axis is None else axis.moe(self.moe, h)
         if self.mixer != "rwkv":
-            return self.mlp(h)
+            return self.mlp(h, axis)
         shift = cache["cm_shift"] if carried else None
         if axis is not None and axis.cm_sum:
             h, cm_shift = axis.channel_mix(self.cm, h, shift)
@@ -175,7 +175,7 @@ class Block(nn.Module):
             return _summed(self.cm(_split_in(h, axis))[0], axis), aux
         if hasattr(self, "moe"):
             return self.moe(h) if axis is None else axis.moe(self.moe, h, with_aux=True)
-        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum"), aux
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum"), axis), axis, "mlp_sum"), aux
 
     def prefill(self, x, positions, cache, axis=None) -> torch.Tensor:
         """Full sequence; fills ``cache``. ``axis``: the layer's
@@ -217,10 +217,10 @@ def _summed(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
     where the layer's contracted dim was split (``LayerAxis.attn_sum`` /
     ``mlp_sum`` / ``rglru_sum`` / ``tm_sum``: ``ModelAxis.from_split``),
     else, computed whole, the rank's positions where the stream's sequence
-    splits (``ModelAxis.own``)."""
-    if axis is None:
-        return h
-    return axis.axis.from_split(h) if which and getattr(axis, which) else axis.axis.own(h)
+    splits (``ModelAxis.own``); in serving, where the row weight keeps its
+    ``embed`` block, the rank's block of columns then gathered to the whole
+    stream (``LayerAxis.out``)."""
+    return h if axis is None else axis.out(h, which)
 
 
 def _split_in(h: torch.Tensor, axis, which: Optional[str] = None) -> torch.Tensor:
@@ -269,7 +269,10 @@ class LM(nn.Module):
         sequence, the result is the rank's block of positions: the sum
         reduce-scattered, the prefix going in before it in rank 0's term
         (the sum adds it once); an unsplit lookup is sliced
-        (``ModelAxis.own``)."""
+        (``ModelAxis.own``). In serving, where ``embed`` keeps its ``embed``
+        block (``ModelAxis.stationary``), the rank's rows give its block of
+        the columns, summed over ``model`` and all-gathered over the block's
+        axes (the scale applied once, on each block)."""
         split = None if model_axis is None else model_axis.split("embed")
         x = lookup(self.embed, tokens, split)
         if self.cfg.embed_scale:
@@ -277,6 +280,8 @@ class LM(nn.Module):
         seq = model_axis is not None and model_axis.seq is not None
         if split is not None and not seq:
             x = model_axis.from_split(x)
+        if model_axis is not None:  # serving: the rank's embed block gathered where it stays
+            x = model_axis.whole(x, "embed")
         if prefix_embeds is not None:
             prefix = prefix_embeds.to(x.dtype)
             if split is not None and seq and model_axis.coord["model"] != 0:
@@ -291,14 +296,16 @@ class LM(nn.Module):
         """The head; where ``model_axis`` splits the vocabulary, the head's
         weight is this rank's vocab block and so are the logits, over the
         whole stream (the final-normed blocks gathered where its sequence
-        splits); an unsplit head there reads the rank's positions only."""
+        splits); an unsplit head there reads the rank's positions only. In
+        serving, where the head's weight keeps its ``embed`` block, the
+        logits are the rank's partial product summed over the block's axes
+        (``ModelAxis.column``), before the final softcap."""
         x = common.apply_norm(self.final_norm, x)
         if model_axis is not None and model_axis.head is not None:
             x = model_axis.to_split(x)
-        if self.cfg.tie_embeddings:
-            logits = x @ self.embed.T
-        else:
-            logits = x @ self.unembed
+        name = "embed" if self.cfg.tie_embeddings else "unembed"
+        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
+        logits = x @ w if model_axis is None else model_axis.column(x, w, name)
         c = self.cfg.final_softcap
         if c is not None:
             logits = c * torch.tanh(logits / c)

@@ -53,7 +53,8 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   by one all-to-all over ``model`` to its columns, and its ``w_o``,
   ``bonus``, ``decay_b`` and 1-D leaves, whole at rest, by a local
   slice --;
-  every other weight is gathered whole (FSDP).
+  every other weight is gathered whole (FSDP). Serving keeps some
+  weights' ``embed`` block where it lies instead (below);
   The flash and scan
   kernels see ordinary tensors: DTensor's sharding propagation cannot see
   through the ctypes-bound kernels;
@@ -94,7 +95,24 @@ Sharded serving (the reference's ``build_prefill_step`` and
 its own rows, and the model axis splits the compute as in training, and
 the RWKV-6 layers too: the time mix by heads and the channel mix by
 ``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
-its ``model`` block gathered over the other axes only. The
+its ``model`` block gathered over the other axes only. An LM's attention,
+dense MLP, embedding and head are weight-stationary where the rules allow,
+as the reference's ``serve_2d`` lays them out: a weight whose ``embed``
+dim the resolved spec splits over axes of more than one rank that carry
+none of the batch's rows (``serve_2d``: ``data``, the rows on ``pod``;
+``tensor_parallel.ModelAxis.stationary``) keeps that block, so the rank
+computes with its ``(embed block x model block)`` and nothing of it moves.
+Each column product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, the
+head) takes the rank's columns of the whole stream and sums its partial
+product over those axes, one all-reduce of activations; each row product
+(``wo``, ``w_down``) and the lookup give the rank's block of the stream's
+columns, summed over ``model`` where the layer splits and then
+all-gathered over those axes to the whole stream, which every rank holds
+between the layers (the reference's ``act_embed: None``). Under
+``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and the
+weights are gathered as in training; a ``d_model`` the axes do not divide
+resolves to whole; the RG-LRU's, RWKV-6's, the MoE's (router and experts)
+and whisper's weights are still gathered over ``data``. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
@@ -159,9 +177,11 @@ K and V projected from it again at every step as in the reference, and its
 MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter; ``serve_2d``'s
-weight-stationary decode (partial sums over ``data`` in place of the
-``embed`` gather and of the RG-LRU state's gather over ``data``).
+in place of its gather and reduce-scatter; under ``serve_2d``, partial
+sums over ``data`` for the RG-LRU (its leaves, and its state in place of
+the state's gather over ``data``), the RWKV-6 mixers, the MoE's router and
+experts and whisper's blocks, whose weights are gathered over ``data``
+today.
 """
 
 from __future__ import annotations
@@ -357,18 +377,28 @@ class ShardedModel:
         """The ``materialize`` hook of training (and, with no gradient, of
         serving): a weight whose compute splits along ``model`` is brought to
         its ``model`` block (``axis.split``: where it lies, or a slice of a
-        weight whole at rest) and gathered over the other axes; every other
-        weight is gathered whole. Its gradient comes back summed over the
-        batch axes, and over ``model`` where ``axis.sums_gradient``; the
-        blocks of a weight whole at rest are gathered over ``model``. A mesh
-        dim of one rank holds the whole dim: nothing moves over it."""
+        weight whole at rest) and gathered over the other axes, but for the
+        axes of an ``embed`` block that stays where it lies in serving
+        (``axis.stationary``); every other weight is gathered whole. Its
+        gradient comes back summed over the batch axes, and over ``model``
+        where ``axis.sums_gradient``; the blocks of a weight whole at rest
+        are gathered over ``model``. A mesh dim of one rank holds the whole
+        dim: nothing moves over it."""
         names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
 
         def weight(name: str, p: DTensor) -> torch.Tensor:
-            split = axis.split(name)
-            keep = tuple(pl if size == 1 else Shard(split.dim)
-                         if split is not None and n == "model" else Replicate()
-                         for pl, n, size in zip(p.placements, names, sizes))
+            split, block = axis.split(name), axis.stationary(name)
+
+            def kept(pl: Placement, n: str, size: int) -> Placement:
+                if size == 1:
+                    return pl
+                if split is not None and n == "model":
+                    return Shard(split.dim)
+                if block is not None and n in block.axes:
+                    return Shard(block.dim)
+                return Replicate()
+
+            keep = tuple(kept(pl, n, size) for pl, n, size in zip(p.placements, names, sizes))
             sums = axis.sums_gradient(name)
             back = tuple(Partial() if size > 1 and (n in row_axes or (sums and n == "model"))
                          else k for n, k, size in zip(names, keep, sizes))
@@ -464,17 +494,20 @@ class ShardedModel:
         return hook
 
     def model_axis(self, lm: LM, cache: Optional[Cache], row_axes: Tuple[str, ...],
-                   n_rows: int, stream=None) -> tp.ModelAxis:
+                   n_rows: int, stream=None, stationary: bool = False) -> tp.ModelAxis:
         """This rank's view of the ``model`` split for serving ``lm`` over
         ``cache`` (training: None, and the residual stream's global shape
         ``stream``, or the encoder-decoder's two by stack), the global
-        batch's ``n_rows`` rows split over ``row_axes``."""
+        batch's ``n_rows`` rows split over ``row_axes``; ``stationary``
+        (serving an LM): the weights' ``embed`` blocks stay where the rules
+        allow (``ModelAxis.stationary``)."""
         shapes = self._shapes.get(lm)
         if shapes is None:
             shapes = self._shapes[lm] = tp.param_shapes(lm)
         return tp.ModelAxis(self.mesh, self.rules, shapes, cache,
                             tp.MeshCollectives(self.mesh), memo=self._memo,
-                            rows=(row_axes, n_rows), stream=stream)
+                            rows=(row_axes, n_rows), stream=stream,
+                            weight_stationary=stationary)
 
     def _serve(self, lm: LM, method: str, batch: Dict[str, torch.Tensor], cache: Cache,
                memory: Optional[torch.Tensor] = None) -> DTensor:
@@ -489,7 +522,8 @@ class ShardedModel:
             if memory is not None:  # a memory whole along model: the rank's block, no move
                 mem = memory if isinstance(memory, DTensor) else self.memory(memory)
                 memory = mem.redistribute(self.mesh, place).to_local()
-        axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0], stream)
+        axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0], stream,
+                               stationary=not self.cfg.is_encoder_decoder)
         weight = self._weights(axis, ())  # under no_grad: the gather alone
         # every weight outside the stacks of blocks, which gather their own
         outer = {n: weight(n, p) for n, p in lm.named_parameters()

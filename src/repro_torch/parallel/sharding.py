@@ -318,6 +318,19 @@ def model_split(mesh: Mesh, spec: Spec, shape: Sequence[int],
     return None
 
 
+def embed_split(mesh: Mesh, rules: Dict[str, MeshAxes], name: str, shape: Sequence[int],
+                coord: Optional[Mapping[str, int]] = None) -> Optional[Split]:
+    """The ``embed`` dim (``d_model``) of parameter ``name`` laid out by its
+    resolved spec: this rank's block along it, or None where the leaf has
+    no ``embed`` dim or no axis splits it (a ``d_model`` the axes do not
+    divide resolves to whole)."""
+    logical = logical_for_leaf(_leaf_name(name), len(shape))
+    if "embed" not in logical:
+        return None
+    spec = resolve_spec(mesh, rules, logical, shape)
+    return dim_split(mesh, spec, logical.index("embed"), shape, coord)
+
+
 STREAM_LOGICAL = ("batch", "seq", "act_embed")  # the residual stream [B, S', d]
 
 

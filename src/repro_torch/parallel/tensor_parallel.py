@@ -147,16 +147,33 @@ the encoder's memory enters the decoder once, gathered whole
 (:meth:`ModelAxis.memory_in`), and each block's cross-attention reads it
 with no collective of its own.
 
+Weight-stationary serving (the reference's ``serve_2d``, whose batch lies
+off ``data``): a ``ModelAxis`` built with ``weight_stationary`` keeps the
+``embed`` block of attention's, the dense MLP's, the embedding's and the
+head's weights where the resolved spec puts it (:meth:`ModelAxis.stationary`),
+so a rank holds the ``(embed block x model block)`` of each. The stream stays
+whole on every rank; ``column`` (:meth:`ModelAxis.column`,
+:meth:`LayerAxis.column`) multiplies the rank's columns of it by the block
+and sums the partial product over the block's axes, and ``whole``
+(:meth:`ModelAxis.whole`, after :meth:`LayerAxis.out`'s sum over ``model``)
+gathers a row product's or the lookup's block of columns back to the whole
+stream. The model code calls ``column`` at each column product and ``out``
+after each sub-block, and branches on no strategy: without the block both
+are what they were.
+
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
-``model``), cannot be played one rank at a time: :class:`ThreadRanks` runs
-every rank at once, one thread each, in one process (:func:`thread_shares`).
+``model``), or a weight-stationary grid (the sums over ``data``), cannot be
+played one rank at a time: :class:`ThreadRanks` runs every rank of a
+``model`` axis or a (``data`` x ``model``) grid at once, one thread each, in
+one process (:func:`thread_shares`).
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import math
 import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -178,11 +195,25 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "enc_blocks": ("attn", "mlp"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
+# an LM layer's submodules whose weights keep their ``embed`` block in serving
+STATIONARY_MODULES = ("attn", "mlp")
+# the row product ending each stationary part, by its LayerAxis sum
+_ROW_LEAVES = {"attn_sum": "wo", "mlp_sum": "w_down"}
 # the RWKV-6 mixers and the dim of each leaf's block
 _RWKV_MODULES = ("tm", "cm")
 _TM_DIMS = {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "decay_b": 1, "w_o": 0,
             "decay_base": 0, "out_norm": 0, "bonus": 0}
 _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
+
+
+def _stays(name: str) -> bool:
+    """Whether a parameter is one whose ``embed`` block may stay where it
+    lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention
+    and dense MLP weights, the embedding and the head."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return name in SPLIT_LEAVES
+    return len(parts) == 4 and parts[0] == "layers" and parts[2] in STATIONARY_MODULES
 
 
 def splits_compute(name: str) -> bool:
@@ -290,22 +321,47 @@ class Shares:
                                   "without a sequence-split cache")
 
 
-class ThreadRanks:
-    """A ``model`` axis of ``size`` ranks played by ``size`` threads of one
-    process, on one device. Each rank's collective meets the others' at a
-    barrier and returns what the mesh's would, the ranks' terms reduced in
-    rank order in their own dtype. :meth:`rank` is rank r's comm,
-    :meth:`run` runs a function on every rank at once."""
+def _coordinate(r: int, sizes: Mapping[str, int]) -> Dict[str, int]:
+    """Rank r's index along each axis of a mesh of ``sizes`` (in mesh
+    order), row-major, as ``DeviceMesh`` numbers its ranks."""
+    out = {}
+    for name in reversed(list(sizes)):
+        r, out[name] = divmod(r, sizes[name])
+    return {name: out[name] for name in sizes}
 
-    def __init__(self, size: int):
-        self.size = size
+
+class ThreadRanks:
+    """A mesh played by threads of one process, on one device, a thread a
+    rank: a ``model`` axis of ``size`` ranks, or a grid of axis sizes in
+    mesh order (``{"data": 2, "model": 4}``), rank r at its row-major
+    coordinate, as ``DeviceMesh`` numbers its ranks. Every rank takes the
+    same collectives in the same order, as on a mesh: each meets the
+    others' at a barrier and returns what the mesh's would over its group
+    along the axis, the group's terms reduced in rank order in their own
+    dtype. :meth:`rank` is rank r's comm, :meth:`run` runs a function on
+    every rank at once."""
+
+    def __init__(self, size: Union[int, Mapping[str, int]]):
+        self.sizes = dict(size) if isinstance(size, Mapping) else {"model": size}
+        self.size = math.prod(self.sizes.values())
         # a rank left waiting (one that skipped a collective the others
         # took) raises instead of hanging the process
-        self._barrier = threading.Barrier(size, timeout=600.0)
-        self._slots: List[Optional[torch.Tensor]] = [None] * size
+        self._barrier = threading.Barrier(self.size, timeout=600.0)
+        self._slots: List[Optional[torch.Tensor]] = [None] * self.size
 
     def rank(self, r: int) -> "_ThreadRank":
         return _ThreadRank(self, r)
+
+    def coordinate(self, r: int) -> Dict[str, int]:
+        """Rank r's index along each axis (row-major)."""
+        return _coordinate(r, self.sizes)
+
+    def group(self, r: int, axis: str) -> List[int]:
+        """The ranks of r's group along ``axis`` (r's other coordinates),
+        in the axis's order."""
+        stride = math.prod(list(self.sizes.values())[list(self.sizes).index(axis) + 1:])
+        first = r - self.coordinate(r)[axis] * stride
+        return [first + j * stride for j in range(self.sizes[axis])]
 
     def exchange(self, r: int, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x``, in rank order, once all have given theirs."""
@@ -341,15 +397,19 @@ class ThreadRanks:
 
 
 class _ThreadRank:
-    """Rank ``r``'s collectives over a :class:`ThreadRanks` axis."""
+    """Rank ``r``'s collectives over a :class:`ThreadRanks` mesh. Over an
+    axis of one rank each is the identity, as :class:`MeshCollectives`'."""
 
     def __init__(self, ranks: ThreadRanks, r: int):
         self.ranks, self.r = ranks, r
 
     def _over(self, x: torch.Tensor, axis: str) -> List[torch.Tensor]:
-        if axis != "model":
-            raise NotImplementedError(f"threads play only the model axis, not {axis}")
-        return self.ranks.exchange(self.r, x)
+        if axis not in self.ranks.sizes:
+            raise NotImplementedError(f"the threads play {tuple(self.ranks.sizes)}, not {axis}")
+        if self.ranks.sizes[axis] == 1:
+            return [x]
+        got = self.ranks.exchange(self.r, x)
+        return [got[i] for i in self.ranks.group(self.r, axis)]
 
     def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         reduce = {"sum": torch.add, "max": torch.maximum}[op]
@@ -357,6 +417,13 @@ class _ThreadRank:
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
         return torch.cat(self._over(x, axis), dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """As :meth:`MeshCollectives.all_to_all`: block j of dim 0 to the
+        group's rank j; the result's block i from rank i."""
+        got = self._over(x, axis)
+        mine = self.ranks.coordinate(self.r)[axis]
+        return torch.cat([t.chunk(len(got), 0)[mine] for t in got], 0)
 
 
 Comm = Union[MeshCollectives, Shares, _ThreadRank]
@@ -599,7 +666,11 @@ class ModelAxis:
     the encoder-decoder, each stream's by stack, ``{"enc_blocks": (B, T_f,
     d), "dec_blocks": (B, S, d)}``, which split independently. ``seq`` is
     then the decoder's, the stream the lookup and the head read;
-    :meth:`on` gives the encoder's view."""
+    :meth:`on` gives the encoder's view. ``weight_stationary`` (serving an
+    LM): the ``embed`` blocks of attention's, the dense MLP's, the
+    embedding's and the head's weights stay where they lie where the rules
+    allow (:meth:`stationary`), and the products they enter are summed or
+    gathered over those blocks' axes (:meth:`column`, :meth:`whole`)."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
                  shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
@@ -607,9 +678,11 @@ class ModelAxis:
                  coord: Optional[Mapping[str, int]] = None, memo: Optional[Dict] = None,
                  rows: Tuple[Tuple[str, ...], int] = ((), 0),
                  stream: Union[None, Tuple[int, int, int],
-                               Mapping[str, Tuple[int, int, int]]] = None):
+                               Mapping[str, Tuple[int, int, int]]] = None,
+                 weight_stationary: bool = False):
         self.mesh, self.rules, self.shapes, self.comm = mesh, rules, shapes, comm
         self.row_axes, self.n_rows = rows
+        self.weight_stationary = weight_stationary
         self.sizes = shd.axis_sizes(mesh)
         self.coord = shd.coordinate(mesh, coord)
         streams = (stream if isinstance(stream, Mapping)
@@ -710,6 +783,52 @@ class ModelAxis:
         dim = dims[leaf]
         step, m = shape[dim] // M, self.coord["model"]
         return shd.Split(dim, ("model",), m * step, (m + 1) * step)
+
+    def stationary(self, name: str) -> Optional[shd.Split]:
+        """Under ``weight_stationary``, the rank's block of the ``embed`` dim
+        of parameter ``name`` (``sharding.embed_split``) that stays where it
+        lies, as the reference's ``serve_2d`` keeps it: for attention's and
+        the dense MLP's weights of the LM's layers, the embedding and the
+        head, where the resolved spec splits that dim over axes that hold
+        more than one rank, none of them an axis the batch's rows split
+        over (``serve_2d``'s ``data``; under ``fsdp_tp`` the rows lie on
+        it). Else None: the weight is gathered over those axes (a
+        ``d_model`` they do not divide resolves to whole), as in training."""
+        shape = self.shapes.get(name)
+        if not self.weight_stationary or shape is None or not _stays(name):
+            return None
+        key = ("stationary", name, shape, self.row_axes)
+        if key not in self._memo:
+            block = shd.embed_split(self.mesh, self.rules, name, shape, self.coord)
+            if block is not None and (math.prod(self.sizes[a] for a in block.axes) == 1
+                                      or any(a in self.row_axes for a in block.axes)):
+                block = None
+            self._memo[key] = block
+        return self._memo[key]
+
+    def column(self, x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+        """A column product ``x @ w`` of the whole stream x [..., d] and the
+        weight ``w`` as the rank computes with it, laid out [embed, ...]:
+        where parameter ``name``'s ``embed`` block stays (:meth:`stationary`),
+        the rank's block of x's columns times it, the partial product summed
+        over the block's axes (one all-reduce of activations an axis); else
+        ``x @ w``. Serving only: the sum has no backward."""
+        block = self.stationary(name)
+        if block is None:
+            return x @ w
+        return _sum_over(x[..., block.lo:block.hi] @ w, self.comm, block.axes)
+
+    def whole(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The output [..., d/D] of a product with parameter ``name`` whose
+        ``embed`` block stays (a row product, or the lookup): the rank's
+        block of the stream's columns, all-gathered over the block's axes,
+        row-major, to the whole stream [..., d]; else ``x``."""
+        block = self.stationary(name)
+        if block is None:
+            return x
+        for a in reversed(block.axes):  # the innermost axis first: row-major
+            x = self.comm.all_gather(x, x.ndim - 1, a)
+        return x
 
     def from_split(self, x: torch.Tensor) -> torch.Tensor:
         """Out of a row-parallel product: the sum over ``model``, its backward
@@ -866,6 +985,7 @@ class LayerAxis:
                  attn: str = "attn"):
         self.axis = axis
         pre = f"{stack}.{index}."
+        self._pre, self._attn = pre, attn
         self.attn_sum = axis.split(pre + attn + ".wo") is not None
         self.xattn_sum = axis.split(pre + "xattn.wo") is not None
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
@@ -899,6 +1019,31 @@ class LayerAxis:
                 or ("model" in seq_axes and seq_axes[-1] != "model")):
             raise NotImplementedError(f"layer {index}: cache heads {self.heads}, sequence "
                                       f"{self.seq}, weights' KV heads {self.kv}")
+
+    def _name(self, leaf: str) -> str:
+        """The state-dict name of the attention's or the MLP's leaf."""
+        module = self._attn if leaf in ("wq", "wk", "wv", "wo") else "mlp"
+        return f"{self._pre}{module}.{leaf}"
+
+    def column(self, x: torch.Tensor, w: torch.Tensor, leaf: str) -> torch.Tensor:
+        """The column product ``x @ w`` with the attention's or the MLP's
+        weight ``leaf`` (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``), laid out
+        [embed, ...]: :meth:`ModelAxis.column` (summed over its ``embed``
+        block's axes where that block stays)."""
+        return self.axis.column(x, w, self._name(leaf))
+
+    def out(self, h: torch.Tensor, which: Optional[str] = None) -> torch.Tensor:
+        """A sub-block's output h: summed over ``model`` where ``which``
+        (``attn_sum``, ``mlp_sum``, ``rglru_sum``, ``tm_sum``) says the
+        contracted dim split (:meth:`ModelAxis.from_split`), else the rank's
+        positions of it (:meth:`ModelAxis.own`); then, where the part's row
+        weight (attention's ``wo``, the MLP's ``w_down``) keeps its ``embed``
+        block, the rank's block of columns gathered to the whole stream
+        (:meth:`ModelAxis.whole`)."""
+        axis = self.axis
+        h = axis.from_split(h) if which and getattr(self, which) else axis.own(h)
+        row = _ROW_LEAVES.get(which)
+        return h if row is None else axis.whole(h, self._name(row))
 
     def moe(self, moe, h: torch.Tensor, with_aux: bool = False):
         """The MoE layer on this rank's rows [B, S, d] (after ``norm2``), its
@@ -1062,7 +1207,8 @@ def _write_prompt(out: torch.Tensor, t: torch.Tensor, L: int, first: int) -> Non
         out.copy_(torch.roll(t[:, S - L:], S % L, dims=1)[:, first:first + n])
 
 
-def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: int,
+def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
+          rank: Union[int, Mapping[str, int]], size: Union[int, Mapping[str, int]],
           rules: Optional[Dict[str, shd.MeshAxes]] = None,
           seq_len: Union[None, int, Mapping[str, int]] = None,
           comm: Optional[_ThreadRank] = None):
@@ -1085,31 +1231,49 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]], rank: int, size: in
     :meth:`ModelAxis.own` gives the rank's positions); for the
     encoder-decoder, each stream's by stack (``{"enc_blocks": T_f,
     "dec_blocks": S}``, :func:`block_shares`). ``comm``: rank
-    ``rank`` of a :class:`ThreadRanks` axis, whose ranks run together, so
+    ``rank`` of a :class:`ThreadRanks` mesh, whose ranks run together, so
     the rules' cache layout is kept: a K/V cache split by sequence gives the
-    rank its positions' block."""
+    rank its positions' block.
+
+    ``size`` may be a grid of axis sizes in mesh order (``{"data": 2,
+    "model": 4}``) and ``rank`` a coordinate on it or its row-major index,
+    as :class:`ThreadRanks` numbers its ranks. A K/V cache's rows then
+    split as the rules' ``batch`` axes take them (the rank's rows), and an
+    LM served with a cache keeps its weights' ``embed`` blocks where
+    the rules allow (:meth:`ModelAxis.stationary`): the rank's block of
+    such a weight is its ``(embed block x model block)``. Sums over an axis
+    but ``model`` need the threads."""
     rules = rules or shd.STRATEGIES["fsdp_tp"]()
     if comm is None:
         rules = {**rules, "seq_cache": None}
-    mesh = {"model": size}
+    mesh = dict(size) if isinstance(size, Mapping) else {"model": size}
+    coord = dict(rank) if isinstance(rank, Mapping) else _coordinate(rank, mesh)
+    key = None if cache is None else cache_key(cache)
+    row_axes, n_rows = (), 0
+    if cache is not None:  # the mesh axes the batch's rows split over
+        n_rows = next(iter(cache[key][0].values())).shape[0]
+        spec = shd.batch_specs(mesh, rules, {"x": torch.empty((n_rows, 1), device="meta")})["x"]
+        row_axes = shd._axes(spec[0])
     d = lm.cfg.d_model
     stream = (None if seq_len is None
               else {k: (1, n, d) for k, n in seq_len.items()} if isinstance(seq_len, Mapping)
               else (1, seq_len, d))
     axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares() if comm is None else comm,
-                     coord={"model": rank}, stream=stream)
+                     coord=coord, rows=(row_axes, n_rows), stream=stream,
+                     weight_stationary=key == "layers")
     params = {}
     for name, p in lm.named_parameters():
-        split = axis.split(name)
-        params[name] = p if split is None else p.narrow(split.dim, split.lo, split.hi - split.lo)
+        for split in (axis.split(name), axis.stationary(name)):
+            if split is not None:
+                p = p.narrow(split.dim, split.lo, split.hi - split.lo)
+        params[name] = p
     if cache is None:
         return axis, params, None
-    key = cache_key(cache)
     layers = []
     for i, c in enumerate(cache[key]):
-        if "k" in c:  # the rank's positions and heads
+        if "k" in c:  # the rank's rows, positions and heads
             block = c
-            for dim in (1, 2):
+            for dim in (0, 1, 2):
                 split = axis.cache_split(i, dim)
                 if split is not None:
                     block = {k: t.narrow(dim, split.lo, split.hi - split.lo)
@@ -1293,27 +1457,31 @@ def block_shares(model: nn.Module, stack: str, index: int, shares, x: torch.Tens
     return torch.cat(xs, 1)
 
 
-def thread_shares(model: nn.Module, stack: str, index: int, size: int,
-                  cache: Mapping[str, Any], run: Callable[[nn.Module, "LayerAxis", Any], Any],
+def thread_shares(model: nn.Module, stack: Optional[str], index: int,
+                  size: Union[int, Mapping[str, int]],
+                  cache: Mapping[str, Any], run: Callable[[nn.Module, Any, Any], Any],
                   rules: Optional[Dict[str, shd.MeshAxes]] = None,
                   seq_len: Optional[Mapping[str, int]] = None):
     """Block ``index`` of ``model``'s ``stack`` (``layers``, ``dec_blocks``)
-    on every rank of a ``size``-way ``model`` axis at once, one thread a
-    rank (:class:`ThreadRanks`), under ``rules`` (default ``fsdp_tp``'s)
-    with their cache layout kept: ``run(block, layer_axis, cache)`` on the
+    on every rank of a ``size``-way ``model`` axis, or of a grid of axis
+    sizes (``{"data": 2, "model": 4}``), at once, one thread a rank
+    (:class:`ThreadRanks`), under ``rules`` (default ``fsdp_tp``'s) with
+    their cache layout kept: ``run(block, layer_axis, cache)`` on the
     rank's own copy of the block, which holds its parameter blocks, with
     its :class:`LayerAxis` and its block of the whole ``cache``
     (:func:`share`) -> (each rank's result, each rank's cache block), in
-    rank order. The sums over ``model`` are the threads' all-reduces, so
-    every rank's stream is the whole one, as on a mesh. ``seq_len``: the
-    streams' lengths by stack, as :func:`share` takes them (a decode step's
-    ``{"enc_blocks": T_f}``: the memory's frames split where the rules split
-    the encoder's stream, ``ModelAxis.memory_in`` then gathering them)."""
+    rank order. ``stack`` None: the whole model, ``run(model, model_axis,
+    cache)`` with the rank's :class:`ModelAxis`. The sums are the threads'
+    all-reduces, so every rank's stream is the whole one, as on a mesh.
+    ``seq_len``: the streams' lengths by stack, as :func:`share` takes them
+    (a decode step's ``{"enc_blocks": T_f}``: the memory's frames split
+    where the rules split the encoder's stream, ``ModelAxis.memory_in``
+    then gathering them)."""
     ranks = ThreadRanks(size)
-    block = getattr(model, stack)[index]
-    prefix = f"{stack}.{index}."
+    block = model if stack is None else getattr(model, stack)[index]
+    prefix = "" if stack is None else f"{stack}.{index}."
     made = []
-    for r in range(size):
+    for r in range(ranks.size):
         axis, params, rank_cache = share(model, cache, r, size, rules, seq_len,
                                          comm=ranks.rank(r))
         own = {n[len(prefix):]: p for n, p in params.items() if n.startswith(prefix)}
@@ -1321,11 +1489,12 @@ def thread_shares(model: nn.Module, stack: str, index: int, size: int,
         # (the rank's blocks are put in when it runs)
         empty = {id(p): nn.Parameter(torch.empty_like(p, device="meta"), p.requires_grad)
                  for p in block.parameters()}
-        made.append((copy.deepcopy(block, empty), own, axis.layer(index, stack), rank_cache))
+        view = axis if stack is None else axis.layer(index, stack)
+        made.append((copy.deepcopy(block, empty), own, view, rank_cache))
 
     def one(r: int):
-        rank_block, own, layer, rank_cache = made[r]
+        rank_block, own, view, rank_cache = made[r]
         with _reparametrize_module(rank_block, own):
-            return run(rank_block, layer, rank_cache)
+            return run(rank_block, view, rank_cache)
 
     return ranks.run(one), [m[3] for m in made]

@@ -1,0 +1,287 @@
+"""``serve_2d``'s weight-stationary serving (``repro_torch.parallel``) on the
+CPU: each weight of attention, the dense MLP, the embedding and the head
+keeps its ``embed`` block on ``data`` (``ModelAxis.stationary``), and the
+products it enters are summed or gathered over ``data`` instead.
+
+Part (i), the grid in threads: on a ``ThreadRanks`` grid of (data 2 x model
+2) and (data 2 x model 4), every rank at once computes a reduced one-layer
+LM from its blocks (``tensor_parallel.thread_shares`` over ``share`` with
+a grid coordinate): the lookup, the layer's prefill and 3 decode steps over
+its block of the K/V cache, split by positions over (data, model), and the
+head. Each rank's stream (after the lookup and after the layer) equals the
+unsplit one, its logits block equals that block of the unsplit logits, and
+its cache block those positions of the unsplit cache, in fp32 within 1e-5
+of the largest value (``SHARE_TOL``):
+MHA, GQA with and without ``n_kv_heads`` dividing ``model``, MQA, the QKV
+bias, QK-norm, a local window with the score softcap, the three MLPs, a
+tied and an untied head with the final softcap, and the scaled
+embedding. Where ``data`` does not divide ``d_model``, and under
+``fsdp_tp`` (the rows lie on ``data``), the weights are gathered as in
+training: no block stays, and the rank computes with whole ``embed`` dims.
+
+Part (ii), the dry run's trace: a decode step of reduced internvl2-76b
+under ``serve_2d`` on a (data 2, model 2) mesh moves only activations of
+the rank's rows over ``data``: the stream's gathers after the lookup and
+each row product, one all-reduce of each column product's output, the
+attention's partial-softmax merge over the cache's positions (the
+parent's too) and the head's logits block, byte for byte as the shapes
+give them; none as large as the smallest weight block the weights' gather
+moved before.
+
+The gloo ranks against the JAX reference are
+``tests/test_torch_tp_serve.py``'s ``serve_2d_data_model`` mesh.
+"""
+
+import contextlib
+import dataclasses
+import os
+import sys
+import threading
+import types
+
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import cuda_build
+from repro_torch.launch import shapes as shp, steps
+from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tp
+
+from test_torch_launch import _mesh
+from test_torch_models import _two_threads  # noqa: F401
+from test_torch_tp_serve import _rel_close, _seeded_lm
+
+# ---------------------------------------------------------------------------
+# Part (i): the grid in threads
+# ---------------------------------------------------------------------------
+
+_BASE = dataclasses.replace(ARCHS["internvl2-76b"].reduced(), n_layers=1, frontend=None,
+                            frontend_seq_len=0)
+# the weights whose embed block stays under serve_2d, and the dim of that block
+STATIONARY = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk": 0,
+              "layers.0.attn.wv": 0, "layers.0.attn.wo": 2, "layers.0.mlp.w_gate": 0,
+              "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1}
+
+GRID_CASES = {
+    "mha": dict(n_heads=4, n_kv_heads=4),
+    "gqa_kv_divides": dict(n_heads=8, n_kv_heads=4),
+    # 2 KV heads: they divide model 2, not model 4 (K/V replicated over model)
+    "gqa_kv_does_not_divide": dict(n_heads=4, n_kv_heads=2),
+    "mqa": dict(n_heads=4, n_kv_heads=1),
+    "qkv_bias": dict(qkv_bias=True),
+    "qk_norm": dict(qk_norm=True),
+    "local_window_softcap": dict(mixer_pattern=("attn_local",), window=8, attn_softcap=5.0,
+                                 mlp_type="geglu", final_softcap=3.0, tie_embeddings=True,
+                                 embed_scale=True, norm_type="rmsnorm"),
+    "gelu_mlp": dict(mlp_type="gelu", norm_type="layernorm"),
+    "untied_head_final_softcap": dict(final_softcap=3.0),
+    "tied_head": dict(tie_embeddings=True),
+    # 63: data does not divide it (the embed dim resolves to whole: gathered)
+    "d_model_does_not_divide": dict(d_model=63),
+    # the rows lie on data: the weights are gathered, as in training
+    "fsdp_tp": dict(strategy="fsdp_tp"),
+}
+GRIDS = {"data2_model2": {"data": 2, "model": 2}, "data2_model4": {"data": 2, "model": 4}}
+B, S, L, DECODE_STEPS = 4, 12, 16, 3
+
+
+def _rows(axis):
+    """The rank's rows of the global batch: a block over the row axes."""
+    index, n = 0, 1
+    for a in axis.row_axes:
+        index, n = index * axis.sizes[a] + axis.coord[a], n * axis.sizes[a]
+    return slice(index * B // n, (index + 1) * B // n)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_grid_ranks_equal_the_unsplit_lm(case, grid):
+    kw = dict(GRID_CASES[case])
+    strategy = kw.pop("strategy", "serve_2d")
+    cfg = dataclasses.replace(_BASE, **kw)
+    sizes = GRIDS[grid]
+    D, M = sizes["data"], sizes["model"]
+    lm = _seeded_lm(cfg)
+    model = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    fed = [torch.randint(0, cfg.vocab_size, (B, 1), generator=g) for _ in range(DECODE_STEPS)]
+    positions = torch.arange(S)
+
+    def run(m, axis, cache):
+        """(stream after the lookup, after the layer, logits) of the prefill
+        and each decode step, and the layer's cache."""
+        rows = slice(None) if axis is None else _rows(axis)
+        layer = None if axis is None else axis.layer(0)
+        c = cache["layers"][0]
+        x = m._embed(tokens[rows], model_axis=axis)
+        h = m.layers[0].prefill(x, positions, c, layer)
+        outs = [(x, h, m._logits(h[:, -1:], axis))]
+        for t, tok in enumerate(fed):
+            x = m._embed(tok[rows], model_axis=axis)
+            h = m.layers[0].decode(x, S + t, c, layer)
+            outs.append((x, h, m._logits(h, axis)))
+        return outs, axis, c
+
+    rules = shd.STRATEGIES[strategy]()
+    with torch.no_grad():
+        want, _, want_c = run(lm, None, model.init_cache(B, L, torch.float32))
+        got, _ = tp.thread_shares(lm, None, 0, sizes, model.init_cache(B, L, torch.float32),
+                                  run, rules)
+    stays = strategy == "serve_2d" and cfg.d_model % D == 0
+    width = cfg.d_model // D if stays else cfg.d_model
+    for r, (outs, axis, c) in enumerate(got):
+        d, m = r // M, r % M
+        assert axis.coord == {"data": d, "model": m}
+        assert axis.row_axes == (() if strategy == "serve_2d" else ("data",))
+        for name, dim in STATIONARY.items():
+            block = axis.stationary(name)
+            assert block == (shd.Split(dim, ("data",), d * width, (d + 1) * width)
+                             if stays and name in axis.shapes else None), name
+        rows = _rows(axis)
+        heads = axis.layer(0).q  # the rank's query heads (all split at M 2 and 4 here)
+        assert heads is not None and heads.hi - heads.lo == cfg.n_heads // M
+        vocab = axis.head
+        for (x, h, logits), (wx, wh, wl) in zip(outs, want):
+            _rel_close(x, wx[rows])
+            _rel_close(h, wh[rows])
+            _rel_close(logits, wl[rows][..., vocab.lo:vocab.hi])
+        # the rank's block of the cache: its rows and positions (seq over
+        # (data, model) under serve_2d, over model under fsdp_tp)
+        seq, length = axis.layer(0).seq, want_c["k"].shape[1]  # a window's ring: 8
+        assert seq.hi - seq.lo == length // (D * M if strategy == "serve_2d" else M)
+        for k in ("k", "v"):
+            _rel_close(c[k], want_c[k][rows, seq.lo:seq.hi])
+
+
+def test_a_share_holds_its_embed_and_model_block():
+    """A grid coordinate's share: each stationary weight is a view of its
+    (embed block x model block); the norms are whole along d, the QKV bias
+    the rank's heads."""
+    cfg = dataclasses.replace(_BASE, qkv_bias=True)
+    lm = _seeded_lm(cfg)
+    cache = build_model(cfg, device="cpu").init_cache(B, L, torch.float32)
+    d, H, hd, ff, V = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    axis, params, rank_cache = tp.share(lm, cache, {"data": 1, "model": 1},
+                                        {"data": 2, "model": 2}, shd.STRATEGIES["serve_2d"]())
+    assert tuple(params["layers.0.attn.wq"].shape) == (d // 2, H // 2, hd)
+    assert tuple(params["layers.0.attn.wo"].shape) == (H // 2, hd, d // 2)
+    assert tuple(params["layers.0.mlp.w_down"].shape) == (ff // 2, d // 2)
+    assert tuple(params["embed"].shape) == (V // 2, d // 2)
+    assert tuple(params["unembed"].shape) == (d // 2, V // 2)
+    assert tuple(params["layers.0.attn.bq"].shape) == (H // 2, hd)
+    assert tuple(params["layers.0.norm1"].shape) == (d,)
+    assert torch.equal(params["layers.0.attn.wq"], lm.layers[0].attn.wq[d // 2:, H // 2:])
+    assert torch.equal(params["embed"], lm.embed[V // 2:, d // 2:])
+    # alone, the cache's sequence is whole: it splits its KV heads as the weights
+    assert tuple(rank_cache["layers"][0]["k"].shape) == (B, L, cfg.n_kv_heads // 2, hd)
+    # in threads, its positions: chunk d * M + m of (data, model), row-major
+    axis = tp.share(lm, cache, 3, {"data": 2, "model": 2}, shd.STRATEGIES["serve_2d"](),
+                    comm=tp.ThreadRanks({"data": 2, "model": 2}).rank(3))[0]
+    assert axis.layer(0).seq == shd.Split(1, ("data", "model"), 3 * L // 4, L)
+
+
+def test_thread_ranks_play_each_axis_of_a_grid():
+    """Rank r of a (data 2 x model 3) grid is (r // 3, r % 3); a collective
+    over an axis meets the ranks of r's group along it, in its order."""
+    ranks = tp.ThreadRanks({"data": 2, "model": 3})
+    assert ranks.size == 6 and ranks.coordinate(4) == {"data": 1, "model": 1}
+    assert ranks.group(4, "model") == [3, 4, 5] and ranks.group(4, "data") == [1, 4]
+
+    def collectives(r):
+        comm = ranks.rank(r)
+        x = torch.full((3, 1), float(r))
+        return (comm.all_reduce(x, "data"), comm.all_gather(x, 1, "model"),
+                comm.all_to_all(torch.arange(3.0)[:, None] + 10 * r, "model"))
+
+    out = ranks.run(collectives)
+    summed, gathered, moved = out[4]
+    assert torch.equal(summed, torch.full((3, 1), 5.0))  # ranks 1 and 4
+    assert torch.equal(gathered, torch.tensor([[3.0, 4.0, 5.0]] * 3))
+    # block 1 (the rank's model index) of each of ranks 3, 4, 5
+    assert torch.equal(moved, torch.tensor([[31.0], [41.0], [51.0]]))
+
+
+# ---------------------------------------------------------------------------
+# Part (ii): what the dry run's trace sees
+# ---------------------------------------------------------------------------
+
+def _decode_ops(cfg, strategy, rows):
+    cell = shp.ShapeCell("tiny", 64, rows, "decode")
+    with _mesh((2, 2)) as mesh:
+        step = steps.build_serve_step(cfg, cell, mesh, strategy)
+        counter = OpCounter()
+        with counter:
+            step()
+    return counter.collectives
+
+
+def test_a_decode_step_moves_only_activations_over_data():
+    """Reduced internvl2-76b (2 layers: d 64, 4/2 heads of 16, d_ff 128,
+    vocab 512, untied, swiglu) under ``serve_2d`` on (data 2, model 2), 2
+    rows (whole on every rank: the batch lies on ``pod``), bf16. Over
+    ``data`` (rank 0's group, ranks 0 and 2): the lookup's and each row
+    product's (``wo``, ``w_down``) gather of the stream [2, 1, d], the sum
+    of each column product's output (``wq`` [2, 1, 2 x 16], ``wk`` and
+    ``wv`` [2, 1, 1 x 16], ``w_gate`` and ``w_up`` [2, 1, 64]) and of the
+    head's logits block [2, 1, 256], and each attention layer's fp32
+    partial-softmax merge over the positions (a max and a sum, as before):
+    no weight moves over ``data``."""
+    cfg = ARCHS["internvl2-76b"].reduced()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.tie_embeddings) == (2, 64, 4, 2, 16, 128, 512, False)
+    rows, d, bf16, fp32 = 2, cfg.d_model, 2, 4
+    ops = [(op.kind, op.bytes) for op in _decode_ops(cfg, "serve_2d", rows)
+           if op.ranks == (0, 2)]
+    stream = rows * d * bf16
+    merge = [("all-reduce", rows * cfg.n_heads * fp32),                        # the row max
+             ("all-reduce", rows * cfg.n_heads * (cfg.head_dim + 1) * fp32)]  # sum, weighted V
+    per_layer = ([("all-gather", stream)] * 2 + merge
+                 + [("all-reduce", rows * n * bf16)
+                    for n in (2 * 16, 16, 16, cfg.d_ff // 2, cfg.d_ff // 2)])
+    want = [("all-gather", stream), ("all-reduce", rows * cfg.vocab_size // 2 * bf16)]
+    assert sorted(ops) == sorted(want + per_layer * cfg.n_layers)
+    # the parent gathered each weight's model block whole over data; the
+    # smallest, wk's [d, 1, 16], outweighs every collective over data now
+    assert max(b for _, b in ops) < d * 16 * bf16
+    assert all(b <= stream for k, b in ops if k == "all-gather")
+
+
+def test_fsdp_tp_gathers_the_weights_over_data():
+    """The same step under ``fsdp_tp`` (the rows on ``data``): the weights'
+    gathers over ``data`` stay, no stream is gathered over it, and no
+    column product is summed over it."""
+    cfg = ARCHS["internvl2-76b"].reduced()
+    ops = [(op.kind, op.bytes) for op in _decode_ops(cfg, "fsdp_tp", 4) if op.ranks == (0, 2)]
+    assert {k for k, _ in ops} == {"all-gather"}
+    assert min(b for _, b in ops) >= cfg.d_model * 16 * 2  # wk's model block, the smallest
+
+
+def test_launch_counts_from_ranks_in_threads_add_up(monkeypatch):
+    """The grid's ranks launch kernels from their own threads at once: a
+    wrapper's launch count loses no launch (its increment under a lock). A
+    fake entry point and stream stand in for the card; the interpreter
+    switches threads as often as it can."""
+    kern = cuda_build.CudaKernel("fake", cuda_build.Path(__file__), "fake", [])
+    kern._fn = lambda *args: 0
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=None))
+    n_threads, n_launches = 3 * (os.cpu_count() or 1), 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [kern.launch("cpu")
+                                                    for _ in range(n_launches)])
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert kern.launches == n_threads * n_launches

@@ -39,8 +39,11 @@ experts, their term summed over ``model``), rwkv6-7b (the time mix on the
 rank's heads, the channel mix on its ``d_ff`` block),
 against ``repro.models``' single-process prefill and decode: logits to 2e-4
 in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal; the
-RG-LRU weight a rank computes with holds its w/M channels, and the time
-mix's ``w_v`` its heads' d/M columns, though it lies on its rows at rest.
+RG-LRU weight a rank computes with holds its w/M channels, the time
+mix's ``w_v`` its heads' d/M columns, though it lies on its rows at rest,
+and under ``serve_2d`` on (data 2, model 2) internvl2-76b's attention,
+MLP, embedding and head weights their ``embed`` block on ``data``, as at
+rest (``tests/test_torch_serve_2d.py`` plays that grid in threads).
 
 Part (iii), the dry run's trace: a decode step's collectives do not grow
 with the cache (no cache entry moves), the counter files the new
@@ -336,6 +339,9 @@ from repro_torch.parallel.fsdp import ShardedModel
 from repro_torch.weights import from_jax_params
 
 strategy, shape, axes, cases, cache_len, steps = inputs
+STATIONARY = ("embed", "unembed", "layers.0.attn.wq", "layers.0.attn.wk", "layers.0.attn.wv",
+              "layers.0.attn.wo", "layers.0.mlp.w_gate", "layers.0.mlp.w_up",
+              "layers.0.mlp.w_down")
 mesh = make_mesh_from_devices(range(world), shape, axes, "cpu")
 result = {}
 for name, cfg, np_params, batch in cases:
@@ -352,6 +358,12 @@ for name, cfg, np_params, batch in cases:
     result[name] = {"logits": out, "pos": cache["pos"],
                     "placements": [(type(p).__name__, getattr(p, "dim", None))
                                    for p in logits.placements]}
+    if name == "internvl2-76b":  # the weights' blocks at rest and computed with, as served
+        axis = model.model_axis(lm, cache, model._row_axes((4, 1)), 4, stationary=True)
+        with torch.no_grad():
+            result[name]["computed_with"] = {
+                n: (tuple(p.to_local().shape), tuple(model._weights(axis, ())(n, p).shape))
+                for n, p in lm.named_parameters() if n in STATIONARY}
     if cfg.mixer_pattern[0] == "rglru":  # layer 0's w_in_rec at rest and computed with
         w = lm.layers[0].rglru.w_in_rec
         axis = model.model_axis(lm, cache, (), 4)
@@ -455,6 +467,30 @@ def test_a_ranks_rglru_weight_holds_its_channels(ranks):
         at_rest, used = res["recurrentgemma-9b"]["w_in_rec"]
         assert used == (d, w)
         assert at_rest == (d // sizes.get("data", 1), w)
+
+
+def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks):
+    """internvl2-76b's attention, MLP, embedding and head weights as a rank
+    computes with them: under ``serve_2d`` on (data 2, model 2) each is its
+    block at rest, the ``embed`` dim on ``data`` (nothing moves over
+    ``data``); on the other meshes the ``embed`` dim is whole (gathered over
+    ``data`` under ``fsdp_tp``, whole at rest without a ``data`` axis)."""
+    mesh, results = ranks
+    strategy, shape, axes = MESHES[mesh]
+    sizes = dict(zip(axes, shape))
+    stays = strategy == "serve_2d" and sizes.get("data", 1) > 1
+    cfg = ARCHS["internvl2-76b"].reduced()
+    d = cfg.d_model
+    for res in results:
+        blocks = res["internvl2-76b"]["computed_with"]
+        assert len(blocks) == 9
+        for name, (at_rest, used) in blocks.items():
+            dim = {"embed": 1, "layers.0.attn.wo": 2, "layers.0.mlp.w_down": 1}.get(
+                name, 0)
+            assert used[dim] == (d // 2 if stays else d), (name, used)
+            assert at_rest[dim] == d // sizes.get("data", 1)
+            if stays:
+                assert used == at_rest, name
 
 
 def test_a_ranks_rwkv_value_weight_holds_its_heads_columns(ranks):
