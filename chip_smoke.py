@@ -78,7 +78,22 @@ calls, and fails (exit code not 0, no result line) on any miss:
               and of the aux term within 2e-3 of its largest; bf16 within
               5e-2, each sum's terms added in fp32, the unsplit bf16
               block's own error against fp32 beside it; the slot rows a
-              rank; (c) phi3.5-moe-42b-a6.6b at
+              rank; (b) again under ``serve_2d``'s rules (on one rank no
+              ``embed`` block stays: the same path), its tokens equal to
+              ``fsdp_tp``'s, its decode ms a step beside them; (d) the same
+              two MoE blocks under ``serve_2d`` on the (data 2 x model 8)
+              and (data 4 x model 4) grids, every rank at once in threads
+              (``tensor_parallel.ThreadRanks``), each computing with its
+              (experts x embed block) of each expert leaf and its embed
+              block of the router, the router's logits and the experts'
+              pre-activations summed over ``data`` in the compute dtype,
+              the output's block of columns gathered over it: a B 1 x S
+              2560 prefill and a B 128 x 1 decode-shaped call, fp32 within
+              1e-5 of the unsplit block's largest with its routing
+              (choices, drops, slots) equal, bf16 within 5e-2 on the tokens
+              routed as the unsplit bf16 block routes them, the flipped
+              ones listed with their margins, the ranks bit-equal, no
+              kernel launch, each call's ms; (c) phi3.5-moe-42b-a6.6b at
               full width, 1 layer, bf16 over fp32 masters, B 1 x S 2048, 3
               AdamW steps through ``train_loop`` unsharded, then the same
               weights and batches through ``ShardedModel`` on a 1-rank NCCL
@@ -398,7 +413,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch import dryrun, roofline, shapes, steps  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_from_devices, process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.models.moe import MoE  # noqa: E402
+from repro_torch.models.moe import MoE, bf16_gates  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.transformer import LM, lm_loss  # noqa: E402
 from repro_torch.parallel import sharding as shd, tensor_parallel as tp  # noqa: E402
@@ -3434,42 +3449,64 @@ def ep_replay(model, params, toks, fed, full, prefills):
             "pos": cache["pos"]}
 
 
-def ep_path(state, moe):
+def ep_path(state, moe, strategies=("fsdp_tp", "serve_2d")):
     """(b) moe_serve's weights sharded in place on a 1-rank NCCL mesh,
-    through ``ShardedModel`` (each MoE layer on the expert split's path, one
-    block of all 128 experts; decode attention over the cache's one
-    sequence shard, which holds every position: the plain path, as one
-    process's): a prefill of moe_serve's padded
-    prompts cold then warm, then 16 decode steps fed moe_serve's greedy
-    tokens, first through the unsharded model (whose greedy choices must be
-    moe_serve's), then sharded. Each call's logits are held to the
-    unsharded ones within TP_BF16_TOL of the largest: one bf16 rounding
-    apart passes, a wrong mask or merge parts them by a third. The sharded
-    argmax is compared with moe_serve's tokens and every flip is reported
-    with the unsharded top-2 margin there: a near-tie the bf16 logits'
-    difference can flip."""
+    through ``ShardedModel`` under each of ``strategies``' rules (each MoE
+    layer on the expert split's path, one block of all 128 experts; decode
+    attention over the cache's one sequence shard, which holds every
+    position: the plain path, as one process's; under ``serve_2d`` no
+    ``embed`` block stays, the ``data`` axis holding one rank): a prefill of
+    moe_serve's padded prompts cold then warm, then 16 decode steps fed
+    moe_serve's greedy tokens, first through the unsharded model (whose
+    greedy choices must be moe_serve's), then sharded. Each call's logits
+    are held to the unsharded ones within TP_BF16_TOL of the largest: one
+    bf16 rounding apart passes, a wrong mask or merge parts them by a third.
+    The sharded argmax is compared with moe_serve's tokens and every flip is
+    reported with the unsharded top-2 margin there: a near-tie the bf16
+    logits' difference can flip. -> the records by strategy."""
     cfg, params, toks = state["cfg"], state["params"], state["tokens"].cuda()
     want_toks = state["outputs"]
     fed = want_toks.cuda()
     plain = ep_replay(build_model(cfg), params, toks, fed, lambda t: t, 1)
-    with process_group("cuda"):
-        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
-        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
-        model.shard(params)  # in place: each weight a DTensor over the one rank
-        layer = model.model_axis(params, model.init_cache(toks.shape[0], EP_MAX_LEN,
-                                                          torch.bfloat16), (), 1).layer(0)
-        sharded = ep_replay(model, params, toks, fed, lambda t: t.full_tensor(), 2)
-    want, got = plain["logits"], sharded["logits"]
+    want = plain["logits"]
     steps = want_toks.shape[1]
     plain_toks = want[:steps, :, 0].argmax(-1).T.cpu()
-    got_toks = got[:steps, :, 0].argmax(-1).T.cpu()
     top2 = want[:steps, :, 0].topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).T.cpu()
+    recs = {}
+    with process_group("cuda"):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+        # in place: each weight a DTensor over the one rank
+        ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategies[0]]()).shard(params)
+        for strategy in strategies:
+            model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategy]())
+            cache = model.init_cache(toks.shape[0], EP_MAX_LEN, torch.bfloat16)
+            layer = model.model_axis(params, cache, (), 1, stationary=True).layer(0)
+            del cache
+            sharded = ep_replay(model, params, toks, fed, lambda t: t.full_tensor(), 2)
+            recs[strategy] = ep_path_record(cfg, toks, want_toks, plain, sharded, layer,
+                                            strategy, moe, margin, plain_toks)
+    first, second = (recs[s] for s in strategies)
+    second[f"{strategies[0]}_decode_ms_per_step"] = first["decode_ms_per_step"]
+    second[f"tokens_equal_{strategies[0]}"] = second["argmax"] == first["argmax"]
+    for rec in recs.values():
+        print("ep_serve_path", json.dumps(rec), flush=True)
+    need(second[f"tokens_equal_{strategies[0]}"],
+         f"ep {strategies[1]}: its tokens differ from {strategies[0]}'s on one rank")
+    return recs
+
+
+def ep_path_record(cfg, toks, want_toks, plain, sharded, layer, strategy, moe, margin,
+                   plain_toks):
+    """One strategy's ``ep_path`` record and its checks."""
+    want, got = plain["logits"], sharded["logits"]
+    steps = want_toks.shape[1]
+    got_toks = got[:steps, :, 0].argmax(-1).T.cpu()
     diff = (got - want).abs().amax(dim=(1, 2, 3)).cpu()
     flips = [{"row": r, "step": i, "margin": float(margin[r, i]), "max_abs_dlogit": float(diff[i])}
              for r, i in torch.nonzero(got_toks != want_toks).tolist()]
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
-           "strategy": "fsdp_tp", "batch": toks.shape[0], "prefill_len": toks.shape[1],
+           "strategy": strategy, "batch": toks.shape[0], "prefill_len": toks.shape[1],
            "experts_split": list(layer.experts), "cache_seq_split": list(layer.seq),
            "prefill_ms_cold": sharded["prefill_ms"][0], "prefill_ms": sharded["prefill_ms"][1],
            "moe_serve_prefill_ms": moe["prefill_ms"],
@@ -3482,23 +3519,25 @@ def ep_path(state, moe):
            "logits_rel_err": [rel_err(g, w) for g, w in zip(got, want)],
            "logits_max_abs": float(want.abs().max()), "logits_tol": TP_BF16_TOL,
            "tokens_equal": int((got_toks == want_toks).sum()), "tokens": want_toks.numel(),
-           "flips": flips,
+           "flips": flips, "argmax": got_toks.tolist(),
+           "moe_block_stays": layer.moe_block is not None,
            "launches_per_prefill": sharded["prefill_launches"],
            "launches_decode": sharded["decode_launches"]}
-    print("ep_serve_path", json.dumps(rec), flush=True)
     need(layer.experts is not None and layer.experts.dim == 0,
-         f"ep: experts not split ({layer.experts})")
-    need(layer.seq is not None, "ep: the cache's sequence does not lie over model")
+         f"ep {strategy}: experts not split ({layer.experts})")
+    need(layer.moe_block is None, f"ep {strategy}: an embed block {layer.moe_block} stays "
+                                  "on a 1-rank data axis")
+    need(layer.seq is not None, f"ep {strategy}: the cache's sequence does not lie over model")
     need(sharded["prefill_launches"] == launch_counts(flash_wgmma=cfg.n_layers),
-         f"ep prefill launches {sharded['prefill_launches']}")
-    need(sharded["decode_launches"] == launch_counts(), f"ep decode launched "
+         f"ep {strategy} prefill launches {sharded['prefill_launches']}")
+    need(sharded["decode_launches"] == launch_counts(), f"ep {strategy} decode launched "
                                                         f"{sharded['decode_launches']}")
-    need(sharded["pos"] == toks.shape[1] + steps, f"ep pos {sharded['pos']}")
+    need(sharded["pos"] == toks.shape[1] + steps, f"ep {strategy} pos {sharded['pos']}")
     need(rec["unsharded_tokens_equal_moe_serve"],
          f"ep: the unsharded replay's tokens {plain_toks[:, :8].tolist()} differ from "
          f"moe_serve's {want_toks[:, :8].tolist()}")
     need(torch.isfinite(got).all() and max(rec["logits_rel_err"]) <= TP_BF16_TOL,
-         f"ep logits {rec['logits_rel_err']}")
+         f"ep {strategy} logits {rec['logits_rel_err']}")
     return rec
 
 
@@ -3612,6 +3651,229 @@ def ep_shares(cfg, ranks):
     return recs
 
 
+# serve_2d's (data x model) grids for one full-width MoE block, as tp_grid_shares';
+# a decode-shaped call of decode_32k's 128 rows; fp32 within 1e-5 of the largest
+EP_GRIDS = TP_GRIDS
+EP_GRID_DECODE_B, EP_GRID_FP32_TOL = 128, 1e-5
+
+
+def record_routes(moe):
+    """Each call's (route, router logits) of ``moe`` (``MoE._route``'s and
+    ``MoE._logits``'), kept as the calls make them, until ``del moe._route,
+    moe._logits``."""
+    calls = []
+    route, logits = type(moe)._route, type(moe)._logits
+
+    def recorded(*a, **k):  # the logits are recorded inside, into the new entry
+        calls.append([])
+        calls[-1].insert(0, route(moe, *a, **k))
+        return calls[-1][0]
+
+    moe._route = recorded
+    moe._logits = lambda *a, **k: calls[-1].append(logits(moe, *a, **k)) or calls[-1][-1]
+    return calls
+
+
+def choices(logits, k):
+    """The k experts each token chooses, in order, as ``MoE._route`` sorts
+    its probabilities."""
+    probs = torch.softmax(logits, dim=-1)
+    return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def route_flips(route, want_route, logits, want_logits, k):
+    """Tokens whose k choices (in order) differ from the unsplit route's,
+    each with the unsplit logits' least gap among its top k + 1 (the
+    nearest tie) and the largest difference of the rank's summed logits from
+    the unsplit ones there; the count of tokens whose choices agree but
+    whose drops differ (a flip elsewhere in the queue moved them); the
+    tokens whose choices and drops agree but one of whose gates rounds to
+    another bf16 value (``moe.bf16_gates``: an fp32 gate a rounding step's
+    half from a bf16 boundary), each with its fp32 gates and their largest
+    difference; and the masks of the tokens routed alike (choices and
+    drops) and of those routed and gated alike."""
+    top_idx, want_idx = choices(logits, k), choices(want_logits, k)
+    chose = (top_idx == want_idx).all(-1)
+    dropped = (route.keep != want_route.keep).any(-1) & chose
+    gates, want_gates = (bf16_gates(r.top_vals, torch.float32) for r in (route, want_route))
+    rounded = (gates != want_gates).any(-1) & chose & ~dropped
+    top = want_logits.topk(k + 1, dim=-1).values
+    gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+    dz = (logits - want_logits).abs().amax(-1)
+    flips = [{"token": t, "margin": float(gap[t]), "max_abs_dlogit": float(dz[t]),
+              "choices": top_idx[t].tolist(), "unsplit_choices": want_idx[t].tolist()}
+             for t in torch.nonzero(~chose).flatten().tolist()]
+    dv = (route.top_vals - want_route.top_vals).abs().amax(-1)
+    gate_steps = [{"token": t, "dgate_fp32": float(dv[t]),
+                   "gates_fp32": route.top_vals[t].tolist(),
+                   "unsplit_gates_fp32": want_route.top_vals[t].tolist(),
+                   "gates_bf16": gates[t].tolist(), "unsplit_gates_bf16": want_gates[t].tolist()}
+                  for t in torch.nonzero(rounded).flatten().tolist()]
+    return flips, int(dropped.sum()), gate_steps, chose & ~dropped, chose & ~dropped & ~rounded
+
+
+def ep_grid_shares(cfg, grids):
+    """(d) one full-width MoE block of ``cfg`` under ``serve_2d`` on each grid
+    of ``grids``, fp32 then the same weights in bf16: every rank at once, a
+    thread a rank (``tensor_parallel.ThreadRanks``), through
+    ``LayerAxis.moe`` with its (experts x embed block) of each expert leaf
+    and its embed block of the router, on a B 1 x S 2560 prefill and a B 128
+    x 1 decode-shaped call (decode_32k's rows). Each call's router logits
+    (``MoE._logits``: on a rank, its columns times its router block, summed
+    over ``data``) and route are recorded. Each rank's output
+    against the unsplit block's on the tokens routed and gated alike
+    (fp32 within 1e-5 of its largest; bf16 within 5e-2, beside the unsplit
+    bf16 block's own error against fp32; the whole output's error beside
+    it), the ranks' outputs bit-equal, each rank's routing (choices, drops,
+    slots) equal to the unsplit block's in fp32, in bf16 the flipped tokens
+    with their margins; the tokens one of whose gates rounds to another
+    bf16 value (the gates pass through bf16 also in fp32: an fp32 gate
+    within the logits' rounding of a bf16 boundary), each with its fp32
+    gates, which must lie within the tolerance of the unsplit ones; the
+    wall ms of each grid call (cold, warm) beside the unsplit call's ms
+    under CUDA events; no kernel launches."""
+    moe = MoE(cfg, "cuda", torch.float32)
+    moe.reset_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    names = [n for n, _ in moe.named_parameters()]
+    shapes = {f"layers.0.moe.{n}": tuple(p.shape) for n, p in moe.named_parameters()}
+    rules = shd.STRATEGIES["serve_2d"]()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    inputs = {"prefill": torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda"),
+              "decode": torch.randn(EP_GRID_DECODE_B, 1, cfg.d_model, generator=g,
+                                    device="cuda")}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    recs, unsplit32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        moe.to(dtype).requires_grad_(False)
+        for when, x32 in inputs.items():
+            x = x32.to(dtype)
+            xt = x.view(-1, cfg.d_model)
+            with torch.no_grad():
+                calls = record_routes(moe)
+                start.record()
+                want = moe(x)[0]
+                end.record()
+                torch.cuda.synchronize()
+                del moe._route, moe._logits
+                (want_route, want_logits), want_ms = calls[0], start.elapsed_time(end)
+            unsplit32.setdefault(when, want.float())
+            for grid in grids:
+                ranks = tp.ThreadRanks(grid)
+                made = []
+                for r in range(ranks.size):
+                    axis = tp.ModelAxis(grid, rules, shapes, None, ranks.rank(r),
+                                        coord=ranks.coordinate(r), weight_stationary=True)
+                    blocks = {}
+                    for n in names:
+                        t = getattr(moe, n)
+                        for sp in (axis.split(f"layers.0.moe.{n}"),
+                                   axis.stationary(f"layers.0.moe.{n}")):
+                            if sp is not None:
+                                t = t.narrow(sp.dim, sp.lo, sp.hi - sp.lo)
+                        blocks[n] = t
+                    # the rank's module: the block's structure, its weights on meta
+                    empty = {id(p): torch.nn.Parameter(torch.empty_like(p, device="meta"),
+                                                       False) for p in moe.parameters()}
+                    made.append((axis, blocks, copy.deepcopy(moe, empty)))
+
+                def one(r):
+                    axis, blocks, module = made[r]
+                    calls = record_routes(module)
+                    with torch.no_grad(), _reparametrize_module(module, blocks):
+                        out = axis.layer(0).moe(module, x)
+                    route, logits = calls[0]
+                    return out, logits, route
+
+                ms = []
+                for _ in range(2):  # cold, then warm
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    outs = ranks.run(one)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    launches = counts()
+                got, logits, route = outs[0]
+                layer = made[0][0].layer(0)
+                flips, drops_moved, gate_steps, routed, gated = route_flips(
+                    route, want_route, logits, want_logits, cfg.experts_per_token)
+                agree = gated if dtype == torch.float32 else routed
+                need(bool(agree.any()), f"{cfg.name} {grid} {when}: no token routed alike")
+                rec = {"case": f"{cfg.name} MoE block ({cfg.n_experts} experts top-"
+                               f"{cfg.experts_per_token}, d {cfg.d_model}, ff {cfg.d_ff})",
+                       "strategy": "serve_2d", "grid": grid, "call": when,
+                       "dtype": str(dtype)[6:], "rows": list(x.shape[:2]),
+                       "form": "experts" if layer.experts.dim == 0 else "ff",
+                       "rank_blocks": {n: list(made[0][1][n].shape) for n in names},
+                       "router_terms_added_in": str(dtype)[6:],
+                       "rel_err": rel_err(got, want),
+                       "rel_err_agreeing_tokens": rel_err(got.view(-1, cfg.d_model)[agree],
+                                                          want.view(-1, cfg.d_model)[agree]),
+                       "logits_rel_err": rel_err(logits, want_logits),
+                       "tol": EP_GRID_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL,
+                       "ranks_equal": all(torch.equal(o, got) and torch.equal(z, logits)
+                                          for o, z, _ in outs),
+                       "ranks_route_equal": all(
+                           torch.equal(rt.keep, route.keep) and torch.equal(rt.slot, route.slot)
+                           for _, _, rt in outs),
+                       "route_equal": {
+                           "top_idx": bool(torch.equal(choices(logits, cfg.experts_per_token),
+                                                       choices(want_logits,
+                                                               cfg.experts_per_token))),
+                           **{k: bool(torch.equal(getattr(route, k), getattr(want_route, k)))
+                              for k in ("keep", "slot")}},
+                       "agreeing": "routed and gated alike" if dtype == torch.float32
+                                   else "routed alike",
+                       "tokens": int(xt.shape[0]), "tokens_agreeing": int(agree.sum()),
+                       "tokens_routed_alike": int(routed.sum()),
+                       "tokens_routed_and_gated_alike": int(gated.sum()),
+                       "flips": flips, "flip_count": len(flips),
+                       "flip_max_margin": max((f["margin"] for f in flips), default=0.0),
+                       "drops_moved": drops_moved,
+                       "flip_margin_over_dlogit": max(
+                           (f["margin"] / max(f["max_abs_dlogit"], 1e-30) for f in flips),
+                           default=0.0),
+                       "gate_steps": {"count": len(gate_steps), "first": gate_steps[:4],
+                                      "max_dgate_fp32": max((g["dgate_fp32"] for g in gate_steps),
+                                                            default=0.0)},
+                       "ms_cold": ms[0], "ms": ms[1], "unsplit_ms": want_ms,
+                       "launches": launches}
+                if dtype == torch.bfloat16:
+                    rec["unsplit_vs_fp32"] = rel_err(want, unsplit32[when])
+                    rec["shares_vs_fp32"] = rel_err(got, unsplit32[when])
+                # every flip in chip_smoke.json; the line shows the first few
+                print("ep_grid_shares", json.dumps({**rec, "flips": flips[:4]}), flush=True)
+                tag = f"ep grid {cfg.name} {grid} {when} ({dtype})"
+                need(made[0][0].stationary("layers.0.moe.w_up") is not None
+                     and made[0][0].stationary("layers.0.moe.router") is not None,
+                     f"{tag}: no embed block stays")
+                need(launches == launch_counts(), f"{tag}: launches {launches}")
+                need(rec["ranks_equal"] and rec["ranks_route_equal"],
+                     f"{tag}: the ranks' outputs or routes differ")
+                need(all(torch.isfinite(o).all() for o, _, _ in outs), f"{tag}: non-finite")
+                need(rec["logits_rel_err"] <= rec["tol"], f"{tag}: router logits "
+                                                          f"{rec['logits_rel_err']}")
+                # a gate another bf16 step away only where its fp32 value moved by
+                # the logits' rounding: within the tolerance of the largest gate
+                need(all(g["dgate_fp32"] <= rec["tol"] for g in gate_steps),
+                     f"{tag}: gates moved {gate_steps}")
+                if dtype == torch.float32:
+                    need(all(rec["route_equal"].values())
+                         and rec["rel_err_agreeing_tokens"] <= rec["tol"],
+                         f"{tag}: route {rec['route_equal']}, output "
+                         f"{rec['rel_err_agreeing_tokens']}")
+                else:
+                    need(rec["rel_err_agreeing_tokens"] <= rec["tol"]
+                         and (drops_moved == 0 or flips),
+                         f"{tag}: output {rec['rel_err_agreeing_tokens']}, "
+                         f"{drops_moved} drops moved with {len(flips)} flips")
+                recs.append(rec)
+                del outs, made, got, logits
+    del moe
+    torch.cuda.empty_cache()
+    return recs
+
+
 def ep_train_path():
     """(c) phi3.5-moe-42b-a6.6b at full width, 1 layer (16 experts top-2),
     bf16 over fp32 masters, remat "nothing", B 1 x S 2048, 3 AdamW steps:
@@ -3675,13 +3937,17 @@ def ep_train_path():
 
 
 def ep_phase(moe, state):
-    rec = {"path": ep_path(state, moe)}
+    paths = ep_path(state, moe)
+    rec = {"path": paths["fsdp_tp"], "path_serve_2d": paths["serve_2d"]}
     state.clear()  # moe_serve's weights
     torch.cuda.empty_cache()
     qwen, phi = get_config("qwen3-moe-235b-a22b"), get_config("phi3.5-moe-42b-a6.6b")
     need((phi.n_experts, phi.experts_per_token, phi.d_model, phi.d_ff) == (16, 2, 4096, 6400),
          "phi3.5-moe width")
     rec["shares"] = ep_shares(qwen, (8, 16)) + ep_shares(phi, (16, 32))
+    t0 = time.perf_counter()
+    rec["grid_shares"] = ep_grid_shares(qwen, EP_GRIDS) + ep_grid_shares(phi, EP_GRIDS)
+    rec["grid_seconds"] = time.perf_counter() - t0
     rec["train"] = ep_train_path()
     return rec
 
@@ -4610,6 +4876,10 @@ def main():
                           "flash_attention_wgmma"],
                       launches_ep_decode_16_steps=ep["path"]["launches_decode"][
                           "flash_attention_wgmma"],
+                      launches_ep_serve_2d_prefill_1_rank=ep["path_serve_2d"][
+                          "launches_per_prefill"]["flash_attention_wgmma"],
+                      launches_ep_serve_2d_decode_16_steps=ep["path_serve_2d"][
+                          "launches_decode"]["flash_attention_wgmma"],
                       launches_ep_train_3_steps=ep["train"]["sharded"]["launches"][
                           "flash_attention_wgmma"],
                       launches_whisper_tp_train_step_1_rank=whisper_tp_train["path"][

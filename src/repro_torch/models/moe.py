@@ -54,6 +54,19 @@ the sequence (``LayerAxis.moe``): the module sees whole rows either way.
 An all-to-all pair of the dispatch buffer in place of that gather and
 reduce-scatter would move about k * capacity_factor times their bytes
 (10x at qwen3-moe's top-8 and 1.25).
+
+Weight-stationary serving (the reference's ``serve_2d``): where each
+weight keeps its ``embed`` block on ``data``, ``forward(..., axis=hook)``
+takes the hook ``LayerAxis.moe`` gives (its ``column``, ``columns`` and
+``summed``, by leaf name). The router's logits are the rank's columns of
+the tokens times its router block, summed over the block's axes, so
+every rank routes every token as one process does; the dispatch gathers
+only the rank's ``d/D`` columns of each slot's token row, [E_b, G*C, d/D];
+``w_gate`` and ``w_up`` on their [E_b, d/D, ff] blocks give partial
+pre-activations, summed (stacked: one sum) before the activation; and
+``w_down`` on its [E_b, ff, d/D] block gives the rank's ``d/D`` columns
+of the output, which the caller gathers. Without a hook every product is
+the whole one.
 """
 
 from __future__ import annotations
@@ -119,14 +132,21 @@ class MoE(nn.Module):
             if hasattr(self, name):
                 common.dense_init_(getattr(self, name), gen, in_axis=1)
 
-    def _route(self, xt: torch.Tensor, group_size: int) -> Route:
-        """Choices, queue positions and drops of the tokens xt [T, d]."""
+    def _logits(self, xt: torch.Tensor, axis=None) -> torch.Tensor:
+        """The router's logits [T, E] in fp32 (the product in xt's dtype);
+        ``axis``: the hook (``forward``) that takes the product."""
+        w = self.router.to(xt.dtype)
+        return (xt @ w if axis is None else axis.column(xt, w, "router")).float()
+
+    def _route(self, xt: torch.Tensor, group_size: int, axis=None) -> Route:
+        """Choices, queue positions and drops of the tokens xt [T, d];
+        ``axis`` as in ``_logits``."""
         T, E, k = xt.shape[0], self.n_experts, self.k
         g = group_size_for(T, group_size)
         G = T // g
         C = capacity(g, k, E, self.capacity_factor)
         dev = xt.device
-        probs = torch.softmax((xt @ self.router.to(xt.dtype)).float(), dim=-1)  # [T, E]
+        probs = torch.softmax(self._logits(xt, axis), dim=-1)  # [T, E]
         # a stable descending sort keeps tied experts in index order
         top_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
@@ -165,13 +185,21 @@ class MoE(nn.Module):
         src.scatter_(0, torch.where(r.keep, r.slot, r.n_slots).reshape(-1), token)
         return F.pad(xt, (0, 0, 0, 1))[src[:r.n_slots]].view(len(self.w_up), -1, d)
 
-    def _experts(self, xe: torch.Tensor) -> torch.Tensor:
-        """Each expert's MLP over its slots: [E, n, d] -> [E*n, d]."""
+    def _experts(self, xe: torch.Tensor, axis=None) -> torch.Tensor:
+        """Each expert's MLP over its slots: [E, n, d] -> [E*n, d]; with the
+        hook ``axis``, the pre-activations summed over the ``embed`` block's
+        axes first (gate and up stacked: one sum)."""
         up = torch.bmm(xe, self.w_up)
+        if self.mlp_type in ("swiglu", "geglu"):
+            gate = torch.bmm(xe, self.w_gate)
+            if axis is not None:
+                gate, up = axis.summed(torch.stack([gate, up]), "w_up").unbind(0)
+        elif axis is not None:
+            up = axis.summed(up, "w_up")
         if self.mlp_type == "swiglu":
-            h = F.silu(torch.bmm(xe, self.w_gate)) * up
+            h = F.silu(gate) * up
         elif self.mlp_type == "geglu":
-            h = F.gelu(torch.bmm(xe, self.w_gate), approximate="tanh") * up
+            h = F.gelu(gate, approximate="tanh") * up
         else:
             h = F.gelu(up, approximate="tanh")
         return torch.bmm(h, self.w_down).flatten(0, 1)
@@ -184,16 +212,21 @@ class MoE(nn.Module):
         return torch.bmm(gate.unsqueeze(1), expert_out[r.slot]).squeeze(1)
 
     def forward(self, x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
-                experts: Optional[Tuple[int, int]] = None, gates: Callable = bf16_gates
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                experts: Optional[Tuple[int, int]] = None, gates: Callable = bf16_gates,
+                axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, S, d] -> (out [B, S, d], aux loss, an fp32 scalar).
         ``experts`` (lo, hi): the module holds experts ``[lo, hi)`` only (its
         expert weights are their block); out is then their term of the
         output, the aux loss still the whole one. ``gates(top_vals, dtype)``:
-        the gates' bf16 rounding (:func:`bf16_gates`)."""
+        the gates' bf16 rounding (:func:`bf16_gates`). ``axis``: where the
+        weights keep their ``embed`` block, the hook that takes the products
+        with it (see the module's docstring); out is then the rank's block
+        of columns [B, S, d/D]."""
         xt = x.reshape(-1, x.shape[-1])
-        r = self._route(xt, group_size)
+        r = self._route(xt, group_size, axis)
         if experts is not None:
             r = self._local(r, *experts)
-        out = self._combine(self._experts(self._dispatch(xt, r)), r, gates)
-        return out.view(x.shape), r.aux
+        if axis is not None:
+            xt = axis.columns(xt, "w_up")
+        out = self._combine(self._experts(self._dispatch(xt, r), axis), r, gates)
+        return out.view(*x.shape[:-1], out.shape[-1]), r.aux

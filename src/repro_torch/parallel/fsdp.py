@@ -96,23 +96,27 @@ its own rows, and the model axis splits the compute as in training, and
 the RWKV-6 layers too: the time mix by heads and the channel mix by
 ``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
 its ``model`` block gathered over the other axes only. An LM's attention,
-dense MLP, embedding and head are weight-stationary where the rules allow,
-as the reference's ``serve_2d`` lays them out: a weight whose ``embed``
-dim the resolved spec splits over axes of more than one rank that carry
-none of the batch's rows (``serve_2d``: ``data``, the rows on ``pod``;
-``tensor_parallel.ModelAxis.stationary``) keeps that block, so the rank
-computes with its ``(embed block x model block)`` and nothing of it moves.
-Each column product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, the
-head) takes the rank's columns of the whole stream and sums its partial
-product over those axes, one all-reduce of activations; each row product
-(``wo``, ``w_down``) and the lookup give the rank's block of the stream's
-columns, summed over ``model`` where the layer splits and then
-all-gathered over those axes to the whole stream, which every rank holds
-between the layers (the reference's ``act_embed: None``). Under
-``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and the
-weights are gathered as in training; a ``d_model`` the axes do not divide
-resolves to whole; the RG-LRU's, RWKV-6's, the MoE's (router and experts)
-and whisper's weights are still gathered over ``data``. The
+dense MLP, MoE, embedding and head are weight-stationary where the rules
+allow, as the reference's ``serve_2d`` lays them out: a weight whose
+``embed`` dim the resolved spec splits over axes of more than one rank
+that carry none of the batch's rows (``serve_2d``: ``data``, the rows on
+``pod``; ``tensor_parallel.ModelAxis.stationary``) keeps that block, so
+the rank computes with its ``(embed block x model block)`` and nothing of
+it moves. Each column product (``wq``, ``wk``, ``wv``, ``w_gate``,
+``w_up``, the head, the MoE's router and its experts' ``w_gate`` and
+``w_up``) takes the rank's columns of the whole stream (the MoE's: of
+each slot's token row) and sums its partial product over those axes, one
+all-reduce of activations (the experts' two stacked: one); each row
+product (``wo``, ``w_down``, the experts' ``w_down``) and the lookup give
+the rank's block of the stream's columns, summed over ``model`` where the
+layer splits and then all-gathered over those axes to the whole stream,
+which every rank holds between the layers (the reference's ``act_embed:
+None``). The MoE's router logits, summed so, are whole and equal on every
+rank, which routes every token of the global groups as one process does.
+Under ``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and
+the weights are gathered as in training; a ``d_model`` the axes do not
+divide resolves to whole; the RG-LRU's, RWKV-6's and whisper's weights
+are still gathered over ``data``. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
@@ -179,9 +183,8 @@ MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; under ``serve_2d``, partial
 sums over ``data`` for the RG-LRU (its leaves, and its state in place of
-the state's gather over ``data``), the RWKV-6 mixers, the MoE's router and
-experts and whisper's blocks, whose weights are gathered over ``data``
-today.
+the state's gather over ``data``), the RWKV-6 mixers and whisper's
+blocks, whose weights are gathered over ``data`` today.
 """
 
 from __future__ import annotations

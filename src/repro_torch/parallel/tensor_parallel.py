@@ -149,17 +149,23 @@ with no collective of its own.
 
 Weight-stationary serving (the reference's ``serve_2d``, whose batch lies
 off ``data``): a ``ModelAxis`` built with ``weight_stationary`` keeps the
-``embed`` block of attention's, the dense MLP's, the embedding's and the
-head's weights where the resolved spec puts it (:meth:`ModelAxis.stationary`),
-so a rank holds the ``(embed block x model block)`` of each. The stream stays
-whole on every rank; ``column`` (:meth:`ModelAxis.column`,
-:meth:`LayerAxis.column`) multiplies the rank's columns of it by the block
-and sums the partial product over the block's axes, and ``whole``
-(:meth:`ModelAxis.whole`, after :meth:`LayerAxis.out`'s sum over ``model``)
-gathers a row product's or the lookup's block of columns back to the whole
-stream. The model code calls ``column`` at each column product and ``out``
-after each sub-block, and branches on no strategy: without the block both
-are what they were.
+``embed`` block of attention's, the dense MLP's, the MoE's (router and
+experts), the embedding's and the head's weights where the resolved spec
+puts it (:meth:`ModelAxis.stationary`), so a rank holds the ``(embed block
+x model block)`` of each (a MoE leaf's: its experts', or every expert's
+ff block, times its embed block). The stream stays whole on every rank;
+``column`` (:meth:`ModelAxis.column`, :meth:`LayerAxis.column`) multiplies
+the rank's columns of it by the block and sums the partial product over
+the block's axes, and ``whole`` (:meth:`ModelAxis.whole`, after
+:meth:`LayerAxis.out`'s sum over ``model``) gathers a row product's or the
+lookup's block of columns back to the whole stream. The model code calls
+``column`` at each column product and ``out`` after each sub-block, and
+branches on no strategy: without the block both are what they were. The
+MoE takes a hook from :meth:`LayerAxis.moe` where its blocks stay
+(:class:`_ModuleAxis`): its router's logits summed over the block's axes,
+so every rank routes every token as one process; the dispatch of the
+rank's columns; the experts' partial pre-activations summed; its output
+the rank's block of columns, which :meth:`LayerAxis.moe` gathers.
 
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
@@ -196,7 +202,7 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
 # an LM layer's submodules whose weights keep their ``embed`` block in serving
-STATIONARY_MODULES = ("attn", "mlp")
+STATIONARY_MODULES = ("attn", "mlp", "moe")
 # the row product ending each stationary part, by its LayerAxis sum
 _ROW_LEAVES = {"attn_sum": "wo", "mlp_sum": "w_down"}
 # the RWKV-6 mixers and the dim of each leaf's block
@@ -208,8 +214,9 @@ _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 
 def _stays(name: str) -> bool:
     """Whether a parameter is one whose ``embed`` block may stay where it
-    lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention
-    and dense MLP weights, the embedding and the head."""
+    lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention,
+    dense MLP and MoE weights (the router and the experts), the embedding
+    and the head."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
@@ -667,10 +674,11 @@ class ModelAxis:
     d), "dec_blocks": (B, S, d)}``, which split independently. ``seq`` is
     then the decoder's, the stream the lookup and the head read;
     :meth:`on` gives the encoder's view. ``weight_stationary`` (serving an
-    LM): the ``embed`` blocks of attention's, the dense MLP's, the
-    embedding's and the head's weights stay where they lie where the rules
-    allow (:meth:`stationary`), and the products they enter are summed or
-    gathered over those blocks' axes (:meth:`column`, :meth:`whole`)."""
+    LM): the ``embed`` blocks of attention's, the dense MLP's, the MoE's,
+    the embedding's and the head's weights stay where they lie where the
+    rules allow (:meth:`stationary`), and the products they enter are
+    summed or gathered over those blocks' axes (:meth:`column`,
+    :meth:`summed`, :meth:`whole`)."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
                  shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
@@ -787,9 +795,9 @@ class ModelAxis:
     def stationary(self, name: str) -> Optional[shd.Split]:
         """Under ``weight_stationary``, the rank's block of the ``embed`` dim
         of parameter ``name`` (``sharding.embed_split``) that stays where it
-        lies, as the reference's ``serve_2d`` keeps it: for attention's and
-        the dense MLP's weights of the LM's layers, the embedding and the
-        head, where the resolved spec splits that dim over axes that hold
+        lies, as the reference's ``serve_2d`` keeps it: for attention's, the
+        dense MLP's and the MoE's weights of the LM's layers, the embedding
+        and the head, where the resolved spec splits that dim over axes that hold
         more than one rank, none of them an axis the batch's rows split
         over (``serve_2d``'s ``data``; under ``fsdp_tp`` the rows lie on
         it). Else None: the weight is gathered over those axes (a
@@ -813,10 +821,20 @@ class ModelAxis:
         the rank's block of x's columns times it, the partial product summed
         over the block's axes (one all-reduce of activations an axis); else
         ``x @ w``. Serving only: the sum has no backward."""
+        return self.summed(self.columns(x, name) @ w, name)
+
+    def columns(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The rank's block of x's columns [..., d/D] where parameter
+        ``name``'s ``embed`` block stays (:meth:`stationary`), else x."""
         block = self.stationary(name)
-        if block is None:
-            return x @ w
-        return _sum_over(x[..., block.lo:block.hi] @ w, self.comm, block.axes)
+        return x if block is None else x[..., block.lo:block.hi]
+
+    def summed(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """A partial product over parameter ``name``'s ``embed`` block where
+        that block stays, summed over the block's axes (one all-reduce of
+        activations an axis); else x. Serving only: no backward."""
+        block = self.stationary(name)
+        return x if block is None else _sum_over(x, self.comm, block.axes)
 
     def whole(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The output [..., d/D] of a product with parameter ``name`` whose
@@ -967,6 +985,24 @@ class ModelAxis:
         return self._memo[key]
 
 
+class _ModuleAxis:
+    """One module's leaves under :class:`ModelAxis`'s weight-stationary
+    products (``column``, ``columns``, ``summed``), by leaf name: the hook
+    ``MoE.forward`` takes."""
+
+    def __init__(self, axis: ModelAxis, prefix: str):
+        self.axis, self.prefix = axis, prefix
+
+    def column(self, x: torch.Tensor, w: torch.Tensor, leaf: str) -> torch.Tensor:
+        return self.axis.column(x, w, self.prefix + leaf)
+
+    def columns(self, x: torch.Tensor, leaf: str) -> torch.Tensor:
+        return self.axis.columns(x, self.prefix + leaf)
+
+    def summed(self, x: torch.Tensor, leaf: str) -> torch.Tensor:
+        return self.axis.summed(x, self.prefix + leaf)
+
+
 class LayerAxis:
     """A layer's split: whether attention, the MLP, the RG-LRU, the RWKV-6
     time mix and channel mix and the MoE end in a sum over ``model``, the
@@ -998,6 +1034,8 @@ class LayerAxis:
         # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
         self.experts = axis.split(pre + "moe.w_up")
         self.moe_sum = self.experts is not None
+        # serving: the experts' embed block that stays where it lies, or None
+        self.moe_block = axis.stationary(pre + "moe.w_up")
         self.q = axis.split(pre + attn + ".wq")    # the rank's query heads, or None: all
         self.kv = axis.split(pre + attn + ".wk")   # its KV heads, or None: all
         if pre + attn + ".wq" in axis.shapes:
@@ -1062,6 +1100,13 @@ class LayerAxis:
         out). The aux term is whole and equal on every rank along ``model``;
         where its gradient enters a sum over ``model`` (the experts or the
         sequence split), it counts at 1/M a rank (:class:`_OneShare`).
+        In serving, where the weights keep their ``embed`` block
+        (``moe_block``), the module takes the hook (:class:`_ModuleAxis`):
+        every rank routes every token from the router's logits summed over
+        the block's axes, and computes with its (experts or ff block) x
+        (embed block) of each expert leaf; its output, the rank's block of
+        columns, is summed over ``model`` and then gathered over the
+        block's axes to the whole stream (:meth:`ModelAxis.whole`).
         ``with_aux`` (training): (out, the global batch's aux term, as every
         rank along the batch axes holds it); else out."""
         axis = self.axis
@@ -1069,6 +1114,8 @@ class LayerAxis:
         h = axis.to_split(h) if self.moe_sum else axis.gather(h)
         B, S = h.shape[:2]
         kw = {}
+        if self.moe_block is not None:
+            kw["axis"] = _ModuleAxis(axis, self._pre + "moe.")
         if self.moe_sum:
             if self.experts.dim == 0:
                 kw["experts"] = (self.experts.lo, self.experts.hi)
@@ -1088,6 +1135,7 @@ class LayerAxis:
             out, aux = moe(_GatherRows.apply(h, axis.comm, axis.row_axes, index), **kw)
             out = out[index * B:(index + 1) * B]
         out = axis.from_split(out) if self.moe_sum else axis.own(out)
+        out = axis.whole(out, self._pre + "moe.w_down")
         if self.moe_sum or axis.seq is not None:
             aux = _OneShare.apply(aux, M)
         return (out, aux) if with_aux else out

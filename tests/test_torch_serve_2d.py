@@ -1,7 +1,8 @@
 """``serve_2d``'s weight-stationary serving (``repro_torch.parallel``) on the
-CPU: each weight of attention, the dense MLP, the embedding and the head
-keeps its ``embed`` block on ``data`` (``ModelAxis.stationary``), and the
-products it enters are summed or gathered over ``data`` instead.
+CPU: each weight of attention, the dense MLP, the MoE (router and
+experts), the embedding and the head keeps its ``embed`` block on ``data``
+(``ModelAxis.stationary``), and the products it enters are summed or
+gathered over ``data`` instead.
 
 Part (i), the grid in threads: on a ``ThreadRanks`` grid of (data 2 x model
 2) and (data 2 x model 4), every rank at once computes a reduced one-layer
@@ -15,7 +16,12 @@ of the largest value (``SHARE_TOL``):
 MHA, GQA with and without ``n_kv_heads`` dividing ``model``, MQA, the QKV
 bias, QK-norm, a local window with the score softcap, the three MLPs, a
 tied and an untied head with the final softcap, and the scaled
-embedding. Where ``data`` does not divide ``d_model``, and under
+embedding; and a reduced one-layer qwen3-moe and phi3.5-moe (8 experts,
+d 64), each rank computing with its (experts x embed block) of every
+expert leaf and its embed block of the router, also with 6 experts,
+which model 4 does not divide (the ff form: every expert's ff block x
+embed block), every rank's routing (``top_idx``, ``keep``, ``slot``) equal
+to the unsplit one's. Where ``data`` does not divide ``d_model``, and under
 ``fsdp_tp`` (the rows lie on ``data``), the weights are gathered as in
 training: no block stays, and the rank computes with whole ``embed`` dims.
 
@@ -26,7 +32,10 @@ each row product, one all-reduce of each column product's output, the
 attention's partial-softmax merge over the cache's positions (the
 parent's too) and the head's logits block, byte for byte as the shapes
 give them; none as large as the smallest weight block the weights' gather
-moved before.
+moved before. The same step of reduced qwen3-moe moves no expert or router
+block over ``data``: beside the attention's activations, the router's
+logits and the experts' stacked partial pre-activations are summed, and
+the MoE's block of columns is gathered.
 
 The gloo ranks against the JAX reference are
 ``tests/test_torch_tp_serve.py``'s ``serve_2d_data_model`` mesh.
@@ -47,6 +56,7 @@ from repro_torch.kernels import cuda_build
 from repro_torch.launch import shapes as shp, steps
 from repro_torch.launch.op_analysis import OpCounter
 from repro_torch.models.model_zoo import build_model
+from repro_torch.models.moe import capacity
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor_parallel as tp
 
@@ -63,7 +73,10 @@ _BASE = dataclasses.replace(ARCHS["internvl2-76b"].reduced(), n_layers=1, fronte
 # the weights whose embed block stays under serve_2d, and the dim of that block
 STATIONARY = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk": 0,
               "layers.0.attn.wv": 0, "layers.0.attn.wo": 2, "layers.0.mlp.w_gate": 0,
-              "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1}
+              "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1,
+              "layers.0.moe.router": 0, "layers.0.moe.w_up": 1, "layers.0.moe.w_gate": 1,
+              "layers.0.moe.w_down": 2}
+QWEN, PHI = "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b"
 
 GRID_CASES = {
     "mha": dict(n_heads=4, n_kv_heads=4),
@@ -83,6 +96,13 @@ GRID_CASES = {
     "d_model_does_not_divide": dict(d_model=63),
     # the rows lie on data: the weights are gathered, as in training
     "fsdp_tp": dict(strategy="fsdp_tp"),
+    # the MoE (8 experts, top-2, d 64, ff 128): the experts split over model
+    "moe_qwen3": dict(arch=QWEN),
+    "moe_phi35": dict(arch=PHI),
+    # 6 experts: model 2 splits them, model 4 every expert's ff (the ff form)
+    "moe_6_experts": dict(arch=PHI, n_experts=6),
+    "moe_d_model_does_not_divide": dict(arch=QWEN, d_model=63),
+    "moe_fsdp_tp": dict(arch=QWEN, strategy="fsdp_tp"),
 }
 GRIDS = {"data2_model2": {"data": 2, "model": 2}, "data2_model4": {"data": 2, "model": 4}}
 B, S, L, DECODE_STEPS = 4, 12, 16, 3
@@ -101,7 +121,9 @@ def _rows(axis):
 def test_grid_ranks_equal_the_unsplit_lm(case, grid):
     kw = dict(GRID_CASES[case])
     strategy = kw.pop("strategy", "serve_2d")
-    cfg = dataclasses.replace(_BASE, **kw)
+    arch = kw.pop("arch", None)
+    base = _BASE if arch is None else dataclasses.replace(ARCHS[arch].reduced(), n_layers=1)
+    cfg = dataclasses.replace(base, **kw)
     sizes = GRIDS[grid]
     D, M = sizes["data"], sizes["model"]
     lm = _seeded_lm(cfg)
@@ -113,10 +135,11 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
 
     def run(m, axis, cache):
         """(stream after the lookup, after the layer, logits) of the prefill
-        and each decode step, and the layer's cache."""
+        and each decode step, the layer's cache, and each call's MoE route."""
         rows = slice(None) if axis is None else _rows(axis)
         layer = None if axis is None else axis.layer(0)
         c = cache["layers"][0]
+        routes = _record_routes(m.layers[0])
         x = m._embed(tokens[rows], model_axis=axis)
         h = m.layers[0].prefill(x, positions, c, layer)
         outs = [(x, h, m._logits(h[:, -1:], axis))]
@@ -124,16 +147,19 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
             x = m._embed(tok[rows], model_axis=axis)
             h = m.layers[0].decode(x, S + t, c, layer)
             outs.append((x, h, m._logits(h, axis)))
-        return outs, axis, c
+        if hasattr(m.layers[0], "moe"):
+            del m.layers[0].moe._route, m.layers[0].moe._logits
+        return outs, axis, c, routes
 
     rules = shd.STRATEGIES[strategy]()
     with torch.no_grad():
-        want, _, want_c = run(lm, None, model.init_cache(B, L, torch.float32))
+        want, _, want_c, want_routes = run(lm, None, model.init_cache(B, L, torch.float32))
         got, _ = tp.thread_shares(lm, None, 0, sizes, model.init_cache(B, L, torch.float32),
                                   run, rules)
     stays = strategy == "serve_2d" and cfg.d_model % D == 0
     width = cfg.d_model // D if stays else cfg.d_model
-    for r, (outs, axis, c) in enumerate(got):
+    assert len(want_routes) == (1 + DECODE_STEPS if arch else 0)
+    for r, (outs, axis, c, routes) in enumerate(got):
         d, m = r // M, r % M
         assert axis.coord == {"data": d, "model": m}
         assert axis.row_axes == (() if strategy == "serve_2d" else ("data",))
@@ -155,6 +181,40 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
         assert seq.hi - seq.lo == length // (D * M if strategy == "serve_2d" else M)
         for k in ("k", "v"):
             _rel_close(c[k], want_c[k][rows, seq.lo:seq.hi])
+        if arch:  # every rank routes the global batch as one process
+            experts = axis.layer(0).experts
+            assert experts.dim == (0 if cfg.n_experts % M == 0 else 2)
+            assert len(routes) == len(want_routes)
+            for (route, z), (want_route, want_z) in zip(routes, want_routes):
+                k = cfg.experts_per_token
+                assert torch.equal(_choices(z, k), _choices(want_z, k))
+                assert torch.equal(route.keep, want_route.keep)
+                assert torch.equal(route.slot, want_route.slot)
+
+
+def _record_routes(block):
+    """Each call's (route, router logits) of ``block``'s MoE (none without
+    one), kept as the calls make them."""
+    calls = []
+    moe = getattr(block, "moe", None)
+    if moe is not None:
+        route, logits = type(moe)._route, type(moe)._logits
+
+        def recorded(*a, **k):  # the logits are recorded inside, into the new entry
+            calls.append([])
+            calls[-1].insert(0, route(moe, *a, **k))
+            return calls[-1][0]
+
+        moe._route = recorded
+        moe._logits = lambda *a, **k: calls[-1].append(logits(moe, *a, **k)) or calls[-1][-1]
+    return calls
+
+
+def _choices(logits, k):
+    """The k experts each token chooses, in order, as ``MoE._route`` sorts
+    its probabilities (``top_idx``)."""
+    probs = torch.softmax(logits, dim=-1)
+    return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
 
 
 def test_a_share_holds_its_embed_and_model_block():
@@ -248,6 +308,41 @@ def test_a_decode_step_moves_only_activations_over_data():
     # smallest, wk's [d, 1, 16], outweighs every collective over data now
     assert max(b for _, b in ops) < d * 16 * bf16
     assert all(b <= stream for k, b in ops if k == "all-gather")
+
+
+def test_a_moe_decode_step_moves_no_expert_block_over_data():
+    """Reduced qwen3-moe (2 layers: d 64, 4/2 heads of 16, 8 experts top-2
+    of d_ff 128, vocab 512) under ``serve_2d`` on (data 2, model 2), 2 rows,
+    bf16. Over ``data`` (ranks 0 and 2), as the attention's layers above:
+    the lookup's, ``wo``'s and now the MoE's gather of the stream [2, 1, d],
+    the QKV sums, the partial-softmax merge and the head's logits block;
+    the MoE's own: the router's logits [2, 8] summed, and the stacked
+    partial pre-activations of ``w_gate`` and ``w_up`` on the rank's 4
+    experts' one slot each [2, 4, 1, 128], one sum. The parent gathered the
+    router's [d, 8] and each expert leaf's [4, d, 128] block over ``data``
+    in every step: no collective over ``data`` comes near one rank's block
+    of one expert leaf now."""
+    cfg = ARCHS[QWEN].reduced()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.n_experts, cfg.experts_per_token, cfg.vocab_size) == (
+                2, 64, 4, 2, 16, 128, 8, 2, 512)
+    rows, d, bf16, fp32 = 2, cfg.d_model, 2, 4
+    ops = [(op.kind, op.bytes) for op in _decode_ops(cfg, "serve_2d", rows)
+           if op.ranks == (0, 2)]
+    stream = rows * d * bf16
+    slots = capacity(rows, cfg.experts_per_token, cfg.n_experts, cfg.moe_capacity_factor)
+    assert slots == 1
+    merge = [("all-reduce", rows * cfg.n_heads * fp32),
+             ("all-reduce", rows * cfg.n_heads * (cfg.head_dim + 1) * fp32)]
+    per_layer = ([("all-gather", stream)] * 2 + merge
+                 + [("all-reduce", rows * n * bf16) for n in (2 * 16, 16, 16)]
+                 + [("all-reduce", rows * cfg.n_experts * bf16),  # the router's logits
+                    ("all-reduce", 2 * (cfg.n_experts // 2) * slots * cfg.d_ff * bf16)])
+    want = [("all-gather", stream), ("all-reduce", rows * cfg.vocab_size // 2 * bf16)]
+    assert sorted(ops) == sorted(want + per_layer * cfg.n_layers)
+    expert_block = (cfg.n_experts // 2) * (d // 2) * cfg.d_ff * bf16
+    assert max(b for _, b in ops) < expert_block // 8
+    assert all(b == stream for k, b in ops if k == "all-gather")
 
 
 def test_fsdp_tp_gathers_the_weights_over_data():

@@ -330,6 +330,15 @@ MESHES = {"fsdp_tp": ("fsdp_tp", (2, 2), ("data", "model")),
           "serve_2d": ("serve_2d", (4,), ("model",)),
           # the RG-LRU's leaves and state over (data, model), its w_in_rec over model
           "serve_2d_data_model": ("serve_2d", (2, 2), ("data", "model"))}
+# the models whose weights' blocks the ranks record, and each leaf's embed
+# dim: attention's, the MLP's, the embedding's and the head's, or the MoE's
+_DENSE_BLOCKS = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk": 0,
+                 "layers.0.attn.wv": 0, "layers.0.attn.wo": 2, "layers.0.mlp.w_gate": 0,
+                 "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1}
+_MOE_BLOCKS = {"layers.0.moe.router": 0, "layers.0.moe.w_gate": 1, "layers.0.moe.w_up": 1,
+               "layers.0.moe.w_down": 2}
+STATIONARY_BLOCKS = {"internvl2-76b": _DENSE_BLOCKS, "qwen3-moe-235b-a22b": _MOE_BLOCKS,
+                     "phi3.5-moe-42b-a6.6b": _MOE_BLOCKS}
 
 _RANKS = """
 from repro_torch.launch.mesh import make_mesh_from_devices
@@ -338,10 +347,7 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.fsdp import ShardedModel
 from repro_torch.weights import from_jax_params
 
-strategy, shape, axes, cases, cache_len, steps = inputs
-STATIONARY = ("embed", "unembed", "layers.0.attn.wq", "layers.0.attn.wk", "layers.0.attn.wv",
-              "layers.0.attn.wo", "layers.0.mlp.w_gate", "layers.0.mlp.w_up",
-              "layers.0.mlp.w_down")
+strategy, shape, axes, cases, cache_len, steps, STATIONARY = inputs
 mesh = make_mesh_from_devices(range(world), shape, axes, "cpu")
 result = {}
 for name, cfg, np_params, batch in cases:
@@ -358,12 +364,12 @@ for name, cfg, np_params, batch in cases:
     result[name] = {"logits": out, "pos": cache["pos"],
                     "placements": [(type(p).__name__, getattr(p, "dim", None))
                                    for p in logits.placements]}
-    if name == "internvl2-76b":  # the weights' blocks at rest and computed with, as served
+    if name in STATIONARY:  # the weights' blocks at rest and computed with, as served
         axis = model.model_axis(lm, cache, model._row_axes((4, 1)), 4, stationary=True)
         with torch.no_grad():
             result[name]["computed_with"] = {
                 n: (tuple(p.to_local().shape), tuple(model._weights(axis, ())(n, p).shape))
-                for n, p in lm.named_parameters() if n in STATIONARY}
+                for n, p in lm.named_parameters() if n in STATIONARY[name]}
     if cfg.mixer_pattern[0] == "rglru":  # layer 0's w_in_rec at rest and computed with
         w = lm.layers[0].rglru.w_in_rec
         axis = model.model_axis(lm, cache, (), 4)
@@ -427,7 +433,8 @@ def ranks(request, tmp_path_factory):
         cfg = ARCHS[name].reduced()
         cases.append((name, cfg, np_params, _batch(cfg)))
     return request.param, run_ranks(_RANKS, 4, tmp_path_factory.mktemp(request.param),
-                                    inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS),
+                                    inputs=(strategy, shape, axes, cases, CACHE_LEN, STEPS,
+                                            {m: tuple(b) for m, b in STATIONARY_BLOCKS.items()}),
                                     timeout=180)
 
 
@@ -469,8 +476,10 @@ def test_a_ranks_rglru_weight_holds_its_channels(ranks):
         assert at_rest == (d // sizes.get("data", 1), w)
 
 
-def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks):
-    """internvl2-76b's attention, MLP, embedding and head weights as a rank
+@pytest.mark.parametrize("model", sorted(STATIONARY_BLOCKS))
+def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks, model):
+    """internvl2-76b's attention, MLP, embedding and head weights, and
+    qwen3-moe's and phi3.5-moe's MoE router and expert leaves, as a rank
     computes with them: under ``serve_2d`` on (data 2, model 2) each is its
     block at rest, the ``embed`` dim on ``data`` (nothing moves over
     ``data``); on the other meshes the ``embed`` dim is whole (gathered over
@@ -479,14 +488,13 @@ def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks):
     strategy, shape, axes = MESHES[mesh]
     sizes = dict(zip(axes, shape))
     stays = strategy == "serve_2d" and sizes.get("data", 1) > 1
-    cfg = ARCHS["internvl2-76b"].reduced()
+    cfg = ARCHS[model].reduced()
     d = cfg.d_model
     for res in results:
-        blocks = res["internvl2-76b"]["computed_with"]
-        assert len(blocks) == 9
+        blocks = res[model]["computed_with"]
+        assert set(blocks) == set(STATIONARY_BLOCKS[model])
         for name, (at_rest, used) in blocks.items():
-            dim = {"embed": 1, "layers.0.attn.wo": 2, "layers.0.mlp.w_down": 1}.get(
-                name, 0)
+            dim = STATIONARY_BLOCKS[model][name]
             assert used[dim] == (d // 2 if stays else d), (name, used)
             assert at_rest[dim] == d // sizes.get("data", 1)
             if stays:
