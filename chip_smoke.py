@@ -230,7 +230,9 @@ calls, and fails (exit code not 0, no result line) on any miss:
               greedy token equal (a flip only at a near-tie, reported with
               its margin), logits within 5e-2, whether the prefill's are
               bit-equal, prefill and step ms of each side, 4 wkv6 launches a
-              prefill and 4 a step; (c) the layer's training shares at 8
+              prefill and 4 a step; then the same under ``serve_2d`` (one
+              ``data`` rank: no ``embed`` block stays), its tokens equal to
+              ``fsdp_tp``'s; (c) the layer's training shares at 8
               and 16 ranks, B 1 x S 256 (the WKV twin trains a Python loop
               a step), one backward: the plain form
               (``tensor_parallel.rwkv_shares`` without caches) and the
@@ -241,9 +243,21 @@ calls, and fails (exit code not 0, no result line) on any miss:
               layers, 2 AdamW steps (bf16 over fp32 masters, remat
               "nothing", B 2 x S 512) through ``train_loop`` unsharded and
               on a 1-rank NCCL mesh under ``fsdp_tp``, the losses
-              bit-equal, step ms of both, no wkv6 launch. The kernels phase
-              times wkv6 at one rank's heads: B 1 x T 2560 at 4 and 8
-              heads, and a B 4 decode step at 4;
+              bit-equal, step ms of both, no wkv6 launch; (e) the layer
+              under ``serve_2d`` on (data 2 x model 8) and (data 4 x model
+              4), every rank a thread (``tensor_parallel.thread_shares``),
+              each computing with its (embed block x model block) of the
+              mixers' weights (``tm.w_v`` on its rows, ``decay_b`` gathered
+              over ``data``): a B 1 x S 2560 prefill and 4 decode steps,
+              and one decode step of decode_32k's 128 rows from a seeded
+              carried state, fp32 within 1e-4 and bf16 within 5e-2 (the
+              partial products added in bf16) beside the unsplit bf16
+              layer's own error, each rank's WKV block and shifts against
+              the unsplit state, the ranks bit-equal, one wkv6 launch a
+              rank a call (``rwkv_grid_shares`` lines). The kernels phase
+              times wkv6 at one rank's heads: B 1 x T 2560 at 4, 8 and 16
+              heads, a B 4 decode step at 4, and a B 128 decode step at 8
+              and 16 (a rank of the two grids);
  9. train    ``train_loop`` on recurrentgemma-9b at full width, depth cut
               to one (rglru, rglru, attn_local) group: bf16 compute over fp32
               masters, remat "nothing", B 2 x S 2560 from ``SyntheticLM``, 4
@@ -736,7 +750,11 @@ RNN_SCAN_CASES = ("recurrentgemma-9b training, a rank of 16", "recurrentgemma-9b
 RNN_SCAN_SHAPES = ((1, 256, None), (1, 512, None), (1, 256, torch.float32), (4, 256, None))
 RWKV_WKV_CASES = (("rwkv6-7b prefill, a rank of 16", 1, 2560, 4, False),
                   ("rwkv6-7b prefill, a rank of 8", 1, 2560, 8, False),
-                  ("rwkv6-7b decode step, a rank of 16", 4, 1, 4, True))
+                  ("rwkv6-7b decode step, a rank of 16", 4, 1, 4, True),
+                  # a rank of serve_2d's grids: (data 2 x model 8), (data 4 x model 4)
+                  ("rwkv6-7b prefill, a rank of model 4", 1, 2560, 16, False),
+                  ("rwkv6-7b decode_32k step, a rank of model 8", 128, 1, 8, True),
+                  ("rwkv6-7b decode_32k step, a rank of model 4", 128, 1, 16, True))
 RWKV_WKV_KEYS = ("case", "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
 RNN_SCAN_KEYS = ("case", "shape", "dtype", "dtype_b", "route", "ms", "plain_ms", "bound_ms",
@@ -3197,31 +3215,52 @@ def rwkv_shares(cfg, ranks):
     return recs
 
 
-def rwkv_path(cfg):
+def rwkv_path(cfg, strategies=("fsdp_tp", "serve_2d")):
     """(b) rwkv6-7b at full width cut to 4 layers, on a 1-rank NCCL mesh
-    under ``fsdp_tp`` (each layer on the split's path with one block of all
-    64 heads and all 14336 ``d_ff`` columns, its WKV state read and written
-    where it lies): a bf16 prefill of B 4 x S 2560 and 16 greedy decode
-    steps, unsharded then through ``ShardedModel`` (the weights sharded in
-    place), the sharded steps fed the unsharded greedy tokens: each call's
-    greedy token equal (a flip is reported with the unsharded top-2 margin,
-    and passes only where that margin is below the logits' difference: a
-    bf16 near-tie), every call's logits within 5e-2 of the largest; ms of
-    each side; 4 wkv6 launches a prefill and 4 a step on each side."""
+    under each of ``strategies``' rules (each layer on the split's path with
+    one block of all 64 heads and all 14336 ``d_ff`` columns, its WKV state
+    read and written where it lies; under ``serve_2d`` no ``embed`` block
+    stays, the ``data`` axis holding one rank): a bf16 prefill of B 4 x S
+    2560 and 16 greedy decode steps, unsharded then through
+    ``ShardedModel`` (the weights sharded in place), the sharded steps fed
+    the unsharded greedy tokens: each call's greedy token equal (a flip is
+    reported with the unsharded top-2 margin, and passes only where that
+    margin is below the logits' difference: a bf16 near-tie), every call's
+    logits within 5e-2 of the largest; ms of each side; 4 wkv6 launches a
+    prefill and 4 a step on each side; the second strategy's tokens equal
+    to the first's. -> the records by strategy."""
     cfg = dataclasses.replace(cfg, n_layers=RWKV_LAYERS)
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     toks = torch.randint(0, cfg.vocab_size, (RWKV_B, TP_S), generator=g, device="cuda")
     params = build_model(cfg).init(SEED, torch.bfloat16)
     plain = rnn_serve(build_model(cfg), params, toks, lambda t: t)
+    recs = {}
     with process_group("cuda"):
         mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
-        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["fsdp_tp"]())
-        model.shard(params)  # in place: each weight a DTensor over the one rank
-        layer = model.model_axis(params, model.init_cache(1, 1), (), 1).layer(0)
-        sharded = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
-                            fed=plain["tokens"].to(toks.device))
+        # in place: each weight a DTensor over the one rank
+        ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategies[0]]()).shard(params)
+        for strategy in strategies:
+            model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES[strategy]())
+            layer = model.model_axis(params, model.init_cache(1, 1), (), 1,
+                                     stationary=True).layer(0)
+            sharded = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
+                                fed=plain["tokens"].to(toks.device))
+            recs[strategy] = rwkv_path_record(cfg, strategy, plain, sharded, layer)
     del params
     torch.cuda.empty_cache()
+    first, second = (recs[s] for s in strategies)
+    second[f"{strategies[0]}_decode_ms_per_step"] = first["decode_ms_per_step_sharded"]
+    second[f"tokens_equal_{strategies[0]}"] = second["argmax"] == first["argmax"]
+    for rec in recs.values():
+        print("rwkv_split_path", json.dumps(rec), flush=True)
+    need(second[f"tokens_equal_{strategies[0]}"],
+         f"rwkv path {strategies[1]}: its tokens differ from {strategies[0]}'s on one rank")
+    return recs
+
+
+def rwkv_path_record(cfg, strategy, plain, sharded, layer):
+    """(b)'s record of one strategy's sharded calls against the unsharded
+    ones, and its checks."""
     want, got = plain["logits"], sharded["logits"]
     top2 = want[:RNN_STEPS, :, 0].topk(2, dim=-1).values  # [steps, B, 2]
     margin = (top2[..., 0] - top2[..., 1]).T.cpu()
@@ -3230,30 +3269,166 @@ def rwkv_path(cfg):
               "max_abs_dlogit": float(diff[i])}
              for r, i in torch.nonzero(sharded["tokens"] != plain["tokens"]).tolist()]
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
-           "strategy": "fsdp_tp", "batch": RWKV_B, "prompt_len": TP_S, "steps": RNN_STEPS,
+           "strategy": strategy, "batch": RWKV_B, "prompt_len": TP_S, "steps": RNN_STEPS,
            "time_mix_heads": list(layer.tm), "channel_mix_d_ff": list(layer.cm),
-           "tokens_equal": not flips, "flips": flips,
+           "embed_blocks_stay": [layer.tm_block is not None, layer.cm_block is not None],
+           "tokens_equal": not flips, "flips": flips, "argmax": sharded["tokens"].tolist(),
            "prefill_logits_equal": bool(torch.equal(got[0], want[0])),
            "logits_rel_err": max(rel_err(a, b) for a, b in zip(got, want)),
            "logits_tol": TP_BF16_TOL,
            **{f"{k}_{side}": r[k] for side, r in (("unsharded", plain), ("sharded", sharded))
               for k in ("prefill_ms", "decode_ms_per_step", "prefill_launches",
                         "decode_launches")}}
-    print("rwkv_split_path", json.dumps(rec), flush=True)
+    tag = f"rwkv path {strategy}"
     for side in ("unsharded", "sharded"):
         need(rec[f"prefill_launches_{side}"] == launch_counts(wkv=RWKV_LAYERS)
              and rec[f"decode_launches_{side}"] == launch_counts(wkv=RWKV_LAYERS * RNN_STEPS),
-             f"rwkv path {side} launches {rec[f'prefill_launches_{side}']}, "
+             f"{tag} {side} launches {rec[f'prefill_launches_{side}']}, "
              f"{rec[f'decode_launches_{side}']}")
     need(layer.tm_sum and layer.tm.hi - layer.tm.lo == cfg.d_model // cfg.rwkv_head_dim
-         and layer.cm_sum and layer.cm.hi - layer.cm.lo == cfg.d_ff,
-         f"rwkv path: the splits {layer.tm}, {layer.cm}")
-    need(sharded["pos"] == TP_S + RNN_STEPS, f"rwkv path pos {sharded['pos']}")
+         and layer.cm_sum and layer.cm.hi - layer.cm.lo == cfg.d_ff
+         and layer.tm_block is None and layer.cm_block is None,
+         f"{tag}: the splits {layer.tm}, {layer.cm}, blocks {layer.tm_block}, "
+         f"{layer.cm_block}")
+    need(sharded["pos"] == TP_S + RNN_STEPS, f"{tag} pos {sharded['pos']}")
     need(torch.isfinite(got).all() and rec["logits_rel_err"] <= TP_BF16_TOL,
-         f"rwkv path logits {rec['logits_rel_err']}")
+         f"{tag} logits {rec['logits_rel_err']}")
     need(all(f["margin"] <= f["max_abs_dlogit"] for f in flips),
-         f"rwkv path: tokens differ beyond a near-tie: {flips}")
+         f"{tag}: tokens differ beyond a near-tie: {flips}")
     return rec
+
+
+# (e): decode_32k's rows, the grid's one decode step from a seeded carried state
+RWKV_GRID_DECODE_B = 128
+RWKV_GRIDS = TP_GRIDS
+
+
+def rwkv_grid_shares(cfg, grids):
+    """(e) rwkv6-7b's layer 0 at full width (``norm1``, the time mix,
+    ``norm2``, the channel mix, both residuals) under ``serve_2d`` on each
+    grid of ``grids``, fp32 then the same weights in bf16: every rank at
+    once, a thread a rank (``tensor_parallel.thread_shares``), each
+    computing with its (embed block x model block) of the mixers' weights
+    (the time mix's ``w_v``: its model block of rows x embed block of
+    columns; ``decay_b`` gathered over ``data``), its WKV state's block on
+    its heads and whole shifts. Two runs: a B 1 x S 2560 prefill and 4
+    decode steps from the carried state, and one decode step of decode_32k's
+    128 rows from a seeded carried state (fp32 WKV state, shifts in the
+    activation dtype). Every rank's stream of every call against the
+    unsplit layer's (``Block.prefill`` / ``decode``): fp32 within 1e-4 of
+    the largest, bf16 within 5e-2 beside the unsplit bf16 layer's own error
+    against fp32 (the partial products added in bf16, as a bf16 all-reduce
+    adds them: the threads reduce in the tensors' dtype); each rank's WKV
+    block against that block of the unsplit state and its shifts against
+    the unsplit shifts; the ranks' streams bit-equal; one wkv6 launch a
+    rank a call; wall ms of each run beside the unsplit run's."""
+    lcfg = dataclasses.replace(cfg, n_layers=1)
+    lm = init_params(lcfg, seed=SEED, device="cuda", dtype=torch.float32)
+    block, model = lm.layers[0], build_model(lcfg)
+    need(block.mixer == "rwkv", f"rwkv grid: layer 0 of {cfg.name} is {block.mixer}")
+    rules = shd.STRATEGIES["serve_2d"]()
+    H, K, B = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim, RWKV_GRID_DECODE_B
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    prompt = [torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")]
+    prompt += [torch.randn(1, 1, cfg.d_model, generator=g, device="cuda")
+               for _ in range(RWKV_DECODE)]
+    step = [torch.randn(B, 1, cfg.d_model, generator=g, device="cuda")]
+    carried = {"tm_shift": torch.randn(B, cfg.d_model, generator=g, device="cuda"),
+               "wkv": torch.randn(B, H, K, K, generator=g, device="cuda"),
+               "cm_shift": torch.randn(B, cfg.d_model, generator=g, device="cuda")}
+    runs = {"prefill_and_decode": (1, prompt), "decode_32k_step": (B, step)}
+    positions = torch.arange(TP_S, device="cuda")
+    leaves = ("tm.w_r", "tm.w_v", "tm.decay_a", "tm.decay_b", "cm.w_k", "cm.w_r", "cm.w_v")
+
+    def cache(rows, dtype):
+        c = model.init_cache(rows, 1, dtype)
+        if rows == B:  # the seeded carried state
+            for k, t in carried.items():
+                c["layers"][0][k].copy_(t)
+        return c
+
+    def calls(blk, xs, c, layer):
+        return [blk.prefill(x, positions, c, layer) if x.shape[1] > 1
+                else blk.decode(x, TP_S, c, layer) for x in xs]
+
+    recs, unsplit32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lm.to(dtype)
+        for run, (rows, xs32) in runs.items():
+            xs = [x.to(dtype) for x in xs32]
+            want_c = cache(rows, dtype)["layers"][0]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want = calls(block, xs, want_c, None)
+            torch.cuda.synchronize()
+            want_ms, want_launches = (time.perf_counter() - t0) * 1e3, counts()
+            unsplit32.setdefault(run, [w.float() for w in want])
+
+            def one(blk, layer, c):
+                outs = calls(blk, xs, c["layers"][0], layer)
+                blocks = {n: list(getattr(getattr(blk, n[:2]), n[3:]).shape) for n in leaves}
+                return outs, layer, blocks
+
+            for grid in grids:
+                n_ranks = grid["data"] * grid["model"]
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    got, caches = tp.thread_shares(lm, "layers", 0, grid, cache(rows, dtype),
+                                                   one, rules)
+                torch.cuda.synchronize()
+                ms, launches = (time.perf_counter() - t0) * 1e3, counts()
+                layer = got[0][1]
+                state_err = max(rel_err(c["layers"][0]["wkv"],
+                                        want_c["wkv"][:, lay.tm.lo:lay.tm.hi])
+                                for (_, lay, _), c in zip(got, caches))
+                shift_err = max(rel_err(c["layers"][0][k], want_c[k])
+                                for c in caches for k in ("tm_shift", "cm_shift"))
+                rec = {"case": f"{cfg.name} layer 0 (RWKV-6: {H} heads of {K}, d_ff "
+                               f"{cfg.d_ff})", "strategy": "serve_2d", "grid": grid,
+                       "run": run, "dtype": str(dtype)[6:], "rows": rows,
+                       "calls": len(xs), "S": xs[0].shape[1],
+                       "heads_a_rank": layer.tm.hi - layer.tm.lo,
+                       "d_ff_a_rank": layer.cm.hi - layer.cm.lo,
+                       "rank_blocks": got[0][2], "terms_added_in": str(dtype)[6:],
+                       "rel_err": [max(rel_err(o[i], want[i]) for o, _, _ in got)
+                                   for i in range(len(xs))],
+                       "wkv_state_rel_err": state_err, "shift_rel_err": shift_err,
+                       "tol": TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL,
+                       "ranks_equal": all(torch.equal(a, b) for o, _, _ in got
+                                          for a, b in zip(o, got[0][0])),
+                       "ms": ms, "unsplit_ms": want_ms, "launches": launches,
+                       "launches_unsplit": want_launches}
+                if dtype == torch.bfloat16:
+                    rec["unsplit_vs_fp32"] = max(rel_err(a, b)
+                                                 for a, b in zip(want, unsplit32[run]))
+                    rec["shares_vs_fp32"] = max(rel_err(o[i], unsplit32[run][i])
+                                                for o, _, _ in got for i in range(len(xs)))
+                print("rwkv_grid_shares", json.dumps(rec), flush=True)
+                tag = f"rwkv grid {grid} {run} ({dtype})"
+                need(layer.tm_block is not None and layer.cm_block is not None
+                     and layer.axis.split("layers.0.tm.w_v").dim == 0
+                     and layer.axis.stationary("layers.0.tm.decay_b") is None
+                     and rec["heads_a_rank"] == H // grid["model"],
+                     f"{tag}: the blocks {rec['rank_blocks']}")
+                need(launches == launch_counts(wkv=n_ranks * len(xs))
+                     and want_launches == launch_counts(wkv=len(xs)),
+                     f"{tag}: launches {launches}, unsplit {want_launches}")
+                need(rec["ranks_equal"], f"{tag}: the ranks' streams differ")
+                need(all(torch.isfinite(t.float()).all() for o, _, _ in got for t in o),
+                     f"{tag}: non-finite")
+                need(max(rec["rel_err"]) <= rec["tol"] and state_err <= rec["tol"]
+                     and shift_err <= rec["tol"],
+                     f"{tag}: streams {rec['rel_err']}, state {state_err}, shifts {shift_err}")
+                recs.append(rec)
+                del got, caches
+            del want, want_c
+    del lm, unsplit32
+    torch.cuda.empty_cache()
+    return recs
 
 
 # (c): one layer, B 1 x S 256 (the WKV twin trains a Python loop a step);
@@ -3399,13 +3574,18 @@ def rwkv_train_path(cfg):
 
 def rwkv_split_phase():
     """(a) the shares of one full-width RWKV-6 layer at 8 and 16 ranks; (b)
-    the 1-rank path's serving; (c) the layer's training shares at 8 and 16
-    ranks; (d) the 1-rank path's training."""
+    the 1-rank path's serving under ``fsdp_tp`` and ``serve_2d``; (c) the
+    layer's training shares at 8 and 16 ranks; (d) the 1-rank path's
+    training; (e) the layer under ``serve_2d`` on the (data x model)
+    grids, every rank a thread."""
     cfg = get_config("rwkv6-7b")
     need((cfg.d_model, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.d_ff)
          == (4096, 64, 64, 14336), "rwkv6-7b width")
-    return {"shares": rwkv_shares(cfg, (8, 16)), "path": rwkv_path(cfg),
-            "train_shares": rwkv_train_shares(cfg, (8, 16)), "train_path": rwkv_train_path(cfg)}
+    paths = rwkv_path(cfg)
+    return {"shares": rwkv_shares(cfg, (8, 16)), "path": paths["fsdp_tp"],
+            "path_serve_2d": paths["serve_2d"],
+            "train_shares": rwkv_train_shares(cfg, (8, 16)), "train_path": rwkv_train_path(cfg),
+            "grid_shares": rwkv_grid_shares(cfg, RWKV_GRIDS)}
 
 
 # ---------------------------------------------------------------------------
@@ -4970,7 +5150,14 @@ def main():
                       launches_rwkv_split_decode_16_steps=rwkv_split["path"][
                           "decode_launches_sharded"]["wkv6"],
                       launches_rwkv_split_train_2_steps=rwkv_split["train_path"]["sharded"][
-                          "launches"]["wkv6"]),
+                          "launches"]["wkv6"],
+                      launches_rwkv_split_serve_2d_prefill_1_rank=rwkv_split["path_serve_2d"][
+                          "prefill_launches_sharded"]["wkv6"],
+                      launches_rwkv_split_serve_2d_decode_16_steps=rwkv_split[
+                          "path_serve_2d"]["decode_launches_sharded"]["wkv6"],
+                      launches_rwkv_grid=[
+                          [r["grid"], r["run"], r["dtype"], r["launches"]["wkv6"]]
+                          for r in rwkv_split["grid_shares"]]),
     ]
     need(all(kern["launches"] > 0 for kern in kernels), "a kernel did not run on its path")
     summary = {"gpu": smi, "build_s": secs, "serve": serve, "model_check": check,

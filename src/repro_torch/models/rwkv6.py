@@ -29,6 +29,21 @@ gradients come back the same way: each block's gradient is the rank's own
 ``mu_*`` and ``decay_a`` gradients, from the whole input on every rank,
 are partial terms summed over ``model``; the WKV op trains through its
 chunked twin on the rank's heads, the reference's training path.
+
+Weight-stationary serving (the reference's ``serve_2d``): where the
+mixers' weights keep their ``embed`` block on ``data``, ``TimeMix.forward``
+and ``ChannelMix.parts`` take the hook ``LayerAxis.hook`` gives
+(``column`` and ``row``, by leaf name). Each column product (the time
+mix's ``w_r``, ``w_k``, ``w_g`` and ``decay_a``, the channel mix's ``w_k``
+and ``w_r``) is the rank's ``embed`` block of the mixed stream's columns
+times its (embed block x model block), summed over ``data``; each ``w_v``
+(its rows the rank's ``model`` block, its columns its ``embed`` block)
+gives the rank's ``model`` block of the output's columns, summed over
+``model`` and then over ``data`` (``ModelAxis.row``). So r, k, v, g and
+the decay reach WKV on the rank's heads as before, and the channel mix's
+value and receptance cover the same block of columns. ``decay_b``, whose
+``embed`` dim is also the heads' dim, is the one RWKV-6 weight still
+gathered over ``data``. Without the hook every product is the whole one.
 """
 
 from __future__ import annotations
@@ -71,6 +86,19 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu
 
 
+def _column(x: torch.Tensor, w: torch.Tensor, axis, leaf: str) -> torch.Tensor:
+    """The column product ``x @ w``; with the weight-stationary hook
+    ``axis``, its ``column`` (the rank's ``embed`` block of x's columns
+    times w, summed over the block's axes)."""
+    return x @ w if axis is None else axis.column(x, w, leaf)
+
+
+def _row(x: torch.Tensor, w: torch.Tensor, axis, leaf: str) -> torch.Tensor:
+    """The product ``x @ w`` with a ``w_v``; with the hook, its ``row`` (the
+    rank's ``model`` block of the output's columns, summed)."""
+    return x @ w if axis is None else axis.row(x, w, leaf)
+
+
 def _group_norm(scale: torch.Tensor, y: torch.Tensor, H: int) -> torch.Tensor:
     """Per-head normalization of the WKV output. y [B,S,d]."""
     B, S, d = y.shape
@@ -111,28 +139,30 @@ class TimeMix(nn.Module):
         common.dense_init_(self.bonus, gen)
         self.out_norm.zero_()
 
-    def _decay(self, xw: torch.Tensor) -> torch.Tensor:
+    def _decay(self, xw: torch.Tensor, axis=None) -> torch.Tensor:
         """w_t = exp(-exp(clip(w0 + tanh(x W_a) W_b))), in fp32, in (0, 1)."""
-        lo = torch.tanh(xw @ self.decay_a) @ self.decay_b
+        lo = torch.tanh(_column(xw, self.decay_a, axis, "decay_a")) @ self.decay_b
         log_w = -torch.exp(torch.clamp(self.decay_base.float() + lo.float(), -10.0, 2.0))
         return torch.exp(log_w)
 
     def forward(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None,
                 wkv_state: Optional[torch.Tensor] = None,
-                wkv_out: Optional[torch.Tensor] = None
+                wkv_out: Optional[torch.Tensor] = None, axis=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x [B,S,d] -> (out, new shift state [B,d], new WKV state [B,H,K,K]).
         The new WKV state is written into ``wkv_out`` when given (it may be
         ``wkv_state`` itself). H is ``bonus``'s: a rank's heads where the
-        weights are its blocks."""
+        weights are its blocks. ``axis``: where they keep their ``embed``
+        block too, the hook that takes the products with it (see the
+        module's docstring)."""
         B, S, _ = x.shape
         H, K = self.bonus.shape[0], self.K
         x_prev = _shift(x, shift_state)
-        r = _mix(x, x_prev, self.mu_r) @ self.w_r
-        k = _mix(x, x_prev, self.mu_k) @ self.w_k
-        v = _mix(x, x_prev, self.mu_v) @ self.w_v
-        g = F.silu(_mix(x, x_prev, self.mu_g) @ self.w_g)
-        w = self._decay(_mix(x, x_prev, self.mu_w)).to(x.dtype)
+        r = _column(_mix(x, x_prev, self.mu_r), self.w_r, axis, "w_r")
+        k = _column(_mix(x, x_prev, self.mu_k), self.w_k, axis, "w_k")
+        v = _row(_mix(x, x_prev, self.mu_v), self.w_v, axis, "w_v")
+        g = F.silu(_column(_mix(x, x_prev, self.mu_g), self.w_g, axis, "w_g"))
+        w = self._decay(_mix(x, x_prev, self.mu_w), axis).to(x.dtype)
         y, new_state = wkv_ops.wkv(r.reshape(B, S, H, K), k.reshape(B, S, H, K),
                                    v.reshape(B, S, H, K), w.reshape(B, S, H, K),
                                    self.bonus, wkv_state, out=wkv_out)
@@ -159,16 +189,18 @@ class ChannelMix(nn.Module):
         for p in (self.w_k, self.w_v, self.w_r):
             common.dense_init_(p, gen)
 
-    def parts(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None
+    def parts(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None, axis=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x [B,S,d] -> (the value term [B,S,d], the receptance
         ``sigmoid(x_r @ w_r)``, new shift state [B,d]); the output is their
         product. On a rank's ``d_ff`` block the value term is its term of a
-        sum over ``model`` and the receptance its block of columns."""
+        sum over ``model`` and the receptance its block of columns. With the
+        weight-stationary hook ``axis`` both are the rank's ``model`` block
+        of the columns, the value summed (see the module's docstring)."""
         x_prev = _shift(x, shift_state)
-        k = _mix(x, x_prev, self.mu_k) @ self.w_k
-        v = torch.square(F.relu(k)) @ self.w_v
-        r = torch.sigmoid(_mix(x, x_prev, self.mu_r) @ self.w_r)
+        k = _column(_mix(x, x_prev, self.mu_k), self.w_k, axis, "w_k")
+        v = _row(torch.square(F.relu(k)), self.w_v, axis, "w_v")
+        r = torch.sigmoid(_column(_mix(x, x_prev, self.mu_r), self.w_r, axis, "w_r"))
         return v, r, x[:, -1, :]
 
     def forward(self, x: torch.Tensor, shift_state: Optional[torch.Tensor] = None

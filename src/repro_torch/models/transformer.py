@@ -104,14 +104,18 @@ class Block(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(gen)
 
-    def _time_mix(self, h, cache, carried: bool) -> torch.Tensor:
+    def _time_mix(self, h, cache, carried: bool, axis=None) -> torch.Tensor:
         """The rwkv mixer. Prefill starts from zero states, as the reference
         does whatever the cache holds; decode carries them. The WKV kernel
         writes the new state straight into the cache. On a rank's heads
         (sharded serving: ``cache["wkv"]`` is the state's block on them)
-        the output is the rank's term of a sum over ``model``."""
+        the output is the rank's term of a sum over ``model``; where the
+        time mix's weights keep their ``embed`` block, the layer's
+        ``axis`` gives the hook that takes its products with it
+        (``LayerAxis.hook``)."""
         h, tm_shift, _ = self.tm(h, cache["tm_shift"] if carried else None,
-                                 cache["wkv"] if carried else None, wkv_out=cache["wkv"])
+                                 cache["wkv"] if carried else None, wkv_out=cache["wkv"],
+                                 axis=None if axis is None else axis.hook("tm"))
         cache["tm_shift"].copy_(tm_shift)
         return h
 
@@ -120,7 +124,8 @@ class Block(nn.Module):
         serving (``axis``) routes the MoE's tokens in the global batch's
         groups and computes the rank's experts, their term summed over
         ``model`` (``LayerAxis.moe``), and the channel mix on the rank's
-        ``d_ff`` block where it splits (``LayerAxis.channel_mix``)."""
+        ``d_ff`` block where it splits (``LayerAxis.channel_mix``, also on
+        its ``embed`` block where that stays)."""
         if hasattr(self, "moe"):
             return self.moe(h)[0] if axis is None else axis.moe(self.moe, h)
         if self.mixer != "rwkv":
@@ -189,8 +194,8 @@ class Block(nn.Module):
             h = _summed(self.rglru.prefill(_split_in(h, axis, "rglru_sum"), cache), axis,
                         "rglru_sum")
         elif self.mixer == "rwkv":
-            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=False),
-                        axis, "tm_sum")
+            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=False,
+                                       axis=axis), axis, "tm_sum")
         else:
             h = _summed(self.attn.prefill(h, positions, cache, axis), axis, "attn_sum")
         x = x + h
@@ -203,8 +208,8 @@ class Block(nn.Module):
             h = _summed(self.rglru.decode(_split_in(h, axis, "rglru_sum"), cache), axis,
                         "rglru_sum")
         elif self.mixer == "rwkv":
-            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=True),
-                        axis, "tm_sum")
+            h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=True,
+                                       axis=axis), axis, "tm_sum")
         else:
             h = _summed(self.attn.decode(h, pos, cache, axis), axis, "attn_sum")
         x = x + h

@@ -50,7 +50,8 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   only -- the RG-LRU's gates, whole at rest, by a local slice, and under
   ``serve_2d`` a leaf laid out over ``(data, model)`` to the contiguous
   block of ``model`` alone; the RWKV-6 time mix's ``w_v``, rows at rest,
-  by one all-to-all over ``model`` to its columns, and its ``w_o``,
+  by one all-to-all over ``model`` to its columns (not where serving keeps
+  its ``embed`` block: it is computed with on its rows), and its ``w_o``,
   ``bonus``, ``decay_b`` and 1-D leaves, whole at rest, by a local
   slice --;
   every other weight is gathered whole (FSDP). Serving keeps some
@@ -96,8 +97,9 @@ its own rows, and the model axis splits the compute as in training, and
 the RWKV-6 layers too: the time mix by heads and the channel mix by
 ``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
 its ``model`` block gathered over the other axes only. An LM's attention,
-dense MLP, MoE, embedding and head are weight-stationary where the rules
-allow, as the reference's ``serve_2d`` lays them out: a weight whose
+dense MLP, MoE, RWKV-6 mixers, embedding and head are weight-stationary
+where the rules allow, as the reference's ``serve_2d`` lays them out: a
+weight whose
 ``embed`` dim the resolved spec splits over axes of more than one rank
 that carry none of the batch's rows (``serve_2d``: ``data``, the rows on
 ``pod``; ``tensor_parallel.ModelAxis.stationary``) keeps that block, so
@@ -113,10 +115,24 @@ layer splits and then all-gathered over those axes to the whole stream,
 which every rank holds between the layers (the reference's ``act_embed:
 None``). The MoE's router logits, summed so, are whole and equal on every
 rank, which routes every token of the global groups as one process does.
+An RWKV-6 layer keeps the blocks where its mixer splits along ``model``:
+the time mix's ``w_r``, ``w_k``, ``w_g`` and ``decay_a`` and the channel
+mix's ``w_k`` and ``w_r`` are column products, summed over ``data``; each
+mixer's ``w_v`` [ff or heads' rows, embed] is computed with as it lies,
+its ``model`` block of rows x ``embed`` block of columns, with no
+all-to-all: the partial product is summed over ``model`` and the rank's
+heads' (or receptance block's) columns taken by a masked sum over
+``data`` (``tensor_parallel.ModelAxis.row``); the channel mix's product is
+then gathered over ``model``. The time mix's ``decay_b`` [lora, d] is the
+one RWKV-6 weight still gathered over ``data`` (0.5 MiB a layer in bf16 at
+rwkv6-7b's width): its ``embed`` dim is also its heads' dim, which the
+rank needs on ``model``; kept there, the decay's low-rank product would
+have to gather its whole [B, d] output over ``data`` instead, twice the
+bytes at decode_32k's 128 rows.
 Under ``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and
 the weights are gathered as in training; a ``d_model`` the axes do not
-divide resolves to whole; the RG-LRU's, RWKV-6's and whisper's weights
-are still gathered over ``data``. The
+divide resolves to whole; the RG-LRU's and whisper's weights are still
+gathered over ``data``. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
@@ -183,8 +199,8 @@ MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; under ``serve_2d``, partial
 sums over ``data`` for the RG-LRU (its leaves, and its state in place of
-the state's gather over ``data``), the RWKV-6 mixers and whisper's
-blocks, whose weights are gathered over ``data`` today.
+the state's gather over ``data``) and whisper's blocks, whose weights are
+gathered over ``data`` today.
 """
 
 from __future__ import annotations

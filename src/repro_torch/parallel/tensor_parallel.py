@@ -150,10 +150,11 @@ with no collective of its own.
 Weight-stationary serving (the reference's ``serve_2d``, whose batch lies
 off ``data``): a ``ModelAxis`` built with ``weight_stationary`` keeps the
 ``embed`` block of attention's, the dense MLP's, the MoE's (router and
-experts), the embedding's and the head's weights where the resolved spec
-puts it (:meth:`ModelAxis.stationary`), so a rank holds the ``(embed block
-x model block)`` of each (a MoE leaf's: its experts', or every expert's
-ff block, times its embed block). The stream stays whole on every rank;
+experts), the RWKV-6 mixers' (where they split; all but ``tm.decay_b``),
+the embedding's and the head's weights where the resolved spec puts it
+(:meth:`ModelAxis.stationary`), so a rank holds the ``(embed block x
+model block)`` of each (a MoE leaf's: its experts', or every expert's ff
+block, times its embed block). The stream stays whole on every rank;
 ``column`` (:meth:`ModelAxis.column`, :meth:`LayerAxis.column`) multiplies
 the rank's columns of it by the block and sums the partial product over
 the block's axes, and ``whole`` (:meth:`ModelAxis.whole`, after
@@ -165,7 +166,17 @@ MoE takes a hook from :meth:`LayerAxis.moe` where its blocks stay
 (:class:`_ModuleAxis`): its router's logits summed over the block's axes,
 so every rank routes every token as one process; the dispatch of the
 rank's columns; the experts' partial pre-activations summed; its output
-the rank's block of columns, which :meth:`LayerAxis.moe` gathers.
+the rank's block of columns, which :meth:`LayerAxis.moe` gathers. The
+RWKV-6 time mix and channel mix take one too (:meth:`LayerAxis.hook`):
+``w_r``, ``w_k``, ``w_g``, ``decay_a`` and the channel mix's ``w_k`` and
+``w_r`` through ``column``; each ``w_v``, whose rows are its ``model``
+block and whose columns its ``embed`` block, through ``row``
+(:meth:`ModelAxis.row`: summed over ``model``, then the rank's ``model``
+block of columns by a masked sum over ``data``), so WKV runs on the
+rank's heads over its state block as before and the channel mix's value
+and receptance meet on one block of columns, whose product is gathered
+over ``model``. ``tm.decay_b`` [lora, d], whose ``embed`` dim is also its
+heads' dim, is the one RWKV-6 weight still gathered over ``data``.
 
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
@@ -202,7 +213,10 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
 # an LM layer's submodules whose weights keep their ``embed`` block in serving
-STATIONARY_MODULES = ("attn", "mlp", "moe")
+STATIONARY_MODULES = ("attn", "mlp", "moe", "tm", "cm")
+# the one such weight that moves: the time mix's decay_b [lora, d], whose
+# embed dim is also its heads' dim (the rank's heads cannot stay on data)
+_MOVING_LEAVES = ("tm.decay_b",)
 # the row product ending each stationary part, by its LayerAxis sum
 _ROW_LEAVES = {"attn_sum": "wo", "mlp_sum": "w_down"}
 # the RWKV-6 mixers and the dim of each leaf's block
@@ -215,12 +229,13 @@ _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 def _stays(name: str) -> bool:
     """Whether a parameter is one whose ``embed`` block may stay where it
     lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention,
-    dense MLP and MoE weights (the router and the experts), the embedding
-    and the head."""
+    dense MLP and MoE weights (the router and the experts), its RWKV-6 time
+    mix's and channel mix's but ``decay_b``, the embedding and the head."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
-    return len(parts) == 4 and parts[0] == "layers" and parts[2] in STATIONARY_MODULES
+    return (len(parts) == 4 and parts[0] == "layers" and parts[2] in STATIONARY_MODULES
+            and ".".join(parts[2:]) not in _MOVING_LEAVES)
 
 
 def splits_compute(name: str) -> bool:
@@ -424,6 +439,11 @@ class _ThreadRank:
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
         return torch.cat(self._over(x, axis), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """The sum over the axis, split along ``dim``: the rank's block."""
+        total = self.all_reduce(x, axis)
+        return total.chunk(self.ranks.sizes[axis], dim)[self.ranks.coordinate(self.r)[axis]]
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """As :meth:`MeshCollectives.all_to_all`: block j of dim 0 to the
@@ -724,7 +744,8 @@ class ModelAxis:
             return None
         parts = name.split(".")
         rwkv = len(parts) == 4 and parts[2] in _RWKV_MODULES
-        key = (name, shape)
+        # the time mix's w_v splits its rows where its embed block stays
+        key = (name, shape, self.weight_stationary, self.row_axes)
         if key not in self._memo and ".rglru." in name:
             self._memo[key] = self._rnn_split(name, shape)
         if key not in self._memo and rwkv:
@@ -772,7 +793,8 @@ class ModelAxis:
         (:meth:`sums_gradient`). ``tm.w_v`` lies on its rows at rest (its
         resolved spec reads the leaf name alone); its block here is its
         columns, and the weights' gather brings it there (and its gradient
-        back)."""
+        back), but where its ``embed`` block stays (:meth:`stationary`),
+        where it lies: its rows, the input of :meth:`row`."""
         M = self.sizes.get("model")
         prefix, leaf = name.rsplit(".", 1)
         dims = _TM_DIMS if prefix.endswith(".tm") else _CM_DIMS
@@ -789,6 +811,8 @@ class ModelAxis:
                 if split is None or split.dim != dim or split.axes != ("model",):
                     return None
         dim = dims[leaf]
+        if dims is _TM_DIMS and leaf == "w_v" and self.stationary(name) is not None:
+            dim = 0
         step, m = shape[dim] // M, self.coord["model"]
         return shd.Split(dim, ("model",), m * step, (m + 1) * step)
 
@@ -796,12 +820,15 @@ class ModelAxis:
         """Under ``weight_stationary``, the rank's block of the ``embed`` dim
         of parameter ``name`` (``sharding.embed_split``) that stays where it
         lies, as the reference's ``serve_2d`` keeps it: for attention's, the
-        dense MLP's and the MoE's weights of the LM's layers, the embedding
-        and the head, where the resolved spec splits that dim over axes that hold
-        more than one rank, none of them an axis the batch's rows split
-        over (``serve_2d``'s ``data``; under ``fsdp_tp`` the rows lie on
-        it). Else None: the weight is gathered over those axes (a
-        ``d_model`` they do not divide resolves to whole), as in training."""
+        dense MLP's, the MoE's and the RWKV-6 mixers' weights (but
+        ``tm.decay_b``) of the LM's layers, the embedding and the head, where
+        the resolved spec splits that dim over axes that hold more than one
+        rank, none of them an axis the batch's rows split over
+        (``serve_2d``'s ``data``; under ``fsdp_tp`` the rows lie on it), and,
+        for an RWKV-6 mixer's weight, where the mixer splits along ``model``
+        (the time mix's heads, the channel mix's ``d_ff``). Else None: the
+        weight is gathered over those axes (a ``d_model`` they do not divide
+        resolves to whole), as in training."""
         shape = self.shapes.get(name)
         if not self.weight_stationary or shape is None or not _stays(name):
             return None
@@ -809,10 +836,19 @@ class ModelAxis:
         if key not in self._memo:
             block = shd.embed_split(self.mesh, self.rules, name, shape, self.coord)
             if block is not None and (math.prod(self.sizes[a] for a in block.axes) == 1
-                                      or any(a in self.row_axes for a in block.axes)):
+                                      or any(a in self.row_axes for a in block.axes)
+                                      or self._rwkv_whole(name)):
                 block = None
             self._memo[key] = block
         return self._memo[key]
+
+    def _rwkv_whole(self, name: str) -> bool:
+        """Whether ``name`` is a leaf of an RWKV-6 mixer that runs whole
+        along ``model`` (the axis divides neither its heads nor, for the
+        channel mix, the resolved ``d_ff`` split)."""
+        prefix = name.rsplit(".", 1)[0]
+        leaf = {"tm": "bonus", "cm": "w_v"}.get(prefix.rsplit(".", 1)[-1])
+        return leaf is not None and self.split(f"{prefix}.{leaf}") is None
 
     def column(self, x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
         """A column product ``x @ w`` of the whole stream x [..., d] and the
@@ -835,6 +871,35 @@ class ModelAxis:
         activations an axis); else x. Serving only: no backward."""
         block = self.stationary(name)
         return x if block is None else _sum_over(x, self.comm, block.axes)
+
+    def row(self, x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+        """The product ``x @ w`` with an RWKV-6 mixer's ``w_v`` as the rank
+        computes with it, where its ``embed`` block of columns stays
+        (:meth:`stationary`) and its rows are its ``model`` block
+        (:meth:`split`): x is the whole input [..., n], whose ``model``
+        block is taken here (the time mix), or that block [..., n/M] (the
+        channel mix's hidden, on the rank's ``d_ff`` block). The partial
+        product [..., d/D], the block's columns, is summed over ``model``;
+        the rank then takes its ``model`` block of the output's columns
+        [..., d/M] (the time mix's heads, the channel mix's receptance
+        block) by laying what it holds of them into zeros and summing over
+        the block's axes: d/M columns move, where a gather of the whole
+        output and a slice would move d. Else ``x @ w``. Serving only: the
+        sums have no backward."""
+        block = self.stationary(name)
+        if block is None:
+            return x @ w
+        split = self.split(name)
+        if x.shape[-1] != w.shape[0]:
+            x = x[..., split.lo:split.hi]
+        part = self.comm.all_reduce(x @ w, "model")
+        n, M, m = self.shapes[name][-1], self.sizes["model"], self.coord["model"]
+        lo, hi = m * n // M, (m + 1) * n // M
+        out = part.new_zeros(part.shape[:-1] + (hi - lo,))
+        a, b = max(lo, block.lo), min(hi, block.hi)
+        if a < b:
+            out[..., a - lo:b - lo] = part[..., a - block.lo:b - block.lo]
+        return _sum_over(out, self.comm, block.axes)
 
     def whole(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The output [..., d/D] of a product with parameter ``name`` whose
@@ -987,8 +1052,9 @@ class ModelAxis:
 
 class _ModuleAxis:
     """One module's leaves under :class:`ModelAxis`'s weight-stationary
-    products (``column``, ``columns``, ``summed``), by leaf name: the hook
-    ``MoE.forward`` takes."""
+    products (``column``, ``columns``, ``summed``, ``row``), by leaf name:
+    the hook ``MoE.forward``, ``TimeMix.forward`` and ``ChannelMix.parts``
+    take (:meth:`LayerAxis.hook`)."""
 
     def __init__(self, axis: ModelAxis, prefix: str):
         self.axis, self.prefix = axis, prefix
@@ -1001,6 +1067,9 @@ class _ModuleAxis:
 
     def summed(self, x: torch.Tensor, leaf: str) -> torch.Tensor:
         return self.axis.summed(x, self.prefix + leaf)
+
+    def row(self, x: torch.Tensor, w: torch.Tensor, leaf: str) -> torch.Tensor:
+        return self.axis.row(x, w, self.prefix + leaf)
 
 
 class LayerAxis:
@@ -1034,8 +1103,11 @@ class LayerAxis:
         # the rank's experts (dim 0) or every expert's ff columns (dim 2), or None: all
         self.experts = axis.split(pre + "moe.w_up")
         self.moe_sum = self.experts is not None
-        # serving: the experts' embed block that stays where it lies, or None
+        # serving: the embed block of the experts', the time mix's and the
+        # channel mix's weights that stays where it lies, or None
         self.moe_block = axis.stationary(pre + "moe.w_up")
+        self.tm_block = axis.stationary(pre + "tm.w_r")
+        self.cm_block = axis.stationary(pre + "cm.w_k")
         self.q = axis.split(pre + attn + ".wq")    # the rank's query heads, or None: all
         self.kv = axis.split(pre + attn + ".wk")   # its KV heads, or None: all
         if pre + attn + ".wq" in axis.shapes:
@@ -1062,6 +1134,14 @@ class LayerAxis:
         """The state-dict name of the attention's or the MLP's leaf."""
         module = self._attn if leaf in ("wq", "wk", "wv", "wo") else "mlp"
         return f"{self._pre}{module}.{leaf}"
+
+    def hook(self, module: str) -> Optional[_ModuleAxis]:
+        """The weight-stationary hook of the layer's ``module`` (``moe``,
+        ``tm``, ``cm``) where its weights keep their ``embed`` block
+        (``moe_block``, ``tm_block``, ``cm_block``), else None."""
+        if getattr(self, module + "_block") is None:
+            return None
+        return _ModuleAxis(self.axis, f"{self._pre}{module}.")
 
     def column(self, x: torch.Tensor, w: torch.Tensor, leaf: str) -> torch.Tensor:
         """The column product ``x @ w`` with the attention's or the MLP's
@@ -1115,7 +1195,7 @@ class LayerAxis:
         B, S = h.shape[:2]
         kw = {}
         if self.moe_block is not None:
-            kw["axis"] = _ModuleAxis(axis, self._pre + "moe.")
+            kw["axis"] = self.hook("moe")
         if self.moe_sum:
             if self.experts.dim == 0:
                 kw["experts"] = (self.experts.lo, self.experts.hi)
@@ -1153,6 +1233,19 @@ class LayerAxis:
         rank's positions [B, S/M, d], by one all-to-all (backward the inverse
         one). -> (out, new shift state [B, d]).
 
+        In serving, where the weights keep their ``embed`` block
+        (``cm_block``), the mix takes the hook (:meth:`hook`): ``w_k``'s and
+        ``w_r``'s partial products are summed over the block's axes, so the
+        receptance is the rank's ``model`` block of d's columns, and
+        ``w_v``'s, the block's columns of the value, is summed over
+        ``model`` and taken to that same ``model`` block
+        (:meth:`ModelAxis.row`: a masked sum over ``data`` of d/M columns);
+        their product is all-gathered along ``d`` over ``model``. Of the
+        routes that end with the output whole, this moves fewest bytes: a
+        gather of the summed value over ``data`` (d columns), or of the
+        receptance over ``model``, before the product would add d columns
+        to the d/M this moves.
+
         Under :class:`Shares` the reduce-scatter's other side is the
         caller's, and this raises: a share's term is ``ChannelMix.parts``
         on its blocks -- its value term, to be summed over the ranks and
@@ -1164,6 +1257,10 @@ class LayerAxis:
             raise NotImplementedError("a share alone holds only its value term of the "
                                       "channel mix: combine ChannelMix.parts over the "
                                       "shares (tensor_parallel.rwkv_shares)")
+        hook = self.hook("cm")
+        if hook is not None:  # serving: no backward
+            v, r, new_shift = cm.parts(h, shift, hook)
+            return axis.comm.all_gather(r * v, h.ndim - 1, "model"), new_shift
         v, r, new_shift = cm.parts(h, shift)
         out = r * _ReduceScatter.apply(v, axis.comm, v.ndim - 1)
         if axis.seq is not None:
@@ -1289,8 +1386,10 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
     split as the rules' ``batch`` axes take them (the rank's rows), and an
     LM served with a cache keeps its weights' ``embed`` blocks where
     the rules allow (:meth:`ModelAxis.stationary`): the rank's block of
-    such a weight is its ``(embed block x model block)``. Sums over an axis
-    but ``model`` need the threads."""
+    such a weight is its ``(embed block x model block)`` (the time mix's
+    ``w_v``: its ``model`` block of rows x its embed block of columns); an
+    RWKV-6 layer's state copy holds the rank's rows. Sums over an axis but
+    ``model`` need the threads."""
     rules = rules or shd.STRATEGIES["fsdp_tp"]()
     if comm is None:
         rules = {**rules, "seq_cache": None}
@@ -1302,6 +1401,10 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
         n_rows = next(iter(cache[key][0].values())).shape[0]
         spec = shd.batch_specs(mesh, rules, {"x": torch.empty((n_rows, 1), device="meta")})["x"]
         row_axes = shd._axes(spec[0])
+        index, n = 0, 1  # the rank's block of the rows, row-major over their axes
+        for a in row_axes:
+            index, n = index * mesh[a] + coord[a], n * mesh[a]
+        rows = slice(index * n_rows // n, (index + 1) * n_rows // n)
     d = lm.cfg.d_model
     stream = (None if seq_len is None
               else {k: (1, n, d) for k, n in seq_len.items()} if isinstance(seq_len, Mapping)
@@ -1328,10 +1431,10 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
                              for k, t in block.items()}
             layers.append(c if block is c else {k: t.clone() for k, t in block.items()})
             continue
-        if "wkv" in c:  # a copy a rank, the WKV state the block of the rank's heads
+        if "wkv" in c:  # a copy of the rank's rows, the WKV state on the rank's heads
             heads = axis.layer(i).tm
-            layers.append({k: (t if k != "wkv" or heads is None
-                               else t[:, heads.lo:heads.hi]).clone() for k, t in c.items()})
+            layers.append({k: (t[rows] if k != "wkv" or heads is None
+                               else t[rows, heads.lo:heads.hi]).clone() for k, t in c.items()})
             continue
         rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
         layers.append(c if rnn is None else

@@ -1,6 +1,7 @@
 """``serve_2d``'s weight-stationary serving (``repro_torch.parallel``) on the
 CPU: each weight of attention, the dense MLP, the MoE (router and
-experts), the embedding and the head keeps its ``embed`` block on ``data``
+experts), the RWKV-6 time mix and channel mix (all but ``tm.decay_b``),
+the embedding and the head keeps its ``embed`` block on ``data``
 (``ModelAxis.stationary``), and the products it enters are summed or
 gathered over ``data`` instead.
 
@@ -21,7 +22,11 @@ d 64), each rank computing with its (experts x embed block) of every
 expert leaf and its embed block of the router, also with 6 experts,
 which model 4 does not divide (the ff form: every expert's ff block x
 embed block), every rank's routing (``top_idx``, ``keep``, ``slot``) equal
-to the unsplit one's. Where ``data`` does not divide ``d_model``, and under
+to the unsplit one's; and a reduced one-layer rwkv6-7b (d 64, 4 heads of
+16, ``d_ff`` 128), each rank computing with its (embed block x model
+block) of the mixers' weights (``w_v``: its model block of rows x embed
+block of columns), its WKV state block on its heads and its shifts equal
+to the unsplit ones. Where ``data`` does not divide ``d_model``, and under
 ``fsdp_tp`` (the rows lie on ``data``), the weights are gathered as in
 training: no block stays, and the rank computes with whole ``embed`` dims.
 
@@ -35,7 +40,8 @@ give them; none as large as the smallest weight block the weights' gather
 moved before. The same step of reduced qwen3-moe moves no expert or router
 block over ``data``: beside the attention's activations, the router's
 logits and the experts' stacked partial pre-activations are summed, and
-the MoE's block of columns is gathered.
+the MoE's block of columns is gathered. A reduced rwkv6-7b step moves no
+mixer weight over ``data`` but ``tm.decay_b`` and takes no all-to-all.
 
 The gloo ranks against the JAX reference are
 ``tests/test_torch_tp_serve.py``'s ``serve_2d_data_model`` mesh.
@@ -70,13 +76,17 @@ from test_torch_tp_serve import _rel_close, _seeded_lm
 
 _BASE = dataclasses.replace(ARCHS["internvl2-76b"].reduced(), n_layers=1, frontend=None,
                             frontend_seq_len=0)
-# the weights whose embed block stays under serve_2d, and the dim of that block
+# the weights whose embed block stays under serve_2d, and the dim of that
+# block (None: one with an embed dim that is gathered all the same)
 STATIONARY = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk": 0,
               "layers.0.attn.wv": 0, "layers.0.attn.wo": 2, "layers.0.mlp.w_gate": 0,
               "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1,
               "layers.0.moe.router": 0, "layers.0.moe.w_up": 1, "layers.0.moe.w_gate": 1,
-              "layers.0.moe.w_down": 2}
-QWEN, PHI = "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b"
+              "layers.0.moe.w_down": 2,
+              "layers.0.tm.w_r": 0, "layers.0.tm.w_k": 0, "layers.0.tm.w_g": 0,
+              "layers.0.tm.decay_a": 0, "layers.0.tm.w_v": 1, "layers.0.tm.decay_b": None,
+              "layers.0.cm.w_k": 0, "layers.0.cm.w_r": 0, "layers.0.cm.w_v": 1}
+QWEN, PHI, RWKV = "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"
 
 GRID_CASES = {
     "mha": dict(n_heads=4, n_kv_heads=4),
@@ -103,6 +113,13 @@ GRID_CASES = {
     "moe_6_experts": dict(arch=PHI, n_experts=6),
     "moe_d_model_does_not_divide": dict(arch=QWEN, d_model=63),
     "moe_fsdp_tp": dict(arch=QWEN, strategy="fsdp_tp"),
+    # RWKV-6 (d 64, 4 heads of 16, d_ff 128): the time mix on the rank's
+    # heads, the channel mix on its d_ff block, each with its embed block
+    "rwkv6": dict(arch=RWKV),
+    # 2 heads: model 4 does not divide them, so the time mix runs whole and
+    # its weights are gathered over data; the channel mix's blocks stay
+    "rwkv6_2_heads": dict(arch=RWKV, rwkv_head_dim=32),
+    "rwkv6_fsdp_tp": dict(arch=RWKV, strategy="fsdp_tp"),
 }
 GRIDS = {"data2_model2": {"data": 2, "model": 2}, "data2_model4": {"data": 2, "model": 4}}
 B, S, L, DECODE_STEPS = 4, 12, 16, 3
@@ -158,30 +175,48 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
                                   run, rules)
     stays = strategy == "serve_2d" and cfg.d_model % D == 0
     width = cfg.d_model // D if stays else cfg.d_model
-    assert len(want_routes) == (1 + DECODE_STEPS if arch else 0)
+    assert len(want_routes) == (1 + DECODE_STEPS if cfg.is_moe else 0)
+    rwkv = cfg.mixer_pattern[0] == "rwkv"
+    # the time mix keeps its blocks only on the rank's heads
+    tm_splits = rwkv and (cfg.d_model // cfg.rwkv_head_dim) % M == 0
     for r, (outs, axis, c, routes) in enumerate(got):
         d, m = r // M, r % M
         assert axis.coord == {"data": d, "model": m}
         assert axis.row_axes == (() if strategy == "serve_2d" else ("data",))
         for name, dim in STATIONARY.items():
             block = axis.stationary(name)
+            keeps = (stays and dim is not None and name in axis.shapes
+                     and (tm_splits or ".tm." not in name))
             assert block == (shd.Split(dim, ("data",), d * width, (d + 1) * width)
-                             if stays and name in axis.shapes else None), name
+                             if keeps else None), name
         rows = _rows(axis)
-        heads = axis.layer(0).q  # the rank's query heads (all split at M 2 and 4 here)
-        assert heads is not None and heads.hi - heads.lo == cfg.n_heads // M
         vocab = axis.head
         for (x, h, logits), (wx, wh, wl) in zip(outs, want):
             _rel_close(x, wx[rows])
             _rel_close(h, wh[rows])
             _rel_close(logits, wl[rows][..., vocab.lo:vocab.hi])
+        if rwkv:  # the WKV state's block on the rank's heads, the shifts whole
+            heads, H = axis.layer(0).tm, cfg.d_model // cfg.rwkv_head_dim
+            assert axis.layer(0).cm is not None
+            if tm_splits:
+                assert heads.hi - heads.lo == H // M
+                assert axis.split("layers.0.tm.w_v").dim == (0 if stays else 1)
+            else:
+                assert heads is None and axis.split("layers.0.tm.w_v") is None
+                heads = shd.Split(1, (), 0, H)
+            _rel_close(c["wkv"], want_c["wkv"][rows, heads.lo:heads.hi])
+            for k in ("tm_shift", "cm_shift"):
+                _rel_close(c[k], want_c[k][rows])
+            continue
+        heads = axis.layer(0).q  # the rank's query heads (all split at M 2 and 4 here)
+        assert heads is not None and heads.hi - heads.lo == cfg.n_heads // M
         # the rank's block of the cache: its rows and positions (seq over
         # (data, model) under serve_2d, over model under fsdp_tp)
         seq, length = axis.layer(0).seq, want_c["k"].shape[1]  # a window's ring: 8
         assert seq.hi - seq.lo == length // (D * M if strategy == "serve_2d" else M)
         for k in ("k", "v"):
             _rel_close(c[k], want_c[k][rows, seq.lo:seq.hi])
-        if arch:  # every rank routes the global batch as one process
+        if cfg.is_moe:  # every rank routes the global batch as one process
             experts = axis.layer(0).experts
             assert experts.dim == (0 if cfg.n_experts % M == 0 else 2)
             assert len(routes) == len(want_routes)
@@ -343,6 +378,46 @@ def test_a_moe_decode_step_moves_no_expert_block_over_data():
     expert_block = (cfg.n_experts // 2) * (d // 2) * cfg.d_ff * bf16
     assert max(b for _, b in ops) < expert_block // 8
     assert all(b == stream for k, b in ops if k == "all-gather")
+
+
+def test_a_rwkv_decode_step_moves_no_weight_block_over_data():
+    """Reduced rwkv6-7b at the fake WKV kernel's head size (2 layers: d 128,
+    2 heads of 64, d_ff 128, lora 64, vocab 512) under ``serve_2d`` on (data
+    2, model 2), 2 rows, bf16: every collective of a decode step, byte for
+    byte. Over ``data`` (ranks 0 and 2): the lookup's gather of the stream,
+    and a layer's two shift states' gathers (the next token's mixes read
+    them whole), ``decay_b``'s [64, d] gather (the one weight that still
+    moves: its embed dim is its heads' dim), the sums of ``w_r``'s,
+    ``w_k``'s, ``w_g``'s and ``decay_a``'s partial products, of the time
+    mix's value and the channel mix's value on the rank's heads' columns
+    (masked: d/M columns) and of the channel mix's ``w_k`` and ``w_r``
+    products; the head's logits block. Over ``model`` (ranks 0 and 1): the
+    lookup's sum, the shifts' gathers, each ``w_v``'s partial product (the
+    embed block's d/2 columns) summed, the time mix's ``w_o`` term summed,
+    the channel mix's product gathered. The parent gathered each mixer
+    weight's model block over ``data`` (16 KiB each here) and moved
+    ``tm.w_v`` from rows to columns by an all-to-all over ``model``."""
+    cfg = dataclasses.replace(ARCHS[RWKV].reduced(), d_model=128, rwkv_head_dim=64)
+    assert (cfg.n_layers, cfg.d_model // cfg.rwkv_head_dim, cfg.d_ff, cfg.vocab_size) == (
+        2, 2, 128, 512)
+    rows, d, bf16, lora, D, M = 2, cfg.d_model, 2, 64, 2, 2
+    ops = _decode_ops(cfg, "serve_2d", rows)
+    over_data = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 2)]
+    over_model = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 1)]
+    assert {op.ranks for op in ops} == {(0, 1), (0, 2)}
+    stream, block = rows * d * bf16, rows * d // D * bf16
+    per_layer = ([("all-gather", stream)] * 2 + [("all-gather", lora * d * bf16)]
+                 + [("all-reduce", rows * n * bf16)  # r, k, g, decay_a, tm's v; cm's k, r, v
+                    for n in (d // M, d // M, d // M, lora, d // M, cfg.d_ff // M, d // M,
+                              d // M)])
+    want = [("all-gather", stream), ("all-reduce", rows * cfg.vocab_size // M * bf16)]
+    assert sorted(over_data) == sorted(want + per_layer * cfg.n_layers)
+    per_layer = ([("all-gather", block)] * 2  # the shifts' [2, d/4] blocks to [2, d/2]
+                 + [("all-reduce", block), ("all-reduce", stream), ("all-reduce", block),
+                    ("all-gather", stream)])
+    assert sorted(over_model) == sorted([("all-reduce", block)] + per_layer * cfg.n_layers)
+    weight_block = d * (d // M) * bf16  # the smallest the parent gathered: [d, d/2]
+    assert sorted(b for _, b in over_data if b >= weight_block) == [lora * d * bf16] * 2
 
 
 def test_fsdp_tp_gathers_the_weights_over_data():

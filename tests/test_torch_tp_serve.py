@@ -331,14 +331,18 @@ MESHES = {"fsdp_tp": ("fsdp_tp", (2, 2), ("data", "model")),
           # the RG-LRU's leaves and state over (data, model), its w_in_rec over model
           "serve_2d_data_model": ("serve_2d", (2, 2), ("data", "model"))}
 # the models whose weights' blocks the ranks record, and each leaf's embed
-# dim: attention's, the MLP's, the embedding's and the head's, or the MoE's
+# dim: attention's, the MLP's, the embedding's and the head's, the MoE's, or
+# the RWKV-6 mixers'
 _DENSE_BLOCKS = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk": 0,
                  "layers.0.attn.wv": 0, "layers.0.attn.wo": 2, "layers.0.mlp.w_gate": 0,
                  "layers.0.mlp.w_up": 0, "layers.0.mlp.w_down": 1}
 _MOE_BLOCKS = {"layers.0.moe.router": 0, "layers.0.moe.w_gate": 1, "layers.0.moe.w_up": 1,
                "layers.0.moe.w_down": 2}
+_RWKV_BLOCKS = {"layers.0.tm.w_r": 0, "layers.0.tm.w_k": 0, "layers.0.tm.w_g": 0,
+                "layers.0.tm.decay_a": 0, "layers.0.tm.w_v": 1, "layers.0.cm.w_k": 0,
+                "layers.0.cm.w_r": 0, "layers.0.cm.w_v": 1}
 STATIONARY_BLOCKS = {"internvl2-76b": _DENSE_BLOCKS, "qwen3-moe-235b-a22b": _MOE_BLOCKS,
-                     "phi3.5-moe-42b-a6.6b": _MOE_BLOCKS}
+                     "phi3.5-moe-42b-a6.6b": _MOE_BLOCKS, "rwkv6-7b": _RWKV_BLOCKS}
 
 _RANKS = """
 from repro_torch.launch.mesh import make_mesh_from_devices
@@ -478,12 +482,16 @@ def test_a_ranks_rglru_weight_holds_its_channels(ranks):
 
 @pytest.mark.parametrize("model", sorted(STATIONARY_BLOCKS))
 def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks, model):
-    """internvl2-76b's attention, MLP, embedding and head weights, and
-    qwen3-moe's and phi3.5-moe's MoE router and expert leaves, as a rank
+    """internvl2-76b's attention, MLP, embedding and head weights,
+    qwen3-moe's and phi3.5-moe's MoE router and expert leaves, and
+    rwkv6-7b's time mix and channel mix leaves (but ``decay_b``), as a rank
     computes with them: under ``serve_2d`` on (data 2, model 2) each is its
     block at rest, the ``embed`` dim on ``data`` (nothing moves over
-    ``data``); on the other meshes the ``embed`` dim is whole (gathered over
-    ``data`` under ``fsdp_tp``, whole at rest without a ``data`` axis)."""
+    ``data``; the time mix's ``w_v`` stays on its rows, no all-to-all); on
+    the other meshes the ``embed`` dim is whole (gathered over ``data``
+    under ``fsdp_tp``, whole at rest without a ``data`` axis), but the time
+    mix's ``w_v``'s, which is there its heads' d/M columns (moved to them
+    from its rows over ``model``)."""
     mesh, results = ranks
     strategy, shape, axes = MESHES[mesh]
     sizes = dict(zip(axes, shape))
@@ -495,7 +503,8 @@ def test_a_ranks_weights_keep_their_embed_block_under_serve_2d(ranks, model):
         assert set(blocks) == set(STATIONARY_BLOCKS[model])
         for name, (at_rest, used) in blocks.items():
             dim = STATIONARY_BLOCKS[model][name]
-            assert used[dim] == (d // 2 if stays else d), (name, used)
+            whole = d // sizes["model"] if name == "layers.0.tm.w_v" else d
+            assert used[dim] == (d // 2 if stays else whole), (name, used)
             assert at_rest[dim] == d // sizes.get("data", 1)
             if stays:
                 assert used == at_rest, name
