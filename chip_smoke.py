@@ -205,10 +205,22 @@ calls, and fails (exit code not 0, no result line) on any miss:
               steps (bf16 over fp32 masters, B 1 x S 2048) through
               ``train_loop`` unsharded and sharded, the losses bit-equal, 6
               scan and 2 flash launches a step; prefill, step and training
-              ms of each side. The kernels phase times the scan at one
+              ms of each side, and the serving again under ``serve_2d`` on
+              the one rank, its tokens equal to ``fsdp_tp``'s; (c) the full-
+              width layer 0 (norm1, the RG-LRU, norm2, the MLP) under
+              ``serve_2d`` on (data 2 x model 8), (data 4 x model 4) and
+              (data 4 x model 8), every rank a thread serving the RG-LRU on
+              its (data, model) chunk of the channels as they lie at rest
+              (256 channels, a gate block; 128, half a block): a B 1 x S 2560
+              prefill and 4 decode steps, and a 128-row step from a seeded
+              state, fp32 and bf16, every rank's stream within 1e-4 (fp32)
+              and 5e-2 (bf16) of the unsplit layer, its h and conv chunk
+              against the unsplit state's, ranks bit-equal, one scan launch
+              a rank a prefill. The kernels phase times the scan at one
               rank's widths: [1, 2560, 256] and [1, 2560, 512] bf16, the
-              backward's bf16 a with fp32 b at [1, 2560, 256], and the
-              serving [4, 2560, 256];
+              backward's bf16 a with fp32 b at [1, 2560, 256], the serving
+              [4, 2560, 256], and serve_2d's chunks [1, 2560, 256], [1,
+              2560, 128] and [1, 2560, 16] (a rank of 16 x 16);
  8h4. rwkv_split the RWKV-6 split on the model axis in serving and in
               training, in this one process: (a) each rank's share of
               rwkv6-7b's layer 0 at full
@@ -746,8 +758,14 @@ def tp_train_flash_cases():
 # at 16 (B 4); S 2560
 RNN_SCAN_CASES = ("recurrentgemma-9b training, a rank of 16", "recurrentgemma-9b training, "
                   "a rank of 8", "bf16 a, fp32 b: the training backward, a rank of 16",
-                  "recurrentgemma-9b prefill, a rank of 16")
-RNN_SCAN_SHAPES = ((1, 256, None), (1, 512, None), (1, 256, torch.float32), (4, 256, None))
+                  "recurrentgemma-9b prefill, a rank of 16",
+                  # serve_2d's chunks of the channels: a rank of (data 2 x model 8) or
+                  # (data 4 x model 4), of (data 4 x model 8), of the 16 x 16 mesh
+                  "recurrentgemma-9b serve_2d prefill, a rank of 16 (data x model)",
+                  "recurrentgemma-9b serve_2d prefill, a rank of (data 4 x model 8)",
+                  "recurrentgemma-9b serve_2d prefill, a rank of 16 x 16")
+RNN_SCAN_SHAPES = ((1, 256, None), (1, 512, None), (1, 256, torch.float32), (4, 256, None),
+                   (1, 256, None), (1, 128, None), (1, 16, None))
 RWKV_WKV_CASES = (("rwkv6-7b prefill, a rank of 16", 1, 2560, 4, False),
                   ("rwkv6-7b prefill, a rank of 8", 1, 2560, 8, False),
                   ("rwkv6-7b decode step, a rank of 16", 4, 1, 4, True),
@@ -3050,7 +3068,10 @@ def rnn_path():
     passes only where that margin is below the logits' difference: a bf16
     near-tie); then 2 AdamW steps (bf16 over fp32 masters, remat
     "nothing", B 1 x S 2048) through ``train_loop`` unsharded and sharded,
-    the losses bit-equal; ms of each side."""
+    the losses bit-equal; ms of each side. The serving runs again under
+    ``serve_2d``'s rules on the one rank (``data`` holds one rank: the
+    layer on its ``model`` block, as under ``fsdp_tp``), its tokens equal
+    to ``fsdp_tp``'s."""
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
     need(cfg.n_groups_and_tail() == (1, 0), "rnn path: one group")
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -3064,6 +3085,13 @@ def rnn_path():
         layer = model.model_axis(params, None, (), 1).layer(0)
         sharded = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
                             fed=plain["tokens"].to(toks.device))
+        # serve_2d on the one rank: data holds one rank, so no chunk (the
+        # model block of all 4096 channels, as under fsdp_tp)
+        model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["serve_2d"]())
+        layer_2d = model.model_axis(params, model.init_cache(1, 1), (), 1,
+                                    stationary=True).layer(0)
+        sharded_2d = rnn_serve(model, params, toks, lambda t: t.full_tensor(),
+                               fed=plain["tokens"].to(toks.device))
     del params
     torch.cuda.empty_cache()
     want, got = plain["logits"], sharded["logits"]
@@ -3081,11 +3109,18 @@ def rnn_path():
              **{f"{k}_{side}": r[k] for side, r in (("unsharded", plain), ("sharded", sharded))
                 for k in ("prefill_ms", "decode_ms_per_step", "prefill_launches",
                           "decode_launches")}}
+    serve_2d = {"rglru_split": list(layer_2d.rnn),
+                "rglru_chunk": None if layer_2d.rglru_block is None else list(layer_2d.rglru_block),
+                "tokens_equal_fsdp_tp": bool(torch.equal(sharded_2d["tokens"],
+                                                          sharded["tokens"])),
+                "logits_rel_err": max(rel_err(a, b) for a, b in zip(sharded_2d["logits"], want)),
+                **{k: sharded_2d[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                             "prefill_launches", "decode_launches")}}
 
     unsharded, sharded_train = train_both_sides(cfg, RNN_TRAIN_STEPS, 1, RNN_TRAIN_S)
     per_step = launch_counts(flash_wgmma=2, rglru=6)
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
-           "strategy": "fsdp_tp", "serve": serve,
+           "strategy": "fsdp_tp", "serve": serve, "serve_2d": serve_2d,
            "train": {"batch": 1, "seq": RNN_TRAIN_S, "steps": RNN_TRAIN_STEPS,
                      "compute_dtype": "bfloat16", "master_dtype": "float32",
                      "remat_policy": "nothing", "unsharded": unsharded,
@@ -3100,6 +3135,16 @@ def rnn_path():
              f"{serve[f'decode_launches_{side}']}")
     need(layer.rnn is not None and layer.rnn.hi - layer.rnn.lo == cfg.rnn_width,
          f"rnn path: the RG-LRU split {layer.rnn}")
+    need(serve_2d["prefill_launches"] == launch_counts(flash_wgmma=1, rglru=2)
+         and serve_2d["decode_launches"] == launch_counts(),
+         f"rnn path serve_2d launches {serve_2d['prefill_launches']}, "
+         f"{serve_2d['decode_launches']}")
+    need(layer_2d.rnn == shd.Split(0, ("model",), 0, cfg.rnn_width)
+         and layer_2d.rglru_block is None, f"rnn path serve_2d: the split {layer_2d.rnn}")
+    need(sharded_2d["pos"] == TP_S + RNN_STEPS and serve_2d["tokens_equal_fsdp_tp"]
+         and serve_2d["logits_rel_err"] <= TP_BF16_TOL,
+         f"rnn path serve_2d: tokens equal {serve_2d['tokens_equal_fsdp_tp']}, logits "
+         f"{serve_2d['logits_rel_err']}")
     need(sharded["pos"] == TP_S + RNN_STEPS, f"rnn path pos {sharded['pos']}")
     need(torch.isfinite(got).all() and serve["logits_rel_err"] <= TP_BF16_TOL,
          f"rnn path logits {serve['logits_rel_err']}")
@@ -3114,13 +3159,156 @@ def rnn_path():
     return rec
 
 
+# (c): serve_2d's grids, a chunk of 256 channels (one gate block) a rank, and
+# (data 4 x model 8), a chunk of 128 (half a block: the block gathered over
+# model); a prefill and 4 steps, and decode_32k's 128 rows from a seeded state
+RNN_GRIDS = TP_GRIDS + ({"data": 4, "model": 8},)
+RNN_GRID_DECODE, RNN_GRID_DECODE_B = 4, 128
+
+
+def rnn_grid_shares(cfg, grids):
+    """(c) recurrentgemma-9b's layer 0 at full width (``norm1``, the RG-LRU,
+    ``norm2``, the MLP, both residuals) under ``serve_2d`` on each grid of
+    ``grids``, fp32 then the same weights in bf16: every rank at once, a
+    thread a rank (``tensor_parallel.thread_shares``), each serving the
+    RG-LRU on its (data, model) chunk of the 4096 channels as they lie at
+    rest (``conv_w``, ``conv_b``, ``lam``, ``w_out``'s rows and the state
+    ``h`` and ``conv``; ``w_in_rec``, ``w_in_gate`` and the MLP's weights
+    their (embed block x model block); the gates whole, read by the
+    chunk's columns), only activations moving. Two runs: a B 1 x S 2560
+    prefill and 4 decode steps from the carried state, and one decode step
+    of decode_32k's 128 rows from a seeded state (fp32 ``h``, ``conv`` in
+    the activation dtype). Every rank's stream of every call against the
+    unsplit layer's (``Block.prefill`` / ``decode``): fp32 within 1e-4 of
+    the largest, bf16 within 5e-2 beside the unsplit bf16 layer's own error
+    against fp32 (the partial products added in bf16, as a bf16 all-reduce
+    adds them); each rank's ``h`` and ``conv`` against that chunk of the
+    unsplit state; the ranks' streams bit-equal; one scan launch a rank a
+    prefill, none in decode; wall ms of each run beside the unsplit run's."""
+    lcfg = dataclasses.replace(cfg, n_layers=1)
+    lm = init_params(lcfg, seed=SEED, device="cuda", dtype=torch.float32)
+    block, model = lm.layers[0], build_model(lcfg)
+    need(block.mixer == "rglru", f"rnn grid: layer 0 of {cfg.name} is {block.mixer}")
+    rules = shd.STRATEGIES["serve_2d"]()
+    B = RNN_GRID_DECODE_B
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    prompt = [torch.randn(1, TP_S, cfg.d_model, generator=g, device="cuda")]
+    prompt += [torch.randn(1, 1, cfg.d_model, generator=g, device="cuda")
+               for _ in range(RNN_GRID_DECODE)]
+    step = [torch.randn(B, 1, cfg.d_model, generator=g, device="cuda")]
+    carried = {"h": torch.randn(B, cfg.rnn_width, generator=g, device="cuda"),
+               "conv": torch.randn(B, cfg.conv_width - 1, cfg.rnn_width, generator=g,
+                                   device="cuda")}
+    runs = {"prefill_and_decode": (1, prompt), "decode_32k_step": (B, step)}
+    positions = torch.arange(TP_S, device="cuda")
+    leaves = ("rglru.w_in_rec", "rglru.w_out", "rglru.conv_w", "rglru.lam", "rglru.gate_a",
+              "mlp.w_up")
+
+    def cache(rows, dtype):
+        c = model.init_cache(rows, 1, dtype)
+        if rows == B:  # the seeded carried state
+            for k, t in carried.items():
+                c["layers"][0][k].copy_(t)
+        return c
+
+    def calls(blk, xs, c, layer):
+        return [blk.prefill(x, positions, c, layer) if x.shape[1] > 1
+                else blk.decode(x, TP_S, c, layer) for x in xs]
+
+    recs, unsplit32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lm.to(dtype)
+        for run, (rows, xs32) in runs.items():
+            xs = [x.to(dtype) for x in xs32]
+            want_c = cache(rows, dtype)["layers"][0]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want = calls(block, xs, want_c, None)
+            torch.cuda.synchronize()
+            want_ms, want_launches = (time.perf_counter() - t0) * 1e3, counts()
+            unsplit32.setdefault(run, [w.float() for w in want])
+            prefills = sum(x.shape[1] > 1 for x in xs)
+
+            def one(blk, layer, c):
+                outs = calls(blk, xs, c["layers"][0], layer)
+                blocks = {n: list(getattr(getattr(blk, n.split(".")[0]), n.split(".")[1]).shape)
+                          for n in leaves}
+                return outs, layer, blocks
+
+            for grid in grids:
+                n_ranks = grid["data"] * grid["model"]
+                width = cfg.rnn_width // n_ranks
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    got, caches = tp.thread_shares(lm, "layers", 0, grid, cache(rows, dtype),
+                                                   one, rules)
+                torch.cuda.synchronize()
+                ms, launches = (time.perf_counter() - t0) * 1e3, counts()
+                layer = got[0][1]
+                state_err = {k: max(rel_err(c["layers"][0][k],
+                                            want_c[k][..., lay.rnn.lo:lay.rnn.hi])
+                                    for (_, lay, _), c in zip(got, caches))
+                             for k in ("h", "conv")}
+                rec = {"case": f"{cfg.name} layer 0 (RG-LRU: {cfg.rnn_width} channels in "
+                               f"{cfg.n_heads} gate blocks; {cfg.mlp_type} d_ff {cfg.d_ff})",
+                       "strategy": "serve_2d", "grid": grid, "run": run,
+                       "dtype": str(dtype)[6:], "rows": rows, "calls": len(xs),
+                       "S": xs[0].shape[1], "channels_a_rank": width,
+                       "gate_block": cfg.rnn_width // cfg.n_heads,
+                       "scan_shape": [1, TP_S, width] if prefills else None,
+                       "rank_blocks": got[0][2], "terms_added_in": str(dtype)[6:],
+                       "rel_err": [max(rel_err(o[i], want[i]) for o, _, _ in got)
+                                   for i in range(len(xs))],
+                       "state_rel_err": state_err,
+                       "tol": TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL,
+                       "ranks_equal": all(torch.equal(a, b) for o, _, _ in got
+                                          for a, b in zip(o, got[0][0])),
+                       "ms": ms, "unsplit_ms": want_ms, "launches": launches,
+                       "launches_unsplit": want_launches}
+                if dtype == torch.bfloat16:
+                    rec["unsplit_vs_fp32"] = max(rel_err(a, b)
+                                                 for a, b in zip(want, unsplit32[run]))
+                    rec["shares_vs_fp32"] = max(rel_err(o[i], unsplit32[run][i])
+                                                for o, _, _ in got for i in range(len(xs)))
+                print("rnn_grid_shares", json.dumps(rec), flush=True)
+                tag = f"rnn grid {grid} {run} ({dtype})"
+                axis = layer.axis
+                need(layer.rglru_block is not None and layer.rnn.hi - layer.rnn.lo == width
+                     and axis.split("layers.0.rglru.w_out").axes == ("data", "model")
+                     and axis.split("layers.0.rglru.gate_a") is None
+                     and axis.stationary("layers.0.rglru.w_in_rec") is not None,
+                     f"{tag}: the chunk {layer.rnn}, blocks {rec['rank_blocks']}")
+                need(launches == launch_counts(rglru=n_ranks * prefills)
+                     and want_launches == launch_counts(rglru=prefills),
+                     f"{tag}: launches {launches}, unsplit {want_launches}")
+                need(rec["ranks_equal"], f"{tag}: the ranks' streams differ")
+                need(all(torch.isfinite(t.float()).all() for o, _, _ in got for t in o),
+                     f"{tag}: non-finite")
+                need(max(rec["rel_err"]) <= rec["tol"]
+                     and max(state_err.values()) <= rec["tol"],
+                     f"{tag}: streams {rec['rel_err']}, state {state_err}")
+                recs.append(rec)
+                del got, caches
+            del want, want_c
+    del lm, unsplit32
+    torch.cuda.empty_cache()
+    return recs
+
+
 def rnn_split_phase():
     """(a) the shares of one full-width RG-LRU layer at 8 and 16 ranks; (b)
-    the 1-rank path's serving and training."""
+    the 1-rank path's serving (under ``fsdp_tp`` and ``serve_2d``) and
+    training; (c) the layer under ``serve_2d`` on the (data x model) grids,
+    every rank a thread."""
     cfg = get_config("recurrentgemma-9b")
     need((cfg.d_model, cfg.rnn_width, cfg.n_heads, cfg.conv_width) == (4096, 4096, 16, 4),
          "recurrentgemma-9b width")
-    return {"shares": rnn_shares(cfg, (8, 16)), "path": rnn_path()}
+    return {"shares": rnn_shares(cfg, (8, 16)), "path": rnn_path(),
+            "grid_shares": rnn_grid_shares(cfg, RNN_GRIDS)}
 
 
 # ---------------------------------------------------------------------------
@@ -5133,6 +5321,13 @@ def main():
                           "decode_launches_sharded"]["rglru_scan"],
                       launches_rnn_split_train_2_steps=rnn_split["path"]["train"]["sharded"][
                           "launches"]["rglru_scan"],
+                      launches_rnn_split_serve_2d_prefill_1_rank=rnn_split["path"]["serve_2d"][
+                          "prefill_launches"]["rglru_scan"],
+                      launches_rnn_split_serve_2d_decode_16_steps=rnn_split["path"][
+                          "serve_2d"]["decode_launches"]["rglru_scan"],
+                      launches_rnn_grid=[
+                          [r["grid"], r["run"], r["dtype"], r["launches"]["rglru_scan"]]
+                          for r in rnn_split["grid_shares"]],
                       bf16_a_fp32_b_ms=lru_mixed["ms"], bf16_a_fp32_b_bound_ms=lru_mixed["bound_ms"],
                       bf16_a_fp32_b_plain_ms=lru_mixed["plain_ms"]),
         kernel_record("wkv6", "cuda", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",

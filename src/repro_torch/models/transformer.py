@@ -186,13 +186,15 @@ class Block(nn.Module):
         """Full sequence; fills ``cache``. ``axis``: the layer's
         ``tensor_parallel.LayerAxis`` in sharded serving, which splits the
         attention, the dense MLP, the RG-LRU's channels (``cache`` then holds
-        the rank's block of the state), the RWKV-6 time mix's heads (the WKV
-        state's block on them) and channel mix's ``d_ff``, and the MoE's
-        experts along ``model``."""
+        the rank's block of the state; under ``serve_2d`` its ``(data,
+        model)`` chunk, with the layer's hook, ``LayerAxis.hook``), the
+        RWKV-6 time mix's heads (the WKV state's block on them) and channel
+        mix's ``d_ff``, and the MoE's experts along ``model``."""
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
-            h = _summed(self.rglru.prefill(_split_in(h, axis, "rglru_sum"), cache), axis,
-                        "rglru_sum")
+            h = _summed(self.rglru.prefill(_split_in(h, axis, "rglru_sum"), cache,
+                                           None if axis is None else axis.hook("rglru")),
+                        axis, "rglru_sum")
         elif self.mixer == "rwkv":
             h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=False,
                                        axis=axis), axis, "tm_sum")
@@ -205,8 +207,9 @@ class Block(nn.Module):
     def decode(self, x, pos: int, cache, axis=None) -> torch.Tensor:
         h = common.apply_norm(self.norm1, x)
         if self.mixer == "rglru":
-            h = _summed(self.rglru.decode(_split_in(h, axis, "rglru_sum"), cache), axis,
-                        "rglru_sum")
+            h = _summed(self.rglru.decode(_split_in(h, axis, "rglru_sum"), cache,
+                                          None if axis is None else axis.hook("rglru")),
+                        axis, "rglru_sum")
         elif self.mixer == "rwkv":
             h = _summed(self._time_mix(_split_in(h, axis, "tm_sum"), cache, carried=True,
                                        axis=axis), axis, "tm_sum")

@@ -49,7 +49,8 @@ every parameter of an LM into a DTensor ``Parameter`` with the placements of
   them) is brought to its ``model`` block and gathered over the other axes
   only -- the RG-LRU's gates, whole at rest, by a local slice, and under
   ``serve_2d`` a leaf laid out over ``(data, model)`` to the contiguous
-  block of ``model`` alone; the RWKV-6 time mix's ``w_v``, rows at rest,
+  block of ``model`` alone (not where serving keeps its chunk, below);
+  the RWKV-6 time mix's ``w_v``, rows at rest,
   by one all-to-all over ``model`` to its columns (not where serving keeps
   its ``embed`` block: it is computed with on its rows), and its ``w_o``,
   ``bonus``, ``decay_b`` and 1-D leaves, whole at rest, by a local
@@ -97,8 +98,9 @@ its own rows, and the model axis splits the compute as in training, and
 the RWKV-6 layers too: the time mix by heads and the channel mix by
 ``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
 its ``model`` block gathered over the other axes only. An LM's attention,
-dense MLP, MoE, RWKV-6 mixers, embedding and head are weight-stationary
-where the rules allow, as the reference's ``serve_2d`` lays them out: a
+dense MLP, MoE, RWKV-6 mixers, RG-LRU, embedding and head are
+weight-stationary where the rules allow, as the reference's ``serve_2d``
+lays them out: a
 weight whose
 ``embed`` dim the resolved spec splits over axes of more than one rank
 that carry none of the batch's rows (``serve_2d``: ``data``, the rows on
@@ -129,10 +131,23 @@ rwkv6-7b's width): its ``embed`` dim is also its heads' dim, which the
 rank needs on ``model``; kept there, the decay's low-rank product would
 have to gather its whole [B, d] output over ``data`` instead, twice the
 bytes at decode_32k's 128 rows.
+An RG-LRU layer serves on its layout at rest where ``rnn`` lays its
+channels out over ``(data, model)`` (``tensor_parallel.ModelAxis._rnn_chunk``):
+``conv_w``, ``conv_b``, ``lam``, ``w_out``'s rows and the state ``h`` and
+``conv`` on the rank's chunk ``d M + m`` of the channels (kept ``Shard`` on
+both axes, so nothing of them moves), ``w_in_rec`` and ``w_in_gate`` on
+their (``embed`` block x ``model`` block), the gates whole; only
+activations move (``RGLRU.prefill`` / ``decode`` with the layer's hook:
+the input products summed over ``data`` and taken to the chunk by one
+all-to-all over ``model``, the gates' input gathered to the chunk's gate
+block where a chunk is narrower than one, ``w_out``'s term summed over
+``data`` and ``model``). Where a chunk straddles a gate block's edge, the
+chunks do not divide the width or ``model`` the gate blocks, the weights
+and the state are gathered to the ``model`` block as below.
 Under ``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and
 the weights are gathered as in training; a ``d_model`` the axes do not
-divide resolves to whole; the RG-LRU's and whisper's weights are still
-gathered over ``data``. The
+divide resolves to whole; whisper's weights are still gathered over
+``data``. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
@@ -140,9 +155,11 @@ merges partial softmaxes over the sequence's axes). A recurrent state is
 brought to this rank's rows -- gathered in decode, fresh in a prefill,
 which overwrites every entry -- and written back to its layout at rest when
 the layer is done, entry by entry: a split RG-LRU layer's ``h`` and
-``conv`` along the rank's block of channels, which under ``fsdp_tp`` is
-where they lie (no entry moves) and under ``serve_2d`` the block gathered
-over ``data``; a split RWKV-6 time mix's ``wkv`` on the rank's heads, which
+``conv`` along the rank's block of channels, which under ``fsdp_tp`` (its
+``model`` block) and under ``serve_2d`` (its ``(data, model)`` chunk) is
+where they lie (no entry moves; under ``serve_2d`` the ``model`` block
+gathered over ``data`` where the chunk form does not apply); a split
+RWKV-6 time mix's ``wkv`` on the rank's heads, which
 under ``fsdp_tp``, ``tp_only`` and ``serve_2d`` is where it lies (the WKV
 kernel writes the new state into the block in place: no entry moves over
 ``model``); the RWKV-6 shifts, and an unsplit layer's state, whole along
@@ -198,9 +215,8 @@ MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
 in place of its gather and reduce-scatter; under ``serve_2d``, partial
-sums over ``data`` for the RG-LRU (its leaves, and its state in place of
-the state's gather over ``data``) and whisper's blocks, whose weights are
-gathered over ``data`` today.
+sums over ``data`` for whisper's blocks, whose weights are gathered over
+``data`` today.
 """
 
 from __future__ import annotations
@@ -396,9 +412,11 @@ class ShardedModel:
         """The ``materialize`` hook of training (and, with no gradient, of
         serving): a weight whose compute splits along ``model`` is brought to
         its ``model`` block (``axis.split``: where it lies, or a slice of a
-        weight whole at rest) and gathered over the other axes, but for the
-        axes of an ``embed`` block that stays where it lies in serving
-        (``axis.stationary``); every other weight is gathered whole. Its
+        weight whole at rest; an RG-LRU leaf that serves on its ``(data,
+        model)`` chunk keeps it, on both axes) and gathered over the other
+        axes, but for the axes of an ``embed`` block that stays where it
+        lies in serving (``axis.stationary``); every other weight is
+        gathered whole. Its
         gradient comes back summed over the batch axes, and over ``model``
         where ``axis.sums_gradient``; the blocks of a weight whole at rest
         are gathered over ``model``. A mesh dim of one rank holds the whole
@@ -411,7 +429,7 @@ class ShardedModel:
             def kept(pl: Placement, n: str, size: int) -> Placement:
                 if size == 1:
                     return pl
-                if split is not None and n == "model":
+                if split is not None and n in split.axes:  # model, or an RG-LRU chunk's
                     return Shard(split.dim)
                 if block is not None and n in block.axes:
                     return Shard(block.dim)
@@ -488,7 +506,7 @@ class ShardedModel:
             split, dim = ((layer.rnn, t.ndim - 1) if key in ("h", "conv")
                           else (layer.tm, 1) if key == "wkv" else (None, None))
             return rows if split is None else tuple(
-                Shard(dim) if n == "model" else r for n, r in zip(names, rows))
+                Shard(dim) if n in split.axes else r for n, r in zip(names, rows))
 
         @contextlib.contextmanager
         def hook(index: int, cache: Dict[str, DTensor]) -> Iterator[Dict[str, torch.Tensor]]:

@@ -176,7 +176,17 @@ block of columns by a masked sum over ``data``), so WKV runs on the
 rank's heads over its state block as before and the channel mix's value
 and receptance meet on one block of columns, whose product is gathered
 over ``model``. ``tm.decay_b`` [lora, d], whose ``embed`` dim is also its
-heads' dim, is the one RWKV-6 weight still gathered over ``data``.
+heads' dim, is the one RWKV-6 weight still gathered over ``data``. An
+RG-LRU layer whose ``rnn`` resolves to ``("data", "model")`` serves on the
+rank's chunk ``d M + m`` of its channels, where ``conv_w``, ``conv_b``,
+``lam``, ``w_out``'s rows and the state lie at rest
+(:meth:`ModelAxis._rnn_chunk`), so no weight and no state entry moves: its
+hook (:meth:`LayerAxis.hook`, :class:`_RnnAxis`) sums ``w_in_rec``'s and
+``w_in_gate``'s partial products over ``data``, takes their ``model`` block
+to the chunk by one all-to-all over ``model``, and gives the gates the
+chunk's columns (their input the chunk's gate block, gathered where a chunk
+is narrower than a block); ``w_out``'s term is summed over ``data`` and
+``model`` (:meth:`LayerAxis.out`).
 
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
@@ -213,10 +223,13 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
 # an LM layer's submodules whose weights keep their ``embed`` block in serving
-STATIONARY_MODULES = ("attn", "mlp", "moe", "tm", "cm")
+STATIONARY_MODULES = ("attn", "mlp", "moe", "rglru", "tm", "cm")
 # the one such weight that moves: the time mix's decay_b [lora, d], whose
 # embed dim is also its heads' dim (the rank's heads cannot stay on data)
 _MOVING_LEAVES = ("tm.decay_b",)
+# the RG-LRU's leaves with an embed block that stays: its two column products'
+# (the others lie on the rank's chunk of the channels, ModelAxis._rnn_chunk)
+_RNN_COLUMNS = ("w_in_rec", "w_in_gate")
 # the row product ending each stationary part, by its LayerAxis sum
 _ROW_LEAVES = {"attn_sum": "wo", "mlp_sum": "w_down"}
 # the RWKV-6 mixers and the dim of each leaf's block
@@ -229,13 +242,15 @@ _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 def _stays(name: str) -> bool:
     """Whether a parameter is one whose ``embed`` block may stay where it
     lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention,
-    dense MLP and MoE weights (the router and the experts), its RWKV-6 time
-    mix's and channel mix's but ``decay_b``, the embedding and the head."""
+    dense MLP and MoE weights (the router and the experts), its RG-LRU's
+    ``w_in_rec`` and ``w_in_gate``, its RWKV-6 time mix's and channel mix's
+    but ``decay_b``, the embedding and the head."""
     parts = name.split(".")
     if len(parts) == 1:
         return name in SPLIT_LEAVES
     return (len(parts) == 4 and parts[0] == "layers" and parts[2] in STATIONARY_MODULES
-            and ".".join(parts[2:]) not in _MOVING_LEAVES)
+            and ".".join(parts[2:]) not in _MOVING_LEAVES
+            and (parts[2] != "rglru" or parts[3] in _RNN_COLUMNS))
 
 
 def splits_compute(name: str) -> bool:
@@ -695,10 +710,12 @@ class ModelAxis:
     then the decoder's, the stream the lookup and the head read;
     :meth:`on` gives the encoder's view. ``weight_stationary`` (serving an
     LM): the ``embed`` blocks of attention's, the dense MLP's, the MoE's,
-    the embedding's and the head's weights stay where they lie where the
-    rules allow (:meth:`stationary`), and the products they enter are
-    summed or gathered over those blocks' axes (:meth:`column`,
-    :meth:`summed`, :meth:`whole`)."""
+    the RWKV-6 mixers', the RG-LRU's input products', the embedding's and
+    the head's weights stay where they lie where the rules allow
+    (:meth:`stationary`), and the products they enter are summed or
+    gathered over those blocks' axes (:meth:`column`, :meth:`summed`,
+    :meth:`whole`); an RG-LRU layer serves on its ``(data, model)`` chunk
+    of the channels where ``rnn`` lays them out so (:meth:`_rnn_chunk`)."""
 
     def __init__(self, mesh: shd.Mesh, rules: Dict[str, shd.MeshAxes],
                  shapes: Mapping[str, Tuple[int, ...]], cache: Optional[Mapping[str, Any]],
@@ -767,17 +784,53 @@ class ModelAxis:
         dim, the gates' ``blocks``): the ``model`` block
         ``[m n/M, (m+1) n/M)``, where the rules split
         ``rnn`` over ``model`` and the axis divides the layer's gate blocks;
-        else None (the layer runs whole). The block is ``model``'s alone,
-        also where ``serve_2d`` lays a leaf out over ``(data, model)``: the
-        weights' gather brings it there (``parallel/fsdp.py``)."""
+        else None (the layer runs whole). Where the layer lies on the rank's
+        ``(data, model)`` chunk of the channels (:meth:`_rnn_chunk`: serving
+        under ``serve_2d``), ``conv_w``'s, ``conv_b``'s and ``lam``'s block
+        and ``w_out``'s rows are that chunk, where they lie at rest; the
+        gates, whole at rest, are None (the layer's hook reads the chunk's
+        columns, ``_RnnAxis.gates``); ``w_in_rec`` and ``w_in_gate`` keep
+        their ``model`` block of columns (and their ``embed`` block,
+        :meth:`stationary`). Elsewhere the block is ``model``'s alone, also
+        where ``serve_2d`` lays a leaf out over ``(data, model)`` and the
+        chunk form does not apply: the weights' gather brings it there
+        (``parallel/fsdp.py``)."""
         M = self.sizes.get("model")
-        n_blocks = self.shapes[name.rsplit(".", 1)[0] + ".gate_a"][0]
+        prefix, leaf = name.rsplit(".", 1)
+        n_blocks = self.shapes[prefix + ".gate_a"][0]
         if M is None or "model" not in shd._axes(self.rules.get("rnn")) or n_blocks % M:
             return None
-        logical = shd.logical_for_leaf(name.rsplit(".", 1)[-1], len(shape))
+        logical = shd.logical_for_leaf(leaf, len(shape))
         dim = next(i for i, a in enumerate(logical) if a in ("rnn", "blocks"))
+        chunk = self._rnn_chunk(prefix)
+        if chunk is not None and leaf not in _RNN_COLUMNS:
+            return None if logical[dim] == "blocks" else chunk._replace(dim=dim)
         step, m = shape[dim] // M, self.coord["model"]
         return shd.Split(dim, ("model",), m * step, (m + 1) * step)
+
+    def _rnn_chunk(self, prefix: str) -> Optional[shd.Split]:
+        """The rank's chunk of the channels of the RG-LRU layer ``prefix``
+        (``layers.{i}.rglru``) where it serves on its layout at rest: under
+        ``weight_stationary``, where ``rnn`` resolves to ``("data",
+        "model")`` for the layer's width w (``serve_2d``: ``conv_w``,
+        ``conv_b``, ``lam``, ``w_out``'s rows and the state ``h`` and
+        ``conv``), chunk ``c = d M + m`` of the ``D M``, row-major:
+        ``Split(0, ("data", "model"), c w/DM, (c+1) w/DM)``. None (the
+        gathered path, on the ``model`` block) where ``data`` holds one rank
+        or the batch's rows, where ``D M`` does not divide w (the resolver
+        then drops ``model``), where ``model`` does not divide the gate
+        blocks, or where a chunk straddles a gate block's edge (neither of
+        the chunk's and the block's widths a multiple of the other)."""
+        if not self.weight_stationary or "data" in self.row_axes:
+            return None
+        w, n_blocks = self.shapes[prefix + ".lam"][0], self.shapes[prefix + ".gate_a"][0]
+        spec = shd.resolve_spec(self.mesh, self.rules, shd.logical_for_leaf("lam", 1), (w,))
+        if shd._axes(spec[0]) != ("data", "model") or self.sizes["data"] == 1:
+            return None
+        n = self.sizes["data"] * self.sizes["model"]
+        if n_blocks % self.sizes["model"] or (n % n_blocks and n_blocks % n):
+            return None
+        return shd.dim_split(self.mesh, spec, 0, (w,), self.coord)
 
     def _rwkv_split(self, name: str, shape: Tuple[int, ...]) -> Optional[shd.Split]:
         """An RWKV-6 leaf's ``model`` block, in serving and in training: the
@@ -821,14 +874,16 @@ class ModelAxis:
         of parameter ``name`` (``sharding.embed_split``) that stays where it
         lies, as the reference's ``serve_2d`` keeps it: for attention's, the
         dense MLP's, the MoE's and the RWKV-6 mixers' weights (but
-        ``tm.decay_b``) of the LM's layers, the embedding and the head, where
-        the resolved spec splits that dim over axes that hold more than one
-        rank, none of them an axis the batch's rows split over
-        (``serve_2d``'s ``data``; under ``fsdp_tp`` the rows lie on it), and,
-        for an RWKV-6 mixer's weight, where the mixer splits along ``model``
-        (the time mix's heads, the channel mix's ``d_ff``). Else None: the
-        weight is gathered over those axes (a ``d_model`` they do not divide
-        resolves to whole), as in training."""
+        ``tm.decay_b``) and the RG-LRU's ``w_in_rec`` and ``w_in_gate`` of the
+        LM's layers, the embedding and the head, where the resolved spec
+        splits that dim over axes that hold more than one rank, none of them
+        an axis the batch's rows split over (``serve_2d``'s ``data``; under
+        ``fsdp_tp`` the rows lie on it); for an RWKV-6 mixer's weight, where
+        the mixer splits along ``model`` (the time mix's heads, the channel
+        mix's ``d_ff``); for an RG-LRU weight, where the layer serves on its
+        chunk of the channels (:meth:`_rnn_chunk`). Else None: the weight is
+        gathered over those axes (a ``d_model`` they do not divide resolves
+        to whole), as in training."""
         shape = self.shapes.get(name)
         if not self.weight_stationary or shape is None or not _stays(name):
             return None
@@ -837,7 +892,9 @@ class ModelAxis:
             block = shd.embed_split(self.mesh, self.rules, name, shape, self.coord)
             if block is not None and (math.prod(self.sizes[a] for a in block.axes) == 1
                                       or any(a in self.row_axes for a in block.axes)
-                                      or self._rwkv_whole(name)):
+                                      or self._rwkv_whole(name)
+                                      or (".rglru." in name
+                                          and self._rnn_chunk(name.rsplit(".", 1)[0]) is None)):
                 block = None
             self._memo[key] = block
         return self._memo[key]
@@ -1072,6 +1129,63 @@ class _ModuleAxis:
         return self.axis.row(x, w, self.prefix + leaf)
 
 
+class _RnnAxis(_ModuleAxis):
+    """An RG-LRU layer's hook where it serves on the rank's ``(data, model)``
+    chunk of its channels (``ModelAxis._rnn_chunk``; ``RGLRU.prefill`` and
+    ``decode`` take it): the input products' ``model`` block taken to the
+    chunk (:meth:`own`) and the gates' columns of the chunk (:meth:`gates`);
+    ``column``, ``columns`` and ``summed`` as the other modules'."""
+
+    def __init__(self, axis: ModelAxis, prefix: str, chunk: shd.Split):
+        super().__init__(axis, prefix)
+        self.chunk = chunk
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """The ``model`` block [..., w/M] of the input products (the gate
+        branch and the recurrent input stacked along dim 0), as the sum over
+        ``data`` leaves it on every rank of model index m -> the rank's chunk
+        [..., w/DM]. Chunk ``c = d M + j`` lies in ``model`` block ``c // D``,
+        so rank j of the ``model`` group takes it from that group's rank: one
+        all-to-all over ``model`` of [M, ..., w/DM], block j the chunk rank j
+        needs from this rank, zeros where it needs none (w/D columns a row
+        sent, where an all-gather of the blocks and a slice would take w)."""
+        sizes, coord = self.axis.sizes, self.axis.coord
+        D, M, d, m = sizes["data"], sizes["model"], coord["data"], coord["model"]
+        n = self.chunk.hi - self.chunk.lo
+        send = t.new_zeros((M,) + t.shape[:-1] + (n,))
+        for j in range(M):
+            c = d * M + j
+            if c // D == m:
+                send[j] = t[..., c % D * n:(c % D + 1) * n]
+        return self.axis.comm.all_to_all(send, "model")[(d * M + m) // D]
+
+    def gates(self, u: torch.Tensor, weights: Tuple[torch.Tensor, ...]
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """The block-diagonal gates' input and weights (``gate_a``,
+        ``gate_a_b``, ``gate_x``, ``gate_x_b``, whole at rest: local views)
+        for the rank's chunk of the channels, u [..., w/DM] the conv'd chunk:
+        where the chunk spans whole gate blocks, u and its blocks (nothing
+        moves); else the chunk's columns of its gate block, whose input is
+        the block's channels: u all-gathered over ``model`` (the block lies
+        in the ``model`` group's w/D channels where M chunks span whole
+        blocks), and over ``data`` too where it does not (every rank takes
+        the same collectives)."""
+        lo, hi = self.chunk.lo, self.chunk.hi
+        bw = weights[0].shape[1]
+        if hi - lo >= bw:
+            return u, tuple(w[lo // bw:hi // bw] for w in weights)
+        M = self.axis.sizes["model"]
+        x = self.axis.comm.all_gather(u, u.ndim - 1, "model")
+        base = self.axis.coord["data"] * M * (hi - lo)  # the group's first channel
+        if M * (hi - lo) % bw:
+            x, base = self.axis.comm.all_gather(x, x.ndim - 1, "data"), 0
+        b = lo // bw
+        cols = slice(lo - b * bw, hi - b * bw)
+        ga, gab, gx, gxb = weights
+        return x[..., b * bw - base:(b + 1) * bw - base], (
+            ga[b:b + 1, :, cols], gab[b:b + 1, cols], gx[b:b + 1, :, cols], gxb[b:b + 1, cols])
+
+
 class LayerAxis:
     """A layer's split: whether attention, the MLP, the RG-LRU, the RWKV-6
     time mix and channel mix and the MoE end in a sum over ``model``, the
@@ -1096,6 +1210,8 @@ class LayerAxis:
         self.mlp_sum = axis.split(pre + "mlp.w_down") is not None
         self.rnn = axis.split(pre + "rglru.lam")  # the rank's channels, or None: all
         self.rglru_sum = self.rnn is not None
+        # serving: the (data, model) chunk of channels the RG-LRU serves on, or None
+        self.rglru_block = None if self.rnn is None or self.rnn.axes == ("model",) else self.rnn
         self.tm = axis.split(pre + "tm.bonus")  # the rank's RWKV-6 heads, or None: all
         self.tm_sum = self.tm is not None
         self.cm = axis.split(pre + "cm.w_v")    # its channel mix's d_ff block, or None
@@ -1138,9 +1254,14 @@ class LayerAxis:
     def hook(self, module: str) -> Optional[_ModuleAxis]:
         """The weight-stationary hook of the layer's ``module`` (``moe``,
         ``tm``, ``cm``) where its weights keep their ``embed`` block
-        (``moe_block``, ``tm_block``, ``cm_block``), else None."""
-        if getattr(self, module + "_block") is None:
+        (``moe_block``, ``tm_block``, ``cm_block``), or of its ``rglru``
+        where it serves on its chunk of the channels (``rglru_block``:
+        :class:`_RnnAxis`), else None."""
+        block = getattr(self, module + "_block")
+        if block is None:
             return None
+        if module == "rglru":
+            return _RnnAxis(self.axis, f"{self._pre}{module}.", block)
         return _ModuleAxis(self.axis, f"{self._pre}{module}.")
 
     def column(self, x: torch.Tensor, w: torch.Tensor, leaf: str) -> torch.Tensor:
@@ -1157,9 +1278,13 @@ class LayerAxis:
         positions of it (:meth:`ModelAxis.own`); then, where the part's row
         weight (attention's ``wo``, the MLP's ``w_down``) keeps its ``embed``
         block, the rank's block of columns gathered to the whole stream
-        (:meth:`ModelAxis.whole`)."""
+        (:meth:`ModelAxis.whole`); where the RG-LRU serves on its chunk of
+        the channels (``rglru_block``), the product with ``w_out``'s rows of
+        the chunk is summed over the chunk's other axes (``data``) too."""
         axis = self.axis
         h = axis.from_split(h) if which and getattr(self, which) else axis.own(h)
+        if which == "rglru_sum" and self.rglru_block is not None:
+            h = _sum_over(h, axis.comm, tuple(a for a in self.rglru_block.axes if a != "model"))
         row = _ROW_LEAVES.get(which)
         return h if row is None else axis.whole(h, self._name(row))
 
@@ -1364,9 +1489,9 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
     state-dict name -- a view, so a gradient reaches the whole weight --, its
     block of the cache). The rules are ``rules`` (default ``fsdp_tp``'s)
     with the cache's sequence whole, so the cache splits its heads as the
-    weights do (an RG-LRU state: the rank's channels; an RWKV-6 layer's: a
-    copy a rank, the WKV state the block of its heads where the time mix
-    splits, the shifts whole) and no collective but
+    weights do (an RG-LRU state: a copy a rank, of the rank's channels; an
+    RWKV-6 layer's: a copy a rank, the WKV state the block of its heads
+    where the time mix splits, the shifts whole) and no collective but
     the final sums is needed: each output
     that ends in a sum over ``model`` is this rank's term of it, and so is
     the input gradient of each ``to_split``. ``seq_len`` (training): the
@@ -1387,9 +1512,11 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
     LM served with a cache keeps its weights' ``embed`` blocks where
     the rules allow (:meth:`ModelAxis.stationary`): the rank's block of
     such a weight is its ``(embed block x model block)`` (the time mix's
-    ``w_v``: its ``model`` block of rows x its embed block of columns); an
-    RWKV-6 layer's state copy holds the rank's rows. Sums over an axis but
-    ``model`` need the threads."""
+    ``w_v``: its ``model`` block of rows x its embed block of columns); a
+    recurrent state's copy holds the rank's rows, and an RG-LRU layer that
+    serves on its ``(data, model)`` chunk of the channels
+    (``ModelAxis._rnn_chunk``) holds that chunk of its leaves and state. Sums
+    over an axis but ``model`` need the threads."""
     rules = rules or shd.STRATEGIES["fsdp_tp"]()
     if comm is None:
         rules = {**rules, "seq_cache": None}
@@ -1437,8 +1564,8 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
                                else t[rows, heads.lo:heads.hi]).clone() for k, t in c.items()})
             continue
         rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
-        layers.append(c if rnn is None else
-                      {k: t[..., rnn.lo:rnn.hi].clone() for k, t in c.items()})
+        cols = slice(None) if rnn is None else slice(rnn.lo, rnn.hi)
+        layers.append({k: t[rows][..., cols].clone() for k, t in c.items()})
     return axis, params, {key: layers, "pos": cache["pos"]}
 
 

@@ -26,8 +26,18 @@ to the unsplit one's; and a reduced one-layer rwkv6-7b (d 64, 4 heads of
 16, ``d_ff`` 128), each rank computing with its (embed block x model
 block) of the mixers' weights (``w_v``: its model block of rows x embed
 block of columns), its WKV state block on its heads and its shifts equal
-to the unsplit ones. Where ``data`` does not divide ``d_model``, and under
-``fsdp_tp`` (the rows lie on ``data``), the weights are gathered as in
+to the unsplit ones; and a reduced one-layer recurrentgemma-9b RG-LRU
+layer (d 64, width 64 in 4 gate blocks of 16; also 8 of 8 and 2 of 32),
+each rank computing on its (data, model) chunk of the channels
+(``conv_w``, ``conv_b``, ``lam``, ``w_out``'s rows and its state ``h`` and
+``conv`` there, as at rest; ``w_in_rec`` and ``w_in_gate`` on their (embed
+block x model block)): a chunk a block, half a block, two blocks, or, on a
+third grid (data 4 x model 2), a quarter of a block that spans two model
+groups; a width the D M chunks do not divide, a chunk straddling a block's
+edge and ``fsdp_tp`` on the gathered ``model`` block; its state chunk
+equal to that chunk of the unsplit state. Where ``data`` does not divide
+``d_model``, and under ``fsdp_tp`` (the rows lie on ``data``), the
+weights are gathered as in
 training: no block stays, and the rank computes with whole ``embed`` dims.
 
 Part (ii), the dry run's trace: a decode step of reduced internvl2-76b
@@ -41,7 +51,10 @@ moved before. The same step of reduced qwen3-moe moves no expert or router
 block over ``data``: beside the attention's activations, the router's
 logits and the experts' stacked partial pre-activations are summed, and
 the MoE's block of columns is gathered. A reduced rwkv6-7b step moves no
-mixer weight over ``data`` but ``tm.decay_b`` and takes no all-to-all.
+mixer weight over ``data`` but ``tm.decay_b`` and takes no all-to-all. A
+reduced recurrentgemma-9b step moves no RG-LRU weight or state entry: its
+input products are summed over ``data`` and taken to the rank's chunk by
+one all-to-all over ``model``, its output summed over both axes.
 
 The gloo ranks against the JAX reference are
 ``tests/test_torch_tp_serve.py``'s ``serve_2d_data_model`` mesh.
@@ -85,8 +98,11 @@ STATIONARY = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk
               "layers.0.moe.w_down": 2,
               "layers.0.tm.w_r": 0, "layers.0.tm.w_k": 0, "layers.0.tm.w_g": 0,
               "layers.0.tm.decay_a": 0, "layers.0.tm.w_v": 1, "layers.0.tm.decay_b": None,
-              "layers.0.cm.w_k": 0, "layers.0.cm.w_r": 0, "layers.0.cm.w_v": 1}
+              "layers.0.cm.w_k": 0, "layers.0.cm.w_r": 0, "layers.0.cm.w_v": 1,
+              "layers.0.rglru.w_in_rec": 0, "layers.0.rglru.w_in_gate": 0,
+              "layers.0.rglru.w_out": None}
 QWEN, PHI, RWKV = "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"
+RG = "recurrentgemma-9b"
 
 GRID_CASES = {
     "mha": dict(n_heads=4, n_kv_heads=4),
@@ -120,8 +136,26 @@ GRID_CASES = {
     # its weights are gathered over data; the channel mix's blocks stay
     "rwkv6_2_heads": dict(arch=RWKV, rwkv_head_dim=32),
     "rwkv6_fsdp_tp": dict(arch=RWKV, strategy="fsdp_tp"),
+    # the RG-LRU (d 64, width 64, 4 gate blocks of 16) on the rank's (data,
+    # model) chunk of the channels: a block at data2_model2, half a block at
+    # data2_model4
+    "rglru": dict(arch=RG),
+    # 8 gate blocks of 8: a chunk spans two at data2_model2, one at data2_model4
+    "rglru_8_blocks": dict(arch=RG, n_heads=8),
+    # width 36 (4 blocks of 9): data2_model4's 8 chunks do not divide it (the
+    # model block, gathered, as before); at data2_model2 a chunk is a block
+    "rglru_width_does_not_divide": dict(arch=RG, rnn_width=36),
+    # width 48, 6 blocks of 8: a chunk of 12 straddles a block's edge at
+    # data2_model2 (gathered); model 4 does not divide 6 blocks (the layer whole)
+    "rglru_chunk_straddles": dict(arch=RG, rnn_width=48, n_heads=6),
+    "rglru_fsdp_tp": dict(arch=RG, strategy="fsdp_tp"),
+    # 2 gate blocks of 32: on data4_model2 a block holds 4 chunks of 8, two
+    # model groups' (the chunks gathered over model, then over data)
+    "rglru_2_blocks": dict(arch=RG, n_heads=2),
 }
 GRIDS = {"data2_model2": {"data": 2, "model": 2}, "data2_model4": {"data": 2, "model": 4}}
+# a grid for the one case that needs it
+EXTRA_GRIDS = {"rglru_2_blocks": {"data4_model2": {"data": 4, "model": 2}}}
 B, S, L, DECODE_STEPS = 4, 12, 16, 3
 
 
@@ -133,15 +167,15 @@ def _rows(axis):
     return slice(index * B // n, (index + 1) * B // n)
 
 
-@pytest.mark.parametrize("grid", sorted(GRIDS))
-@pytest.mark.parametrize("case", sorted(GRID_CASES))
+@pytest.mark.parametrize("case, grid", [(c, g) for c in sorted(GRID_CASES) for g in sorted(GRIDS)]
+                         + [(c, g) for c, grids in EXTRA_GRIDS.items() for g in grids])
 def test_grid_ranks_equal_the_unsplit_lm(case, grid):
     kw = dict(GRID_CASES[case])
     strategy = kw.pop("strategy", "serve_2d")
     arch = kw.pop("arch", None)
     base = _BASE if arch is None else dataclasses.replace(ARCHS[arch].reduced(), n_layers=1)
     cfg = dataclasses.replace(base, **kw)
-    sizes = GRIDS[grid]
+    sizes = {**GRIDS, **EXTRA_GRIDS.get(case, {})}[grid]
     D, M = sizes["data"], sizes["model"]
     lm = _seeded_lm(cfg)
     model = build_model(cfg, device="cpu")
@@ -176,9 +210,14 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
     stays = strategy == "serve_2d" and cfg.d_model % D == 0
     width = cfg.d_model // D if stays else cfg.d_model
     assert len(want_routes) == (1 + DECODE_STEPS if cfg.is_moe else 0)
-    rwkv = cfg.mixer_pattern[0] == "rwkv"
+    rwkv, rglru = (cfg.mixer_pattern[0] == k for k in ("rwkv", "rglru"))
     # the time mix keeps its blocks only on the rank's heads
     tm_splits = rwkv and (cfg.d_model // cfg.rwkv_head_dim) % M == 0
+    # the RG-LRU serves on its (data, model) chunk where D M divides the width,
+    # M the gate blocks, and a chunk and a block do not straddle
+    w, nb, n = cfg.rnn_width, cfg.n_heads, D * M
+    chunked = (rglru and strategy == "serve_2d" and w % n == 0 and nb % M == 0
+               and (n % nb == 0 or nb % n == 0))
     for r, (outs, axis, c, routes) in enumerate(got):
         d, m = r // M, r % M
         assert axis.coord == {"data": d, "model": m}
@@ -186,7 +225,8 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
         for name, dim in STATIONARY.items():
             block = axis.stationary(name)
             keeps = (stays and dim is not None and name in axis.shapes
-                     and (tm_splits or ".tm." not in name))
+                     and (tm_splits or ".tm." not in name)
+                     and (chunked or ".rglru." not in name))
             assert block == (shd.Split(dim, ("data",), d * width, (d + 1) * width)
                              if keeps else None), name
         rows = _rows(axis)
@@ -207,6 +247,21 @@ def test_grid_ranks_equal_the_unsplit_lm(case, grid):
             _rel_close(c["wkv"], want_c["wkv"][rows, heads.lo:heads.hi])
             for k in ("tm_shift", "cm_shift"):
                 _rel_close(c[k], want_c[k][rows])
+            continue
+        if rglru:  # the state's (data, model) chunk, else its model block, or whole
+            layer, c_index = axis.layer(0), d * M + m
+            chunk = shd.Split(0, ("data", "model"), c_index * w // n, (c_index + 1) * w // n)
+            block = shd.Split(0, ("model",), m * w // M, (m + 1) * w // M)
+            assert layer.rnn == (chunk if chunked else block if nb % M == 0 else None)
+            assert layer.rglru_block == (chunk if chunked else None)
+            if chunked:  # w_out's rows and the conv's taps lie on the chunk; the gates whole
+                assert axis.split("layers.0.rglru.w_out") == chunk
+                assert axis.split("layers.0.rglru.conv_w") == chunk._replace(dim=1)
+                assert axis.split("layers.0.rglru.gate_a") is None
+                assert axis.split("layers.0.rglru.w_in_rec") == block._replace(dim=1)
+            sel = slice(None) if layer.rnn is None else slice(layer.rnn.lo, layer.rnn.hi)
+            _rel_close(c["h"], want_c["h"][rows, sel])
+            _rel_close(c["conv"], want_c["conv"][rows][..., sel])
             continue
         heads = axis.layer(0).q  # the rank's query heads (all split at M 2 and 4 here)
         assert heads is not None and heads.hi - heads.lo == cfg.n_heads // M
@@ -418,6 +473,53 @@ def test_a_rwkv_decode_step_moves_no_weight_block_over_data():
     assert sorted(over_model) == sorted([("all-reduce", block)] + per_layer * cfg.n_layers)
     weight_block = d * (d // M) * bf16  # the smallest the parent gathered: [d, d/2]
     assert sorted(b for _, b in over_data if b >= weight_block) == [lora * d * bf16] * 2
+
+
+def test_a_rglru_decode_step_moves_no_weight_or_state_over_data():
+    """Reduced recurrentgemma-9b (8 layers: 6 RG-LRU of width 64 in 4 gate
+    blocks of 16, 2 local attention with 4/1 heads of 16; d 64, d_ff 128,
+    vocab 512, tied) under ``serve_2d`` on (data 2, model 2), 2 rows, bf16:
+    every collective of a decode step, byte for byte. An RG-LRU layer
+    serves on the rank's chunk of 16 channels (one gate block): over
+    ``data`` (ranks 0 and 2) the sum of ``w_in_gate``'s and ``w_in_rec``'s
+    stacked partial products on the rank's ``model`` block [2, 2, 1, 32]
+    and of ``w_out``'s term [2, 1, d]; over ``model`` (ranks 0 and 1) the
+    all-to-all that takes the ``model`` block to each rank's chunk [M, 2, 2,
+    1, 16] and the sum of ``w_out``'s term. The rest is the attention's,
+    the MLP's, the lookup's and the head's, as for internvl2-76b above. The
+    parent gathered ``w_in_rec``'s and ``w_in_gate``'s ``model`` blocks
+    [d, 32], ``w_out`` whole and the state's chunks over ``data`` each
+    step; byte for byte, none of them moves now, and no collective is as
+    large as a rank's block of ``w_in_rec`` [d/2, 32] or ``w_out``'s rows
+    [16, d] (the 1-D leaves' and the state's chunks at 2 rows are smaller
+    than the stream, so the pin above is what rules them out)."""
+    cfg = ARCHS[RG].reduced()
+    kinds = [cfg.mixer_pattern[i % 3] for i in range(cfg.n_layers)]
+    assert (kinds.count("rglru"), kinds.count("attn_local")) == (6, 2)
+    assert (cfg.d_model, cfg.rnn_width, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.tie_embeddings) == (64, 64, 4, 1, 16, 128, 512, True)
+    rows, d, w, bf16, fp32, D, M = 2, cfg.d_model, cfg.rnn_width, 2, 4, 2, 2
+    ops = _decode_ops(cfg, "serve_2d", rows)
+    assert {op.ranks for op in ops} == {(0, 1), (0, 2)}
+    over_data = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 2)]
+    over_model = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 1)]
+    stream, block = rows * d * bf16, rows * d // D * bf16
+    mlp = [("all-reduce", rows * cfg.d_ff // M * bf16)] * 2 + [("all-gather", stream)]
+    attn = [("all-reduce", rows * n * bf16) for n in (cfg.n_heads // M * 16, 16, 16)]
+    attn += [("all-gather", stream), ("all-reduce", rows * cfg.n_heads * fp32),
+             ("all-reduce", rows * cfg.n_heads * (cfg.head_dim + 1) * fp32)]
+    rglru = [("all-reduce", 2 * rows * w // M * bf16), ("all-reduce", stream)]
+    want = [("all-gather", stream), ("all-reduce", rows * cfg.vocab_size // M * bf16)]
+    want += (mlp + rglru) * 6 + (mlp + attn) * 2
+    assert sorted(over_data) == sorted(want)
+    rglru = [("all-to-all", M * 2 * rows * w // (D * M) * bf16), ("all-reduce", stream)]
+    attn = [("all-gather", rows * cfg.n_heads * cfg.head_dim * bf16),
+            ("all-reduce", rows * cfg.n_heads * fp32),
+            ("all-reduce", rows * cfg.n_heads * (cfg.head_dim + 1) * fp32)]
+    want = [("all-reduce", block)] * (1 + cfg.n_layers + 2) + rglru * 6 + attn * 2
+    assert sorted(over_model) == sorted(want)
+    w_in_block, w_out_rows = d // D * w // M * bf16, w // (D * M) * d * bf16
+    assert max(b for _, b in over_data + over_model) < min(w_in_block, w_out_rows)
 
 
 def test_fsdp_tp_gathers_the_weights_over_data():

@@ -39,7 +39,9 @@ experts, their term summed over ``model``), rwkv6-7b (the time mix on the
 rank's heads, the channel mix on its ``d_ff`` block),
 against ``repro.models``' single-process prefill and decode: logits to 2e-4
 in fp32 (``test_torch_models.LOGIT_TOL``), greedy tokens equal; the
-RG-LRU weight a rank computes with holds its w/M channels, the time
+RG-LRU weight a rank computes with holds its w/M channels (under
+``serve_2d`` on (data 2, model 2): ``w_in_rec`` its block at rest, ``w_out``
+the rows of the rank's (data, model) chunk, as at rest), the time
 mix's ``w_v`` its heads' d/M columns, though it lies on its rows at rest,
 and under ``serve_2d`` on (data 2, model 2) internvl2-76b's attention,
 MLP, embedding and head weights their ``embed`` block on ``data``, as at
@@ -374,12 +376,22 @@ for name, cfg, np_params, batch in cases:
             result[name]["computed_with"] = {
                 n: (tuple(p.to_local().shape), tuple(model._weights(axis, ())(n, p).shape))
                 for n, p in lm.named_parameters() if n in STATIONARY[name]}
-    if cfg.mixer_pattern[0] == "rglru":  # layer 0's w_in_rec at rest and computed with
-        w = lm.layers[0].rglru.w_in_rec
-        axis = model.model_axis(lm, cache, (), 4)
-        with torch.no_grad():
-            used = model._weights(axis, ())("layers.0.rglru.w_in_rec", w)
-        result[name]["w_in_rec"] = (tuple(w.to_local().shape), tuple(used.shape))
+    if cfg.mixer_pattern[0] == "rglru":  # layer 0's w_in_rec and w_out at rest and as served
+        axis = model.model_axis(lm, cache, model._row_axes((4, 1)), 4, stationary=True)
+        for leaf in ("w_in_rec", "w_out"):
+            w = lm.layers[0].rglru.get_parameter(leaf)
+            split = axis.split("layers.0.rglru." + leaf)
+            with torch.no_grad():
+                used = model._weights(axis, ())("layers.0.rglru." + leaf, w)
+                whole = w.full_tensor()  # the same block of the whole weight
+                for sp in (split, axis.stationary("layers.0.rglru." + leaf)):
+                    if sp is not None:
+                        whole = whole.narrow(sp.dim, sp.lo, sp.hi - sp.lo)
+            result[name][leaf] = (tuple(w.to_local().shape), tuple(used.shape),
+                                  (split.dim, split.axes, split.lo, split.hi),
+                                  bool(torch.equal(used, whole)),
+                                  used.shape == w.to_local().shape
+                                  and bool(torch.equal(used, w.to_local())))
     if cfg.mixer_pattern[0] == "rwkv":  # layer 0's time-mix w_v at rest and computed with
         w = lm.layers[0].tm.w_v
         axis = model.model_axis(lm, cache, (), 4)
@@ -465,19 +477,35 @@ def test_sharded_prefill_and_greedy_decode_equal_the_reference(ranks, name):
 
 
 def test_a_ranks_rglru_weight_holds_its_channels(ranks):
-    """recurrentgemma-9b's 4 gate blocks split over model 2 and 4: the
-    w_in_rec a rank computes with is [d, w/M], its ``model`` block of
-    columns, and so is its block at rest (over ``data`` too where ``embed``
-    takes it)."""
+    """recurrentgemma-9b's 4 gate blocks split over model 2 and 4, as each
+    rank serves: the w_in_rec it computes with is its ``model`` block of
+    columns of the whole [d, w/M], gathered over ``data`` where ``embed``
+    takes it at rest (``fsdp_tp``; without a ``data`` axis it lies so), but
+    under ``serve_2d`` on (data 2, model 2) its block at rest [d/2, w/2],
+    the ``embed`` dim on ``data``;
+    ``w_out``'s rows are its ``model`` block [w/M, d], but there its chunk
+    ``d M + m`` of the (data, model) chunks [w/4, d], as at rest (no weight
+    of the layer moves)."""
     mesh, results = ranks
-    _, shape, axes = MESHES[mesh]
+    strategy, shape, axes = MESHES[mesh]
     sizes = dict(zip(axes, shape))
+    D, M = sizes.get("data", 1), sizes["model"]
+    chunked = strategy == "serve_2d" and D > 1
     cfg = ARCHS["recurrentgemma-9b"].reduced()
-    d, w = cfg.d_model, cfg.rnn_width // sizes["model"]
-    for res in results:
-        at_rest, used = res["recurrentgemma-9b"]["w_in_rec"]
-        assert used == (d, w)
-        assert at_rest == (d // sizes.get("data", 1), w)
+    d, w = cfg.d_model, cfg.rnn_width
+    for rank, res in enumerate(results):
+        at_rest, used, split, whole_block, as_at_rest = res["recurrentgemma-9b"]["w_in_rec"]
+        m = rank % M  # model is the last mesh axis
+        assert used == (d // D if chunked else d, w // M) and whole_block
+        assert split == (1, ("model",), m * w // M, (m + 1) * w // M)
+        assert at_rest == (d // D, w // M)
+        assert as_at_rest == (chunked or strategy != "fsdp_tp")
+        at_rest, used, split, whole_block, as_at_rest = res["recurrentgemma-9b"]["w_out"]
+        n, c = (D * M, rank) if chunked else (M, m)  # rank = d M + m
+        assert used == (w // n, d) and whole_block
+        assert split == (0, ("data", "model") if chunked else ("model",),
+                         c * w // n, (c + 1) * w // n)
+        assert as_at_rest == (chunked or strategy != "fsdp_tp")
 
 
 @pytest.mark.parametrize("model", sorted(STATIONARY_BLOCKS))
