@@ -351,7 +351,21 @@ calls, and fails (exit code not 0, no result line) on any miss:
               tokens equal (a flip reported with its top-2 margin), 24
               tensor-core flash launches an encode and none a decode step
               on both sides, encode ms and decode ms a step (wall and CUDA
-              events) of both. The kernels phase times flash at one rank's
+              events) of both; then the same mesh under ``serve_2d``: the
+              encode and 17 greedy decode calls, tokens equal to the
+              ``fsdp_tp`` path's; (d) ``serve_2d``'s weight-stationary
+              whisper on (data 2 x model 8) and (data 4 x model 4) in
+              threads (``thread_shares`` on the whole model): one
+              full-width encoder block and one decoder block with the
+              embedding and the tied head, fp32 then bf16, each rank from
+              its (embed block x model block) of each weight but the
+              cross-attention's ``wk`` and ``wv``: an encode of B 1 x 1500
+              frames, then 4 decode steps over its block of a seeded
+              448-slot self cache; every rank's memory, streams, logits and
+              cache block against the unsplit model's (fp32 1e-4, bf16
+              5e-2), ranks bit-equal, one flash launch a rank an encode and
+              none in decode (``whisper_serve_grid_shares`` lines, with the
+              seconds of each grid). The kernels phase times flash at one rank's
               encode shape: B 4 x 1500 frames, 4/4 and 1/1 heads, D 64, bf16;
  11. train_lm ``repro_torch.launch.train_lm --steps 60`` (nemo-100m, fp32):
               finite losses, the last logged below the first.
@@ -1603,6 +1617,12 @@ def whisper_tp_train_phase():
 # (b) the 1-rank path: the memory and every call's logits within 1e-3 of the
 # unsharded ones' largest, 64 decode steps
 WHISPER_SERVE_SHARE_STEPS, WHISPER_SERVE_PATH_TOL = 16, 1e-3
+# (b) the same mesh under serve_2d: 16 greedy decode calls after the first
+WHISPER_SERVE_2D_STEPS = 16
+# (d) serve_2d's grids in threads: an encode of B 1 x 1500 frames, then 4 decode
+# steps from position 26 of a seeded 448-slot self cache (28 positions a rank
+# of 16: the steps cross a rank's block)
+WHISPER_GRID_START, WHISPER_GRID_STEPS = 26, 4
 # (a) the encode in the sequence form: (W, frames); 1500 frames (30 s of
 # audio) split at 4 ranks and stay whole at 16, train_4k's 4096 split at 16
 WHISPER_ENCODE_SEQ_SETTINGS = ((4, WHISPER_T), (16, WHISPER_T), (16, 4096))
@@ -1864,11 +1884,13 @@ def split_memory_decode(case, model, cache, steps_in, memory, W, dtype, tol, uns
     return rec
 
 
-def whisper_serve_replay(model, params, frames, first, fed, full):
+def whisper_serve_replay(model, params, frames, first, fed, full,
+                         steps=WHISPER_DECODE_STEPS):
     """An encode of ``frames`` (cold, then warm), then one decode step from
-    ``first`` and one on each column of ``fed`` (None: greedy, each step's
-    argmax): the memory, every call's logits in fp32 [1 + steps, B, 1, V],
-    the tokens fed, encode ms, decode wall and device ms a step, launches."""
+    ``first`` and one on each of the first ``steps`` columns of ``fed``
+    (None: greedy, each step's argmax): the memory, every call's logits in
+    fp32 [1 + steps, B, 1, V], the tokens fed, encode ms, decode wall and
+    device ms a step, launches."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     encode_ms = []
     with torch.no_grad():
@@ -1885,16 +1907,16 @@ def whisper_serve_replay(model, params, frames, first, fed, full):
         reset_counts()
         t0 = time.perf_counter()
         start.record()
-        for i in range(WHISPER_DECODE_STEPS + 1):
+        for i in range(steps + 1):
             logits, cache = model.decode_step(params, cache, tok, memory)
             out.append(full(logits).float())
-            if i < WHISPER_DECODE_STEPS:
+            if i < steps:
                 tok = out[-1].argmax(-1) if fed is None else fed[:, i:i + 1]
                 toks.append(tok)
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = WHISPER_DECODE_STEPS + 1
+    n = steps + 1
     return {"memory": full(memory), "logits": torch.stack(out), "tokens": torch.cat(toks, 1),
             "encode_ms": encode_ms, "encode_launches": encode_launches,
             "decode_launches": counts(), "decode_ms_per_step": wall * 1e3 / n,
@@ -1913,7 +1935,11 @@ def whisper_serve_path():
     unsharded ones (within 1e-3 of the largest; bit-equality printed), the
     sharded argmax against the unsharded tokens (each flip reported with the
     unsharded top-2 margin there), 24 tensor-core flash launches an encode
-    and none a decode step on both sides, encode and decode ms of both."""
+    and none a decode step on both sides, encode and decode ms of both.
+    Then the same mesh under ``serve_2d``'s rules (its weights' ``embed``
+    blocks stay, one rank's whole dims here): the encode and
+    ``WHISPER_SERVE_2D_STEPS`` + 1 greedy decode calls, whose tokens equal
+    the ``fsdp_tp`` path's."""
     cfg = whisper_cfg()
     model = build_model(cfg)
     params = model.init(SEED, torch.bfloat16)
@@ -1930,6 +1956,11 @@ def whisper_serve_path():
         layer = sharded_model.model_axis(params, cache, (), WHISPER_B).layer(0, "dec_blocks")
         sharded = whisper_serve_replay(sharded_model, params, frames, first, plain["tokens"],
                                        lambda t: t.full_tensor())
+        serve_model = ShardedModel(build_model(cfg), mesh, shd.STRATEGIES["serve_2d"]())
+        serve_layer = serve_model.model_axis(params, cache, (), WHISPER_B,
+                                             stationary=True).layer(0, "dec_blocks")
+        serve_2d = whisper_serve_replay(serve_model, params, frames, first, None,
+                                        lambda t: t.full_tensor(), WHISPER_SERVE_2D_STEPS)
     del params, cache
     torch.cuda.empty_cache()
     want, got = plain["logits"], sharded["logits"]
@@ -1961,11 +1992,29 @@ def whisper_serve_path():
                                    "sharded": sharded["encode_launches"]},
            "launches_decode": {"unsharded": plain["decode_launches"],
                                "sharded": sharded["decode_launches"]}}
+    n = WHISPER_SERVE_2D_STEPS
+    serve_toks = serve_2d["tokens"].cpu()
+    rec["serve_2d"] = {
+        "strategy": "serve_2d", "decode_calls": n + 1,
+        "cache_seq_split": None if serve_layer.seq is None else list(serve_layer.seq),
+        "memory_bit_equal_fsdp_tp": bool(torch.equal(serve_2d["memory"], sharded["memory"])),
+        "tokens_equal_fsdp_tp": bool(torch.equal(serve_toks, got_toks[:, :n])),
+        "first_tokens": serve_toks[:, :8].tolist(),
+        "logits_rel_err_fsdp_tp": max(rel_err(a, b) for a, b in zip(serve_2d["logits"], got)),
+        "encode_ms": serve_2d["encode_ms"], "decode_ms_per_step": serve_2d["decode_ms_per_step"],
+        "decode_device_ms_per_step": serve_2d["decode_device_ms_per_step"],
+        "launches_per_encode": serve_2d["encode_launches"],
+        "launches_decode": serve_2d["decode_launches"]}
     print("whisper_serve_path", json.dumps(rec), flush=True)
-    for side in (plain, sharded):
+    for side, steps in ((plain, WHISPER_DECODE_STEPS), (sharded, WHISPER_DECODE_STEPS),
+                        (serve_2d, n)):
         need(side["encode_launches"] == per_encode and side["decode_launches"] == launch_counts(),
              f"whisper serve path launches {side['encode_launches']}, {side['decode_launches']}")
-        need(side["pos"] == WHISPER_DECODE_STEPS + 1, f"whisper serve path pos {side['pos']}")
+        need(side["pos"] == steps + 1, f"whisper serve path pos {side['pos']}")
+    need(rec["serve_2d"]["tokens_equal_fsdp_tp"],
+         f"whisper serve path: serve_2d's tokens {serve_toks[:, :8].tolist()} differ from "
+         f"fsdp_tp's {got_toks[:, :8].tolist()}")
+    need(bool(torch.isfinite(serve_2d["logits"]).all()), "whisper serve_2d path: non-finite")
     need(layer.seq is not None, "whisper serve path: the self cache's sequence does not lie "
                                 "over model")
     need(bool(torch.isfinite(got).all()) and bool(torch.isfinite(sharded["memory"]).all()),
@@ -2053,11 +2102,149 @@ def whisper_encode_seq_shares():
     return recs
 
 
+# the weights of one encoder and one decoder block whose embed block stays
+# under serve_2d, and the two that are gathered over data
+WHISPER_GRID_KEPT = ("enc_blocks.0.attn.wq", "enc_blocks.0.attn.wk", "enc_blocks.0.attn.wv",
+                     "enc_blocks.0.attn.wo", "enc_blocks.0.mlp.w_up", "enc_blocks.0.mlp.w_down",
+                     "dec_blocks.0.attn.wq", "dec_blocks.0.attn.wk", "dec_blocks.0.attn.wv",
+                     "dec_blocks.0.attn.wo", "dec_blocks.0.xattn.wq", "dec_blocks.0.xattn.wo",
+                     "dec_blocks.0.mlp.w_up", "dec_blocks.0.mlp.w_down", "embed")
+WHISPER_GRID_MOVED = ("dec_blocks.0.xattn.wk", "dec_blocks.0.xattn.wv")
+
+
+def whisper_grid_shares(grids):
+    """(d) one full-width encoder block and one decoder block with the
+    embedding and the tied head, fp32 then the same weights in bf16, under
+    ``serve_2d`` on each grid of ``grids``: every rank at once, a thread a
+    rank (``tensor_parallel.thread_shares`` on the whole model), each
+    computing from its weights' (embed block x model block): the encode of
+    B 1 x 1500 frames (an encode share: no cache, ``rows=1``); then, fed its
+    own memory, ``WHISPER_GRID_STEPS`` steps of the lookup, the decoder
+    block's decode over its block of a seeded 448-slot self cache
+    (positions split over (data, model)) and the tied head. Every rank's
+    memory and streams against the unsplit model's (ranks bit-equal), its
+    logits block against the unsplit logits, the ranks' cache blocks side
+    by side against the unsplit cache; which weights keep their embed
+    block; one flash launch a rank an encode (on its heads), none in
+    decode (the plain path)."""
+    cfg = whisper_cfg(1)
+    model = init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    api = build_model(cfg)
+    rules = shd.STRATEGIES["serve_2d"]()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    frames32 = torch.randn(1, WHISPER_T, cfg.d_model, generator=g, device="cuda")
+    fed = [torch.randint(0, cfg.vocab_size, (1, 1), generator=g, device="cuda")
+           for _ in range(WHISPER_GRID_STEPS)]
+
+    def encode(frames):
+        return lambda m, axis, _: (m.encode(frames, model_axis=axis), axis)
+
+    def decode(memories):
+        def run(m, axis, c):
+            if axis is None:
+                memory = memories[0]
+            else:  # the rank's own memory, rank d M + m
+                coord = axis.coord
+                memory = axis.memory_in(memories[coord["data"] * axis.sizes["model"]
+                                                 + coord["model"]])
+            layer = None if axis is None else axis.layer(0, "dec_blocks")
+            outs = []
+            for t, tok in enumerate(fed):
+                pos = WHISPER_GRID_START + t
+                x = m._embed(tok, axis) + m.dec_pos[pos]
+                h = m.dec_blocks[0].decode(x, pos, c["self"][0], memory, layer)
+                outs.append((x, h, m._logits(h, axis)))
+            return {k: torch.stack([o[i] for o in outs])
+                    for i, k in enumerate(("embed", "block", "logits"))}, axis
+        return run
+
+    recs, unsplit32 = [], {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype)
+            frames = frames32.to(dtype)
+            kernel = {"wgmma": "flash_wgmma", "simt": "flash"}[
+                fa_ops.kernel_for(dtype, cfg.head_dim)]
+            tol = TP_FP32_TOL if dtype == torch.float32 else TP_BF16_TOL
+            reset_counts()
+            want_memory = encode(frames)(model, None, None)[0]
+            torch.cuda.synchronize()
+            want_launches = counts()
+            want_cache = seeded_cache(api, 1, WHISPER_S, dtype, SEED + 9)
+            want = decode([want_memory])(model, None, want_cache)[0]
+            want["memory"] = want_memory
+            for grid in grids:
+                t0 = time.perf_counter()
+                M, n_ranks = grid["model"], grid["data"] * grid["model"]
+                torch.cuda.synchronize()
+                reset_counts()
+                encoded, _ = tp.thread_shares(model, None, 0, grid, None, encode(frames), rules,
+                                              rows=1)
+                torch.cuda.synchronize()
+                launches = {"encode": counts()}
+                reset_counts()
+                stepped, caches = tp.thread_shares(
+                    model, None, 0, grid, seeded_cache(api, 1, WHISPER_S, dtype, SEED + 9),
+                    decode([mem for mem, _ in encoded]), rules)
+                torch.cuda.synchronize()
+                launches["decode"] = counts()
+                outs = [{**o, "memory": mem} for (o, _), (mem, _) in zip(stepped, encoded)]
+                axes = [a for _, a in stepped] + [a for _, a in encoded]
+                head = axes[0].head
+                joined = {**outs[0], "logits": outs[0]["logits"] if head is None else torch.cat(
+                    [o["logits"] for o in outs[:M]], -1)}
+                kept = [name for name in WHISPER_GRID_KEPT + WHISPER_GRID_MOVED
+                        if all(a.stationary(name) is not None for a in axes)]
+                rec = {"case": f"{cfg.name} enc_blocks.0 + dec_blocks.0 ({cfg.n_heads} heads, "
+                               f"d_ff {cfg.d_ff}), embedding and {cfg.vocab_size}-way tied head",
+                       "strategy": "serve_2d", "grid": grid, "dtype": str(dtype)[6:], "B": 1,
+                       "frames": WHISPER_T, "cache_len": WHISPER_S, "start": WHISPER_GRID_START,
+                       "steps": WHISPER_GRID_STEPS,
+                       "rank_embed_cols": cfg.d_model // grid["data"],
+                       "head_split": None if head is None else [head.lo, head.hi],
+                       "kept": kept, "rel_err": {}, "tol": tol,
+                       "ranks_equal": all(torch.equal(o[k], outs[0][k]) for o in outs
+                                          for k in ("memory", "embed", "block")),
+                       "launches": launches, "launches_unsplit_encode": want_launches}
+                for k, v in joined.items():
+                    rec["rel_err"][k] = rel_err(v, want[k])
+                    key = (str(grid), k)
+                    if dtype == torch.float32:
+                        unsplit32[key] = want[k].float()
+                    else:
+                        rec.setdefault("unsplit_vs_fp32", {})[k] = rel_err(want[k], unsplit32[key])
+                        rec.setdefault("shares_vs_fp32", {})[k] = rel_err(v, unsplit32[key])
+                rec["cache_rel_err"] = max(
+                    rel_err(torch.cat([c["self"][0][k] for c in caches], 1),
+                            want_cache["self"][0][k]) for k in ("k", "v"))
+                rec["seconds"] = time.perf_counter() - t0
+                print("whisper_serve_grid_shares", json.dumps(rec), flush=True)
+                need(kept == list(WHISPER_GRID_KEPT),
+                     f"whisper grid {grid}: the blocks that stay are {kept}")
+                need(want_launches == launch_counts(**{kernel: 1})
+                     and launches == {"encode": launch_counts(**{kernel: n_ranks}),
+                                      "decode": launch_counts()},
+                     f"whisper grid {grid} ({dtype}): launches {launches}, unsplit "
+                     f"{want_launches}")
+                need(rec["ranks_equal"], f"whisper grid {grid} ({dtype}): the ranks differ")
+                need(all(torch.isfinite(o[k].float()).all() for o in outs for k in o),
+                     f"whisper grid {grid} ({dtype}): non-finite")
+                need(max(rec["rel_err"].values()) <= tol and rec["cache_rel_err"] <= tol,
+                     f"whisper grid {grid} ({dtype}): {rec['rel_err']}, cache "
+                     f"{rec['cache_rel_err']}")
+                recs.append(rec)
+                del encoded, stepped, caches, outs
+    del model
+    torch.cuda.empty_cache()
+    return recs
+
+
 def whisper_tp_serve_phase():
     out, seconds = {}, {}
     for name, fn in (("shares", lambda: whisper_serve_shares(WHISPER_TP_RANKS)),
                      ("encode_seq_shares", whisper_encode_seq_shares),
-                     ("path", whisper_serve_path)):
+                     ("path", whisper_serve_path),
+                     ("grid_shares", lambda: whisper_grid_shares(TP_GRIDS))):
         t0 = time.perf_counter()
         out[name] = fn()
         seconds[name] = time.perf_counter() - t0
@@ -5266,7 +5453,13 @@ def main():
                       launches_whisper_tp_encode_1_rank=whisper_tp_serve["path"][
                           "launches_per_encode"]["sharded"]["flash_attention_wgmma"],
                       launches_whisper_tp_decode_65_calls_1_rank=whisper_tp_serve["path"][
-                          "launches_decode"]["sharded"]["flash_attention_wgmma"]),
+                          "launches_decode"]["sharded"]["flash_attention_wgmma"],
+                      launches_whisper_serve_2d_encode_1_rank=whisper_tp_serve["path"][
+                          "serve_2d"]["launches_per_encode"]["flash_attention_wgmma"],
+                      launches_whisper_grid_bf16=[
+                          [r["grid"], r["launches"]["encode"]["flash_attention_wgmma"],
+                           r["launches"]["decode"]["flash_attention_wgmma"]]
+                          for r in whisper_tp_serve["grid_shares"] if r["dtype"] == "bfloat16"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -5301,7 +5494,11 @@ def main():
                       launches_whisper_tp_seq_shares_fp32=[
                           [r["case"], r["model_ranks"], r["memory_frames"] or r["rows"][1],
                            r["launches_shares"]["flash_attention"]]
-                          for r in whisper_tp_train["seq_shares"] if r["dtype"] == "float32"]),
+                          for r in whisper_tp_train["seq_shares"] if r["dtype"] == "float32"],
+                      launches_whisper_grid_fp32=[
+                          [r["grid"], r["launches"]["encode"]["flash_attention"],
+                           r["launches"]["decode"]["flash_attention"]]
+                          for r in whisper_tp_serve["grid_shares"] if r["dtype"] == "float32"]),
         kernel_record("rglru_scan", "cuda",
                       "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
                       "src/repro/kernels/rglru/rglru.py:69",

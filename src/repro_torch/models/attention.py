@@ -16,7 +16,8 @@ Counterpart of ``repro/models/attention.py``.
     attention stays on the plain path, as in the reference; so does the
     decode cross-attention (``decode_cross``), which projects K and V from
     the memory again at every step, as the reference does (on the rank's
-    heads in sharded serving).
+    heads in sharded serving, its ``wq`` and ``wo`` on their ``embed`` block
+    under ``serve_2d``).
 
 RoPE is applied only when ``cfg.use_rope`` and only in self-attention.
 
@@ -184,13 +185,17 @@ class Attention(nn.Module):
                                kv_len=kv_len, softcap=self.cfg.attn_softcap)
         return self._out(out)
 
-    def decode_cross(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def decode_cross(self, x: torch.Tensor, memory: torch.Tensor, axis=None) -> torch.Tensor:
         """One decode step's cross-attention: K and V projected from
         ``memory`` again, the plain path without softcap (the reference's
-        ``backend="reference"`` call), no cache. In sharded serving the
-        weights are the rank's query heads and their KV heads (equal in
-        number, ``LayerAxis.cross``), so K and V are projected onto those
-        heads and the output is the rank's term of the sum over ``model``."""
-        q, k, v = self._qkv(x, None, memory)
+        ``backend="reference"`` call), no cache. In sharded serving (``axis``:
+        the cross-attention's ``LayerAxis``) the weights are the rank's query
+        heads and their KV heads (equal in number, ``LayerAxis.cross``), so K
+        and V are projected onto those heads and the output is the rank's
+        term of the sum over ``model``; where ``wq`` and ``wo`` keep their
+        ``embed`` block, q is the partial product summed over it and the
+        output the rank's block of columns (``wk`` and ``wv`` are gathered
+        over it: plain products with the whole memory)."""
+        q, k, v = self._qkv(x, None, memory, axis)
         out = fa_ref.attention_plain(q, k, v, causal=False)
         return self._out(out)

@@ -58,7 +58,16 @@ the block, its self-attention over the rank's block of its self cache where
 it lies (``LayerAxis.decode_attention``: partial softmaxes merged over the
 cache's sequence axes), its cross-attention on the rank's heads with K and V
 projected from the rank's rows of the whole memory, and its MLP on the
-rank's ``d_ff`` block, each summed over ``model``.
+rank's ``d_ff`` block, each summed over ``model``. Under ``serve_2d`` each
+block's weights and the tied embedding keep their ``embed`` block on
+``data``, in the encode and in every decode step, as the reference lays
+them out (``ModelAxis.stationary``): each column product (``wq``, ``wk``,
+``wv``, ``w_up``, the cross-attention's ``wq``, the tied head) takes the
+rank's columns of the whole stream and sums its partial product over
+``data``; each row product (``wo``, ``w_down``, the cross-attention's
+``wo``) and the lookup give the rank's block of the stream's columns,
+gathered over ``data`` after the sum over ``model``. The cross-attention's
+``wk`` and ``wv``, which read the memory, are gathered over ``data``.
 """
 
 from __future__ import annotations
@@ -121,7 +130,7 @@ class EncBlock(nn.Module):
 
     def feed_forward(self, h: torch.Tensor, axis=None) -> torch.Tensor:
         """The MLP on the ``norm2``-normed stream."""
-        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum"), axis), axis, "mlp_sum")
 
 
 class DecBlock(nn.Module):
@@ -168,15 +177,16 @@ class DecBlock(nn.Module):
         gradient's terms are summed over ``model`` once for every block
         (``ModelAxis.memory_in``, in ``EncDec.decode_train``)."""
         h = _split_in(h, axis, "xattn_sum")
+        cross = None if axis is None else axis.cross
         if decode:
-            out = self.xattn.decode_cross(h, memory)
+            out = self.xattn.decode_cross(h, memory, cross)
         else:
-            out = self.xattn(h, None, memory=memory, axis=None if axis is None else axis.cross)
+            out = self.xattn(h, None, memory=memory, axis=cross)
         return _summed(out, axis, "xattn_sum")
 
     def feed_forward(self, h: torch.Tensor, axis=None) -> torch.Tensor:
         """The MLP on the ``norm2``-normed stream."""
-        return _summed(self.mlp(_split_in(h, axis, "mlp_sum")), axis, "mlp_sum")
+        return _summed(self.mlp(_split_in(h, axis, "mlp_sum"), axis), axis, "mlp_sum")
 
     def decode(self, x: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
                memory: torch.Tensor, axis=None) -> torch.Tensor:
@@ -286,23 +296,32 @@ class EncDec(nn.Module):
         the vocabulary, ``embed`` holds this rank's rows, and the rank's
         lookup term is summed over ``model`` (``LM._embed``): reduce-scattered
         to the rank's positions where the decoder's stream splits, where an
-        unsplit lookup is sliced to them (``ModelAxis.own``)."""
+        unsplit lookup is sliced to them (``ModelAxis.own``). In serving,
+        where ``embed`` keeps its ``embed`` block, the rank's rows give its
+        block of the columns, gathered over the block's axes
+        (``ModelAxis.whole``) after the sum over ``model``."""
         split = None if model_axis is None else model_axis.split("embed")
         x = transformer.lookup(self.embed, tokens, split)
         if model_axis is None:
             return x
-        return model_axis.own(x) if split is None else model_axis.from_split(x)
+        x = model_axis.own(x) if split is None else model_axis.from_split(x)
+        return model_axis.whole(x, "embed")
 
     def _logits(self, x: torch.Tensor, model_axis: Optional[ModelAxis] = None
                 ) -> torch.Tensor:
         """The tied head; where ``model_axis`` splits the vocabulary, the
         rank's vocab block of the logits over the whole stream (the
         final-normed blocks gathered where the decoder's stream splits);
-        an unsplit head there reads the rank's positions (``LM._logits``)."""
+        an unsplit head there reads the rank's positions (``LM._logits``).
+        In serving, where ``embed`` keeps its ``embed`` block, the rank's
+        partial product summed over the block's axes
+        (``ModelAxis.column``)."""
         x = common.apply_norm(self.dec_norm, x)
-        if model_axis is not None and model_axis.head is not None:
+        if model_axis is None:
+            return x @ self.embed.T
+        if model_axis.head is not None:
             x = model_axis.to_split(x)
-        return x @ self.embed.T
+        return model_axis.column(x, self.embed.T, "embed")
 
     def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor,
                      remat_policy: Optional[str] = None,

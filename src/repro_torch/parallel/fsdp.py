@@ -98,7 +98,8 @@ its own rows, and the model axis splits the compute as in training, and
 the RWKV-6 layers too: the time mix by heads and the channel mix by
 ``d_ff`` (``tensor_parallel.LayerAxis``: ``tm``, ``cm``), each rank's weights
 its ``model`` block gathered over the other axes only. An LM's attention,
-dense MLP, MoE, RWKV-6 mixers, RG-LRU, embedding and head are
+dense MLP, MoE, RWKV-6 mixers, RG-LRU, embedding and head, and the
+encoder-decoder's blocks and tied embedding, are
 weight-stationary where the rules allow, as the reference's ``serve_2d``
 lays them out: a
 weight whose
@@ -146,8 +147,7 @@ chunks do not divide the width or ``model`` the gate blocks, the weights
 and the state are gathered to the ``model`` block as below.
 Under ``fsdp_tp`` and ``fsdp_tp_pod_fsdp`` the rows lie on ``data`` and
 the weights are gathered as in training; a ``d_model`` the axes do not
-divide resolves to whole; whisper's weights are still gathered over
-``data``. The
+divide resolves to whole. The
 decode cache (:meth:`ShardedModel.init_cache`) is a structure of DTensors
 laid out by ``sharding.cache_shardings``; an attention layer reads and
 writes its K/V where they lie (a prefill fills its block, a decode step
@@ -211,12 +211,14 @@ runs each decoder block's self-attention over the rank's block of its self
 cache (:meth:`ShardedModel.init_cache` lays ``cache["self"]`` out as an
 LM's K/V), its cross-attention on the rank's heads over the whole memory,
 K and V projected from it again at every step as in the reference, and its
-MLP on the rank's ``d_ff`` block. Logits come back as an LM's.
+MLP on the rank's ``d_ff`` block. Under ``serve_2d`` the encode and each
+decode step keep every block weight's and the tied embedding's ``embed``
+block where it lies, as an LM's (above), but the cross-attention's ``wk``
+and ``wv``, which read the memory: they are gathered over ``data``
+(``tensor_parallel._MOVING_LEAVES``). Logits come back as an LM's.
 
 Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter; under ``serve_2d``, partial
-sums over ``data`` for whisper's blocks, whose weights are gathered over
-``data`` today.
+in place of its gather and reduce-scatter.
 """
 
 from __future__ import annotations
@@ -536,8 +538,8 @@ class ShardedModel:
         ``cache`` (training: None, and the residual stream's global shape
         ``stream``, or the encoder-decoder's two by stack), the global
         batch's ``n_rows`` rows split over ``row_axes``; ``stationary``
-        (serving an LM): the weights' ``embed`` blocks stay where the rules
-        allow (``ModelAxis.stationary``)."""
+        (serving): the weights' ``embed`` blocks stay where the rules allow
+        (``ModelAxis.stationary``)."""
         shapes = self._shapes.get(lm)
         if shapes is None:
             shapes = self._shapes[lm] = tp.param_shapes(lm)
@@ -560,7 +562,7 @@ class ShardedModel:
                 mem = memory if isinstance(memory, DTensor) else self.memory(memory)
                 memory = mem.redistribute(self.mesh, place).to_local()
         axis = self.model_axis(lm, cache, axes, next(iter(batch.values())).shape[0], stream,
-                               stationary=not self.cfg.is_encoder_decoder)
+                               stationary=True)
         weight = self._weights(axis, ())  # under no_grad: the gather alone
         # every weight outside the stacks of blocks, which gather their own
         outer = {n: weight(n, p) for n, p in lm.named_parameters()

@@ -151,7 +151,8 @@ Weight-stationary serving (the reference's ``serve_2d``, whose batch lies
 off ``data``): a ``ModelAxis`` built with ``weight_stationary`` keeps the
 ``embed`` block of attention's, the dense MLP's, the MoE's (router and
 experts), the RWKV-6 mixers' (where they split; all but ``tm.decay_b``),
-the embedding's and the head's weights where the resolved spec puts it
+the encoder-decoder's blocks' (all but the cross-attention's ``wk`` and
+``wv``), the embedding's and the head's weights where the resolved spec puts it
 (:meth:`ModelAxis.stationary`), so a rank holds the ``(embed block x
 model block)`` of each (a MoE leaf's: its experts', or every expert's ff
 block, times its embed block). The stream stays whole on every rank;
@@ -186,7 +187,18 @@ hook (:meth:`LayerAxis.hook`, :class:`_RnnAxis`) sums ``w_in_rec``'s and
 to the chunk by one all-to-all over ``model``, and gives the gates the
 chunk's columns (their input the chunk's gate block, gathered where a chunk
 is narrower than a block); ``w_out``'s term is summed over ``data`` and
-``model`` (:meth:`LayerAxis.out`).
+``model`` (:meth:`LayerAxis.out`). The encoder-decoder's blocks take the
+same products with no hook of their own, in the encode and in every decode
+step: each encoder and decoder block's ``wq``, ``wk``, ``wv`` and ``w_up``
+through ``column``, its ``wo`` and ``w_down`` ending in
+:meth:`LayerAxis.out`; the decoder's cross-attention ``wq`` through
+``column`` (the bias added once, after the sum) and its ``wo`` ending in
+``out(h, "xattn_sum")``. The tied embedding keeps its block as the lookup
+(its columns gathered by ``whole``) and as the head (``column``: the
+partial logits summed). The cross-attention's ``wk`` and ``wv``, which
+read the memory [B, T_f, d] rather than the step's token, are gathered
+over ``data`` (``_MOVING_LEAVES``): kept, their partial K and V of every
+frame would be summed at every step.
 
 A layout whose collectives fall inside a layer, such as decode over a K/V
 cache split by sequence (each rank's partial softmax merged over
@@ -222,16 +234,22 @@ SPLIT_MODULES = {"layers": ("attn", "mlp", "moe", "rglru", "tm", "cm"),
                  "enc_blocks": ("attn", "mlp"),
                  "dec_blocks": ("attn", "xattn", "mlp")}
 SPLIT_LEAVES = ("embed", "unembed")
-# an LM layer's submodules whose weights keep their ``embed`` block in serving
-STATIONARY_MODULES = ("attn", "mlp", "moe", "rglru", "tm", "cm")
-# the one such weight that moves: the time mix's decay_b [lora, d], whose
-# embed dim is also its heads' dim (the rank's heads cannot stay on data)
-_MOVING_LEAVES = ("tm.decay_b",)
+# the weights among them that move in serving all the same (every other one
+# keeps its ``embed`` block there, ModelAxis.stationary):
+# * the time mix's decay_b [lora, d], whose embed dim is also its heads' dim
+#   (the rank's heads cannot stay on data);
+# * the cross-attention's wk and wv, the only column products that read the
+#   memory [B, T_f, d] and not the step's one token: kept, each decode step
+#   would sum partial K and V [B, T_f, d/M] over data (at decode_32k's B 128
+#   x 1500 frames, 64 columns a rank in bf16: 23.4 MiB each, about 1125 MiB
+#   over whisper-medium's 24 blocks), where gathering their [d/D, H/M, hd]
+#   blocks moves 48 x 128 KiB = 6 MiB a step
+_MOVING_LEAVES = ("tm.decay_b", "xattn.wk", "xattn.wv")
 # the RG-LRU's leaves with an embed block that stays: its two column products'
 # (the others lie on the rank's chunk of the channels, ModelAxis._rnn_chunk)
 _RNN_COLUMNS = ("w_in_rec", "w_in_gate")
 # the row product ending each stationary part, by its LayerAxis sum
-_ROW_LEAVES = {"attn_sum": "wo", "mlp_sum": "w_down"}
+_ROW_LEAVES = {"attn_sum": "attn.wo", "xattn_sum": "xattn.wo", "mlp_sum": "mlp.w_down"}
 # the RWKV-6 mixers and the dim of each leaf's block
 _RWKV_MODULES = ("tm", "cm")
 _TM_DIMS = {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "decay_b": 1, "w_o": 0,
@@ -241,16 +259,14 @@ _CM_DIMS = {"w_k": 1, "w_v": 0, "w_r": 1}
 
 def _stays(name: str) -> bool:
     """Whether a parameter is one whose ``embed`` block may stay where it
-    lies in serving (:meth:`ModelAxis.stationary`): an LM layer's attention,
-    dense MLP and MoE weights (the router and the experts), its RG-LRU's
-    ``w_in_rec`` and ``w_in_gate``, its RWKV-6 time mix's and channel mix's
-    but ``decay_b``, the embedding and the head."""
+    lies in serving (:meth:`ModelAxis.stationary`): a weight whose compute
+    splits (:func:`splits_compute`: attention's, the decoder's
+    cross-attention's, the MLPs', the MoE's, the RWKV-6 mixers', the
+    embedding and the head) but those of ``_MOVING_LEAVES``, and of the
+    RG-LRU's only ``w_in_rec`` and ``w_in_gate``."""
     parts = name.split(".")
-    if len(parts) == 1:
-        return name in SPLIT_LEAVES
-    return (len(parts) == 4 and parts[0] == "layers" and parts[2] in STATIONARY_MODULES
-            and ".".join(parts[2:]) not in _MOVING_LEAVES
-            and (parts[2] != "rglru" or parts[3] in _RNN_COLUMNS))
+    return (splits_compute(name) and ".".join(parts[2:]) not in _MOVING_LEAVES
+            and (len(parts) == 1 or parts[2] != "rglru" or parts[3] in _RNN_COLUMNS))
 
 
 def splits_compute(name: str) -> bool:
@@ -708,10 +724,11 @@ class ModelAxis:
     the encoder-decoder, each stream's by stack, ``{"enc_blocks": (B, T_f,
     d), "dec_blocks": (B, S, d)}``, which split independently. ``seq`` is
     then the decoder's, the stream the lookup and the head read;
-    :meth:`on` gives the encoder's view. ``weight_stationary`` (serving an
-    LM): the ``embed`` blocks of attention's, the dense MLP's, the MoE's,
-    the RWKV-6 mixers', the RG-LRU's input products', the embedding's and
-    the head's weights stay where they lie where the rules allow
+    :meth:`on` gives the encoder's view, which keeps ``weight_stationary``.
+    ``weight_stationary`` (serving): the ``embed`` blocks of attention's,
+    the dense MLP's, the MoE's, the RWKV-6 mixers', the RG-LRU's input
+    products', the encoder-decoder's blocks', the embedding's and the
+    head's weights stay where they lie where the rules allow
     (:meth:`stationary`), and the products they enter are summed or
     gathered over those blocks' axes (:meth:`column`, :meth:`summed`,
     :meth:`whole`); an RG-LRU layer serves on its ``(data, model)`` chunk
@@ -875,7 +892,9 @@ class ModelAxis:
         lies, as the reference's ``serve_2d`` keeps it: for attention's, the
         dense MLP's, the MoE's and the RWKV-6 mixers' weights (but
         ``tm.decay_b``) and the RG-LRU's ``w_in_rec`` and ``w_in_gate`` of the
-        LM's layers, the embedding and the head, where the resolved spec
+        LM's layers, for the encoder-decoder's blocks' attention and MLP
+        weights (but the cross-attention's ``wk`` and ``wv``), the embedding
+        and the head (:func:`_stays`), where the resolved spec
         splits that dim over axes that hold more than one rank, none of them
         an axis the batch's rows split over (``serve_2d``'s ``data``; under
         ``fsdp_tp`` the rows lie on it); for an RWKV-6 mixer's weight, where
@@ -1247,7 +1266,8 @@ class LayerAxis:
                                       f"{self.seq}, weights' KV heads {self.kv}")
 
     def _name(self, leaf: str) -> str:
-        """The state-dict name of the attention's or the MLP's leaf."""
+        """The state-dict name of the attention's (on the cross view,
+        :attr:`cross`, the cross-attention's) or the MLP's leaf."""
         module = self._attn if leaf in ("wq", "wk", "wv", "wo") else "mlp"
         return f"{self._pre}{module}.{leaf}"
 
@@ -1276,8 +1296,9 @@ class LayerAxis:
         (``attn_sum``, ``mlp_sum``, ``rglru_sum``, ``tm_sum``) says the
         contracted dim split (:meth:`ModelAxis.from_split`), else the rank's
         positions of it (:meth:`ModelAxis.own`); then, where the part's row
-        weight (attention's ``wo``, the MLP's ``w_down``) keeps its ``embed``
-        block, the rank's block of columns gathered to the whole stream
+        weight (attention's ``wo``, the cross-attention's ``xattn.wo``, the
+        MLP's ``w_down``: ``_ROW_LEAVES``) keeps its ``embed`` block, the
+        rank's block of columns gathered to the whole stream
         (:meth:`ModelAxis.whole`); where the RG-LRU serves on its chunk of
         the channels (``rglru_block``), the product with ``w_out``'s rows of
         the chunk is summed over the chunk's other axes (``data``) too."""
@@ -1286,7 +1307,7 @@ class LayerAxis:
         if which == "rglru_sum" and self.rglru_block is not None:
             h = _sum_over(h, axis.comm, tuple(a for a in self.rglru_block.axes if a != "model"))
         row = _ROW_LEAVES.get(which)
-        return h if row is None else axis.whole(h, self._name(row))
+        return h if row is None else axis.whole(h, self._pre + row)
 
     def moe(self, moe, h: torch.Tensor, with_aux: bool = False):
         """The MoE layer on this rank's rows [B, S, d] (after ``norm2``), its
@@ -1481,7 +1502,7 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
           rank: Union[int, Mapping[str, int]], size: Union[int, Mapping[str, int]],
           rules: Optional[Dict[str, shd.MeshAxes]] = None,
           seq_len: Union[None, int, Mapping[str, int]] = None,
-          comm: Optional[_ThreadRank] = None):
+          comm: Optional[_ThreadRank] = None, rows: Optional[int] = None):
     """Rank ``rank`` of a ``size``-way ``model`` axis computed alone, in one
     process (whole weights and cache given -- an LM's ``layers`` or the
     encoder-decoder's ``self`` caches --; no cache in training): (its
@@ -1508,15 +1529,18 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
     ``size`` may be a grid of axis sizes in mesh order (``{"data": 2,
     "model": 4}``) and ``rank`` a coordinate on it or its row-major index,
     as :class:`ThreadRanks` numbers its ranks. A K/V cache's rows then
-    split as the rules' ``batch`` axes take them (the rank's rows), and an
-    LM served with a cache keeps its weights' ``embed`` blocks where
-    the rules allow (:meth:`ModelAxis.stationary`): the rank's block of
-    such a weight is its ``(embed block x model block)`` (the time mix's
-    ``w_v``: its ``model`` block of rows x its embed block of columns); a
-    recurrent state's copy holds the rank's rows, and an RG-LRU layer that
-    serves on its ``(data, model)`` chunk of the channels
-    (``ModelAxis._rnn_chunk``) holds that chunk of its leaves and state. Sums
-    over an axis but ``model`` need the threads."""
+    split as the rules' ``batch`` axes take them (the rank's rows), and a
+    model served with a cache (an LM, or the encoder-decoder's decoder)
+    keeps its weights' ``embed`` blocks where the rules allow
+    (:meth:`ModelAxis.stationary`): the rank's block of such a weight is
+    its ``(embed block x model block)`` (the time mix's ``w_v``: its
+    ``model`` block of rows x its embed block of columns); a recurrent
+    state's copy holds the rank's rows, and an RG-LRU layer that serves on
+    its ``(data, model)`` chunk of the channels (``ModelAxis._rnn_chunk``)
+    holds that chunk of its leaves and state. ``rows``: the global batch's
+    rows of a serving call without a cache (the encoder-decoder's encode),
+    which then keeps those blocks as a cached call does, its rows split
+    as a cache's would. Sums over an axis but ``model`` need the threads."""
     rules = rules or shd.STRATEGIES["fsdp_tp"]()
     if comm is None:
         rules = {**rules, "seq_cache": None}
@@ -1524,21 +1548,21 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
     coord = dict(rank) if isinstance(rank, Mapping) else _coordinate(rank, mesh)
     key = None if cache is None else cache_key(cache)
     row_axes, n_rows = (), 0
-    if cache is not None:  # the mesh axes the batch's rows split over
-        n_rows = next(iter(cache[key][0].values())).shape[0]
+    if cache is not None or rows is not None:  # the mesh axes the batch's rows split over
+        n_rows = next(iter(cache[key][0].values())).shape[0] if rows is None else rows
         spec = shd.batch_specs(mesh, rules, {"x": torch.empty((n_rows, 1), device="meta")})["x"]
         row_axes = shd._axes(spec[0])
         index, n = 0, 1  # the rank's block of the rows, row-major over their axes
         for a in row_axes:
             index, n = index * mesh[a] + coord[a], n * mesh[a]
-        rows = slice(index * n_rows // n, (index + 1) * n_rows // n)
+        own_rows = slice(index * n_rows // n, (index + 1) * n_rows // n)
     d = lm.cfg.d_model
     stream = (None if seq_len is None
               else {k: (1, n, d) for k, n in seq_len.items()} if isinstance(seq_len, Mapping)
               else (1, seq_len, d))
     axis = ModelAxis(mesh, rules, param_shapes(lm), cache, Shares() if comm is None else comm,
                      coord=coord, rows=(row_axes, n_rows), stream=stream,
-                     weight_stationary=key == "layers")
+                     weight_stationary=cache is not None or rows is not None)
     params = {}
     for name, p in lm.named_parameters():
         for split in (axis.split(name), axis.stationary(name)):
@@ -1560,12 +1584,12 @@ def share(lm: nn.Module, cache: Optional[Mapping[str, Any]],
             continue
         if "wkv" in c:  # a copy of the rank's rows, the WKV state on the rank's heads
             heads = axis.layer(i).tm
-            layers.append({k: (t[rows] if k != "wkv" or heads is None
-                               else t[rows, heads.lo:heads.hi]).clone() for k, t in c.items()})
+            layers.append({k: (t[own_rows] if k != "wkv" or heads is None
+                               else t[own_rows, heads.lo:heads.hi]).clone() for k, t in c.items()})
             continue
         rnn = axis.layer(i).rnn if "h" in c else None  # the rank's channels of the state
         cols = slice(None) if rnn is None else slice(rnn.lo, rnn.hi)
-        layers.append({k: t[rows][..., cols].clone() for k, t in c.items()})
+        layers.append({k: t[own_rows][..., cols].clone() for k, t in c.items()})
     return axis, params, {key: layers, "pos": cache["pos"]}
 
 
@@ -1739,7 +1763,7 @@ def thread_shares(model: nn.Module, stack: Optional[str], index: int,
                   size: Union[int, Mapping[str, int]],
                   cache: Mapping[str, Any], run: Callable[[nn.Module, Any, Any], Any],
                   rules: Optional[Dict[str, shd.MeshAxes]] = None,
-                  seq_len: Optional[Mapping[str, int]] = None):
+                  seq_len: Optional[Mapping[str, int]] = None, rows: Optional[int] = None):
     """Block ``index`` of ``model``'s ``stack`` (``layers``, ``dec_blocks``)
     on every rank of a ``size``-way ``model`` axis, or of a grid of axis
     sizes (``{"data": 2, "model": 4}``), at once, one thread a rank
@@ -1754,14 +1778,16 @@ def thread_shares(model: nn.Module, stack: Optional[str], index: int,
     ``seq_len``: the streams' lengths by stack, as :func:`share` takes them
     (a decode step's ``{"enc_blocks": T_f}``: the memory's frames split
     where the rules split the encoder's stream, ``ModelAxis.memory_in``
-    then gathering them)."""
+    then gathering them). ``cache`` None and ``rows`` (a serving call
+    without a cache, the encode of ``rows`` rows): the weights keep their
+    ``embed`` blocks as :func:`share` gives them with ``rows``."""
     ranks = ThreadRanks(size)
     block = model if stack is None else getattr(model, stack)[index]
     prefix = "" if stack is None else f"{stack}.{index}."
     made = []
     for r in range(ranks.size):
         axis, params, rank_cache = share(model, cache, r, size, rules, seq_len,
-                                         comm=ranks.rank(r))
+                                         comm=ranks.rank(r), rows=rows)
         own = {n[len(prefix):]: p for n, p in params.items() if n.startswith(prefix)}
         # the rank's module: the block's structure, its weights left on meta
         # (the rank's blocks are put in when it runs)

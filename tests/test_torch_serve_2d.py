@@ -1,7 +1,8 @@
 """``serve_2d``'s weight-stationary serving (``repro_torch.parallel``) on the
 CPU: each weight of attention, the dense MLP, the MoE (router and
 experts), the RWKV-6 time mix and channel mix (all but ``tm.decay_b``),
-the embedding and the head keeps its ``embed`` block on ``data``
+whisper's encoder and decoder blocks (all but the cross-attention's ``wk``
+and ``wv``), the embedding and the head keeps its ``embed`` block on ``data``
 (``ModelAxis.stationary``), and the products it enters are summed or
 gathered over ``data`` instead.
 
@@ -35,7 +36,12 @@ block x model block)): a chunk a block, half a block, two blocks, or, on a
 third grid (data 4 x model 2), a quarter of a block that spans two model
 groups; a width the D M chunks do not divide, a chunk straddling a block's
 edge and ``fsdp_tp`` on the gathered ``model`` block; its state chunk
-equal to that chunk of the unsplit state. Where ``data`` does not divide
+equal to that chunk of the unsplit state; and a reduced whisper-medium (one
+encoder and one decoder block, d 64, 4 heads, ``d_ff`` 128, 20 frames):
+each rank's encode (an encode share, no cache), its lookup, 3 decode steps
+over its block of a seeded self cache and its tied head's logits block,
+at vocab 512 and 510 (which model 4 does not divide), with and without the
+QKV bias. Where ``data`` does not divide
 ``d_model``, and under ``fsdp_tp`` (the rows lie on ``data``), the
 weights are gathered as in
 training: no block stays, and the rank computes with whole ``embed`` dims.
@@ -54,13 +60,16 @@ the MoE's block of columns is gathered. A reduced rwkv6-7b step moves no
 mixer weight over ``data`` but ``tm.decay_b`` and takes no all-to-all. A
 reduced recurrentgemma-9b step moves no RG-LRU weight or state entry: its
 input products are summed over ``data`` and taken to the rank's chunk by
-one all-to-all over ``model``, its output summed over both axes.
+one all-to-all over ``model``, its output summed over both axes. A reduced
+whisper-medium step moves no weight block over ``data`` but the
+cross-attention's ``wk`` and ``wv``, and no part of the tied embedding.
 
 The gloo ranks against the JAX reference are
 ``tests/test_torch_tp_serve.py``'s ``serve_2d_data_model`` mesh.
 """
 
 import contextlib
+import copy
 import dataclasses
 import os
 import sys
@@ -100,7 +109,15 @@ STATIONARY = {"embed": 1, "unembed": 0, "layers.0.attn.wq": 0, "layers.0.attn.wk
               "layers.0.tm.decay_a": 0, "layers.0.tm.w_v": 1, "layers.0.tm.decay_b": None,
               "layers.0.cm.w_k": 0, "layers.0.cm.w_r": 0, "layers.0.cm.w_v": 1,
               "layers.0.rglru.w_in_rec": 0, "layers.0.rglru.w_in_gate": 0,
-              "layers.0.rglru.w_out": None}
+              "layers.0.rglru.w_out": None,
+              "enc_blocks.0.attn.wq": 0, "enc_blocks.0.attn.wk": 0, "enc_blocks.0.attn.wv": 0,
+              "enc_blocks.0.attn.wo": 2, "enc_blocks.0.mlp.w_up": 0,
+              "enc_blocks.0.mlp.w_down": 1,
+              "dec_blocks.0.attn.wq": 0, "dec_blocks.0.attn.wk": 0, "dec_blocks.0.attn.wv": 0,
+              "dec_blocks.0.attn.wo": 2, "dec_blocks.0.xattn.wq": 0,
+              "dec_blocks.0.xattn.wk": None, "dec_blocks.0.xattn.wv": None,
+              "dec_blocks.0.xattn.wo": 2, "dec_blocks.0.mlp.w_up": 0,
+              "dec_blocks.0.mlp.w_down": 1}
 QWEN, PHI, RWKV = "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"
 RG = "recurrentgemma-9b"
 
@@ -159,12 +176,12 @@ EXTRA_GRIDS = {"rglru_2_blocks": {"data4_model2": {"data": 4, "model": 2}}}
 B, S, L, DECODE_STEPS = 4, 12, 16, 3
 
 
-def _rows(axis):
+def _rows(axis, batch=B):
     """The rank's rows of the global batch: a block over the row axes."""
     index, n = 0, 1
     for a in axis.row_axes:
         index, n = index * axis.sizes[a] + axis.coord[a], n * axis.sizes[a]
-    return slice(index * B // n, (index + 1) * B // n)
+    return slice(index * batch // n, (index + 1) * batch // n)
 
 
 @pytest.mark.parametrize("case, grid", [(c, g) for c in sorted(GRID_CASES) for g in sorted(GRIDS)]
@@ -305,6 +322,119 @@ def _choices(logits, k):
     its probabilities (``top_idx``)."""
     probs = torch.softmax(logits, dim=-1)
     return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+WHISPER = "whisper-medium"
+# reduced whisper-medium at one encoder and one decoder block (d 64, 4/2 self
+# heads and 4 cross heads of 16, d_ff 128, the QKV bias, a tied head)
+_WHISPER = dataclasses.replace(ARCHS[WHISPER].reduced(), n_layers=1, n_encoder_layers=1)
+WHISPER_CASES = {
+    "vocab_512": {},
+    # model 4 does not divide 510: the lookup and the head whole along model
+    "vocab_510": dict(vocab_size=510),
+    "no_qkv_bias": dict(qkv_bias=False),
+    "d_model_does_not_divide": dict(d_model=63),
+    "fsdp_tp": dict(strategy="fsdp_tp"),
+}
+# B 4 x 20 frames (past the reduced 16-row enc_pos: the positions tile); a
+# seeded 16-slot self cache, 3 decode steps from position 3, which cross a
+# block of positions at data2_model2 (4 a rank) and at data2_model4 (2)
+WHISPER_B, WHISPER_T, WHISPER_L, WHISPER_START = 4, 20, 16, 3
+
+
+@pytest.mark.parametrize("case, grid", [(c, g) for c in sorted(WHISPER_CASES)
+                                        for g in sorted(GRIDS)])
+def test_whisper_grid_ranks_equal_the_unsplit_model(case, grid):
+    """Reduced whisper-medium on a (data x model) grid in threads: every rank
+    encodes its rows (``thread_shares`` with no cache and ``rows``: an
+    encode share asks for the stationary blocks), then, fed its own memory,
+    looks up 3 tokens, decodes them over its block of the seeded self cache
+    and takes the tied head. Its memory, its stream after the lookup and
+    after the decoder block, its logits block and its cache block equal
+    the unsplit model's within 1e-5 of the largest (fp32). Under
+    ``serve_2d`` each block's weights and the embedding keep their ``embed``
+    block (``STATIONARY``; the cross-attention's ``wk`` and ``wv`` do not),
+    also in the encode share; where ``data`` does not divide ``d_model``,
+    and under ``fsdp_tp``, none does. The QKV bias (whisper's, seeded
+    non-zero) is added once after the sum over ``data``: once a ``data``
+    rank would move every q, k and v."""
+    kw = dict(WHISPER_CASES[case])
+    strategy = kw.pop("strategy", "serve_2d")
+    cfg = dataclasses.replace(_WHISPER, **kw)
+    sizes = GRIDS[grid]
+    D, M = sizes["data"], sizes["model"]
+    model = _seeded_lm(cfg)
+    if cfg.qkv_bias:
+        assert model.dec_blocks[0].xattn.bq.abs().min() > 0
+    api = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn(WHISPER_B, WHISPER_T, cfg.d_model, generator=g)
+    fed = [torch.randint(0, cfg.vocab_size, (WHISPER_B, 1), generator=g)
+           for _ in range(DECODE_STEPS)]
+    cache = api.init_cache(WHISPER_B, WHISPER_L, torch.float32)
+    for leaf in cache["self"][0].values():
+        leaf.copy_(torch.randn(leaf.shape, generator=g))
+    want_cache = copy.deepcopy(cache)
+    rules = shd.STRATEGIES[strategy]()
+
+    def encode(m, axis, _):
+        rows = slice(None) if axis is None else _rows(axis, WHISPER_B)
+        return m.encode(frames[rows], model_axis=axis), axis
+
+    def decode(m, axis, c, memory):
+        """(stream after the lookup, after the block, logits) of each step."""
+        rows = slice(None) if axis is None else _rows(axis, WHISPER_B)
+        layer = None if axis is None else axis.layer(0, "dec_blocks")
+        memory = memory if axis is None else axis.memory_in(memory)
+        outs = []
+        for t, tok in enumerate(fed):
+            pos = WHISPER_START + t
+            x = m._embed(tok[rows], axis) + m.dec_pos[pos]
+            h = m.dec_blocks[0].decode(x, pos, c["self"][0], memory, layer)
+            outs.append((x, h, m._logits(h, axis)))
+        return outs, axis
+
+    with torch.no_grad():
+        want_memory = encode(model, None, None)[0]
+        want = decode(model, None, want_cache, want_memory)[0]
+        encoded, _ = tp.thread_shares(model, None, 0, sizes, None, encode, rules,
+                                      rows=WHISPER_B)
+        memories = [mem for mem, _ in encoded]
+        got, caches = tp.thread_shares(
+            model, None, 0, sizes, cache,
+            lambda m, axis, c: decode(m, axis, c, memories[axis.coord["data"] * M
+                                                           + axis.coord["model"]]),
+            rules)
+    stays = strategy == "serve_2d" and cfg.d_model % D == 0
+    width = cfg.d_model // D if stays else cfg.d_model
+    for r, ((outs, axis), (_, enc_axis), memory, c) in enumerate(
+            zip(got, encoded, memories, caches)):
+        d, m = r // M, r % M
+        assert axis.coord == enc_axis.coord == {"data": d, "model": m}
+        assert axis.row_axes == enc_axis.row_axes == (
+            () if strategy == "serve_2d" else ("data",))
+        for view in (axis, enc_axis, enc_axis.on("enc_blocks")):
+            for name, dim in STATIONARY.items():
+                keeps = stays and dim is not None and name in view.shapes
+                assert view.stationary(name) == (
+                    shd.Split(dim, ("data",), d * width, (d + 1) * width) if keeps else None), name
+        rows = _rows(axis, WHISPER_B)
+        _rel_close(memory, want_memory[rows])
+        vocab = axis.head
+        assert (vocab is None) == (cfg.vocab_size % M != 0)
+        cols = slice(None) if vocab is None else slice(vocab.lo, vocab.hi)
+        for (x, h, logits), (wx, wh, wl) in zip(outs, want):
+            _rel_close(x, wx[rows])
+            _rel_close(h, wh[rows])
+            _rel_close(logits, wl[rows][..., cols])
+        layer = axis.layer(0, "dec_blocks")
+        assert layer.attn_sum and layer.xattn_sum and layer.mlp_sum
+        seq = layer.seq  # positions over (data, model) under serve_2d, model under fsdp_tp
+        assert seq.hi - seq.lo == WHISPER_L // (D * M if strategy == "serve_2d" else M)
+        for k in ("k", "v"):
+            _rel_close(c["self"][0][k], want_cache["self"][0][k][rows, seq.lo:seq.hi])
+    # the steps wrote positions 3..5 of the unsplit cache
+    assert not torch.equal(want_cache["self"][0]["k"], cache["self"][0]["k"])
 
 
 def test_a_share_holds_its_embed_and_model_block():
@@ -520,6 +650,52 @@ def test_a_rglru_decode_step_moves_no_weight_or_state_over_data():
     assert sorted(over_model) == sorted(want)
     w_in_block, w_out_rows = d // D * w // M * bf16, w // (D * M) * d * bf16
     assert max(b for _, b in over_data + over_model) < min(w_in_block, w_out_rows)
+
+
+def test_a_whisper_decode_step_moves_no_weight_block_over_data_but_the_cross_kv():
+    """Reduced whisper-medium (2 decoder blocks: d 64, 4/2 self heads and 4
+    cross heads of 16, d_ff 128, vocab 512, tied) under ``serve_2d`` on
+    (data 2, model 2), 2 rows, bf16: every collective of a decode step, byte
+    for byte. Over ``data`` (ranks 0 and 2): the lookup's gather of the
+    stream [2, 1, d] (the embedding's [V/2, d/2] block stays), and in each
+    block the gathers of the stream after the self-attention's ``wo``, the
+    cross-attention's ``wo`` and ``w_down``; the sums of the self-attention's
+    ``wq`` [2, 1, 2 x 16], ``wk`` and ``wv`` [2, 1, 1 x 16] products, of the
+    cross-attention's ``wq`` product [2, 1, 2 x 16] and of ``w_up``'s [2, 1,
+    64]; the partial-softmax merge (fp32); the cross-attention's ``wk`` and
+    ``wv`` blocks gathered to [d, 2, 16], the one weight that moves; and the
+    tied head's partial logits block [2, 1, 256] summed. Over ``model``
+    (ranks 0 and 1): the sums of the rank's block of columns [2, 1, d/2]
+    (the lookup's and each part's), the queries' and new K/V rows' gathers
+    and the merge. The parent gathered the embedding's block [V/2, d] and
+    every block weight's over ``data`` each step."""
+    cfg = ARCHS[WHISPER].reduced()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.tie_embeddings) == (2, 64, 4, 2, 16, 128, 512, True)
+    rows, d, hd, bf16, fp32, D, M = 2, cfg.d_model, cfg.head_dim, 2, 4, 2, 2
+    ops = _decode_ops(cfg, "serve_2d", rows)
+    assert {op.ranks for op in ops} == {(0, 1), (0, 2)}
+    over_data = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 2)]
+    over_model = [(op.kind, op.bytes) for op in ops if op.ranks == (0, 1)]
+    stream, block, heads = rows * d * bf16, rows * d // D * bf16, cfg.n_heads // M
+    merge = [("all-reduce", rows * cfg.n_heads * fp32),
+             ("all-reduce", rows * cfg.n_heads * (hd + 1) * fp32)]
+    cross_kv = ("all-gather", d * heads * hd * bf16)  # a [d/2, 2, 16] block, gathered
+    per_block = ([("all-gather", stream)] * 3 + merge + [cross_kv] * 2
+                 + [("all-reduce", rows * n * bf16)  # wq, wk, wv; xattn.wq; w_up
+                    for n in (heads * hd, hd, hd, heads * hd, cfg.d_ff // M)])
+    want = [("all-gather", stream), ("all-reduce", rows * cfg.vocab_size // M * bf16)]
+    assert sorted(over_data) == sorted(want + per_block * cfg.n_layers)
+    per_block = ([("all-reduce", block)] * 3 + merge
+                 + [("all-gather", rows * cfg.n_heads * hd * bf16)] * 2)  # q; the K/V rows
+    assert sorted(over_model) == sorted([("all-reduce", block)] + per_block * cfg.n_layers)
+    # the embedding's block [V/2, d/2] stays (the parent gathered it to [V/2,
+    # d]): no collective is as large, and the only weights that move are the
+    # cross-attention's wk and wv
+    embed_block = cfg.vocab_size // M * d // D * bf16
+    assert max(b for _, b in over_data + over_model) < embed_block
+    weight_block = d // D * heads * hd * bf16  # the smallest block a weight's gather moved
+    assert [k for k, b in over_data if b >= weight_block] == ["all-gather"] * 2 * cfg.n_layers
 
 
 def test_fsdp_tp_gathers_the_weights_over_data():

@@ -30,7 +30,11 @@ the memory and every call's logits to 2e-4 in fp32
 global memory and logits. The memory comes back as the reference's serve
 step lays it out, ``("batch", "seq", None)``: its frames split along
 ``model`` under ``fsdp_tp`` and ``tp_only`` where the axis divides them,
-whole under ``serve_2d``; the encode's stream split with them.
+whole under ``serve_2d``; the encode's stream split with them. Under
+``serve_2d`` on (data 2, model 2) the encode and each decode step compute
+with each block weight's and the tied embedding's block at rest, the
+``embed`` dim on ``data``, but the cross-attention's ``wk`` and ``wv``,
+gathered over ``data``.
 
 Part (iii), the dry run's trace on ``meta``: a whisper decode step's
 collectives do not grow with the cache (no cache entry moves); under
@@ -214,6 +218,21 @@ for name, cfg, np_params, frames, first in cases:
     model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES[strategy]())
     lm = model.shard(from_jax_params(cfg, np_params, device="cpu"))
     cache = model.init_cache(frames.shape[0], cache_len, torch.float32)
+    # block 0's and the embedding's weights at rest and as served: the encoder's
+    # by the encode, the decoder's and the embedding by the last decode step
+    seen, materialize = {}, model._weights
+
+    def recording(axis, rows, materialize=materialize, seen=seen):
+        weight = materialize(axis, rows)
+
+        def record(n, p):
+            out = weight(n, p)
+            if n == "embed" or ".0." in n:
+                seen[n] = (tuple(p.to_local().shape), tuple(out.shape))
+            return out
+        return record
+
+    model._weights = recording
     with torch.no_grad():
         memory, cache = model.prefill(lm, {"frames": torch.from_numpy(frames)}, cache)
         tok, out = torch.from_numpy(first), []
@@ -227,7 +246,8 @@ for name, cfg, np_params, frames, first in cases:
                     "memory_local": memory.to_local().numpy(),
                     "logits_placements": place(logits),
                     "cache_placements": place(cache["self"][0]["k"]),
-                    "cache_local": tuple(cache["self"][0]["k"].to_local().shape)}
+                    "cache_local": tuple(cache["self"][0]["k"].to_local().shape),
+                    "computed_with": seen}
 """
 
 
@@ -324,6 +344,39 @@ def test_sharded_encode_and_decode_equal_the_reference(_runs, mesh, vocab):
         np.testing.assert_array_equal(res[vocab]["memory"], results[0][vocab]["memory"])
         for a, b in zip(res[vocab]["logits"], results[0][vocab]["logits"]):
             np.testing.assert_array_equal(a, b)
+
+
+# block 0's weights with an embed dim, and that dim
+_EMBED_DIMS = {f"{stack}.0.{module}.{leaf}": dim
+               for stack, modules in (("enc_blocks", ("attn",)), ("dec_blocks", ("attn", "xattn")))
+               for module in modules + ("mlp",)
+               for leaf, dim in ((("wq", 0), ("wk", 0), ("wv", 0), ("wo", 2)) if module != "mlp"
+                                 else (("w_up", 0), ("w_down", 1)))}
+_EMBED_DIMS["embed"] = 1
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_a_ranks_whisper_weights_keep_their_embed_block_under_serve_2d(_runs, mesh):
+    """Encoder and decoder block 0's attention, cross-attention and MLP
+    weights and the tied embedding as the served encode and decode step
+    compute with them (``ShardedModel._weights`` recorded): under ``serve_2d`` on (data 2, model 2) each is its block at rest,
+    the ``embed`` dim on ``data`` (nothing moves over ``data``), but the
+    cross-attention's ``wk`` and ``wv``, whose blocks are gathered over
+    ``data`` to the whole ``embed`` dim; on the other meshes that dim is
+    whole (gathered under ``fsdp_tp``, whole at rest without a ``data``
+    axis)."""
+    strategy, shape, axes = MESHES[mesh]
+    sizes = dict(zip(axes, shape))
+    stays = strategy == "serve_2d" and sizes.get("data", 1) > 1
+    for res in _runs[1][mesh]:
+        blocks = res["512"]["computed_with"]
+        for name, dim in _EMBED_DIMS.items():
+            at_rest, used = blocks[name]
+            moves = ".xattn.wk" in name or ".xattn.wv" in name
+            assert at_rest[dim] == D // sizes.get("data", 1), name
+            assert used[dim] == (D // 2 if stays and not moves else D), (name, used)
+            if stays and not moves:
+                assert used == at_rest, name
 
 
 @pytest.mark.parametrize("case", ["512", "512/F26"])
