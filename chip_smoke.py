@@ -409,6 +409,21 @@ calls, and fails (exit code not 0, no result line) on any miss:
               internvl2-76b x {train_4k, prefill_32k, decode_32k} and
               recurrentgemma-9b x long_500k (the 16 x 16 mesh of fake ranks),
               its table printed.
+ 15. perf_check  the perf experiments (``launch/perf.py``): (a) phase
+              14's internvl2-76b train step on the 1-rank NCCL mesh, traced
+              and run as ``baseline`` and again under ``cast_barrier``
+              (``REPRO_CAST_BARRIER=1`` for that call only): the losses of its
+              two steps bit-equal (a gather over one rank copies nothing),
+              FLOPs and peak as phase 14 holds them, 2 tensor-core flash
+              launches a step; (b) ``python -m repro_torch.launch.perf`` on
+              internvl2-76b x train_4k, one subprocess an experiment, started
+              before (a) and run beside it: each of ``baseline``,
+              ``cast_barrier``, ``rs_grads``, ``chunked_attn``, ``bf16_wire``,
+              ``grad_bf16`` and ``no_seq_shard`` exits 0 and prints its row;
+              ``cast_barrier``'s weight gathers over ``data`` are half of
+              ``baseline``'s, ``rs_grads`` and ``chunked_attn`` equal
+              ``baseline`` but for the seconds; ``moe_ep2d`` alone exits 1 with
+              its reason.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -450,7 +465,7 @@ from repro_torch.ft.elastic import run_elastic_training  # noqa: E402
 from repro_torch.launch import elastic as launch_elastic  # noqa: E402
 from repro_torch.launch import serve as launch_serve, train_lm  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch import dryrun, roofline, shapes, steps  # noqa: E402
+from repro_torch.launch import dryrun, perf, roofline, shapes, steps  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_from_devices, process_group  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.moe import MoE, bf16_gates  # noqa: E402
@@ -5111,23 +5126,25 @@ DRYRUN_CELLS = [("internvl2-76b", "train_4k"), ("internvl2-76b", "prefill_32k"),
 def measure_step(step):
     """One call of ``step`` under ``FlopCounterMode`` (cold, counted), then one
     under CUDA events with the peak memory reset just before: (FLOPs, ms,
-    peak bytes, the first call's launches)."""
+    peak bytes, the first call's launches, a train step's two losses)."""
     reset_counts()
     with FlopCounterMode(display=False) as fc:
-        step()
+        first = step()
     torch.cuda.synchronize()
     launches = counts()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.reset_peak_memory_stats()
     start.record()
-    step()
+    second = step()
     end.record()
     torch.cuda.synchronize()
+    losses = ([float(out[2]["loss"]) for out in (first, second)] if step.kind == "train"
+              else None)
     return fc.get_total_flops(), start.elapsed_time(end), torch.cuda.max_memory_allocated(), \
-        launches
+        launches, losses
 
 
-def dryrun_check_case(cfg, cell, mesh, build, **kw):
+def dryrun_check_case(cfg, cell, mesh, build, line="dryrun_check", **kw):
     """The step traced on meta by the dry run (predicted) and run on the card
     (measured), on a 1-rank mesh."""
     step = build(cfg, cell, mesh, device="meta", **kw)
@@ -5136,7 +5153,7 @@ def dryrun_check_case(cfg, cell, mesh, build, **kw):
                                       predicted["peak_bytes"], cell.global_batch, cell.seq_len)
     del step
     step = build(cfg, cell, mesh, device="cuda", seed=SEED, **kw)
-    flops, ms, peak, launches = measure_step(step)
+    flops, ms, peak, launches, losses = measure_step(step)
     del step
     torch.cuda.empty_cache()
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "kind": cell.kind,
@@ -5152,8 +5169,8 @@ def dryrun_check_case(cfg, cell, mesh, build, **kw):
                            "collective": rep.collective_s * 1e3},
            "bottleneck": rep.bottleneck, "measured_ms": ms,
            "measured_over_roofline": ms / (rep.step_time_s * 1e3), "launches": launches,
-           "n_ops": predicted["n_ops"]}
-    print("dryrun_check", json.dumps(rec), flush=True)
+           "n_ops": predicted["n_ops"], "losses": losses}
+    print(line, json.dumps(rec), flush=True)
     need(flops == predicted["flops"], f"dryrun {cell.kind}: FLOPs {predicted['flops']} "
                                       f"predicted, {flops} counted on the card")
     need(rec["peak_rel_err"] <= DRYRUN_MEM_RTOL,
@@ -5209,6 +5226,81 @@ def dryrun_check_phase():
          and prefill["launches"] == launch_counts(flash_wgmma=VLM_LAYERS),
          f"dryrun check launches {train['launches']}, {prefill['launches']}")
     return {"train": train, "prefill": prefill, "cli": dryrun_cli(out_dir)}
+
+
+# -- phase 15: the perf experiments ---------------------------------------------
+
+PERF_CELL = "internvl2-76b:train_4k"
+PERF_EXPS = ("baseline", "cast_barrier", "rs_grads", "chunked_attn", "bf16_wire", "grad_bf16",
+             "no_seq_shard")
+PERF_REFUSED = "moe_ep2d"
+PERF_SAME_AS_BASELINE = ("rs_grads", "chunked_attn")
+
+
+def perf_check_phase():
+    """(b)'s CLI subprocesses start first and run on the host's cores while
+    (a) runs on the card (the module docstring)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    try:
+        for exp in PERF_EXPS + (PERF_REFUSED,):
+            out = out_dir / f"perf_{exp}"
+            Path(f"{out}.jsonl").unlink(missing_ok=True)
+            procs[exp] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.perf", "--cell", PERF_CELL, "--exp",
+                 exp, "--out", str(out)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cell = shapes.ShapeCell("vlm_train_check", 2048, 1, "train")
+        runs = {}
+        with process_group("cuda"):
+            mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"), "cuda")
+            for exp in ("baseline", "cast_barrier"):
+                with perf.environment(perf.EXPERIMENTS[exp].get("env", {})):
+                    runs[exp] = dryrun_check_case(vlm_cfg(1), cell, mesh,
+                                                  steps.build_train_step,
+                                                  line=f"perf_check_train {exp}")
+        outs = {exp: p.communicate(timeout=600)[0] for exp, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    base, cast = runs["baseline"], runs["cast_barrier"]
+    need(cast["losses"] == base["losses"],
+         f"perf_check: losses {cast['losses']} under cast_barrier, {base['losses']} without")
+    need(all(r["launches"] == launch_counts(flash_wgmma=2) for r in runs.values()),
+         f"perf_check launches {[r['launches'] for r in runs.values()]}")
+    records = {}
+    for exp in PERF_EXPS:
+        p, out = procs[exp], outs[exp]
+        need(p.returncode == 0, f"perf {exp} exited {p.returncode}:\n{out[-3000:]}")
+        need(f"[{exp:<28}] compute=" in out, f"perf {exp}: no row in\n{out[-3000:]}")
+        print(next(row for row in out.splitlines() if row.startswith(f"[{exp:<28}]")),
+              flush=True)
+        records[exp] = json.loads((out_dir / f"perf_{exp}.jsonl").read_text())
+    gathers = {exp: records[exp]["by_axis"]["all-gather"]["data"]
+               for exp in ("baseline", "cast_barrier")}
+    need(2 * gathers["cast_barrier"] == gathers["baseline"],
+         f"perf: weight gathers over data {gathers}")
+    for exp in PERF_SAME_AS_BASELINE:
+        need({k: v for k, v in records[exp].items() if k not in ("experiment", "wall_s")}
+             == {k: v for k, v in records["baseline"].items()
+                 if k not in ("experiment", "wall_s")}, f"perf: {exp} is not baseline")
+    refused = outs[PERF_REFUSED]
+    need(procs[PERF_REFUSED].returncode == 1 and perf.EXPERT_FF_ON_DATA in refused,
+         f"perf {PERF_REFUSED} exited {procs[PERF_REFUSED].returncode}:\n{refused[-3000:]}")
+    rec = {"cell": PERF_CELL, "train_1_rank": runs, "cli": records,
+           "weight_gathers_over_data_gib": {k: v / 2**30 for k, v in gathers.items()},
+           "refused": {PERF_REFUSED: procs[PERF_REFUSED].returncode}}
+    print("perf_check", json.dumps({k: rec[k] for k in ("cell", "weight_gathers_over_data_gib",
+                                                        "refused")}
+                                   | {"losses": base["losses"],
+                                      "ms": {k: r["measured_ms"] for k, r in runs.items()},
+                                      "wall_s": {k: r["wall_s"] for k, r in records.items()}}),
+          flush=True)
+    return rec
 
 
 WHISPER_FLASH_KEYS = ("case", "ms", "graph_ms", "bound_ms", "bound_by", "share_of_bound",
@@ -5274,6 +5366,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    need(not perf.stray_knobs(), f"set outside perf.environment: {perf.stray_knobs()} "
+         "(they change the plain reference every kernel is held against)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -5362,6 +5456,7 @@ def main():
     elastic = phase("elastic", elastic_phase)
     torch.cuda.empty_cache()
     dryrun_rec = phase("dryrun_check", dryrun_check_phase)
+    perf_rec = phase("perf_check", perf_check_phase)
     print("phase_seconds", json.dumps(phase_s), flush=True)
     print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
     elastic_launches = lambda name: {  # noqa: E731
@@ -5459,7 +5554,11 @@ def main():
                       launches_whisper_grid_bf16=[
                           [r["grid"], r["launches"]["encode"]["flash_attention_wgmma"],
                            r["launches"]["decode"]["flash_attention_wgmma"]]
-                          for r in whisper_tp_serve["grid_shares"] if r["dtype"] == "bfloat16"]),
+                          for r in whisper_tp_serve["grid_shares"] if r["dtype"] == "bfloat16"],
+                      launches_perf_check_baseline=perf_rec["train_1_rank"]["baseline"][
+                          "launches"]["flash_attention_wgmma"],
+                      launches_perf_check_cast_barrier=perf_rec["train_1_rank"][
+                          "cast_barrier"]["launches"]["flash_attention_wgmma"]),
         kernel_record("flash_attention", "cuda",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:103",
@@ -5564,7 +5663,7 @@ def main():
                "dispatch": dispatch, "elastic": elastic, "vlm_serve": vlm_serve,
                "tp_serve": tp_serve, "tp_train": tp_train, "sp_train": sp_train,
                "rnn_split": rnn_split, "rwkv_split": rwkv_split, "ep": ep,
-               "vlm_check": vlm_check, "dryrun_check": dryrun_rec}
+               "vlm_check": vlm_check, "dryrun_check": dryrun_rec, "perf_check": perf_rec}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

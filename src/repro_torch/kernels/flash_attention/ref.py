@@ -8,11 +8,16 @@ them as the reference model does.
 One difference from the kernel: a query row with no visible key gets the
 mean of ``v`` here (softmax over equal ``NEG_INF`` scores), as in the JAX
 reference, and 0 from the kernel, as from the Pallas kernel.
+
+Two of the reference's knobs are read at each call, as it reads them:
+``REPRO_ATTN_CHUNK_THRESHOLD`` (:func:`chunk_threshold`) and
+``REPRO_ATTN_BF16_WIRE`` (:func:`mha_reference`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -23,6 +28,15 @@ NEG_INF = -1e30
 # queries in chunks so the S_q x S_k matrix is never materialized whole.
 CHUNK_THRESHOLD = 4096 * 4096
 CHUNK_Q = 1024
+
+
+def chunk_threshold() -> int:
+    """``REPRO_ATTN_CHUNK_THRESHOLD``, else CHUNK_THRESHOLD."""
+    return int(os.environ.get("REPRO_ATTN_CHUNK_THRESHOLD", CHUNK_THRESHOLD))
+
+
+def _bf16_wire() -> bool:
+    return os.environ.get("REPRO_ATTN_BF16_WIRE", "0") == "1"
 
 
 def attention_mask(s_q: int, s_k: int, causal: bool, window: Optional[int],
@@ -49,16 +63,28 @@ def mha_reference(
     kv_len: Optional[torch.Tensor] = None,  # [B] or [1] valid KV lengths
 ) -> torch.Tensor:
     """Grouped-query attention in fp32 (fp64 inputs in fp64), O(S^2). Returns
-    [B, S_q, H_q, D]."""
+    [B, S_q, H_q, D].
+
+    ``REPRO_ATTN_BF16_WIRE=1`` takes the reference's bf16-wire numerics: q
+    scaled in its own dtype and the probabilities rounded to it before P V,
+    each product accumulated in fp32. A product of two bf16 values is exact
+    in fp32, so the fp32 einsum of the widened inputs is the reference's
+    bf16-in, fp32-accumulate dot (``preferred_element_type``) up to the
+    order of its sums. fp32 and fp64 inputs compute as without the knob."""
     B, S_q, H_q, D = q.shape
     _, S_k, H_kv, _ = k.shape
     if H_q % H_kv:
         raise ValueError(f"H_q={H_q} not a multiple of H_kv={H_kv}")
     group = H_q // H_kv
     scale = 1.0 / math.sqrt(D)
+    wire = _bf16_wire()
     # GQA as a grouped einsum: K/V are never broadcast to the q-head width.
     up = torch.promote_types(q.dtype, torch.float32)
-    qf = (q.to(up) * scale).reshape(B, S_q, H_kv, group, D)
+    if wire:
+        qf = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).to(up)
+    else:
+        qf = q.to(up) * scale
+    qf = qf.reshape(B, S_q, H_kv, group, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(up))
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
@@ -69,6 +95,8 @@ def mha_reference(
         mask = mask & valid[:, None, None, None, :]
     scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
+    if wire:
+        probs = probs.to(q.dtype).to(up)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(up))
     return out.reshape(B, S_q, H_q, D).to(q.dtype)
 
@@ -119,8 +147,8 @@ def mha_chunked(q, k, v, causal: bool = True, window: Optional[int] = None,
 def attention_plain(q, k, v, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The reference backend's choice: chunked above the threshold."""
-    if kv_len is None and q.shape[1] * k.shape[1] > CHUNK_THRESHOLD:
+    """The reference backend's choice: chunked above :func:`chunk_threshold`."""
+    if kv_len is None and q.shape[1] * k.shape[1] > chunk_threshold():
         return mha_chunked(q, k, v, causal=causal, window=window,
                            softcap=softcap, q_offset=q_offset)
     return mha_reference(q, k, v, causal=causal, window=window,

@@ -57,14 +57,19 @@ def fake_world(world: int) -> Iterator[None]:
         dist.destroy_process_group()
 
 
-def trace(step: steps.Step) -> Dict:
-    """One call of ``step`` under an OpCounter: this rank's counts."""
+def count(step: steps.Step) -> OpCounter:
+    """One call of ``step`` under an OpCounter: this rank's ops."""
     counter = OpCounter()
     for category, tensors in step.state.items():
         counter.track(tensors, category)
     with counter:
         step()
-    return counter.summary()
+    return counter
+
+
+def trace(step: steps.Step) -> Dict:
+    """One call of ``step`` under an OpCounter: this rank's counts."""
+    return count(step).summary()
 
 
 def run_cell(

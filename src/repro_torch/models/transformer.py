@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -41,7 +42,9 @@ from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
 Cache = Dict[str, Any]  # {"layers": [per-layer dict], "pos": int}
-Materialize = Callable[[str, torch.Tensor], torch.Tensor]  # (state-dict name, tensor)
+# (state-dict name, tensor) -> the tensor to compute with; a sharded step's hook
+# also takes ``dtype=``: cast the block before it moves (REPRO_CAST_BARRIER)
+Materialize = Callable[..., torch.Tensor]
 # (layer index, the layer's cache) -> a context giving the dict the layer
 # reads and writes (the sharded path's rows, written back on exit)
 LayerCache = Callable[[int, Dict[str, torch.Tensor]], Any]
@@ -538,16 +541,29 @@ def lm_loss(lm: LM, batch: Dict[str, Any], *, remat_policy: Optional[str] = "not
     vocab-parallel one (``ModelAxis.xent``) on this rank's logits block, the
     prefix's logits dropped after the head's gather. Where the stream's
     sequence splits and the head does not, the logits are the rank's
-    positions' (``ModelAxis.seq_xent``)."""
+    positions' (``ModelAxis.seq_xent``).
+
+    ``REPRO_CAST_BARRIER=1`` (read at each call, as the reference reads it
+    when tracing) hands ``materialize`` the compute dtype instead
+    (``materialize(name, tensor, dtype=...)``), which casts each weight's
+    block before it moves: the sharded step gathers its weights in bf16.
+    The gradient is widened before its reduction, which stays in the
+    master's dtype: the values and gradients are the knob-off run's, as the
+    reference's barrier (an ``optimization_barrier``) changes no value
+    either. Without ``materialize`` the knob changes nothing."""
     tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
     kw = {"remat_policy": remat_policy, "prefix_embeds": prefix}
     if model_axis is not None:
         kw["model_axis"] = model_axis
+    cast_first = os.environ.get("REPRO_CAST_BARRIER", "0") == "1"
 
     def prepare(name: str, p: torch.Tensor) -> torch.Tensor:
+        cast = compute_dtype is not None and p.dtype in (torch.float32, torch.bfloat16)
         if materialize is not None:
+            if cast and cast_first:
+                return materialize(name, p, dtype=compute_dtype)
             p = materialize(name, p)
-        if compute_dtype is not None and p.dtype in (torch.float32, torch.bfloat16):
+        if cast:
             p = p.to(compute_dtype)
         return p
 

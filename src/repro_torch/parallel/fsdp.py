@@ -217,8 +217,16 @@ block where it lies, as an LM's (above), but the cross-attention's ``wk``
 and ``wv``, which read the memory: they are gathered over ``data``
 (``tensor_parallel._MOVING_LEAVES``). Logits come back as an LM's.
 
-Not yet (ROADMAP.md): ``REPRO_CAST_BARRIER``; the MoE's token all-to-all
-in place of its gather and reduce-scatter.
+``REPRO_CAST_BARRIER=1`` (``lm_loss``) casts each weight's block to the
+compute dtype before :class:`_Gather` moves it, so the gathers carry bf16;
+each gradient is widened before its reduction, which stays fp32, so the
+step's values and gradients are the knob-off step's (the reference's
+barrier changes no value either; its gradient sums are bf16 with and
+without it).
+
+Not yet (ROADMAP.md): the MoE's token all-to-all in place of its gather and
+reduce-scatter; each expert's ``ff`` block kept on ``data`` in training
+(``moe_ep2d``).
 """
 
 from __future__ import annotations
@@ -300,12 +308,17 @@ class _Gather(torch.autograd.Function):
     ``model`` for a weight read in part); a moved block first goes back to
     the dim it lies on at rest by the inverse all-to-all, then DTensor
     redistributes the rest to the block's placement (the sums over the
-    batch axes, the gathers of a whole-at-rest weight's blocks)."""
+    batch axes, the gathers of a whole-at-rest weight's blocks). ``dtype``
+    (``REPRO_CAST_BARRIER``): the block is cast to it before it moves, and
+    the gradient widened back to the block's dtype before its own
+    collectives, so it is reduced as without the cast."""
 
     @staticmethod
-    def forward(ctx, local, mesh, placements, shape, stride, keep, back):
+    def forward(ctx, local, mesh, placements, shape, stride, keep, back, dtype=None):
         ctx.mesh, ctx.placements, ctx.back = mesh, placements, back
-        ctx.shape, ctx.stride = shape, stride
+        ctx.shape, ctx.stride, ctx.dtype = shape, stride, local.dtype
+        if dtype is not None:
+            local = local.to(dtype)
         if keep == placements:
             ctx.moved = ()
             return local.view_as(local)
@@ -320,6 +333,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        grad = grad.to(ctx.dtype)
         back = list(ctx.back)
         for i, p, k in reversed(ctx.moved):
             grad = tp.MeshCollectives(ctx.mesh).move(grad, k.dim, p.dim,
@@ -327,11 +341,11 @@ class _Gather(torch.autograd.Function):
             back[i] = p
         back = tuple(back)
         if back == ctx.placements:
-            return grad, None, None, None, None, None, None
+            return grad, None, None, None, None, None, None, None
         pending = DTensor.from_local(grad.contiguous(), ctx.mesh, back, run_check=False,
                                      shape=ctx.shape, stride=ctx.stride)
         local = pending.redistribute(ctx.mesh, ctx.placements).to_local()
-        return local, None, None, None, None, None, None
+        return local, None, None, None, None, None, None, None
 
 
 class _SumOverBatch(torch.autograd.Function):
@@ -422,10 +436,12 @@ class ShardedModel:
         gradient comes back summed over the batch axes, and over ``model``
         where ``axis.sums_gradient``; the blocks of a weight whole at rest
         are gathered over ``model``. A mesh dim of one rank holds the whole
-        dim: nothing moves over it."""
+        dim: nothing moves over it. ``dtype`` (``lm_loss`` under
+        ``REPRO_CAST_BARRIER``): the block is cast before it moves
+        (:class:`_Gather`)."""
         names, sizes = self.mesh.mesh_dim_names, self.mesh.shape
 
-        def weight(name: str, p: DTensor) -> torch.Tensor:
+        def weight(name: str, p: DTensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
             split, block = axis.split(name), axis.stationary(name)
 
             def kept(pl: Placement, n: str, size: int) -> Placement:
@@ -442,7 +458,7 @@ class ShardedModel:
             back = tuple(Partial() if size > 1 and (n in row_axes or (sums and n == "model"))
                          else k for n, k, size in zip(names, keep, sizes))
             return _Gather.apply(p.to_local(), self.mesh, p.placements, p.shape, p.stride(),
-                                 keep, back)
+                                 keep, back, dtype)
 
         return weight
 

@@ -20,9 +20,11 @@ already reduced to each parameter's placement.
 
 ``REPRO_GRAD_SYNC_BF16=1`` round-trips the gradients through bf16 before
 the optimizer, as the reference does (on a mesh, the gradients after every
-reduction: over the batch axes and over ``model``). The reference's other
-cross-shard knobs (``REPRO_CAST_BARRIER``, ``REPRO_SP_GATHER``) come with
-sequence parallelism (ROADMAP.md).
+reduction: over the batch axes and over ``model``). ``REPRO_CAST_BARRIER=1``
+is ``lm_loss``'s: on a mesh each weight moves in the compute dtype
+(``parallel/fsdp.py``). ``REPRO_SP_GATHER`` has no counterpart: the
+sequence split always gathers the stream explicitly, the knob's "1"
+(``launch/perf.py`` refuses ``sp_gather_off``).
 """
 
 from __future__ import annotations

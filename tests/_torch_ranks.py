@@ -19,6 +19,11 @@ import tempfile
 import textwrap
 import time
 
+from repro_torch.launch.perf import stray_knobs
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PRELUDE = """

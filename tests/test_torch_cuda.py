@@ -25,6 +25,10 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.rglru import ops as lru_ops, ref as lru_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
+from repro_torch.launch.perf import stray_knobs
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
 
 
 @pytest.fixture

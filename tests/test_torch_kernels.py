@@ -27,6 +27,10 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
+from repro_torch.launch.perf import stray_knobs
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
 
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
 TORCH_DT = {np.float32: torch.float32, "bfloat16": torch.bfloat16}

@@ -27,6 +27,7 @@ from repro.models import rwkv6 as jrwkv6
 from repro.models import transformer as jtransformer
 from repro.models.model_zoo import build_model as jbuild_model
 from repro_torch.configs import ARCHS
+from repro_torch.launch.perf import stray_knobs
 from repro_torch.models import common
 from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.mlp import MLP
@@ -35,6 +36,9 @@ from repro_torch.models.rglru import RGLRU, init_rglru_state
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix, _group_norm, init_rwkv_state
 from repro_torch.models.transformer import LM
 from repro_torch.weights import from_jax_params, init_params
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
 
 OP_TOL = 1e-5
 LOGIT_TOL = 2e-4

@@ -26,7 +26,14 @@ Tolerances:
     boundary: lr * 2^-8 a step (about 2e-5 is seen against
     6 * 3e-3 * 2^-8 = 7.0e-5). In float64 (masters, compute and moments) on
     both sides, losses 1e-5 relative and every parameter 1e-5 absolute
-    (1.4e-6 is seen).
+    (1.4e-6 is seen). With ``REPRO_CAST_BARRIER=1`` in bf16 compute, against
+    the knob-off run on the same ranks: bit for bit, losses and parameters.
+    The bf16 cast of a gathered fp32 block is the gather of its bf16 cast,
+    and each gradient is widened to fp32 before its reduction, as the
+    knob-off run's cast widens it, so the two runs add the same fp32 terms in
+    the same collectives (a bf16 reduction instead was measured to part
+    the parameters by up to 8.1e-3 after 6 steps: bf16 compute turns a
+    rounding of the gradient into other bf16 weights).
 
 The model axis splits the compute (attention by heads, the MLP by
 ``d_ff``, the head by vocabulary), so the split's fp32 sums run in another
@@ -559,7 +566,8 @@ TRAIN_ARCHS = ["gemma-7b", "recurrentgemma-9b"]
 
 def _train_setup(name, mode="fp32"):
     """The config, data and run; the masters' dtype (float64 in the "fp64"
-    mode: masters, compute and moments; else fp32)."""
+    mode: masters, compute and moments; else fp32, computed in bf16 in the
+    "bf16" mode)."""
     cfg = ARCHS[name].reduced()
     data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=1))
     if mode == "fp64":
@@ -567,8 +575,9 @@ def _train_setup(name, mode="fp32"):
         run = TrainRunConfig(optimizer=opt, total_steps=TRAIN_STEPS, warmup_steps=2,
                              compute_dtype=None)
         return cfg, data, run, torch.float64
+    compute = torch.bfloat16 if mode == "bf16" else torch.float32
     run = TrainRunConfig(optimizer=AdamWConfig(lr=TRAIN_LR, weight_decay=0.01),
-                         total_steps=TRAIN_STEPS, warmup_steps=2, compute_dtype=torch.float32)
+                         total_steps=TRAIN_STEPS, warmup_steps=2, compute_dtype=compute)
     return cfg, data, run, torch.float32
 
 
@@ -639,3 +648,47 @@ def test_sharded_training_on_2x2_equals_the_single_process(sharded_runs, name, m
         np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL)
         assert_params_close(got["params"], want, mode)
     assert losses[-1] < losses[0] + 0.1 and np.all(np.isfinite(losses))
+
+
+_CAST_BARRIER_TRAIN = """
+import os
+from repro_torch.launch.mesh import make_mesh_from_devices
+from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardedModel, full_state
+from repro_torch.train.train_loop import train_loop
+
+mesh = make_mesh_from_devices(range(4), (2, 2), ("data", "model"), "cpu")
+result = {}
+for barrier in ("0", "1"):
+    os.environ["REPRO_CAST_BARRIER"] = barrier
+    for name, (cfg, data, run, dtype) in inputs.items():
+        model = ShardedModel(build_model(cfg, device="cpu"), mesh, shd.STRATEGIES["fsdp_tp"]())
+        lm, state, hist = train_loop(model, model.init(0, dtype), data.batches(run.total_steps),
+                                     run, log_every=1)
+        result[name, barrier] = {"losses": [h["loss"] for h in hist],
+                                 "params": {n: p.numpy() for n, p in full_state(lm).items()}}
+"""
+
+
+@pytest.fixture(scope="module")
+def cast_barrier_runs(tmp_path_factory):
+    """Both archs trained on 4 ranks in bf16 compute, without and then with
+    ``REPRO_CAST_BARRIER=1``, in one call."""
+    return run_ranks(_CAST_BARRIER_TRAIN, 4, tmp_path_factory.mktemp("cast_barrier"),
+                     inputs={name: _train_setup(name, "bf16") for name in TRAIN_ARCHS},
+                     env={"REPRO_GRAD_SYNC_BF16": "0"}, timeout=180)
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_cast_barrier_training_on_2x2_equals_the_knob_off_run(cast_barrier_runs, name):
+    """Losses and parameters bit-equal (the module's docstring); the ranks
+    agree."""
+    for res in cast_barrier_runs:
+        off, on = res[name, "0"], res[name, "1"]
+        assert on["losses"] == off["losses"]
+        assert sorted(on["params"]) == sorted(off["params"])
+        for n, p in off["params"].items():
+            np.testing.assert_array_equal(on["params"][n], p, err_msg=n)
+    assert all(res[name, "1"]["losses"] == cast_barrier_runs[0][name, "1"]["losses"]
+               for res in cast_barrier_runs)

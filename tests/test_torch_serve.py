@@ -19,9 +19,13 @@ from repro.models.model_zoo import build_model as jbuild_model
 from repro.serve.engine import ServeConfig as JServeConfig, ServeEngine as JServeEngine
 from repro_torch.configs import ARCHS
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.perf import stray_knobs
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.weights import from_jax_params, init_params
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PROMPTS = [[5, 17, 300, 2, 9], [44] * 12, [1, 2, 3, 4, 5, 6, 7, 8, 9]]

@@ -49,6 +49,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops, ref as wkv_ref
 from repro_torch.launch import train_lm
+from repro_torch.launch.perf import stray_knobs
 from repro_torch.models import common
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import LM, lm_loss
@@ -56,6 +57,9 @@ from repro_torch.train import optimizer
 from repro_torch.train import train_loop as train_loop_mod
 from repro_torch.train.train_loop import TrainRunConfig, make_train_step, train_loop
 from repro_torch.weights import from_jax_params, init_params, jax_params_to_state_dict
+
+# a knob left set would change the plain reference the port is held to
+assert not stray_knobs(), f"unset {stray_knobs()} to run these tests"
 
 OP_TOL = 1e-5
 LOSS_TOL = 1e-5
